@@ -1,0 +1,537 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+
+  python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/csrc`` and runs, in order:
+
+1. the environment line (``nvidia-smi`` name and power limit, torch and CUDA
+   versions, kernel build time);
+2. each kernel against its plain PyTorch version on the card, in fp32 and
+   bf16, at the serving engine's full-width shapes and at edge cases (page
+   size 8, G=2/D=16, a window, FAIL page ids), with kernel, plain and
+   library (SDPA on pre-gathered KV, timed only) times beside the memory
+   bound;
+3. the serve phase: llama3.2-3b at full width and depth (28 layers, bf16,
+   random weights from a seed) behind ``ServingEngine(batch_slots=4,
+   page_size=16, max_len=512)``, then the contiguous-cache decode
+   (``Model.decode_step``) teacher-forced on the first four requests and
+   held to the engine's logits and argmax; then the same traffic again on
+   a fresh engine, with ``torch.profiler`` over a window of ticks in which
+   all four slots are busy (device busy share, kernels per tick, the top
+   device kernels and host operators);
+4. the identity phase: fp32, full width, 4 layers; the engine's greedy
+   streams must equal the contiguous decode's token for token.
+
+Every phase raises on failure.  The kernels' launch counts are reset just
+before phase 3 and read just after it.  The last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+with code 1 and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, data sheet
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+LOGIT_ATOL_BF16 = 0.05           # engine vs contiguous decode, bf16 logits
+SERVE_LAYERS = 28
+
+
+def log(obj) -> None:
+    print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+class Timer:
+    """Median device time of ``fn`` in ms: CUDA events around each call, with
+    the 50 MB L2 flushed before each call (the engine reaches each layer's
+    attention after streaming that layer's weights, so its KV is cold).
+    The flush writes 512 MB, which keeps the card busy for longer than the
+    host needs to enqueue the call, so the events time the device work and
+    not the host's launch overhead.  The median drops the rare call that
+    the host reaches late (after the flush has drained), whose events would
+    also time the host."""
+
+    def __init__(self, iters=30):
+        self.iters = iters
+        self.flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn) -> float:
+        for _ in range(3):
+            fn()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(self.iters)]
+        for a, b in ev:
+            self.flush.zero_()
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        times = sorted(a.elapsed_time(b) for a, b in ev)
+        return times[len(times) // 2]
+
+
+def _bound(dtype_name, es, B, Hq, Hkv, D, kv_tokens, extra_bytes):
+    """Least time for the work: each input read once, each output written
+    once (q, out, the K/V rows this run's lengths need, lengths, page ids),
+    against the flops of QK and PV at the dtype's peak."""
+    bytes_ = 2 * B * Hq * D * es + 2 * kv_tokens * Hkv * D * es \
+        + 4 * B + extra_bytes
+    flops = 4 * kv_tokens * Hq * D
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _valid_tokens(lengths, cap, window):
+    total = 0
+    for n in lengths:
+        hi = min(n, cap)
+        lo = max(n - window, 0) if window else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+def kernel_phase(card):
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_reference)
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    timer = Timer()
+    serve_lengths = [216, 20, 12, 9]
+    long_lengths = [4096, 3000, 2049, 1500, 777, 300, 64, 1]
+    summary = {}
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def sdpa_ms(q, k, v, lengths, window):
+        """SDPA on K/V already gathered to (B, Hkv, T, D): the yardstick."""
+        B, Hq, D = q.shape
+        T = k.shape[2]
+        t = torch.arange(T, device="cuda")[None, :]
+        mask = t < lengths[:, None]
+        if window:
+            mask &= t >= lengths[:, None] - window
+        q4, m4 = q[:, :, None, :], mask[:, None, None, :]
+        return timer(lambda: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=m4, enable_gqa=True))
+
+    def check(name, case, dt, out, ref, times=None, bound=None):
+        dtn = str(dt).split(".")[-1]
+        err = (out.float() - ref.float()).abs()
+        lim = TOL[dtn] * (1 + ref.float().abs())
+        ok = bool(torch.all(err <= lim)) and bool(torch.isfinite(out).all())
+        rec = {"kernel": name, "case": case, "dtype": dtn,
+               "max_abs_err": float(err.max()), "tol": TOL[dtn], "ok": ok}
+        if times:
+            rec.update(times)
+            rec.update(bound_ms=bound[0], bound_by=bound[1], card=card)
+        log(rec)
+        if not ok:
+            raise AssertionError(f"{name} {case} {dtn} disagrees with its "
+                                 f"plain version: {rec}")
+        return rec
+
+    for dt in (torch.float32, torch.bfloat16):
+        dtn = str(dt).split(".")[-1]
+        es = torch.tensor([], dtype=dt).element_size()
+        # -- contiguous decode --------------------------------------------
+        for case, (B, T, Hq, Hkv, D, lens, window, timed) in {
+            "serve": (4, 512, 32, 8, 128, serve_lengths, None, True),
+            "long": (8, 4096, 32, 8, 128, long_lengths, None, True),
+            "window": (4, 512, 32, 8, 128, serve_lengths, 64, False),
+            "g2_d16": (3, 256, 4, 2, 16, [256, 85, 7], None, False),
+        }.items():
+            q, k, v = rnd((B, Hq, D), dt), rnd((B, T, Hkv, D), dt), \
+                rnd((B, T, Hkv, D), dt)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out = decode_attention_cuda(q, k, v, lengths, window=window)
+            ref = decode_attention_reference(q, k, v, lengths, window=window)
+            torch.cuda.synchronize()
+            times = bound = None
+            if timed:
+                kt, vt = k.transpose(1, 2).contiguous(), \
+                    v.transpose(1, 2).contiguous()
+                times = {
+                    "kernel_ms": timer(lambda: decode_attention_cuda(
+                        q, k, v, lengths, window=window)),
+                    "plain_ms": timer(lambda: decode_attention_reference(
+                        q, k, v, lengths, window=window)),
+                    "library_ms": sdpa_ms(q, kt, vt, lengths, window)}
+                bound = _bound(dtn, es, B, Hq, Hkv, D,
+                               _valid_tokens(lens, T, window), 0)
+            rec = check("decode_attention", case, dt, out, ref, times, bound)
+            if case == "serve" and dtn == "bfloat16":
+                summary["decode_attention"] = rec
+        # -- paged decode ------------------------------------------------
+        for case, (B, page, maxp, Hq, Hkv, D, lens, window, timed) in {
+            "serve": (4, 16, 32, 32, 8, 128, serve_lengths, None, True),
+            "long": (8, 16, 256, 32, 8, 128, long_lengths, None, True),
+            "page8": (4, 8, 64, 32, 8, 128, [512, 100, 9, 1], None, False),
+            "window": (4, 16, 32, 32, 8, 128, serve_lengths, 64, False),
+            "g2_d16": (3, 16, 6, 4, 2, 16, [96, 17, 64], None, False),
+        }.items():
+            NP = B * maxp
+            q = rnd((B, Hq, D), dt)
+            kp, vp = rnd((NP, page, Hkv, D), dt), rnd((NP, page, Hkv, D), dt)
+            # the engine's layout: slot b owns pages [b*maxp, (b+1)*maxp),
+            # shuffled here; FAIL (-1) ids inside and past the length
+            table = torch.stack([b * maxp + torch.randperm(
+                maxp, generator=gen, device="cuda") for b in range(B)]
+            ).to(torch.int32)
+            table[0, -1] = -1
+            table[-1, -1] = -1
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out = paged_attention_cuda(q, kp, vp, table, lengths,
+                                       window=window)
+            ref = paged_decode_attention_reference(q, kp, vp, table, lengths,
+                                                   window=window)
+            torch.cuda.synchronize()
+            times = bound = None
+            if timed:
+                safe = table.clamp(0, NP - 1).long()
+                kg = kp[safe].reshape(B, maxp * page, Hkv, D).transpose(
+                    1, 2).contiguous()
+                vg = vp[safe].reshape(B, maxp * page, Hkv, D).transpose(
+                    1, 2).contiguous()
+                times = {
+                    "kernel_ms": timer(lambda: paged_attention_cuda(
+                        q, kp, vp, table, lengths, window=window)),
+                    "plain_ms": timer(lambda: paged_decode_attention_reference(
+                        q, kp, vp, table, lengths, window=window)),
+                    "library_ms": sdpa_ms(q, kg, vg, lengths, window)}
+                pages = sum(-(-min(n, maxp * page) // page) for n in lens)
+                bound = _bound(dtn, es, B, Hq, Hkv, D,
+                               _valid_tokens(lens, maxp * page, window),
+                               4 * pages)
+            rec = check("paged_attention", case, dt, out, ref, times, bound)
+            if case == "serve" and dtn == "bfloat16":
+                summary["paged_attention"] = rec
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: serve llama3.2-3b at full width and depth
+# ---------------------------------------------------------------------------
+
+def _prompts(vocab, n_short, long_len, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    long = [int(t) for t in rng.integers(1, vocab, long_len)]
+    short = [[int(t) for t in rng.integers(1, vocab, 4 + i % 9)]
+             for i in range(n_short)]
+    return [long] + short
+
+
+def _run_recording(engine, check_rids):
+    """Run the engine to the end; record, for the requests in
+    ``check_rids``, the logits row behind every token they emit."""
+    seen = {rid: [] for rid in check_rids}
+    ticks = 0
+    while engine.queue or any(s.request_id >= 0 for s in engine.slots):
+        slots = list(engine.slots)         # refill mutates these in place
+        engine.step()
+        ticks += 1
+        for i, s in enumerate(slots):
+            if s.request_id in seen and len(s.out) > len(seen[s.request_id]):
+                seen[s.request_id].append(engine.last_logits[i].clone())
+    return ticks, {rid: torch.stack(rows) for rid, rows in seen.items()}
+
+
+def _teacher_forced(model, params, seqs, prompt_lens, n_out, max_len):
+    """Contiguous-cache decode of the sequences in one batch; returns per
+    sequence the logits at its n_out output positions."""
+    B = len(seqs)
+    cache = model.init_cache(B, max_len)
+    steps = max(len(s) for s in seqs)
+    rows = [[] for _ in range(B)]
+    for j in range(steps):
+        tok = torch.tensor([s[j] if j < len(s) else 0 for s in seqs],
+                           device=model.device)
+        logits, cache = model.decode_step(params, cache, tok)
+        for b in range(B):
+            if prompt_lens[b] - 1 <= j < prompt_lens[b] - 1 + n_out:
+                rows[b].append(logits[b].clone())
+    return [torch.stack(r) for r in rows]
+
+
+def serve_phase():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda)
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("llama3.2-3b")
+    assert cfg.num_layers == SERVE_LAYERS and cfg.padded_heads == 32
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model},"
+        f" {cfg.padded_heads} padded heads over {cfg.num_kv_heads} KV heads, "
+        f"{n_params} parameters ({cfg.param_dtype}), init "
+        f"{time.perf_counter() - t0:.1f}s")
+    max_new, max_len = 16, 512
+    engine = ServingEngine(model, params, batch_slots=4, page_size=16,
+                           max_len=max_len, device="cuda")
+    prompts = _prompts(cfg.vocab_size, 8, 200, seed=7)
+    rids = [engine.submit(p, max_new=max_new) for p in prompts]
+    check_rids = rids[:4]                # the four that start at tick 0
+
+    # main path: counts from 0 just before, read just after
+    decode_attention_cuda.launches = 0
+    paged_attention_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ticks, engine_logits = _run_recording(engine, check_rids)
+    dt = time.perf_counter() - t0
+    results = engine.finished
+    n_tok = sum(len(v) for v in results.values())
+    for rid in rids:
+        log(f"[serve] request {rid} (prompt {len(prompts[rid])}): "
+            f"{results[rid]}")
+    log({"serve": {"requests": len(rids), "generated_tokens": n_tok,
+                   "ticks": ticks, "seconds": dt, "tok_per_s": n_tok / dt,
+                   "ms_per_tick": dt / ticks * 1e3,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}})
+    assert len(results) == len(rids)
+    assert all(len(results[r]) == max_new for r in rids)
+    assert all(0 <= t < cfg.vocab_size for r in rids for t in results[r])
+
+    seqs = [prompts[r] + results[r][:-1] for r in check_rids]
+    plen = [len(prompts[r]) for r in check_rids]
+    cont = _teacher_forced(model, params, seqs, plen, max_new, max_len)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": paged_attention_cuda.launches,
+                "decode_attention": decode_attention_cuda.launches}
+    log({"kernels_main_path": launches,
+         "expected_paged": ticks * SERVE_LAYERS,
+         "expected_decode": max(len(s) for s in seqs) * SERVE_LAYERS})
+    if launches["paged_attention"] != ticks * SERVE_LAYERS:
+        raise AssertionError(f"paged_attention launched "
+                             f"{launches['paged_attention']} times in "
+                             f"{ticks} ticks x {SERVE_LAYERS} layers")
+    if launches["decode_attention"] != \
+            max(len(s) for s in seqs) * SERVE_LAYERS:
+        raise AssertionError("decode_attention did not run once per layer "
+                             "and step of the contiguous check")
+
+    for rid, c in zip(check_rids, cont):
+        e = engine_logits[rid]
+        if not (torch.isfinite(e).all() and torch.isfinite(c).all()):
+            raise AssertionError(f"request {rid}: non-finite logits")
+        real = slice(0, cfg.vocab_size)
+        diff = float((e[:, real] - c[:, real]).abs().max())
+        same = torch.equal(e.argmax(-1), c.argmax(-1))
+        tokens = e.argmax(-1).tolist() == results[rid]
+        log({"contiguous_check": {"request": rid, "steps": e.shape[0],
+                                  "max_abs_logit_diff": diff,
+                                  "tol": LOGIT_ATOL_BF16,
+                                  "same_argmax": same,
+                                  "argmax_is_stream": tokens}})
+        if diff > LOGIT_ATOL_BF16 or not same or not tokens:
+            raise AssertionError(f"request {rid}: engine and contiguous "
+                                 "decode disagree")
+    del engine
+    torch.cuda.empty_cache()
+    profile_window(model, params, prompts, max_new, max_len)
+    del params, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dev_us(evt) -> float:
+    """Self device time (us) of a profiler entry, across torch versions."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_window(model, params, prompts, max_new, max_len,
+                   warm=10, ticks=8):
+    """Serve ``prompts`` again on a fresh engine: ``warm`` ticks, then
+    ``ticks`` ticks timed on the host clock, then ``ticks`` more under
+    ``torch.profiler``.  All four slots stay busy over both windows (the
+    queue still holds requests).  The device busy share is the profiled
+    kernel time per tick over the unprofiled tick time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(model, params, batch_slots=4, page_size=16,
+                           max_len=max_len, device="cuda")
+    for p in prompts:
+        engine.submit(p, max_new=max_new)
+    for _ in range(warm):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        engine.step()
+    torch.cuda.synchronize()
+    tick_us = (time.perf_counter() - t0) / ticks * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            engine.step()
+        torch.cuda.synchronize()
+        profiled_us = (time.perf_counter() - t0) / ticks * 1e6
+    assert engine.queue and all(s.request_id >= 0 for s in engine.slots)
+    events = prof.key_averages()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    busy_us = sum(_dev_us(e) for e in dev) / ticks
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time in the serve "
+                             "window")
+    log({"profile": {
+        "ticks": ticks, "after_ticks": warm + ticks,
+        "tick_us": tick_us, "profiled_tick_us": profiled_us,
+        "device_busy_us_per_tick": busy_us,
+        "device_busy_share": busy_us / tick_us,
+        "kernels_per_tick": sum(e.count for e in dev) / ticks,
+        "top_device_us_per_tick": [
+            [e.key[:70], _dev_us(e) / ticks, e.count / ticks]
+            for e in sorted(dev, key=_dev_us, reverse=True)[:10]],
+        "top_host_self_us_per_tick": [
+            [e.key[:50], e.self_cpu_time_total / ticks, e.count / ticks]
+            for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                            reverse=True)[:10]]}})
+    del engine
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: fp32 identity at full width, 4 layers
+# ---------------------------------------------------------------------------
+
+def identity_phase():
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    # full fp32 products on the card: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), num_layers=4,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=1)
+    engine = ServingEngine(model, params, batch_slots=4, page_size=16,
+                           max_len=128, device="cuda")
+    prompts = _prompts(cfg.vocab_size, 5, 40, seed=11)
+    rids = [engine.submit(p, max_new=8) for p in prompts]
+    results = engine.run_until_drained()
+    for rid, prompt in zip(rids, prompts):
+        cache = model.init_cache(1, 128)
+        for t in prompt[:-1]:
+            _, cache = model.decode_step(params, cache,
+                                         torch.tensor([t], device="cuda"))
+        out, cur = [], prompt[-1]
+        for _ in range(8):
+            lg, cache = model.decode_step(params, cache,
+                                          torch.tensor([cur], device="cuda"))
+            cur = int(torch.argmax(lg[0]))
+            out.append(cur)
+        log({"identity": {"request": rid, "engine": results[rid],
+                          "contiguous": out}})
+        if out != results[rid]:
+            raise AssertionError(f"fp32 request {rid}: engine {results[rid]}"
+                                 f" != contiguous {out}")
+    del engine, params, model
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    card_line = nvidia_smi()
+    t0 = time.perf_counter()
+    _build.build_all(["decode_attention", "paged_attention"])
+    log({"env": {"nvidia_smi": card_line, "torch": torch.__version__,
+                 "cuda": torch.version.cuda, "python": sys.version.split()[0],
+                 "kernel_build_s": time.perf_counter() - t0}})
+    card = torch.cuda.get_device_name(0)
+
+    summary = kernel_phase(card)
+    launches = serve_phase()
+    identity_phase()
+
+    sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                                    "src/repro/kernels/decode_attention/"
+                                    "kernel.py:86"),
+               "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                                   "src/repro/kernels/paged_attention/"
+                                   "kernel.py:82")}
+    kernels = []
+    for name in ("decode_attention", "paged_attention"):
+        rec = summary[name]
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    log({"kernels": kernels})
+    log(card_line)
+    log({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,45 @@
+"""Model facade over the ported families (dense so far)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device for ``device``; a CUDA device without a card raises
+    (pass ``device="cpu"`` to run on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """Uniform facade: ``init`` builds parameters on ``device``; the
+    decode path runs wherever its tensors are."""
+
+    cfg: ModelConfig
+    device: torch.device
+
+    def init(self, seed: int = 0) -> Dict[str, Any]:
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return transformer.lm_init(gen, self.cfg)
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        return transformer.lm_init_cache(self.cfg, batch, max_len,
+                                         self.device)
+
+    def decode_step(self, params, cache, tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return transformer.lm_decode_step(params, cache, tokens, self.cfg)
+
+
+def build_model(cfg: ModelConfig, device="cuda") -> Model:
+    return Model(cfg, resolve_device(device))
