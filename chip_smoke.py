@@ -21,12 +21,31 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and runs, in order:
    all four slots are busy (device busy share, kernels per tick, the top
    device kernels and host operators);
 4. the identity phase: fp32, full width, 4 layers; the engine's greedy
-   streams must equal the contiguous decode's token for token.
+   streams must equal the contiguous decode's token for token;
+5. the flash kernel against its plain version, fp32 and bf16, at the
+   training shape (B 2, S 1024, 32 heads over 8 KV heads, D 128, causal),
+   a ragged shape (Sq = Sk = 1000), a window of 128, a q_offset with
+   Sq < Sk, and G = 1 with D = 16; the q/k/v gradients through the op
+   against autograd through the plain version at the training shape;
+   kernel, plain and SDPA (timed only) times beside the flops bound;
+6. the prefill phase: fp32, full width, 4 layers, TF32 off: the logits of
+   ``Model.forward`` against the contiguous ``decode_step`` teacher-forced
+   over the same prompt (every position within 1e-3, the same argmax),
+   and ``Model.prefill`` followed by 8 greedy decode steps against pure
+   decode (the same stream); the serve phase adds the bf16 full-depth
+   forward-vs-decode difference, printed without a gate;
+7. the train phase: ``launch/train.run`` trains llama3.2-3b at full width
+   and depth (28 layers, bf16, remat "full", batch 2 x 1024 tokens from
+   ``SyntheticLM``) for 4 steps through ``device_run`` with one immediate
+   hook that logs the loss: losses, ms/step, tokens/s, train_mfu, the
+   flash kernel's launches and the peak device memory; then, outside the
+   counted path, one step timed in halves (forward + backward, AdamW) and
+   one under ``torch.profiler`` (device time by kernel kind, top kernels).
 
 Every phase raises on failure.  The kernels' launch counts are reset just
-before phase 3 and read just after it.  The last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
-with code 1 and prints no result.
+before phase 3 and read just after it, and again around phase 7.  The
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
+script exits with code 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -46,7 +65,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, data sheet
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 LOGIT_ATOL_BF16 = 0.05           # engine vs contiguous decode, bf16 logits
+LOGIT_ATOL_FP32 = 1e-3           # forward vs contiguous decode, fp32 logits
 SERVE_LAYERS = 28
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 1024
 
 
 def log(obj) -> None:
@@ -370,7 +391,16 @@ def serve_phase():
     del engine
     torch.cuda.empty_cache()
     profile_window(model, params, prompts, max_new, max_len)
-    del params, model
+    tokens = torch.tensor([prompts[0][:64]], device="cuda")
+    fwd, dec = _forward_vs_decode(model, params, tokens)
+    real = slice(0, cfg.vocab_size)
+    log({"forward_vs_decode_bf16": {
+        "layers": cfg.num_layers, "positions": tokens.shape[1],
+        "max_abs_logit_diff": float((fwd[..., real] - dec[..., real]).abs()
+                                    .max()),
+        "same_argmax_share": float((fwd.argmax(-1) == dec.argmax(-1))
+                                   .float().mean())}})
+    del params, model, fwd, dec
     torch.cuda.empty_cache()
     return launches
 
@@ -490,6 +520,326 @@ def identity_phase():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the flash kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _visible_pairs(Sq, Sk, causal, window, q_offset):
+    """(query, key) pairs that the masks leave visible."""
+    total = 0
+    for i in range(Sq):
+        qpos = q_offset + i
+        hi = min(Sk, qpos + 1) if causal else Sk
+        lo = max(0, qpos - window + 1) if window else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+def _flash_bound(dtype_name, es, B, Sq, Sk, Hq, Hkv, D, causal, window,
+                 q_offset):
+    """Least time: q, k, v read once and out written once at the memory
+    rate, against 4 * D flops per visible pair and query head (QK and PV)
+    at the dtype's peak."""
+    bytes_ = (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D) * es
+    flops = 4 * D * Hq * B * _visible_pairs(Sq, Sk, causal, window, q_offset)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_phase(card_line):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    timer = Timer(iters=20)
+    summary = {}
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    for dt in (torch.float32, torch.bfloat16):
+        dtn = str(dt).split(".")[-1]
+        es = torch.tensor([], dtype=dt).element_size()
+        for case, (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, timed) in {
+            "train": (2, 1024, 1024, 32, 8, 128, True, None, 0, True),
+            "ragged": (1, 1000, 1000, 32, 8, 128, True, None, 0, False),
+            "window": (2, 1024, 1024, 32, 8, 128, True, 128, 0, False),
+            "q_offset": (2, 200, 712, 32, 8, 128, True, None, 512, False),
+            "g1_d16": (2, 333, 333, 4, 4, 16, False, None, 0, False),
+        }.items():
+            q, k, v = rnd((B, Sq, Hq, D), dt), rnd((B, Sk, Hkv, D), dt), \
+                rnd((B, Sk, Hkv, D), dt)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            out = flash_attention_cuda(q, k, v, **kw)
+            ref = plain_attention(q, k, v, causal, window, q_offset, None)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            ok = bool(torch.all(err <= TOL[dtn] * (1 + ref.float().abs()))) \
+                and bool(torch.isfinite(out).all())
+            rec = {"kernel": "flash_attention", "case": case, "dtype": dtn,
+                   "shape": [B, Sq, Sk, Hq, Hkv, D], "causal": causal,
+                   "window": window, "q_offset": q_offset,
+                   "max_abs_err": float(err.max()), "tol": TOL[dtn],
+                   "ok": ok}
+            if timed:
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                rec.update(
+                    kernel_ms=timer(lambda: flash_attention_cuda(q, k, v,
+                                                                 **kw)),
+                    plain_ms=timer(lambda: plain_attention(
+                        q, k, v, causal, window, q_offset, None)),
+                    library_ms=timer(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)))
+                bound = _flash_bound(dtn, es, B, Sq, Sk, Hq, Hkv, D, causal,
+                                     window, q_offset)
+                rec.update(bound_ms=bound[0], bound_by=bound[1],
+                           card=card_line)
+            log(rec)
+            if not ok:
+                raise AssertionError(f"flash_attention {case} {dtn} disagrees "
+                                     f"with its plain version: {rec}")
+            if case == "train" and dtn == "bfloat16":
+                summary = rec
+        # gradients through the op against autograd through the plain version
+        B, S, Hq, Hkv, D = 2, 1024, 32, 8, 128
+        qkv = [rnd(shape, dt) for shape in ((B, S, Hq, D), (B, S, Hkv, D),
+                                            (B, S, Hkv, D))]
+        g = rnd((B, S, Hq, D), dt)
+        a = [t.clone().requires_grad_() for t in qkv]
+        b = [t.clone().requires_grad_() for t in qkv]
+        ga = torch.autograd.grad(flash_attention(*a), a, g)
+        gb = torch.autograd.grad(
+            plain_attention(*b, True, None, 0, None), b, g)
+        errs = [float((x.float() - y.float()).abs().max())
+                for x, y in zip(ga, gb)]
+        ok = all(bool(torch.all((x.float() - y.float()).abs()
+                                <= TOL[dtn] * (1 + y.float().abs())))
+                 and bool(torch.isfinite(x).all()) for x, y in zip(ga, gb))
+        # forward + backward of one layer's attention, as training runs it
+        op_ms = timer(lambda: torch.autograd.grad(flash_attention(*a), a, g))
+        plain_ms = timer(lambda: torch.autograd.grad(
+            plain_attention(*b, True, None, 0, None), b, g))
+        log({"kernel": "flash_attention", "case": "train_grads", "dtype": dtn,
+             "max_abs_err_dq_dk_dv": errs, "tol": TOL[dtn], "ok": ok,
+             "op_fwd_bwd_ms": op_ms, "plain_fwd_bwd_ms": plain_ms,
+             "card": card_line})
+        if not ok:
+            raise AssertionError(f"flash_attention gradients {dtn} disagree")
+        del a, b, ga, gb, qkv, g
+    del timer
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: prefill and forward against decode, fp32 at full width
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def _forward_vs_decode(model, params, tokens):
+    """Logits (B, S, V) of ``Model.forward`` and of the contiguous
+    ``decode_step`` teacher-forced over the same tokens."""
+    B, S = tokens.shape
+    fwd, _ = model.forward(params, {"tokens": tokens})
+    cache = model.init_cache(B, S)
+    rows = []
+    for j in range(S):
+        logits, cache = model.decode_step(params, cache, tokens[:, j])
+        rows.append(logits)
+    return fwd, torch.stack(rows, dim=1)
+
+
+@torch.no_grad()
+def _greedy_streams(model, params, prompt, n):
+    """Greedy continuations of ``prompt`` (B, S): ``Model.prefill`` then
+    ``n`` decode steps, and ``decode_step`` alone over the prompt then the
+    same ``n`` steps.  Each stream has n + 1 tokens."""
+    B, S = prompt.shape
+    max_len = S + n + 1
+    streams = []
+    for use_prefill in (True, False):
+        if use_prefill:
+            logits, cache = model.prefill(params, {"tokens": prompt}, max_len)
+        else:
+            cache = model.init_cache(B, max_len)
+            for j in range(S):
+                logits, cache = model.decode_step(params, cache, prompt[:, j])
+        out = [logits.argmax(-1)]
+        for _ in range(n):
+            logits, cache = model.decode_step(params, cache, out[-1])
+            out.append(logits.argmax(-1))
+        streams.append(torch.stack(out, dim=1).tolist())
+    return streams
+
+
+def prefill_phase():
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), num_layers=4,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=2)
+    rng = np.random.default_rng(13)
+    prompt = torch.tensor(rng.integers(1, cfg.vocab_size, (2, 48)),
+                          device="cuda")
+    fwd, dec = _forward_vs_decode(model, params, prompt)
+    diff = float((fwd - dec).abs().max())
+    same = bool(torch.equal(fwd.argmax(-1), dec.argmax(-1)))
+    log({"forward_vs_decode_fp32": {"layers": cfg.num_layers,
+                                    "shape": list(prompt.shape),
+                                    "max_abs_logit_diff": diff,
+                                    "tol": LOGIT_ATOL_FP32,
+                                    "same_argmax": same}})
+    if not (diff <= LOGIT_ATOL_FP32 and same
+            and bool(torch.isfinite(fwd).all())):
+        raise AssertionError("fp32 forward and contiguous decode disagree")
+    with_prefill, pure = _greedy_streams(model, params, prompt[:, :40], 8)
+    log({"prefill_vs_decode_fp32": {"prefill": with_prefill,
+                                    "decode": pure}})
+    if with_prefill != pure:
+        raise AssertionError("prefill + decode stream != pure decode stream")
+    del model, params, fwd, dec
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: train llama3.2-3b at full width and depth
+# ---------------------------------------------------------------------------
+
+def train_phase():
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda)
+    from repro_torch.launch.train import run
+
+    cfg = get_config("llama3.2-3b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # main path: counts from 0 just before, read just after
+    for fn in (flash_attention_cuda, decode_attention_cuda,
+               paged_attention_cuda):
+        fn.launches = 0
+    out = run("llama3.2-3b", preset="full", steps=TRAIN_STEPS,
+              batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=1,
+              device="cuda")
+    torch.cuda.synchronize()
+    launches = flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in out["losses"]]
+    times = out["log_times"]
+    steady = [b - a for a, b in zip(times, times[1:])]   # steps 2..n
+    step_s = sum(steady) / len(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # model flops: 6 N per token for the matmul parameters (all but the
+    # input embedding), and the attention products over the visible
+    # (causal) pairs of the real heads, 3x the forward for fwd + bwd
+    n_matmul = cfg.num_params() - cfg.vocab_size * cfg.d_model
+    attn = 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * TRAIN_BATCH * \
+        cfg.num_layers * _visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None, 0)
+    flops = 6 * n_matmul * tokens + attn
+    rec = {"layers": cfg.num_layers, "steps": TRAIN_STEPS,
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "losses": losses,
+           "first_step_s": times[0], "ms_per_step": step_s * 1e3,
+           "tokens_per_s": tokens / step_s, "model_flops_per_step": flops,
+           "train_mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+           "flash_launches": launches,
+           "expected_launches_fwd_plus_remat": 2 * cfg.num_layers *
+           TRAIN_STEPS, "peak_mem_gb": peak / 1e9, "seconds": out["seconds"]}
+    log({"train": rec})
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(l)
+                                             for l in losses):
+        raise AssertionError(f"training losses not finite: {losses}")
+    if launches < cfg.num_layers * TRAIN_STEPS:
+        raise AssertionError(f"flash_attention launched {launches} times in "
+                             f"{TRAIN_STEPS} steps x {cfg.num_layers} layers")
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches}
+
+
+def _kernel_kind(name: str) -> str:
+    if "flash_fwd" in name:
+        return "flash"
+    if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma",
+                               "cublas")):
+        return "gemm"
+    return "other"
+
+
+def train_profile():
+    """Where a full-width training step's time goes: one warm step, then
+    one step timed in two synchronised halves (forward + backward, then
+    the AdamW update), then one step under ``torch.profiler`` (device time
+    by kernel kind and the top kernels).  Not part of the counted path."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.libc import rand_init
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import (OptConfig, adamw_init,
+                                             adamw_update)
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_config("llama3.2-3b")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    opt = adamw_init(params)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(model, opt_cfg)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    _, batch = data.batch_at(rand_init(1234, device="cuda"), 0)
+    params, opt, _ = step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = model.loss(vals, batch)
+    grads = torch.autograd.grad(loss, leaves(vals))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, opt, _ = adamw_update(grads, opt, opt_cfg, params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del vals, loss, grads
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t3 = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kinds = {}
+    for e in dev:
+        k = _kernel_kind(e.key)
+        kinds[k] = kinds.get(k, 0.0) + _dev_us(e) / 1e3
+    busy_ms = sum(kinds.values())
+    if busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time in the train "
+                             "step")
+    log({"train_profile": {
+        "fwd_bwd_ms": (t1 - t0) * 1e3, "adamw_ms": (t2 - t1) * 1e3,
+        "profiled_step_ms": (t4 - t3) * 1e3, "device_busy_ms": busy_ms,
+        "device_ms_by_kind": kinds,
+        "kernels": int(sum(e.count for e in dev)),
+        "top_device_ms": [[e.key[:70], _dev_us(e) / 1e3, e.count]
+                          for e in sorted(dev, key=_dev_us,
+                                          reverse=True)[:12]]}})
+    del params, opt, model, step_fn
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -499,7 +849,8 @@ def main() -> int:
 
     card_line = nvidia_smi()
     t0 = time.perf_counter()
-    _build.build_all(["decode_attention", "paged_attention"])
+    _build.build_all(["decode_attention", "paged_attention",
+                      "flash_attention"])
     log({"env": {"nvidia_smi": card_line, "torch": torch.__version__,
                  "cuda": torch.version.cuda, "python": sys.version.split()[0],
                  "kernel_build_s": time.perf_counter() - t0}})
@@ -508,15 +859,22 @@ def main() -> int:
     summary = kernel_phase(card)
     launches = serve_phase()
     identity_phase()
+    summary["flash_attention"] = flash_phase(card_line)
+    prefill_phase()
+    launches.update(train_phase())
+    train_profile()
 
     sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/"
                                     "kernel.py:86"),
                "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/"
-                                   "kernel.py:82")}
+                                   "kernel.py:82"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention/"
+                                   "kernel.py:94")}
     kernels = []
-    for name in ("decode_attention", "paged_attention"):
+    for name in ("decode_attention", "paged_attention", "flash_attention"):
         rec = summary[name]
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the main path")

@@ -1,4 +1,5 @@
-"""GQA multi-head attention: the one-token decode path over a contiguous cache.
+"""GQA multi-head attention: the full-sequence path (training, prefill) on
+the flash kernel, and the one-token decode path over a contiguous cache.
 
 Query heads are zero-padded to ``cfg.padded_heads`` exactly as in the JAX
 package, so query head h reads KV head ``h // (padded_heads // Hkv)``.  At
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import common
 from repro_torch.models.common import normal, torch_dtype, zeros
 
@@ -79,11 +81,29 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+def attn_apply(
+    p, x: torch.Tensor, cfg: ModelConfig, *,
+    angles: Optional[torch.Tensor],
+    causal: bool = True,
+    window: Optional[int] = None,
+    return_kv: bool = False,
+):
+    """Full-sequence attention (training / prefill): x (B, S, d) ->
+    (B, S, d), and the rotated (k, v) (B, S, Hkv, hd) with ``return_kv``."""
+    q, k, v = _project_qkv(p, x, cfg, angles)
+    out = attn_out(p, flash_attention(q, k, v, causal=causal, window=window),
+                   cfg)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
 def attn_out(p, a: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Attention output (B, Hq, hd) -> masked heads through ``wo`` -> (B, d)."""
+    """Attention output (..., Hq, hd) -> masked heads through ``wo`` ->
+    (..., d)."""
     a = _mask_heads(a, cfg)
     hq, hd, d = p["wo"].shape
-    return a.reshape(a.shape[0], hq * hd) @ p["wo"].to(a.dtype).reshape(
+    return a.reshape(*a.shape[:-2], hq * hd) @ p["wo"].to(a.dtype).reshape(
         hq * hd, d)
 
 

@@ -63,15 +63,55 @@ def embedding_init(gen: torch.Generator, cfg: ModelConfig) -> torch.Tensor:
                   torch_dtype(cfg.param_dtype), scale=0.02)
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """Row gather whose backward scatters the gradient into an fp32 table
+    and casts it to the table's dtype once (the JAX package's
+    ``_embed_lookup`` custom VJP): repeated tokens sum in fp32, not in
+    bf16."""
+
+    @staticmethod
+    def forward(ctx, emb, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table = (emb.shape, emb.dtype)
+        return emb[tokens]
+
+    @staticmethod
+    def backward(ctx, dy):
+        (tokens,) = ctx.saved_tensors
+        shape, dtype = ctx.table
+        g = torch.zeros(shape, dtype=torch.float32, device=dy.device)
+        g.index_add_(0, tokens.reshape(-1),
+                     dy.reshape(-1, shape[-1]).float())
+        return g.to(dtype), None
+
+
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    """Forward-only embedding lookup, cast to the compute dtype."""
-    return emb[tokens].to(torch_dtype(cfg.dtype))
+    """Embedding lookup, cast to the compute dtype."""
+    return _EmbedLookup.apply(emb, tokens).to(torch_dtype(cfg.dtype))
 
 
 def lm_head_init(gen: torch.Generator, cfg: ModelConfig) -> torch.Tensor:
     return normal(gen, (cfg.d_model, cfg.padded_vocab),
                   torch_dtype(cfg.param_dtype))
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """``x @ h`` of two bf16 CUDA matrices with an fp32 product
+    (``torch.mm(..., out_dtype=float32)``, which has no derivative of its
+    own).  The gradients are bf16 products of the fp32 cotangent rounded to
+    bf16, in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, h):
+        ctx.save_for_backward(x, h)
+        return torch.mm(x, h, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ h.t(), x.t() @ g
 
 
 def lm_logits(x: torch.Tensor, head: torch.Tensor,
@@ -80,15 +120,15 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor,
 
     The product accumulates and returns fp32 from x's dtype, as the JAX
     einsum's ``preferred_element_type=float32`` does: on the card through
-    ``torch.mm``'s ``out_dtype``, on the CPU by upcasting (exact for bf16
-    products)."""
+    ``torch.mm``'s ``out_dtype`` (:class:`_MatmulF32Out`), on the CPU by
+    upcasting (exact for bf16 products)."""
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     h = head.to(x.dtype)
     if x.dtype == torch.float32:
         logits = x2 @ h
     elif x.is_cuda:
-        logits = torch.mm(x2, h, out_dtype=torch.float32)
+        logits = _MatmulF32Out.apply(x2, h)
     else:
         logits = x2.float() @ h.float()
     logits = logits.reshape(B, S, -1)
@@ -124,3 +164,14 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     sin = torch.sin(angles)[:, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def default_positions(batch: int, seq: int, cfg: ModelConfig,
+                      device) -> torch.Tensor:
+    """(B, S) int32 positions 0..S-1 (M-RoPE's (3, B, S) streams come with
+    the vlm family)."""
+    if cfg.mrope_sections:
+        raise NotImplementedError(
+            "M-RoPE positions are not ported yet (ROADMAP queue 1, item 1)")
+    pos = torch.arange(seq, dtype=torch.int32, device=device)
+    return pos[None, :].expand(batch, seq)

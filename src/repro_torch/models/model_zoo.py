@@ -22,8 +22,8 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """Uniform facade: ``init`` builds parameters on ``device``; the
-    decode path runs wherever its tensors are."""
+    """Uniform facade: ``init`` builds parameters on ``device``; forward,
+    loss, prefill and decode run wherever their tensors are."""
 
     cfg: ModelConfig
     device: torch.device
@@ -31,6 +31,17 @@ class Model:
     def init(self, seed: int = 0) -> Dict[str, Any]:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return transformer.lm_init(gen, self.cfg)
+
+    def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        return transformer.lm_forward(params, batch, self.cfg)
+
+    def loss(self, params, batch
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return transformer.lm_loss(params, batch, self.cfg)
+
+    def prefill(self, params, batch, max_len: int
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return transformer.lm_prefill(params, batch, self.cfg, max_len)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         return transformer.lm_init_cache(self.cfg, batch, max_len,

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense family: init, contiguous KV cache, one-token decode.
+"""Decoder-only LM, dense family: init, full-sequence forward and loss
+(training), prefill, contiguous KV cache, one-token decode.
 
 Parameters are a nested dict in the JAX package's layout, except that
 ``params["layers"]`` is a list of per-layer dicts (the JAX package stacks
@@ -6,13 +7,15 @@ layers on axis 0 for ``lax.scan``; here a Python loop walks the list).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import functools
+from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
-from repro_torch.models.attention import attn_decode, attn_init
+from repro_torch.models.attention import attn_apply, attn_decode, attn_init
 from repro_torch.models.common import ones, rmsnorm, torch_dtype
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
@@ -56,6 +59,104 @@ def _lm_head(params, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"]
 
 
+# ---------------------------------------------------------------------------
+# Remat policies
+# ---------------------------------------------------------------------------
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """Wrap a layer body per ``cfg.remat``.  ``"none"`` saves every
+    activation.  ``"full"`` (JAX's ``nothing_saveable``) runs the layer
+    under ``torch.utils.checkpoint`` (non-reentrant): only the layer's
+    inputs are saved and the backward recomputes the layer.  ``"dots"``
+    (JAX saves the matmul outputs) maps to the same full recompute here.
+    Without autograd (``torch.no_grad``) nothing is saved either way."""
+    if cfg.remat == "none":
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return wrapped
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _angles_for(cfg: ModelConfig, batch, B: int, S: int,
+                device) -> torch.Tensor:
+    positions = batch.get("positions")
+    if positions is None:
+        positions = common.default_positions(B, S, cfg, device)
+    return common.rope_angles(positions, cfg.resolved_head_dim,
+                              cfg.rope_theta)
+
+
+def _layer(layer, x: torch.Tensor, angles: torch.Tensor, *,
+           cfg: ModelConfig, causal: bool) -> torch.Tensor:
+    h = rmsnorm(x, layer["ln1"], cfg.norm_eps)
+    x = x + attn_apply(layer["attn"], h, cfg, angles=angles, causal=causal)
+    h = rmsnorm(x, layer["ln2"], cfg.norm_eps)
+    return x + mlp_apply(layer["mlp"], h)
+
+
+def lm_forward(params, batch, cfg: ModelConfig, *, causal: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits (B,S,V) fp32, aux_loss)."""
+    _check_dense(cfg)
+    tokens = batch["tokens"]
+    x = common.embed_tokens(params["embed"], tokens, cfg)
+    B, S = tokens.shape
+    angles = _angles_for(cfg, batch, B, S, x.device)
+    body = _remat(functools.partial(_layer, cfg=cfg, causal=causal), cfg)
+    for layer in params["layers"]:
+        x = body(layer, x, angles)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    logits = common.lm_logits(x, _lm_head(params, cfg), cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token CE. logits (B,S,V) fp32; labels, mask (B,S).  The label
+    logit is a gather; the JAX version takes a masked sum over the vocab
+    axis so that a vocab-sharded logit stays local, and both pick the same
+    value."""
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (lse - lab) * mask
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll) / denom, denom
+
+
+def lm_loss(params, batch, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits, aux = lm_forward(params, batch, cfg)
+    if "labels" in batch:
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        labels = torch.clamp(labels, min=0)
+    else:
+        tokens = batch["tokens"]
+        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                           dim=1)
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+        mask[:, -1] = 0.0
+    ce, denom = cross_entropy(logits, labels, mask)
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": denom}
+
+
+# ---------------------------------------------------------------------------
+# KV cache, prefill
+# ---------------------------------------------------------------------------
+
 def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device: torch.device) -> Dict[str, torch.Tensor]:
     """Contiguous cache: k/v (L, B, max_len, Hkv, hd) and lengths (B,)."""
@@ -68,6 +169,35 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
         "v": torch.zeros(shape, dtype=cdt, device=device),
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+def lm_prefill(params, batch, cfg: ModelConfig, max_len: int
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward over the prompt that also fills the decode
+    cache.  Returns (last-token logits (B, V) fp32, the cache of
+    :func:`lm_init_cache` with every layer's K/V at positions 0..S-1 and
+    ``lengths`` = S)."""
+    _check_dense(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
+    x = common.embed_tokens(params["embed"], tokens, cfg)
+    angles = _angles_for(cfg, batch, B, S, x.device)
+    cache = lm_init_cache(cfg, B, max_len, x.device)
+    for li, layer in enumerate(params["layers"]):
+        h = rmsnorm(x, layer["ln1"], cfg.norm_eps)
+        a, (k, v) = attn_apply(layer["attn"], h, cfg, angles=angles,
+                               return_kv=True)
+        x = x + a
+        h = rmsnorm(x, layer["ln2"], cfg.norm_eps)
+        x = x + mlp_apply(layer["mlp"], h)
+        cache["k"][li, :, :S] = k.to(cache["k"].dtype)
+        cache["v"][li, :, :S] = v.to(cache["v"].dtype)
+    cache["lengths"].fill_(S)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    logits = common.lm_logits(x[:, -1:], _lm_head(params, cfg), cfg)[:, 0]
+    return logits, cache
 
 
 def lm_decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig

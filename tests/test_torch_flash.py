@@ -1,0 +1,168 @@
+"""The port's flash-attention op on the CPU (its plain versions) against the
+JAX package: the Pallas kernel in interpret mode over the divisible sweep
+of tests/test_kernels.py, the dense reference at ragged Sq/Sk, the chunked
+reference above the op's threshold, and the q/k/v gradients against
+``jax.vjp`` of the JAX op.
+
+Tolerances: forward fp32 2e-5 and bf16 3e-2, those of tests/test_kernels.py
+(the same arithmetic; sums run in another order).  Gradients fp32 1e-4:
+the backward runs three products and the softmax's derivative, whose sums
+over Sk run in another order in XLA and in PyTorch, so their rounding
+differences add up to a few times the forward's.
+Inputs come from numpy with a seed and go to both sides."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
+from repro.kernels.flash_attention.kernel import flash_attention_pallas  # noqa: E402
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    attention_reference as j_ref, attention_reference_chunked as j_chunked)
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as t_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_reference_chunked as t_chunked)
+
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+GRAD_TOL = 1e-4
+J_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+T_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the tiny tensors here: with several test
+    workers on the machine, waking eight threads per op costs more than
+    the op (20 tiny training steps: ~30x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _qkv(seed, B, Sq, Sk, Hq, Hkv, D):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, Hq, D), dtype=np.float32),
+            rng.standard_normal((B, Sk, Hkv, D), dtype=np.float32),
+            rng.standard_normal((B, Sk, Hkv, D), dtype=np.float32))
+
+
+def _both(arrs, dtype):
+    """numpy fp32 arrays -> (jax arrays, torch tensors) of ``dtype``."""
+    j = [jnp.asarray(a).astype(J_DT[dtype]) for a in arrs]
+    t = [torch.from_numpy(a).to(T_DT[dtype]) for a in arrs]
+    return j, t
+
+
+def _close(t, j, tol):
+    np.testing.assert_allclose(t.detach().float().numpy(),
+                               np.asarray(j, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,blk", [
+    (1, 128, 4, 4, 32, 64),      # G = 1
+    (2, 256, 4, 2, 64, 64),      # G = 2
+    (1, 128, 8, 2, 16, 64),      # G = 4, as llama3.2-3b at full width
+    (2, 128, 8, 1, 16, 32),      # MQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)])
+def test_flash_op_vs_pallas_interpret(B, S, Hq, Hkv, D, blk, dtype, causal,
+                                      window):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(S + D, B, S, S, Hq, Hkv, D),
+                                       dtype)
+    ref = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                 blk_q=blk, blk_k=blk, interpret=True)
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == T_DT[dtype] and out.shape == tq.shape
+    _close(out, ref, TOL[dtype])
+
+
+def test_flash_op_q_offset_vs_pallas_interpret():
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 1, 64, 128, 2, 2, 16),
+                                       "float32")
+    ref = flash_attention_pallas(jq, jk, jv, causal=True, q_offset=64,
+                                 blk_q=32, blk_k=32, interpret=True)
+    _close(flash_attention(tq, tk, tv, causal=True, q_offset=64), ref,
+           TOL["float32"])
+
+
+@pytest.mark.parametrize("Sq,Sk,kw", [
+    (100, 100, dict(causal=True)),
+    (77, 77, dict(causal=False)),
+    (1000, 1000, dict(causal=True, window=128)),
+    (37, 100, dict(causal=True, q_offset=63)),
+    (5, 9, dict(causal=True, window=3, q_offset=4)),
+])
+def test_flash_op_ragged_vs_reference(Sq, Sk, kw):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(Sq * 7 + Sk, 1, Sq, Sk, 4, 2, 16),
+                                       "float32")
+    _close(flash_attention(tq, tk, tv, **kw), j_ref(jq, jk, jv, **kw),
+           TOL["float32"])
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=37),
+                                dict(causal=False),
+                                dict(causal=True, q_offset=64)])
+def test_chunked_reference_vs_jax(kw):
+    Sk = 256 + kw.get("q_offset", 0)
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(3, 2, 256, Sk, 4, 2, 16),
+                                       "float32")
+    _close(t_chunked(tq, tk, tv, blk_q=64, blk_k=64, **kw),
+           j_chunked(jq, jk, jv, blk_q=64, blk_k=64, **kw), TOL["float32"])
+
+
+def test_flash_op_above_threshold_takes_chunked(monkeypatch):
+    """1024 x 5120 scores > 1 << 22: the op's plain path is the chunked one,
+    as the JAX op's XLA path is."""
+    Sq, Sk = 1024, 5120
+    assert Sq * Sk > t_ops._CHUNKED_THRESHOLD
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(5, 1, Sq, Sk, 2, 1, 16),
+                                       "float32")
+    calls = []
+    real = t_ops.attention_reference_chunked
+    monkeypatch.setattr(t_ops, "attention_reference_chunked",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    out = flash_attention(tq, tk, tv, causal=True, q_offset=Sk - Sq)
+    assert calls
+    _close(out, j_chunked(jq, jk, jv, causal=True, q_offset=Sk - Sq),
+           TOL["float32"])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,kw", [
+    (2, 64, 64, 4, 2, dict(causal=True)),
+    (1, 48, 48, 8, 2, dict(causal=True, window=16)),
+    (2, 40, 40, 4, 4, dict(causal=False)),
+    (1, 24, 72, 4, 1, dict(causal=True, q_offset=48)),
+    (1, 512, 9216, 2, 1, dict(causal=True, q_offset=8704)),   # chunked
+])
+def test_flash_op_gradients_vs_jax_vjp(B, Sq, Sk, Hq, Hkv, kw):
+    arrs = _qkv(Sq + Sk, B, Sq, Sk, Hq, Hkv, 16)
+    g = np.random.default_rng(99).standard_normal(arrs[0].shape,
+                                                  dtype=np.float32)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, "float32")
+    out, vjp = jax.vjp(lambda q, k, v: j_flash(q, k, v, **kw), jq, jk, jv)
+    jgrads = vjp(jnp.asarray(g))
+    tqkv = [t.requires_grad_() for t in (tq, tk, tv)]
+    tout = flash_attention(*tqkv, **kw)
+    _close(tout, out, TOL["float32"])
+    tgrads = torch.autograd.grad(tout, tqkv, torch.from_numpy(g))
+    for t, j in zip(tgrads, jgrads):
+        _close(t, j, GRAD_TOL)
+
+
+def test_cpu_op_launches_nothing_and_kernel_refuses_cpu_tensors():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 16, 16, 2, 1, 16))
+    before = flash_attention_cuda.launches
+    flash_attention(q, k, v)
+    assert flash_attention_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention_cuda(q, k, v)

@@ -69,3 +69,15 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, model.init(0))
     ServingEngine(model, model.init(0), device="cpu")
+
+
+def test_train_entry_point_needs_a_card_unless_told_cpu(monkeypatch):
+    from repro_torch.launch.train import main, run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run("llama3.2-3b", steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "llama3.2-3b", "--steps", "1"])
+    out = run("llama3.2-3b", steps=1, batch=1, seq_len=8, log_every=0,
+              device="cpu")
+    assert out["steps"] == 1 and out["losses"] == []
