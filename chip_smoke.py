@@ -1,51 +1,80 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
   python3 chip_smoke.py
 
-Builds the CUDA kernels from ``src/repro_torch/csrc`` and runs, in order:
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+source, all started together) and runs, in order:
 
 1. the environment line (``nvidia-smi`` name and power limit, torch and CUDA
    versions, kernel build time);
-2. each kernel against its plain PyTorch version on the card, in fp32 and
-   bf16, at the serving engine's full-width shapes and at edge cases (page
-   size 8, G=2/D=16, a window, FAIL page ids), with kernel, plain and
-   library (SDPA on pre-gathered KV, timed only) times beside the memory
-   bound;
-3. the serve phase: llama3.2-3b at full width and depth (28 layers, bf16,
-   random weights from a seed) behind ``ServingEngine(batch_slots=4,
+2. ``kernels``: each decode kernel against its plain PyTorch version on the
+   card, in fp32 and bf16, at the serving engine's full-width shapes and at
+   edge cases (page size 8, G=2/D=16, a window, FAIL page ids), with
+   kernel, plain and library (SDPA on pre-gathered KV, timed only) times
+   beside the memory bound;
+3. ``serve``: llama3.2-3b at full width and depth (28 layers, bf16, random
+   weights from a seed) behind ``ServingEngine(batch_slots=4,
    page_size=16, max_len=512)``, then the contiguous-cache decode
    (``Model.decode_step``) teacher-forced on the first four requests and
    held to the engine's logits and argmax; then the same traffic again on
    a fresh engine, with ``torch.profiler`` over a window of ticks in which
    all four slots are busy (device busy share, kernels per tick, the top
    device kernels and host operators);
-4. the identity phase: fp32, full width, 4 layers; the engine's greedy
-   streams must equal the contiguous decode's token for token;
-5. the flash kernel against its plain version, fp32 and bf16, at the
-   training shape (B 2, S 1024, 32 heads over 8 KV heads, D 128, causal),
-   a ragged shape (Sq = Sk = 1000), a window of 128, a q_offset with
-   Sq < Sk, and G = 1 with D = 16; the q/k/v gradients through the op
+4. ``identity``: fp32, full width, 4 layers; the engine's greedy streams
+   must equal the contiguous decode's token for token;
+5. ``flash``: the flash kernel against its plain version, fp32 and bf16, at
+   the training shape (B 2, S 1024, 32 heads over 8 KV heads, D 128,
+   causal), a ragged shape (Sq = Sk = 1000), a window of 128, a q_offset
+   with Sq < Sk, and G = 1 with D = 16; the q/k/v gradients through the op
    against autograd through the plain version at the training shape;
    kernel, plain and SDPA (timed only) times beside the flops bound;
-6. the prefill phase: fp32, full width, 4 layers, TF32 off: the logits of
+6. ``prefill``: fp32, full width, 4 layers, TF32 off: the logits of
    ``Model.forward`` against the contiguous ``decode_step`` teacher-forced
    over the same prompt (every position within 1e-3, the same argmax),
    and ``Model.prefill`` followed by 8 greedy decode steps against pure
    decode (the same stream); the serve phase adds the bf16 full-depth
    forward-vs-decode difference, printed without a gate;
-7. the train phase: ``launch/train.run`` trains llama3.2-3b at full width
-   and depth (28 layers, bf16, remat "full", batch 2 x 1024 tokens from
+7. ``train``: ``launch/train.run`` trains llama3.2-3b at full width and
+   depth (28 layers, bf16, remat "full", batch 2 x 1024 tokens from
    ``SyntheticLM``) for 4 steps through ``device_run`` with one immediate
    hook that logs the loss: losses, ms/step, tokens/s, train_mfu, the
-   flash kernel's launches and the peak device memory; then, outside the
-   counted path, one step timed in halves (forward + backward, AdamW) and
-   one under ``torch.profiler`` (device time by kernel kind, top kernels).
+   flash kernel's launches and the peak device memory;
+8. ``train_profile``: outside the counted path, one llama step timed in
+   halves (forward + backward, AdamW) and one under ``torch.profiler``
+   (device time by kernel kind, top kernels);
+9. ``ssd_kernel``: the SSD scan kernel against its plain version, fp32 and
+   bf16, y and the final state, at mamba2's prefill shape (B 4, S 2048,
+   24 heads, P 64, N 128, chunk 256), at S = 1000 through the op (padded),
+   at S = 100 (chunk = S) and at the shapes of tests/test_kernels.py;
+   kernel and plain times beside the bound (no single PyTorch call
+   computes SSD, so no library time);
+10. ``ssm_serve``: mamba2-130m at full width and depth (24 layers, bf16,
+    random weights from a seed), served through ``Model.prefill`` and
+    greedy ``Model.decode_step`` (the ssm family's serving path): one
+    batch of 4 prompts x 2048 tokens and 64 steps, then one 1000-token
+    prompt and 16 steps; prefill ms and tokens/s, decode ms/step and
+    tok/s, ssd_scan launches (24 per prefill); then ``torch.profiler``
+    over 8 decode steps at batch 4 and over the 1000-token prefill
+    (``ssm_profile`` lines: host and device time, kernels, top operators);
+    then the bf16 full-depth forward-vs-decode difference, printed
+    without a gate;
+11. ``ssm_prefill``: fp32, full width, 4 layers, TF32 off: mamba2's
+    ``Model.forward`` logits against the teacher-forced ``decode_step``
+    over 300 tokens (within 1e-3, the same argmax), and ``Model.prefill``
+    plus 8 greedy steps against pure decode (the same stream);
+12. ``ssm_train``: ``launch/train.run("mamba2-130m", preset="full")`` for
+    4 steps of batch 8 x 2048 through ``device_run``: losses (finite;
+    whether they fall), ms/step, tokens/s, ssd_scan launches (48 a step:
+    forward and remat recompute), peak memory;
+13. ``ssm_train_profile``: phase 8 for the mamba2 step.
 
 Every phase raises on failure.  The kernels' launch counts are reset just
-before phase 3 and read just after it, and again around phase 7.  The
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script exits with code 1 and prints no result.
+before each counted path (phases 3, 7, 10 and 12) and read just after it;
+each path's count must be the exact number its depth and steps give.  The
+last lines are the ``kernels`` line, the ``nvidia-smi`` line and
+``{"ok": true, "device": {...}}``.  Without a CUDA
+device the script exits with code 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -68,6 +97,14 @@ LOGIT_ATOL_BF16 = 0.05           # engine vs contiguous decode, bf16 logits
 LOGIT_ATOL_FP32 = 1e-3           # forward vs contiguous decode, fp32 logits
 SERVE_LAYERS = 28
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 1024
+SSM_LAYERS = 24
+SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 8, 2048
+# The fp32 SSD kernel at mamba2's prefill shape, against a float64 plain
+# version: within this multiple of the fp32 plain version's own distance
+# from float64.  Both distances come from fp32 rounding (the chunk cumsum
+# of dt * A among it), whose size depends on the order of the sums, not on
+# the kernel's correctness; 4x leaves room for another order.
+SSD_FP64_MULT = 4.0
 
 
 def log(obj) -> None:
@@ -761,9 +798,10 @@ def train_phase():
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(l)
                                              for l in losses):
         raise AssertionError(f"training losses not finite: {losses}")
-    if launches < cfg.num_layers * TRAIN_STEPS:
+    if launches != 2 * cfg.num_layers * TRAIN_STEPS:
         raise AssertionError(f"flash_attention launched {launches} times in "
-                             f"{TRAIN_STEPS} steps x {cfg.num_layers} layers")
+                             f"{TRAIN_STEPS} steps x {cfg.num_layers} "
+                             "layers, forward and remat recompute")
     torch.cuda.empty_cache()
     return {"flash_attention": launches}
 
@@ -771,13 +809,49 @@ def train_phase():
 def _kernel_kind(name: str) -> str:
     if "flash_fwd" in name:
         return "flash"
+    if "ssd_" in name:
+        return "ssd_scan"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma",
                                "cublas")):
         return "gemm"
     return "other"
 
 
-def train_profile():
+def _profile_summary(prof, calls, wall_ms):
+    """Per-call host and device time of a ``torch.profiler`` window over
+    ``calls`` calls whose unprofiled time was ``wall_ms`` a call."""
+    events = prof.key_averages()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    kinds = {}
+    for e in dev:
+        k = _kernel_kind(e.key)
+        kinds[k] = kinds.get(k, 0.0) + _dev_us(e) / 1e3 / calls
+    busy_ms = sum(kinds.values())
+    if busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return {
+        "calls": calls, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "device_ms_by_kind": kinds,
+        "kernels": sum(e.count for e in dev) / calls,
+        "host_op_self_ms": sum(e.self_cpu_time_total for e in host)
+        / 1e3 / calls,
+        "top_device_ms": [[e.key[:70], _dev_us(e) / 1e3 / calls,
+                           e.count / calls]
+                          for e in sorted(dev, key=_dev_us,
+                                          reverse=True)[:8]],
+        "top_host_self_ms": [[e.key[:50], e.self_cpu_time_total / 1e3
+                              / calls, e.count / calls]
+                             for e in sorted(host,
+                                             key=lambda e:
+                                             e.self_cpu_time_total,
+                                             reverse=True)[:10]]}
+
+
+def train_profile(arch="llama3.2-3b", rows=TRAIN_BATCH, seq=TRAIN_SEQ):
     """Where a full-width training step's time goes: one warm step, then
     one step timed in two synchronised halves (forward + backward, then
     the AdamW update), then one step under ``torch.profiler`` (device time
@@ -792,13 +866,13 @@ def train_profile():
     from repro_torch.train.step import make_train_step
     from repro_torch.tree import leaves, tree_map
 
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
     model = build_model(cfg, device="cuda")
     params = model.init(seed=0)
     opt = adamw_init(params)
     opt_cfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
     step_fn = make_train_step(model, opt_cfg)
-    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    data = SyntheticLM(cfg.vocab_size, seq, rows)
     _, batch = data.batch_at(rand_init(1234, device="cuda"), 0)
     params, opt, _ = step_fn(params, opt, batch)
     torch.cuda.synchronize()
@@ -818,26 +892,415 @@ def train_profile():
         params, opt, _ = step_fn(params, opt, batch)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    kinds = {}
-    for e in dev:
-        k = _kernel_kind(e.key)
-        kinds[k] = kinds.get(k, 0.0) + _dev_us(e) / 1e3
-    busy_ms = sum(kinds.values())
-    if busy_ms <= 0:
-        raise AssertionError("the profiler saw no device time in the train "
-                             "step")
     log({"train_profile": {
+        "arch": arch, "batch": rows, "seq_len": seq,
         "fwd_bwd_ms": (t1 - t0) * 1e3, "adamw_ms": (t2 - t1) * 1e3,
-        "profiled_step_ms": (t4 - t3) * 1e3, "device_busy_ms": busy_ms,
-        "device_ms_by_kind": kinds,
-        "kernels": int(sum(e.count for e in dev)),
-        "top_device_ms": [[e.key[:70], _dev_us(e) / 1e3, e.count]
-                          for e in sorted(dev, key=_dev_us,
-                                          reverse=True)[:12]]}})
+        "profiled_step_ms": (t4 - t3) * 1e3,
+        **_profile_summary(prof, 1, (t2 - t0) * 1e3)}})
     del params, opt, model, step_fn
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the SSD scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(gen, B, S, H, P, N, dt_x, dt_bc):
+    """Drawn as tests/test_kernels.py draws them: x and B, C normal in their
+    dtypes, dt = softplus(normal), A = -exp(normal), D normal (fp32)."""
+    def rnd(shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    x = rnd((B, S, H, P), dt_x)
+    dt = torch.nn.functional.softplus(rnd((B, S, H)))
+    A = -torch.exp(rnd((H,)))
+    return x, dt, A, rnd((B, S, N), dt_bc), rnd((B, S, N), dt_bc), rnd((H,))
+
+
+def _ssd_bound(x, B_, chunk):
+    """Least time: x, dt, B, C read once, y and the final state written
+    once at the memory rate, against 2Q^2 N + H (2Q^2 P + 4QPN) flops per
+    (batch, chunk) at the peak of x's dtype.  Returns (ms, bound_by)."""
+    bsz, S, H, P = x.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    es, es_bc = x.element_size(), B_.element_size()
+    bytes_ = 2 * bsz * S * H * P * es + 4 * bsz * S * H + \
+        2 * bsz * S * N * es_bc + 4 * bsz * H * P * N + 8 * H
+    flops = bsz * nc * (2 * Q * Q * N + H * (2 * Q * Q * P + 4 * Q * P * N))
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_kernel_phase(card_line):
+    """The SSD kernel against its plain version in fp32 and bf16, for y and
+    the final state: at the prefill shape of mamba2 (B 4, S 2048, H 24,
+    P 64, N 128, chunk 256; bf16 B and C as the model gives them), at
+    S = 1000 through the op (padded to 1024), at S = 100 (Q = S), and at
+    the shapes of tests/test_kernels.py (bf16 x with fp32 B and C, as that
+    test draws them).  The tolerances are the repo's (fp32 2e-5, bf16 3e-2,
+    atol and rtol).  At the prefill shape the fp32 kernel is also held
+    against a float64 plain version: no further from it than
+    ``SSD_FP64_MULT`` times the fp32 plain version is.  Kernel and plain
+    times (CUDA events, L2 flushed) at the prefill shape.  Then the op's
+    gradients (backward recomputed through the plain version) against
+    autograd through the plain version at the training shape, with the
+    forward + backward times of both."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    timer = Timer(iters=20)
+    summary = {}
+
+    def plain_op(args, chunk):
+        """The op's plain path: zero-pad S to the chunk, scan, slice."""
+        x = args[0]
+        S = x.shape[1]
+        pad = (-S) % min(chunk, S)
+        if pad:
+            args = [F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
+                    if a.ndim > 1 else a for a in args]
+        y, fs = ssd_scan_reference(*args, chunk=chunk)
+        return y[:, :S], fs
+
+    for dt in (torch.float32, torch.bfloat16):
+        dtn = str(dt).split(".")[-1]
+        for case, (B, S, H, P, N, chunk, bc_model, via_op, timed) in {
+            "prefill": (4, 2048, 24, 64, 128, 256, True, False, True),
+            "s1000_op": (1, 1000, 24, 64, 128, 256, True, True, False),
+            "s100": (4, 100, 24, 64, 128, 256, True, False, False),
+            "tk_64": (2, 64, 3, 8, 16, 16, False, False, False),
+            "tk_32": (1, 32, 2, 4, 8, 8, False, False, False),
+        }.items():
+            args = _ssd_inputs(gen, B, S, H, P, N, dt,
+                               dt if bc_model else torch.float32)
+            if via_op:
+                y, fs = ssd_scan(*args, chunk=chunk)
+            else:
+                y, fs = ssd_scan_cuda(*args, chunk=chunk)
+            ry, rfs = plain_op(args, chunk)
+            torch.cuda.synchronize()
+            tol = TOL[dtn]
+            errs, ok = [], bool(torch.isfinite(y).all()
+                                and torch.isfinite(fs).all())
+            for out, ref in ((y, ry), (fs, rfs)):
+                e = (out.float() - ref.float()).abs()
+                errs.append(float(e.max()))
+                ok = ok and bool(torch.all(e <= tol * (1 + ref.float()
+                                                       .abs())))
+            rec = {"kernel": "ssd_scan", "case": case, "dtype": dtn,
+                   "shape": [B, S, H, P, N], "chunk": min(chunk, S),
+                   "bc_dtype": str(args[3].dtype).split(".")[-1],
+                   "max_abs_err_y_state": errs, "max_abs_err": max(errs),
+                   "tol": tol, "ok": ok}
+            if case == "prefill" and dtn == "float32":
+                # Against float64: the fp32 kernel may be no further from
+                # it than SSD_FP64_MULT times the fp32 plain version is.
+                y64, fs64 = ssd_scan_reference(
+                    *[a.double() for a in args], chunk=chunk)
+                k64 = [float((y.double() - y64).abs().max()),
+                       float((fs.double() - fs64).abs().max())]
+                p64 = [float((ry.double() - y64).abs().max()),
+                       float((rfs.double() - fs64).abs().max())]
+                rec.update(kernel_vs_fp64_max_abs_err_y_state=k64,
+                           plain_vs_fp64_max_abs_err_y_state=p64,
+                           fp64_mult=SSD_FP64_MULT)
+                ok = ok and all(k <= SSD_FP64_MULT * q
+                                for k, q in zip(k64, p64))
+                rec["ok"] = ok
+                del y64, fs64
+            if timed:
+                bound = _ssd_bound(args[0], args[3], chunk)
+                rec.update(
+                    kernel_ms=timer(lambda: ssd_scan_cuda(*args,
+                                                          chunk=chunk)),
+                    plain_ms=timer(lambda: ssd_scan_reference(*args,
+                                                              chunk=chunk)),
+                    library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+                    card=card_line)
+            log(rec)
+            if not ok:
+                raise AssertionError(f"ssd_scan {case} {dtn} disagrees with "
+                                     f"its plain version: {rec}")
+            if case == "prefill" and dtn == "bfloat16":
+                summary = rec
+            del args, y, fs, ry, rfs
+        # gradients through the op against autograd through the plain
+        # version, at the training shape (B 8, S 2048), y's cotangent only
+        args = _ssd_inputs(gen, 8, 2048, 24, 64, 128, dt, dt)
+        g = torch.randn(args[0].shape, generator=gen, device="cuda").to(dt)
+        a = [t.clone().requires_grad_() for t in args]
+        b = [t.clone().requires_grad_() for t in args]
+        ga = torch.autograd.grad(ssd_scan(*a, chunk=256)[0], a, g)
+        gb = torch.autograd.grad(ssd_scan_reference(*b, chunk=256)[0], b, g)
+        errs = [float((x.float() - y.float()).abs().max())
+                for x, y in zip(ga, gb)]
+        ok = all(bool(torch.all((x.float() - y.float()).abs()
+                                <= TOL[dtn] * (1 + y.float().abs())))
+                 and bool(torch.isfinite(x).all()) for x, y in zip(ga, gb))
+        # forward + backward of one layer's scan, as training runs it
+        op_ms = timer(lambda: torch.autograd.grad(
+            ssd_scan(*a, chunk=256)[0], a, g))
+        plain_ms = timer(lambda: torch.autograd.grad(
+            ssd_scan_reference(*b, chunk=256)[0], b, g))
+        log({"kernel": "ssd_scan", "case": "train_grads", "dtype": dtn,
+             "shape": [8, 2048, 24, 64, 128],
+             "max_abs_err_dx_ddt_dA_dB_dC_dD": errs, "tol": TOL[dtn],
+             "ok": ok, "op_fwd_bwd_ms": op_ms, "plain_fwd_bwd_ms": plain_ms,
+             "card": card_line})
+        if not ok:
+            raise AssertionError(f"ssd_scan gradients {dtn} disagree")
+        del args, g, a, b, ga, gb
+    del timer
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: serve mamba2-130m at full width and depth (prefill + decode)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def _prefill_and_greedy(model, params, prompt, n):
+    """``Model.prefill`` of ``prompt`` (B, S), then ``n`` greedy decode
+    steps.  Returns (tokens (B, n + 1), prefill s, decode s, last logits);
+    both times end in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompt},
+                                  prompt.shape[1] + n + 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [logits.argmax(-1)]
+    for _ in range(n):
+        logits, cache = model.decode_step(params, cache, out[-1])
+        out.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return torch.stack(out, dim=1), t1 - t0, t2 - t1, logits
+
+
+def ssm_serve_phase():
+    """mamba2-130m at full width and depth (24 layers, bf16, random weights
+    from seed 0), served as the JAX package serves the ssm family: one
+    ``Model.prefill`` of 4 prompts x 2048 tokens (8 chunks each) and 64
+    greedy ``decode_step``s, then one 1000-token prompt (padded to 1024 by
+    the op) and 16 steps.  The ssd_scan count is reset just before and read
+    just after (24 launches a prefill).  Then the bf16 full-depth
+    forward-vs-decode difference, printed without a gate."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-130m")
+    assert cfg.num_layers == SSM_LAYERS and cfg.d_inner == 1536
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[ssm_serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads "
+        f"of P {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+        f"{cfg.ssd_chunk}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}, tied), {n_params} parameters "
+        f"({cfg.param_dtype})")
+    rng = np.random.default_rng(17)
+    batch = torch.tensor(rng.integers(1, cfg.vocab_size, (4, 2048)),
+                         device="cuda")
+    single = torch.tensor(rng.integers(1, cfg.vocab_size, (1, 1000)),
+                          device="cuda")
+    _prefill_and_greedy(model, params, batch[:1, :256], 2)   # warm-up
+
+    # main path: counts from 0 just before, read just after
+    ssd_scan_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, prompt, n in (("batch4_2048", batch, 64),
+                            ("single_1000", single, 16)):
+        toks, t_pre, t_dec, logits = _prefill_and_greedy(model, params,
+                                                          prompt, n)
+        B, S = prompt.shape
+        runs[name] = {"batch": B, "prompt": S, "new_tokens": n + 1,
+                      "prefill_ms": t_pre * 1e3,
+                      "prefill_tok_per_s": B * S / t_pre,
+                      "decode_ms_per_step": t_dec / n * 1e3,
+                      "decode_tok_per_s": B * n / t_dec,
+                      "stream_head": toks[0, :8].tolist()}
+        if not (torch.isfinite(logits[:, :cfg.vocab_size]).all()
+                and bool((toks < cfg.vocab_size).all())):
+            raise AssertionError(f"ssm serve {name}: non-finite logits or "
+                                 "a pad token")
+    torch.cuda.synchronize()
+    launches = ssd_scan_cuda.launches
+    log({"ssm_serve": {"runs": runs, "ssd_scan_launches": launches,
+                       "expected": 2 * cfg.num_layers,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated()
+                       / 1e9}})
+    if launches != 2 * cfg.num_layers:
+        raise AssertionError(f"ssd_scan launched {launches} times in two "
+                             f"prefills of {cfg.num_layers} layers")
+    ssm_serve_profile(model, params, batch, single)
+    fwd, dec = _forward_vs_decode(model, params, batch[:1, :64])
+    real = slice(0, cfg.vocab_size)
+    log({"ssm_forward_vs_decode_bf16": {
+        "layers": cfg.num_layers, "positions": 64,
+        "max_abs_logit_diff": float((fwd[..., real] - dec[..., real]).abs()
+                                    .max()),
+        "same_argmax_share": float((fwd.argmax(-1) == dec.argmax(-1))
+                                   .float().mean())}})
+    del params, model, fwd, dec
+    torch.cuda.empty_cache()
+    return launches
+
+
+@torch.no_grad()
+def ssm_serve_profile(model, params, batch, single, steps=8):
+    """Where mamba2's serving time goes, outside the counted path: greedy
+    decode at batch 4 after a 2048-token prefill (4 warm steps, ``steps``
+    steps timed, ``steps`` more under ``torch.profiler``), then the
+    1000-token prefill (once timed, once profiled)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def decode(cache, tok, n):
+        for _ in range(n):
+            logits, cache = model.decode_step(params, cache, tok)
+            tok = logits.argmax(-1)
+        return cache, tok
+
+    logits, cache = model.prefill(params, {"tokens": batch},
+                                  batch.shape[1] + 4 + 2 * steps + 1)
+    cache, tok = decode(cache, logits.argmax(-1), 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, tok = decode(cache, tok, steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cache, tok = decode(cache, tok, steps)
+        torch.cuda.synchronize()
+    log({"ssm_profile": {"what": "decode_step", "batch": batch.shape[0],
+                         **_profile_summary(prof, steps, wall)}})
+    del cache
+    prompt = {"tokens": single}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, prompt, single.shape[1] + 1)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill(params, prompt, single.shape[1] + 1)
+        torch.cuda.synchronize()
+    log({"ssm_profile": {"what": "prefill", "batch": 1,
+                         "prompt": single.shape[1],
+                         **_profile_summary(prof, 1, wall)}})
+
+
+def ssm_prefill_phase():
+    """fp32, full width, 4 layers, TF32 off: ``Model.forward`` logits of
+    mamba2 against the teacher-forced ``decode_step`` over the same 300
+    tokens (2 chunks through the kernel; every position within 1e-3, the
+    same argmax), and ``Model.prefill`` of 280 tokens followed by 8 greedy
+    steps against pure decode (the same stream)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("mamba2-130m"), num_layers=4,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=3)
+    rng = np.random.default_rng(19)
+    prompt = torch.tensor(rng.integers(1, cfg.vocab_size, (2, 300)),
+                          device="cuda")
+    fwd, dec = _forward_vs_decode(model, params, prompt)
+    diff = float((fwd - dec).abs().max())
+    same = bool(torch.equal(fwd.argmax(-1), dec.argmax(-1)))
+    log({"ssm_forward_vs_decode_fp32": {"layers": cfg.num_layers,
+                                        "shape": list(prompt.shape),
+                                        "max_abs_logit_diff": diff,
+                                        "tol": LOGIT_ATOL_FP32,
+                                        "same_argmax": same}})
+    if not (diff <= LOGIT_ATOL_FP32 and same
+            and bool(torch.isfinite(fwd).all())):
+        raise AssertionError("ssm fp32 forward and decode disagree")
+    with_prefill, pure = _greedy_streams(model, params, prompt[:, :280], 8)
+    log({"ssm_prefill_vs_decode_fp32": {"prefill": with_prefill,
+                                        "decode": pure}})
+    if with_prefill != pure:
+        raise AssertionError("ssm prefill + decode stream != pure decode")
+    del model, params, fwd, dec
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: train mamba2-130m at full width and depth
+# ---------------------------------------------------------------------------
+
+def ssm_train_phase():
+    """``launch/train.run("mamba2-130m", preset="full", steps=4, batch=8,
+    seq_len=2048)`` through ``device_run``: losses finite (and whether they
+    fall), ms/step over steps 2-4, tokens/s, ssd_scan launches (48 a step:
+    the forward and the remat recompute of 24 layers), peak memory."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.launch.train import run
+
+    cfg = get_config("mamba2-130m")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # main path: counts from 0 just before, read just after
+    ssd_scan_cuda.launches = 0
+    out = run("mamba2-130m", preset="full", steps=SSM_TRAIN_STEPS,
+              batch=SSM_TRAIN_BATCH, seq_len=SSM_TRAIN_SEQ, log_every=1,
+              device="cuda")
+    torch.cuda.synchronize()
+    launches = ssd_scan_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in out["losses"]]
+    times = out["log_times"]
+    steady = [b - a for a, b in zip(times, times[1:])]   # steps 2..n
+    step_s = sum(steady) / len(steady)
+    rec = {"arch": cfg.name, "layers": cfg.num_layers,
+           "steps": SSM_TRAIN_STEPS, "batch": SSM_TRAIN_BATCH,
+           "seq_len": SSM_TRAIN_SEQ, "losses": losses,
+           "losses_fall": losses[-1] < losses[0],
+           "first_step_s": times[0], "ms_per_step": step_s * 1e3,
+           "tokens_per_s": SSM_TRAIN_BATCH * SSM_TRAIN_SEQ / step_s,
+           "ssd_scan_launches": launches,
+           "expected_launches_fwd_plus_remat": 2 * cfg.num_layers *
+           SSM_TRAIN_STEPS, "peak_mem_gb": peak / 1e9,
+           "seconds": out["seconds"]}
+    log({"ssm_train": rec})
+    if len(losses) != SSM_TRAIN_STEPS or not all(math.isfinite(l)
+                                                 for l in losses):
+        raise AssertionError(f"ssm training losses not finite: {losses}")
+    if launches != 2 * cfg.num_layers * SSM_TRAIN_STEPS:
+        raise AssertionError(f"ssd_scan launched {launches} times in "
+                             f"{SSM_TRAIN_STEPS} steps x {cfg.num_layers} "
+                             "layers, forward and remat recompute")
+    torch.cuda.empty_cache()
+    return launches
+
+
+SOURCES = {
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:86"),
+    "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention/kernel.py:82"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:94"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:83"),
+}
 
 
 def main() -> int:
@@ -849,8 +1312,7 @@ def main() -> int:
 
     card_line = nvidia_smi()
     t0 = time.perf_counter()
-    _build.build_all(["decode_attention", "paged_attention",
-                      "flash_attention"])
+    _build.build_all(list(SOURCES))
     log({"env": {"nvidia_smi": card_line, "torch": torch.__version__,
                  "cuda": torch.version.cuda, "python": sys.version.split()[0],
                  "kernel_build_s": time.perf_counter() - t0}})
@@ -863,27 +1325,26 @@ def main() -> int:
     prefill_phase()
     launches.update(train_phase())
     train_profile()
+    summary["ssd_scan"] = ssd_kernel_phase(card_line)
+    by_path = {"ssm_serve": ssm_serve_phase()}
+    ssm_prefill_phase()
+    by_path["ssm_train"] = ssm_train_phase()
+    launches["ssd_scan"] = sum(by_path.values())
+    train_profile("mamba2-130m", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
 
-    sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention/"
-                                    "kernel.py:86"),
-               "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                                   "src/repro/kernels/paged_attention/"
-                                   "kernel.py:82"),
-               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention/"
-                                   "kernel.py:94")}
     kernels = []
-    for name in ("decode_attention", "paged_attention", "flash_attention"):
+    for name, (source, replaces) in SOURCES.items():
         rec = summary[name]
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the main path")
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        if name == "ssd_scan":
+            kernels[-1]["launches_by_path"] = by_path
     log({"kernels": kernels})
     log(card_line)
     log({"ok": True, "device": {"platform": "gpu", "kind": card,

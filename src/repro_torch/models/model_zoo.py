@@ -1,4 +1,7 @@
-"""Model facade over the ported families (dense so far)."""
+"""Model facade over the ported families: dense (llama3.2-3b) and ssm
+(mamba2-130m).  The ssm family keeps recurrent caches (conv history and SSD
+state per layer) and, as in the JAX package, is served through
+``Model.prefill`` and ``Model.decode_step``, not the paged engine."""
 from __future__ import annotations
 
 import dataclasses
@@ -53,4 +56,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
+    """The facade for ``cfg`` on ``device``; a family that is not ported
+    yet raises."""
+    transformer.check_family(cfg)
     return Model(cfg, resolve_device(device))
