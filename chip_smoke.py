@@ -67,14 +67,40 @@ source, all started together) and runs, in order:
     4 steps of batch 8 x 2048 through ``device_run``: losses (finite;
     whether they fall), ms/step, tokens/s, ssd_scan launches (48 a step:
     forward and remat recompute), peak memory;
-13. ``ssm_train_profile``: phase 8 for the mamba2 step.
+13. ``ssm_train_profile``: phase 8 for the mamba2 step;
+14. ``rglru_scan``: the RG-LRU scan kernel against its plain version, fp32
+    and bf16, h and h_last, at recurrentgemma-9b's prefill shape (B 2,
+    S 3072, W 4096), at S = 1000 and at the shapes of
+    tests/test_kernels.py; kernel and plain times beside the bytes bound
+    (no single PyTorch call computes the recurrence);
+15. ``hybrid_*`` kernel lines: flash at head_dim 256 (16 heads over 1 KV
+    head, causal, window 2048; B 2 x S 3072 and 1 x 1000) and decode at
+    G = 16, D = 256 (a full 2048-slot ring, and ragged lengths), each
+    against its plain version in fp32 and bf16, with SDPA under the same
+    mask timed beside them;
+16. ``hybrid_serve``: recurrentgemma-9b at full width and depth (38
+    layers, 26 RG-LRU and 12 local attention, bf16, random weights from a
+    seed) through ``Model.prefill`` and greedy ``Model.decode_step``: 2
+    prompts x 3072 tokens with max_len 4096 and 32 steps, then 1 x 1000
+    and 16 steps; prefill ms and tokens/s, decode ms/step and tok/s, peak
+    memory, and the exact launches (rglru_scan 26 and flash 12 a prefill,
+    decode 12 a step); then ``hybrid_profile`` (decode and the 1000-token
+    prefill under ``torch.profiler``) and the bf16 full-depth
+    forward-vs-decode difference, printed without a gate;
+17. ``hybrid_prefill``: fp32, full width, 3 layers, TF32 off:
+    ``Model.forward`` over 2064 tokens against ``Model.prefill`` of 2040
+    and 24 teacher-forced decode steps that wrap the 2048-slot ring
+    (within 1e-3, the same argmax), and prefill plus 8 greedy steps
+    against pure decode (the same stream).
 
 Every phase raises on failure.  The kernels' launch counts are reset just
-before each counted path (phases 3, 7, 10 and 12) and read just after it;
-each path's count must be the exact number its depth and steps give.  The
-last lines are the ``kernels`` line, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.  Without a CUDA
-device the script exits with code 1 and prints no result.
+before each counted path (phases 3, 7, 10, 12 and 16) and read just after
+it; each path's count must be the exact number its depth and steps give.
+The ``env`` line carries each source's ``ptxas -v`` summary (registers and
+spills).  The last lines are the ``kernels`` line (with the launches of
+each path, and for flash and decode their numbers at the hybrid shapes),
+the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a
+CUDA device the script exits with code 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -99,6 +125,10 @@ SERVE_LAYERS = 28
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 1024
 SSM_LAYERS = 24
 SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 8, 2048
+HYBRID_LAYERS, HYBRID_REC, HYBRID_ATTN = 38, 26, 12
+HYBRID_MAX_LEN = 4096
+# (name, batch, prompt tokens, greedy steps) of the hybrid serve phase
+HYBRID_RUNS = (("batch2_3072", 2, 3072, 32), ("single_1000", 1, 1000, 16))
 # The fp32 SSD kernel at mamba2's prefill shape, against a float64 plain
 # version: within this multiple of the fp32 plain version's own distance
 # from float64.  Both distances come from fp32 rounding (the chunk cumsum
@@ -811,6 +841,11 @@ def _kernel_kind(name: str) -> str:
         return "flash"
     if "ssd_" in name:
         return "ssd_scan"
+    if any(k in name for k in ("chunk_scan", "chunk_aggregates",
+                               "chunk_carries")):
+        return "rglru_scan"
+    if "split_kernel" in name or "combine_kernel" in name:
+        return "decode_attention"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma",
                                "cublas")):
         return "gemm"
@@ -1065,14 +1100,14 @@ def ssd_kernel_phase(card_line):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def _prefill_and_greedy(model, params, prompt, n):
-    """``Model.prefill`` of ``prompt`` (B, S), then ``n`` greedy decode
-    steps.  Returns (tokens (B, n + 1), prefill s, decode s, last logits);
-    both times end in a synchronise."""
+def _prefill_and_greedy(model, params, prompt, n, max_len=None):
+    """``Model.prefill`` of ``prompt`` (B, S) with ``max_len`` (S + n + 1 by
+    default), then ``n`` greedy decode steps.  Returns (tokens (B, n + 1),
+    prefill s, decode s, last logits); both times end in a synchronise."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, {"tokens": prompt},
-                                  prompt.shape[1] + n + 1)
+                                  max_len or prompt.shape[1] + n + 1)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     out = [logits.argmax(-1)]
@@ -1158,11 +1193,13 @@ def ssm_serve_phase():
 
 
 @torch.no_grad()
-def ssm_serve_profile(model, params, batch, single, steps=8):
-    """Where mamba2's serving time goes, outside the counted path: greedy
-    decode at batch 4 after a 2048-token prefill (4 warm steps, ``steps``
-    steps timed, ``steps`` more under ``torch.profiler``), then the
-    1000-token prefill (once timed, once profiled)."""
+def ssm_serve_profile(model, params, batch, single, steps=8,
+                      tag="ssm_profile"):
+    """Where a recurrent model's serving time goes, outside the counted
+    path: greedy decode after a prefill of ``batch`` (4 warm steps,
+    ``steps`` steps timed, ``steps`` more under ``torch.profiler``), then
+    the prefill of ``single`` (once timed, once profiled); logged as
+    ``tag`` lines."""
     from torch.profiler import ProfilerActivity, profile
 
     def decode(cache, tok, n):
@@ -1183,8 +1220,8 @@ def ssm_serve_profile(model, params, batch, single, steps=8):
                              ProfilerActivity.CUDA]) as prof:
         cache, tok = decode(cache, tok, steps)
         torch.cuda.synchronize()
-    log({"ssm_profile": {"what": "decode_step", "batch": batch.shape[0],
-                         **_profile_summary(prof, steps, wall)}})
+    log({tag: {"what": "decode_step", "batch": batch.shape[0],
+               **_profile_summary(prof, steps, wall)}})
     del cache
     prompt = {"tokens": single}
     torch.cuda.synchronize()
@@ -1196,9 +1233,8 @@ def ssm_serve_profile(model, params, batch, single, steps=8):
                              ProfilerActivity.CUDA]) as prof:
         model.prefill(params, prompt, single.shape[1] + 1)
         torch.cuda.synchronize()
-    log({"ssm_profile": {"what": "prefill", "batch": 1,
-                         "prompt": single.shape[1],
-                         **_profile_summary(prof, 1, wall)}})
+    log({tag: {"what": "prefill", "batch": 1, "prompt": single.shape[1],
+               **_profile_summary(prof, 1, wall)}})
 
 
 def ssm_prefill_phase():
@@ -1241,7 +1277,7 @@ def ssm_prefill_phase():
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: train mamba2-130m at full width and depth
+# Phase 12: train mamba2-130m at full width and depth
 # ---------------------------------------------------------------------------
 
 def ssm_train_phase():
@@ -1291,6 +1327,370 @@ def ssm_train_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the RG-LRU scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _rglru_bound(a, b):
+    """Least time: a and b read once, h (b's dtype) and h_last (fp32)
+    written once at the memory rate, against one multiply and one add per
+    element at the fp32 peak of the CUDA cores.  Returns (ms, bound_by)."""
+    B, S, W = a.shape
+    bytes_ = B * S * W * (a.element_size() + 2 * b.element_size()) + 4 * B * W
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * B * S * W / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rglru_kernel_phase(card_line):
+    """The RG-LRU scan kernel against its plain version in fp32 and bf16,
+    h and h_last: at the serve shape of recurrentgemma-9b's prefill (B 2,
+    S 3072, W 4096), at S = 1000 (no multiple of 256) and at the shapes of
+    tests/test_kernels.py; a = sigmoid(normal), b = normal, as that test
+    draws them.  Tolerances fp32 2e-5, bf16 3e-2 (atol and rtol).  Kernel
+    and plain times (CUDA events, L2 flushed, median of 20) at the serve
+    shape beside the bytes bound; no single PyTorch call computes the
+    recurrence (a cumprod/cumsum rewrite divides by underflowing products),
+    so no library time."""
+    from repro_torch.kernels.rglru_scan.kernel import linear_scan_cuda
+    from repro_torch.kernels.rglru_scan.ref import linear_scan_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    timer = Timer(iters=20)
+    summary = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dtn = str(dt).split(".")[-1]
+        for case, (B, S, W, timed) in {
+            "serve": (2, 3072, 4096, True),
+            "s1000": (1, 1000, 4096, False),
+            "tk_128": (2, 128, 64, False),
+            "tk_64": (1, 64, 16, False),
+            "tk_96": (3, 96, 32, False),
+        }.items():
+            a = torch.sigmoid(torch.randn((B, S, W), generator=gen,
+                                          device="cuda")).to(dt)
+            b = torch.randn((B, S, W), generator=gen, device="cuda").to(dt)
+            h, hl = linear_scan_cuda(a, b)
+            rh, rhl = linear_scan_reference(a, b)
+            torch.cuda.synchronize()
+            tol = TOL[dtn]
+            errs, ok = [], bool(torch.isfinite(h).all()
+                                and torch.isfinite(hl).all())
+            for out, ref in ((h, rh), (hl, rhl)):
+                e = (out.float() - ref.float()).abs()
+                errs.append(float(e.max()))
+                ok = ok and bool(torch.all(e <= tol * (1 + ref.float()
+                                                       .abs())))
+            rec = {"kernel": "rglru_scan", "case": case, "dtype": dtn,
+                   "shape": [B, S, W], "max_abs_err_h_hlast": errs,
+                   "max_abs_err": max(errs), "tol": tol, "ok": ok}
+            if timed:
+                bound = _rglru_bound(a, b)
+                rec.update(
+                    kernel_ms=timer(lambda: linear_scan_cuda(a, b)),
+                    plain_ms=timer(lambda: linear_scan_reference(a, b)),
+                    library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+                    card=card_line)
+            log(rec)
+            if not ok:
+                raise AssertionError(f"rglru_scan {case} {dtn} disagrees "
+                                     f"with its plain version: {rec}")
+            if case == "serve" and dtn == "float32":   # the model's a, b
+                summary = rec
+            del a, b, h, hl, rh, rhl
+    del timer
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: flash at D = 256 and decode at G = 16, D = 256
+# ---------------------------------------------------------------------------
+
+def hybrid_attn_kernel_phase(card_line):
+    """The attention kernels at recurrentgemma-9b's widths (16 query heads
+    over 1 KV head, head_dim 256), each against its plain version in fp32
+    and bf16: flash at the prefill shape (B 2, S 3072, causal, window
+    2048; and B 1, S 1000), decode over a full 2048-slot ring (B 2) and
+    over ragged lengths.  Times at the serve shapes beside the bound, with
+    SDPA under the same mask as the library time."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_reference)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    timer = Timer(iters=20)
+    summary = {}
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def close(out, ref, dtn):
+        e = (out.float() - ref.float()).abs()
+        return float(e.max()), bool(
+            torch.all(e <= TOL[dtn] * (1 + ref.float().abs()))
+            and torch.isfinite(out).all())
+
+    for dt in (torch.float32, torch.bfloat16):
+        dtn = str(dt).split(".")[-1]
+        es = torch.tensor([], dtype=dt).element_size()
+        for case, (B, S, window, timed) in {
+            "serve": (2, 3072, 2048, True),
+            "s1000": (1, 1000, 2048, False),
+        }.items():
+            Hq, Hkv, D = 16, 1, 256
+            q, k, v = rnd((B, S, Hq, D), dt), rnd((B, S, Hkv, D), dt), \
+                rnd((B, S, Hkv, D), dt)
+            kw = dict(causal=True, window=window)
+            out = flash_attention_cuda(q, k, v, **kw)
+            ref = plain_attention(q, k, v, True, window, 0, None)
+            torch.cuda.synchronize()
+            err, ok = close(out, ref, dtn)
+            rec = {"kernel": "flash_attention", "case": f"hybrid_{case}",
+                   "dtype": dtn, "shape": [B, S, S, Hq, Hkv, D],
+                   "causal": True, "window": window, "max_abs_err": err,
+                   "tol": TOL[dtn], "ok": ok}
+            if timed:
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                pos = torch.arange(S, device="cuda")
+                mask = (pos[None, :] <= pos[:, None]) & \
+                    (pos[None, :] > pos[:, None] - window)
+                bound = _flash_bound(dtn, es, B, S, S, Hq, Hkv, D, True,
+                                     window, 0)
+                rec.update(
+                    kernel_ms=timer(lambda: flash_attention_cuda(q, k, v,
+                                                                 **kw)),
+                    plain_ms=timer(lambda: plain_attention(
+                        q, k, v, True, window, 0, None)),
+                    library_ms=timer(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+                    bound_ms=bound[0], bound_by=bound[1], card=card_line)
+                del qt, kt, vt, mask
+            log(rec)
+            if not ok:
+                raise AssertionError(f"flash_attention hybrid_{case} {dtn} "
+                                     f"disagrees with its plain version")
+            if case == "serve" and dtn == "bfloat16":
+                summary["flash_attention"] = rec
+            del q, k, v, out, ref
+        for case, (B, T, lens, timed) in {
+            "serve": (2, 2048, [2048, 2048], True),
+            "ragged": (3, 2048, [2048, 700, 1], False),
+        }.items():
+            Hq, Hkv, D = 16, 1, 256
+            q, k, v = rnd((B, Hq, D), dt), rnd((B, T, Hkv, D), dt), \
+                rnd((B, T, Hkv, D), dt)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out = decode_attention_cuda(q, k, v, lengths)
+            ref = decode_attention_reference(q, k, v, lengths)
+            torch.cuda.synchronize()
+            err, ok = close(out, ref, dtn)
+            rec = {"kernel": "decode_attention", "case": f"hybrid_{case}",
+                   "dtype": dtn, "shape": [B, T, Hq, Hkv, D],
+                   "lengths": lens, "max_abs_err": err, "tol": TOL[dtn],
+                   "ok": ok}
+            if timed:
+                kt, vt = k.transpose(1, 2).contiguous(), \
+                    v.transpose(1, 2).contiguous()
+                mask = (torch.arange(T, device="cuda")[None, :]
+                        < lengths[:, None])[:, None, None, :]
+                bound = _bound(dtn, es, B, Hq, Hkv, D,
+                               _valid_tokens(lens, T, None), 0)
+                rec.update(
+                    kernel_ms=timer(lambda: decode_attention_cuda(
+                        q, k, v, lengths)),
+                    plain_ms=timer(lambda: decode_attention_reference(
+                        q, k, v, lengths)),
+                    library_ms=timer(lambda: F.scaled_dot_product_attention(
+                        q[:, :, None, :], kt, vt, attn_mask=mask,
+                        enable_gqa=True)),
+                    bound_ms=bound[0], bound_by=bound[1], card=card_line)
+            log(rec)
+            if not ok:
+                raise AssertionError(f"decode_attention hybrid_{case} {dtn} "
+                                     f"disagrees with its plain version")
+            if case == "serve" and dtn == "bfloat16":
+                summary["decode_attention"] = rec
+    del timer
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: serve recurrentgemma-9b at full width and depth
+# ---------------------------------------------------------------------------
+
+def hybrid_serve_phase():
+    """recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU and
+    12 local-attention layers, bf16, random weights from seed 0), served as
+    the JAX package serves the hybrid family: ``Model.prefill`` of 2
+    prompts x 3072 tokens (past the 2048 window: the ring wraps and flash
+    skips key tiles before the window) with max_len 4096 and 32 greedy
+    ``decode_step``s, then one 1000-token prompt and 16 steps.  The counts
+    are reset just before and read just after: rglru_scan 26 and flash 12
+    a prefill, decode 12 a step.  Then ``torch.profiler`` over decode and
+    the 1000-token prefill (``hybrid_profile`` lines) and the bf16
+    full-depth forward-vs-decode difference, printed without a gate."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rglru_scan.kernel import linear_scan_cuda
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import hybrid_layer_kinds
+
+    cfg = get_config("recurrentgemma-9b")
+    kinds = hybrid_layer_kinds(cfg)
+    assert (cfg.num_layers, kinds.count("rec"), kinds.count("attn"),
+            cfg.padded_heads) == (HYBRID_LAYERS, HYBRID_REC, HYBRID_ATTN, 16)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[hybrid_serve] {cfg.name}: {cfg.num_layers} layers ({HYBRID_REC} "
+        f"rec, {HYBRID_ATTN} attn), d_model {cfg.d_model}, lru_width "
+        f"{cfg.lru_width}, {cfg.num_heads} heads of {cfg.resolved_head_dim} "
+        f"over {cfg.num_kv_heads} KV head, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, window {cfg.local_window}, {n_params} parameters "
+        f"({cfg.param_dtype}), init {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    rng = np.random.default_rng(23)
+    prompts = {name: torch.tensor(rng.integers(1, cfg.vocab_size, (B, S)),
+                                  device="cuda")
+               for name, B, S, _ in HYBRID_RUNS}
+    _prefill_and_greedy(model, params, prompts["batch2_3072"][:1, :256], 2)
+
+    # main path: counts from 0 just before, read just after
+    for fn in (linear_scan_cuda, flash_attention_cuda, decode_attention_cuda):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, B, S, n in HYBRID_RUNS:
+        toks, t_pre, t_dec, logits = _prefill_and_greedy(
+            model, params, prompts[name], n, HYBRID_MAX_LEN)
+        runs[name] = {"batch": B, "prompt": S, "max_len": HYBRID_MAX_LEN,
+                      "new_tokens": n + 1, "prefill_ms": t_pre * 1e3,
+                      "prefill_tok_per_s": B * S / t_pre,
+                      "decode_ms_per_step": t_dec / n * 1e3,
+                      "decode_tok_per_s": B * n / t_dec,
+                      "stream_head": toks[0, :8].tolist()}
+        if not (torch.isfinite(logits[:, :cfg.vocab_size]).all()
+                and bool((toks < cfg.vocab_size).all())):
+            raise AssertionError(f"hybrid serve {name}: non-finite logits "
+                                 "or a pad token")
+    torch.cuda.synchronize()
+    launches = {"rglru_scan": linear_scan_cuda.launches,
+                "flash_attention": flash_attention_cuda.launches,
+                "decode_attention": decode_attention_cuda.launches}
+    steps = sum(n for *_, n in HYBRID_RUNS)
+    expected = {"rglru_scan": len(HYBRID_RUNS) * HYBRID_REC,
+                "flash_attention": len(HYBRID_RUNS) * HYBRID_ATTN,
+                "decode_attention": steps * HYBRID_ATTN}
+    log({"hybrid_serve": {"runs": runs, "launches": launches,
+                          "expected": expected,
+                          "peak_mem_gb": torch.cuda.max_memory_allocated()
+                          / 1e9}})
+    if launches != expected:
+        raise AssertionError(f"hybrid serve launches {launches}, expected "
+                             f"{expected}")
+    ssm_serve_profile(model, params, prompts["batch2_3072"],
+                      prompts["single_1000"], tag="hybrid_profile")
+    fwd, dec = _forward_vs_decode(model, params,
+                                  prompts["batch2_3072"][:1, :64])
+    real = slice(0, cfg.vocab_size)
+    log({"hybrid_forward_vs_decode_bf16": {
+        "layers": cfg.num_layers, "positions": 64,
+        "max_abs_logit_diff": float((fwd[..., real] - dec[..., real]).abs()
+                                    .max()),
+        "same_argmax_share": float((fwd.argmax(-1) == dec.argmax(-1))
+                                   .float().mean())}})
+    del params, model, fwd, dec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_prefill_phase():
+    """fp32, full width, 3 layers (one rec, rec, attn group), TF32 off:
+    ``Model.forward`` logits over 2064 tokens against ``Model.prefill`` of
+    the first 2040 (max_len 4096: a 2048-slot ring) followed by 24
+    teacher-forced ``decode_step``s, which write past slot 2047 and wrap
+    (every position within 1e-3, the same argmax); then ``Model.prefill``
+    of 40 tokens plus 8 greedy steps against pure decode (the same
+    stream)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=3,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=4)
+    rng = np.random.default_rng(29)
+    S, pre = 2064, 2040
+    tokens = torch.tensor(rng.integers(1, cfg.vocab_size, (2, S)),
+                          device="cuda")
+    with torch.no_grad():
+        fwd, _ = model.forward(params, {"tokens": tokens})
+        fwd = fwd[:, pre - 1:]
+        logits, cache = model.prefill(params, {"tokens": tokens[:, :pre]},
+                                      HYBRID_MAX_LEN)
+        rows = [logits]
+        for j in range(pre, S):
+            logits, cache = model.decode_step(params, cache, tokens[:, j])
+            rows.append(logits)
+    dec = torch.stack(rows, dim=1)
+    diff = float((fwd - dec).abs().max())
+    same = bool(torch.equal(fwd.argmax(-1), dec.argmax(-1)))
+    log({"hybrid_forward_vs_decode_fp32": {
+        "layers": cfg.num_layers, "shape": [2, S], "prefill": pre,
+        "ring": int(cache["k"].shape[2]), "max_abs_logit_diff": diff,
+        "tol": LOGIT_ATOL_FP32, "same_argmax": same}})
+    if not (diff <= LOGIT_ATOL_FP32 and same
+            and bool(torch.isfinite(fwd).all())):
+        raise AssertionError("hybrid fp32 forward and prefill + decode "
+                             "across the ring disagree")
+    del fwd, dec, cache, rows
+    with_prefill, pure = _greedy_streams(model, params, tokens[:, :40], 8)
+    log({"hybrid_prefill_vs_decode_fp32": {"prefill": with_prefill,
+                                           "decode": pure}})
+    if with_prefill != pure:
+        raise AssertionError("hybrid prefill + decode stream != pure decode")
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def _ptxas_summary(text: str) -> dict:
+    """Registers and spills of every kernel in one ``nvcc -Xptxas -v``
+    report: the kernel count, the most registers any uses, and the kernels
+    that spill (mangled name cut to 90 characters, spill store and load
+    bytes)."""
+    import re
+    entry, regs, spilling, n = None, 0, [], 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, n = m.group(1), n + 1
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry and (int(m.group(1)) or int(m.group(2))):
+            spilling.append([entry[:90], int(m.group(1)), int(m.group(2))])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = max(regs, int(m.group(1)))
+    return {"kernels": n, "max_registers": regs, "spilling": spilling}
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:86"),
@@ -1300,6 +1700,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention/kernel.py:94"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:83"),
+    "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan/kernel.py:57"),
 }
 
 
@@ -1312,39 +1714,62 @@ def main() -> int:
 
     card_line = nvidia_smi()
     t0 = time.perf_counter()
-    _build.build_all(list(SOURCES))
+    build_logs = _build.build_all(list(SOURCES))
     log({"env": {"nvidia_smi": card_line, "torch": torch.__version__,
                  "cuda": torch.version.cuda, "python": sys.version.split()[0],
-                 "kernel_build_s": time.perf_counter() - t0}})
+                 "kernel_build_s": time.perf_counter() - t0,
+                 "ptxas": {n: _ptxas_summary(text)
+                           for n, text in build_logs.items()}}})
     card = torch.cuda.get_device_name(0)
 
     summary = kernel_phase(card)
-    launches = serve_phase()
+    serve = serve_phase()
     identity_phase()
     summary["flash_attention"] = flash_phase(card_line)
     prefill_phase()
-    launches.update(train_phase())
+    train = train_phase()
     train_profile()
     summary["ssd_scan"] = ssd_kernel_phase(card_line)
-    by_path = {"ssm_serve": ssm_serve_phase()}
+    ssm_serve = ssm_serve_phase()
     ssm_prefill_phase()
-    by_path["ssm_train"] = ssm_train_phase()
-    launches["ssd_scan"] = sum(by_path.values())
+    ssm_train = ssm_train_phase()
     train_profile("mamba2-130m", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
+    summary["rglru_scan"] = rglru_kernel_phase(card_line)
+    at_hybrid = hybrid_attn_kernel_phase(card_line)
+    hybrid = hybrid_serve_phase()
+    hybrid_prefill_phase()
 
+    by_path = {
+        "decode_attention": {"serve": serve["decode_attention"],
+                             "hybrid_serve": hybrid["decode_attention"]},
+        "paged_attention": {"serve": serve["paged_attention"]},
+        "flash_attention": {"train": train["flash_attention"],
+                            "hybrid_serve": hybrid["flash_attention"]},
+        "ssd_scan": {"ssm_serve": ssm_serve, "ssm_train": ssm_train},
+        "rglru_scan": {"hybrid_serve": hybrid["rglru_scan"]},
+    }
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         rec = summary[name]
-        if launches[name] < 1:
-            raise AssertionError(f"{name} was not launched on the main path")
+        paths = by_path[name]
+        if not all(n >= 1 for n in paths.values()):
+            raise AssertionError(f"{name} was not launched on every path "
+                                 f"that runs it: {paths}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(paths.values()),
             "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
-        if name == "ssd_scan":
-            kernels[-1]["launches_by_path"] = by_path
+        if len(paths) > 1:
+            kernels[-1]["launches_by_path"] = paths
+        if name in at_hybrid:
+            h = at_hybrid[name]
+            kernels[-1]["at_hybrid_shape"] = {
+                "shape": h["shape"], "max_abs_err": h["max_abs_err"],
+                "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
+                "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+                "library_ms": h["library_ms"]}
     log({"kernels": kernels})
     log(card_line)
     log({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -3,9 +3,11 @@
 The JAX ``values`` tree (nested dicts of numpy arrays, as
 ``repro.models.common.split_params`` yields them after ``np.asarray``) has
 the same layouts as the port's parameters, except that the JAX package
-stacks layers on axis 0 for ``lax.scan``: ``values["layers"]`` becomes a
-list of per-layer dicts.  bf16 arrays arrive as ``ml_dtypes.bfloat16``;
-they go through float32 to ``torch.bfloat16``, which is exact.
+stacks layers on axis 0 for ``lax.scan``: ``values["layers"]`` (and the
+hybrid family's ``values["rec_layers"]`` and ``values["attn_layers"]``)
+becomes a list of per-layer dicts.  bf16 arrays arrive as
+``ml_dtypes.bfloat16``; they go through float32 to ``torch.bfloat16``,
+which is exact.
 """
 from __future__ import annotations
 
@@ -30,13 +32,19 @@ def _map(tree, fn):
     return fn(tree)
 
 
+_STACKED = ("layers", "rec_layers", "attn_layers")
+
+
 def params_from_jax(values: Dict[str, Any], *, device) -> Dict[str, Any]:
     """JAX parameter values -> the port's parameter dict on ``device``."""
     out = {k: _map(v, lambda a: to_tensor(a, device=device))
-           for k, v in values.items() if k != "layers"}
-    stacked = values["layers"]
-    n_layers = np.asarray(stacked["ln1"]).shape[0]
-    out["layers"] = [_map(stacked, lambda a, i=i: to_tensor(np.asarray(a)[i],
-                                                           device=device))
-                     for i in range(n_layers)]
+           for k, v in values.items() if k not in _STACKED}
+    for key in _STACKED:
+        if key not in values:
+            continue
+        stacked = values[key]
+        n_layers = np.asarray(stacked["ln1"]).shape[0]
+        out[key] = [_map(stacked, lambda a, i=i: to_tensor(np.asarray(a)[i],
+                                                          device=device))
+                    for i in range(n_layers)]
     return out

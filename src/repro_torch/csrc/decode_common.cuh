@@ -5,13 +5,16 @@
 // does 4 flops per cache element, far below the card's ~295 flops/byte ridge,
 // so it is bound by device memory (3.35 TB/s).  The design moves each cache
 // byte once and keeps enough loads in flight to reach that rate:
-//   * one block owns one (batch row, KV head, T split) and all G query heads
-//     of the KV group, so a K/V row loaded once serves G heads;
-//   * the T axis is split over blocks (grid = splits x Hkv x B): the
+//   * one block owns one (batch row, KV head, T split) and up to 8 query
+//     heads of the KV group, so a K/V row loaded once serves them all; a
+//     group of more heads (recurrentgemma: 16 over 1 KV head) runs as
+//     head chunks, each reading the rows once (so 16 heads read them twice);
+//   * the T axis is split over blocks (grid = splits x Hkv x chunks x B): the
 //     (B, Hkv) grid alone is 32 blocks at 4 slots, far too few for 132 SMs;
-//   * inside a block, a group of TPG = D*sizeof(T)/16 threads covers one
-//     token row with 16-byte loads (neighbouring threads on neighbouring
-//     addresses), so a block streams 128/TPG rows at a time, kUnroll deep;
+//   * inside a block, a group of TPG = min(32, D*sizeof(T)/16) threads
+//     covers one token row with 16-byte loads (neighbouring threads on
+//     neighbouring addresses; two vectors a thread for fp32 at D = 256), so
+//     a block streams 128/TPG rows at a time, kUnroll vectors deep;
 //   * each thread group keeps an online softmax (m, l, acc) in registers;
 //     the block merges its groups through shared memory and writes one
 //     partial (m, l, acc) per split; a second small kernel merges splits;
@@ -90,22 +93,32 @@ template <typename T> struct PagedKV {
   }
 };
 
-// grid (n_splits, Hkv, B); block kThreads.  Writes, per (b, h, split, g),
-// ml = (running max m, sum l) and acc (D,) = sum_t exp(s_t - m) v_t.
-template <typename T, int D, int MAXG, class KV>
+// grid (n_splits, Hkv * n_hc, B); block kThreads.  Block (split, h * n_hc +
+// hc, b) owns query heads [hc * MAXG, hc * MAXG + MAXG) of KV head h, with
+// n_hc = ceil(G / MAXG) head chunks (kChunked; otherwise n_hc = 1 and the
+// block owns all G <= MAXG heads), and writes, per (b, h, split, g) of its
+// heads, ml = (running max m, sum l) and acc (D,) = sum_t exp(s_t - m) v_t.
+template <typename T, int D, int MAXG, bool kChunked, class KV>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ lengths,
              int cap, int G, int window, float scale, int split_len,
              float* __restrict__ ml, float* __restrict__ acc_out) {
   using Raw = typename Vec<T>::Raw;
   constexpr int VEC = Vec<T>::N;
-  constexpr int TPG = D / VEC;
-  static_assert(TPG >= 1 && TPG <= 32 && (TPG & (TPG - 1)) == 0,
+  constexpr int TPG = D / VEC < 32 ? D / VEC : 32;  // threads per token row
+  constexpr int NV = D / (TPG * VEC);  // 16-byte vectors per thread and row
+  constexpr int E = NV * VEC;          // elements per thread and row
+  constexpr int UNROLL = kUnroll / NV > 0 ? kUnroll / NV : 1;
+  static_assert(TPG >= 1 && (TPG & (TPG - 1)) == 0 && TPG * E == D,
                 "a token row must map onto a power-of-two part of a warp");
   constexpr int NGROUPS = kThreads / TPG;
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_splits = gridDim.x, Hkv = gridDim.y;
+  const int n_hc = kChunked ? (G + MAXG - 1) / MAXG : 1;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int h = kChunked ? blockIdx.y / n_hc : blockIdx.y;
+  const int g0 = kChunked ? (blockIdx.y % n_hc) * MAXG : 0;
+  const int Gc = kChunked ? min(MAXG, G - g0) : G;
+  const int n_splits = gridDim.x, Hkv = gridDim.y / n_hc;
   const int tid = threadIdx.x, lane = tid % TPG, grp = tid / TPG;
   const size_t out_row = (static_cast<size_t>(b) * Hkv + h) * n_splits + split;
 
@@ -115,105 +128,113 @@ split_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ lengths,
   const int t_begin = max(split * split_len, lo);
   const int t_end = min(split * split_len + split_len, hi);
   if (t_begin >= t_end) {  // uniform over the block: no K/V to read
-    if (tid < G) {
-      ml[(out_row * G + tid) * 2] = kNegInf;
-      ml[(out_row * G + tid) * 2 + 1] = 0.f;
+    if (tid < Gc) {
+      ml[(out_row * G + g0 + tid) * 2] = kNegInf;
+      ml[(out_row * G + g0 + tid) * 2 + 1] = 0.f;
     }
     return;
   }
 
-  float qf[MAXG][VEC];
+  // this thread's columns of a row: vector j covers (j * TPG + lane) * VEC
+  float qf[MAXG][E];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g < G) {
-      const T* qp = q + ((static_cast<size_t>(b) * Hkv + h) * G + g) * D +
-                    lane * VEC;
-      to_float(*reinterpret_cast<const Raw*>(qp), qf[g]);
+    if (g < Gc) {
+      const T* qp = q + ((static_cast<size_t>(b) * Hkv + h) * G + g0 + g) * D;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        to_float(*reinterpret_cast<const Raw*>(qp + (j * TPG + lane) * VEC),
+                 qf[g] + j * VEC);
     } else {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) qf[g][i] = 0.f;
+      for (int i = 0; i < E; ++i) qf[g][i] = 0.f;
     }
   }
 
-  float m[MAXG], l[MAXG], acc[MAXG][VEC];
+  float m[MAXG], l[MAXG], acc[MAXG][E];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < E; ++i) acc[g][i] = 0.f;
   }
 
   // The trip count is uniform over the block, so every lane reaches every
   // shuffle; rows past t_end load nothing and are masked.
-  for (int base = t_begin; base < t_end; base += NGROUPS * kUnroll) {
-    Raw kr[kUnroll], vr[kUnroll];
-    bool valid[kUnroll];
+  for (int base = t_begin; base < t_end; base += NGROUPS * UNROLL) {
+    Raw kr[UNROLL][NV], vr[UNROLL][NV];
+    bool valid[UNROLL];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < UNROLL; ++u) {
       const int t = base + u * NGROUPS + grp;
       valid[u] = t < t_end;
-      if (valid[u]) {
-        const size_t off = kv.row(b, h, t) + lane * VEC;
-        kr[u] = *reinterpret_cast<const Raw*>(kv.k + off);
-        vr[u] = *reinterpret_cast<const Raw*>(kv.v + off);
-      } else {
-        kr[u] = Raw{};
-        vr[u] = Raw{};
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (valid[u]) {
+          const size_t off = kv.row(b, h, t) + (j * TPG + lane) * VEC;
+          kr[u][j] = *reinterpret_cast<const Raw*>(kv.k + off);
+          vr[u][j] = *reinterpret_cast<const Raw*>(kv.v + off);
+        } else {
+          kr[u][j] = Raw{};
+          vr[u][j] = Raw{};
+        }
       }
     }
 
-    float s[kUnroll][MAXG];
+    float s[UNROLL][MAXG];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float kf[VEC];
-      to_float(kr[u], kf);
+    for (int u = 0; u < UNROLL; ++u) {
+      float kf[E];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) to_float(kr[u][j], kf + j * VEC);
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
         float d = 0.f;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) d = fmaf(qf[g][i], kf[i], d);
+        for (int i = 0; i < E; ++i) d = fmaf(qf[g][i], kf[i], d);
         s[u][g] = d;
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
+    for (int u = 0; u < UNROLL; ++u)
 #pragma unroll
       for (int g = 0; g < MAXG; ++g)
 #pragma unroll
         for (int o = TPG / 2; o > 0; o >>= 1)
           s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], o);
 
-    float p[kUnroll][MAXG];
+    float p[UNROLL][MAXG];
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
       float mx = m[g];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < UNROLL; ++u) {
         s[u][g] *= scale;
         if (valid[u]) mx = fmaxf(mx, s[u][g]);
       }
       const float alpha = expf(m[g] - mx);
       float psum = 0.f;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < UNROLL; ++u) {
         p[u][g] = valid[u] ? expf(s[u][g] - mx) : 0.f;
         psum += p[u][g];
       }
       l[g] = l[g] * alpha + psum;
       m[g] = mx;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[g][i] *= alpha;
+      for (int i = 0; i < E; ++i) acc[g][i] *= alpha;
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float vf[VEC];
-      to_float(vr[u], vf);
+    for (int u = 0; u < UNROLL; ++u) {
+      float vf[E];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) to_float(vr[u][j], vf + j * VEC);
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
         const float pr = round_to(p[u][g], T{});
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(pr, vf[i], acc[g][i]);
+        for (int i = 0; i < E; ++i) acc[g][i] = fmaf(pr, vf[i], acc[g][i]);
       }
     }
   }
@@ -232,28 +253,31 @@ split_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ lengths,
   __syncthreads();
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g < G) {
+    if (g < Gc) {
       float M = kNegInf;
       for (int j = 0; j < NGROUPS; ++j) M = fmaxf(M, sm_m[j][g]);
       const float f = expf(m[g] - M);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) sm_acc[grp][g][lane * VEC + i] = acc[g][i] * f;
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          sm_acc[grp][g][(j * TPG + lane) * VEC + i] = acc[g][j * VEC + i] * f;
     }
   }
   __syncthreads();
-  for (int e = tid; e < G * D; e += kThreads) {
+  for (int e = tid; e < Gc * D; e += kThreads) {
     const int g = e / D, d = e % D;
     float sum = 0.f;
     for (int j = 0; j < NGROUPS; ++j) sum += sm_acc[j][g][d];
-    acc_out[out_row * G * D + e] = sum;
+    acc_out[(out_row * G + g0) * D + e] = sum;
   }
-  if (tid < G) {
+  if (tid < Gc) {
     float M = kNegInf;
     for (int j = 0; j < NGROUPS; ++j) M = fmaxf(M, sm_m[j][tid]);
     float L = 0.f;
     for (int j = 0; j < NGROUPS; ++j) L += sm_l[j][tid] * expf(sm_m[j][tid] - M);
-    ml[(out_row * G + tid) * 2] = M;
-    ml[(out_row * G + tid) * 2 + 1] = L;
+    ml[(out_row * G + g0 + tid) * 2] = M;
+    ml[(out_row * G + g0 + tid) * 2 + 1] = L;
   }
 }
 
@@ -287,36 +311,56 @@ combine_kernel(const float* __restrict__ ml, const float* __restrict__ acc,
   }
 }
 
+// Query heads per block: 8, or 4 when G <= 4 or when a thread holds more
+// than one 16-byte vector of a row (fp32 at D = 256), which keeps qf and acc
+// in registers and sm_acc within 32 KB.
+template <typename T, int D, int MAXG, class KV>
+cudaError_t launch_g(const T* q, KV kv, const int* lengths, float* ml,
+                     float* acc, int B, int Hkv, int G, int cap, int window,
+                     float scale, int split_len, int n_splits,
+                     cudaStream_t stream) {
+  const int n_hc = (G + MAXG - 1) / MAXG;
+  const dim3 grid(n_splits, Hkv * n_hc, B);
+  if (n_hc > 1)
+    split_kernel<T, D, MAXG, true, KV><<<grid, kThreads, 0, stream>>>(
+        q, kv, lengths, cap, G, window, scale, split_len, ml, acc);
+  else
+    split_kernel<T, D, MAXG, false, KV><<<grid, kThreads, 0, stream>>>(
+        q, kv, lengths, cap, G, window, scale, split_len, ml, acc);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, class KV>
 cudaError_t launch_d(const T* q, KV kv, const int* lengths, T* out, float* ml,
                      float* acc, int B, int Hkv, int G, int cap, int window,
                      float scale, int split_len, int n_splits,
                      cudaStream_t stream) {
-  if constexpr (D / Vec<T>::N <= 32) {
-    dim3 grid(n_splits, Hkv, B);
-    if (G <= 4)
-      split_kernel<T, D, 4, KV><<<grid, kThreads, 0, stream>>>(
-          q, kv, lengths, cap, G, window, scale, split_len, ml, acc);
-    else
-      split_kernel<T, D, 8, KV><<<grid, kThreads, 0, stream>>>(
-          q, kv, lengths, cap, G, window, scale, split_len, ml, acc);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    combine_kernel<T><<<dim3(Hkv * G, B), kThreads, 0, stream>>>(
-        ml, acc, out, n_splits, G, D);
-    return cudaGetLastError();
+  cudaError_t err;
+  if constexpr (D / Vec<T>::N > 32) {
+    err = launch_g<T, D, 4, KV>(q, kv, lengths, ml, acc, B, Hkv, G, cap,
+                                window, scale, split_len, n_splits, stream);
+  } else if (G <= 4) {
+    err = launch_g<T, D, 4, KV>(q, kv, lengths, ml, acc, B, Hkv, G, cap,
+                                window, scale, split_len, n_splits, stream);
   } else {
-    return cudaErrorInvalidValue;
+    err = launch_g<T, D, 8, KV>(q, kv, lengths, ml, acc, B, Hkv, G, cap,
+                                window, scale, split_len, n_splits, stream);
   }
+  if (err != cudaSuccess) return err;
+  combine_kernel<T><<<dim3(Hkv * G, B), kThreads, 0, stream>>>(
+      ml, acc, out, n_splits, G, D);
+  return cudaGetLastError();
 }
 
-// Supported: D in {16, 32, 64, 128} (fp32) or {16, ..., 256} (bf16), G <= 8.
+// Supported: D in {16, 32, 64, 128, 256} in fp32 and bf16, any G >= 1
+// (query heads per KV head; more than 8 run as several head chunks, each
+// reading the KV group's cache once).
 template <typename T, class KV>
 cudaError_t launch(const void* q, KV kv, const int* lengths, void* out,
                    float* ml, float* acc, int B, int Hkv, int G, int D,
                    int cap, int window, float scale, int split_len,
                    int n_splits, cudaStream_t stream) {
-  if (G < 1 || G > 8) return cudaErrorInvalidValue;
+  if (G < 1) return cudaErrorInvalidValue;
   const T* qt = static_cast<const T*>(q);
   T* ot = static_cast<T*>(out);
 #define DECODE_CASE(DD)                                                     \

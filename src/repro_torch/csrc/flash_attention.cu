@@ -25,8 +25,15 @@
 //  * bf16: each warp keeps its 16 query rows in registers as mma fragments;
 //    S = Q K^T and O += P V are mma.sync m16n8k16 (bf16 in, fp32 sums), and
 //    P is rounded to bf16 for the second product, as in the Pallas kernel.
+//  * bf16 at D = 256 (recurrentgemma): the fp32 output accumulator alone is
+//    128 registers a thread, and 64-key K/V tiles would need 67.6 KB, over
+//    the 48 KB of static shared memory.  So the query tile sits in shared
+//    memory and each k-step reads its fragment there (4 registers instead
+//    of 64), the key tiles are 32 rows, and Q, K and V tiles (67.6 KB) are
+//    dynamic shared memory.  D <= 128 keep the layout above.
 //  * fp32: the same tiling on the CUDA cores, since the tensor cores would
-//    round fp32 inputs to TF32.
+//    round fp32 inputs to TF32 (at D = 256, 141 KB of dynamic shared
+//    memory).
 // Masked scores are -1e30, as in the Pallas kernel; keys past Sk add exactly
 // 0.  A row for which no tile runs (l == 0) is written as 0, as the Pallas
 // finalize does.
@@ -127,16 +134,35 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
 //   C 16x8:  {c0,c1} row g, cols 2t..2t+1; {c2,c3} row g+8
 // So the S accumulators of two neighbouring 8-key tiles are, packed to
 // bf16, the A fragment of P for the 16 keys they cover.
-template <int D>
+//
+// kQShared: the query tile lives in shared memory (with K and V, all in
+// dynamic shared memory of bf16_smem_bytes<D, BN>()) and each k-step reads
+// its A fragment there; otherwise each warp holds its rows' fragments in
+// registers and K/V tiles are static shared memory.
+template <int D, int BN>
+constexpr int bf16_smem_bytes() {
+  return (kBlockM + 2 * BN) * (D + 8) * 2;
+}
+
+template <int D, int BN, bool kQShared>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    __nv_bfloat16* __restrict__ out, Shape s) {
-  constexpr int BN = 64;     // keys per tile
   constexpr int LD = D + 8;  // shared row stride: fragment reads hit 32 banks
-  __shared__ __align__(16) __nv_bfloat16 Ks[BN * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BN * LD];
+  __nv_bfloat16 *Qs = nullptr, *Ks, *Vs;
+  if constexpr (kQShared) {
+    extern __shared__ __align__(16) unsigned char flash_bf16_smem[];
+    Qs = reinterpret_cast<__nv_bfloat16*>(flash_bf16_smem);
+    Ks = Qs + kBlockM * LD;
+    Vs = Ks + BN * LD;
+  } else {
+    __shared__ __align__(16) __nv_bfloat16 Ks_static[BN * LD];
+    __shared__ __align__(16) __nv_bfloat16 Vs_static[BN * LD];
+    Ks = Ks_static;
+    Vs = Vs_static;
+  }
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -154,15 +180,27 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* vb = v + static_cast<size_t>(b) * s.Sk * kv_stride +
                             static_cast<size_t>(hk) * D;
 
-  uint32_t qf[D / 16][4];
+  uint32_t qf[kQShared ? 1 : D / 16][4];
+  if constexpr (kQShared) {
+    // rows past Sq are zero; the first tile's __syncthreads publishes them
+    for (int i = tid; i < kBlockM * D / 8; i += kThreads) {
+      const int row = i / (D / 8), ch = i % (D / 8);
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + row < s.Sq)
+        x = *reinterpret_cast<const uint4*>(qb + (q0 + row) * q_stride +
+                                            ch * 8);
+      *reinterpret_cast<uint4*>(Qs + row * LD + ch * 8) = x;
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    const bool in0 = r0 < s.Sq, in1 = r1 < s.Sq;
-    qf[kk][0] = in0 ? load_pair(qb + r0 * q_stride + c) : 0u;
-    qf[kk][1] = in1 ? load_pair(qb + r1 * q_stride + c) : 0u;
-    qf[kk][2] = in0 ? load_pair(qb + r0 * q_stride + c + 8) : 0u;
-    qf[kk][3] = in1 ? load_pair(qb + r1 * q_stride + c + 8) : 0u;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 + 2 * t;
+      const bool in0 = r0 < s.Sq, in1 = r1 < s.Sq;
+      qf[kk][0] = in0 ? load_pair(qb + r0 * q_stride + c) : 0u;
+      qf[kk][1] = in1 ? load_pair(qb + r1 * q_stride + c) : 0u;
+      qf[kk][2] = in0 ? load_pair(qb + r0 * q_stride + c + 8) : 0u;
+      qf[kk][3] = in1 ? load_pair(qb + r1 * q_stride + c + 8) : 0u;
+    }
   }
 
   float o[D / 8][4];
@@ -190,17 +228,29 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // S = Q K^T for the warp's 16 rows and the tile's 64 keys
+    // S = Q K^T for the warp's 16 rows and the tile's BN keys
     float sc[BN / 8][4];
 #pragma unroll
     for (int nt = 0; nt < BN / 8; ++nt)
       sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t* qa;
+      uint32_t qs[4];
+      if constexpr (kQShared) {
+        const __nv_bfloat16* qp = Qs + (warp * 16 + g) * LD + kk * 16 + 2 * t;
+        qs[0] = load_pair(qp);
+        qs[1] = load_pair(qp + 8 * LD);
+        qs[2] = load_pair(qp + 8);
+        qs[3] = load_pair(qp + 8 * LD + 8);
+        qa = qs;
+      } else {
+        qa = qf[kk];
+      }
 #pragma unroll
       for (int nt = 0; nt < BN / 8; ++nt) {
         const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(sc[nt], qf[kk], load_pair(kp), load_pair(kp + 8));
+        mma_bf16(sc[nt], qa, load_pair(kp), load_pair(kp + 8));
       }
     }
 
@@ -435,11 +485,22 @@ cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v,
                      void* out, const Shape& s, cudaStream_t st) {
   const dim3 grid((s.Sq + kBlockM - 1) / kBlockM, s.Hq, s.B);
   if (dtype == 1) {
-    flash_fwd_bf16<D><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), s);
+    const auto* qt = static_cast<const __nv_bfloat16*>(q);
+    const auto* kt = static_cast<const __nv_bfloat16*>(k);
+    const auto* vt = static_cast<const __nv_bfloat16*>(v);
+    auto* ot = static_cast<__nv_bfloat16*>(out);
+    if constexpr (D <= 128) {
+      flash_fwd_bf16<D, 64, false><<<grid, kThreads, 0, st>>>(qt, kt, vt, ot,
+                                                               s);
+    } else {
+      constexpr int smem = bf16_smem_bytes<D, 32>();
+      cudaError_t err = cudaFuncSetAttribute(
+          flash_fwd_bf16<D, 32, true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      flash_fwd_bf16<D, 32, true><<<grid, kThreads, smem, st>>>(qt, kt, vt,
+                                                                 ot, s);
+    }
     return cudaGetLastError();
   }
   const int smem = static_cast<int>(F32Tile<D>::floats * sizeof(float));
@@ -455,7 +516,7 @@ cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, out (B, Sq, Hq, D); k, v (B, Sk,
-// Hkv, D), all contiguous; Hq = Hkv * G; D in {16, 32, 64, 128}; causal
+// Hkv, D), all contiguous; Hq = Hkv * G; D in {16, 32, 64, 128, 256}; causal
 // 0/1; window <= 0 means none; q_offset >= 0 is the position of q's first
 // row.  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
@@ -473,6 +534,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
     case 32: return launch_d<32>(dtype, q, k, v, out, s, st);
     case 64: return launch_d<64>(dtype, q, k, v, out, s, st);
     case 128: return launch_d<128>(dtype, q, k, v, out, s, st);
+    case 256: return launch_d<256>(dtype, q, k, v, out, s, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -55,17 +55,21 @@ def check_cuda(name: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
+#: Head dims the decode and flash kernels take, in fp32 and bf16.
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
 def check_head_dim(name: str, dtype: torch.dtype, D: int, G: int) -> None:
+    """Raise unless the decode kernels take ``dtype``, head_dim ``D`` (in
+    :data:`HEAD_DIMS`) and ``G`` >= 1 query heads per KV head."""
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: dtype {dtype} not supported "
                          f"(float32 or bfloat16)")
-    allowed = (16, 32, 64, 128) if dtype == torch.float32 \
-        else (16, 32, 64, 128, 256)
-    if D not in allowed:
-        raise ValueError(f"{name}: head_dim {D} not in {allowed} for {dtype}")
-    if not 1 <= G <= 8:
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    if G < 1:
         raise ValueError(f"{name}: {G} query heads per KV head; the kernel "
-                         "takes 1 to 8")
+                         "takes 1 or more")
 
 
 def split_plan(device: torch.device, rows: int, cap: int) -> Tuple[int, int]:

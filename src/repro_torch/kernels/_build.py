@@ -5,7 +5,9 @@ interface, loaded with ``ctypes``.  The library's file name carries a hash
 of the source and of every header in ``csrc/``, so an edited kernel is
 rebuilt and an unchanged one is loaded from the build directory
 (``build/repro_torch/`` at the repository root, listed in ``.gitignore``).
-:func:`build_all` starts one ``nvcc`` per source at once and waits for all.
+:func:`build_all` starts one ``nvcc`` per source at once, waits for all, and
+returns each build's ``ptxas -v`` report (registers, shared memory and
+spills of every kernel).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -60,26 +62,30 @@ def _start(name: str):
     return proc, tmp, out
 
 
-def _finish(name: str, proc, tmp: Path, out: Path) -> None:
+def _finish(name: str, proc, tmp: Path, out: Path) -> str:
+    """Wait for ``nvcc``; returns its output ("" when nothing was built)."""
     if proc is None:
-        return
+        return ""
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
+    return log
 
 
-def build_all(names: List[str]) -> None:
-    """Compile every named source in parallel (one ``nvcc`` each)."""
+def build_all(names: List[str]) -> Dict[str, str]:
+    """Compile every named source in parallel (one ``nvcc`` each); returns
+    each source's compiler output ("" for a library already built)."""
     started = [(n, *_start(n)) for n in names]
-    errors = []
+    errors, logs = [], {}
     for name, proc, tmp, out in started:
         try:
-            _finish(name, proc, tmp, out)
+            logs[name] = _finish(name, proc, tmp, out)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

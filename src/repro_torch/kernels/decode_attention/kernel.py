@@ -3,9 +3,10 @@
 Replaces the Pallas TPU kernel
 ``repro/kernels/decode_attention/kernel.py::decode_attention_pallas``.  The
 kernel is bound by device memory (it reads ``len x Hkv x D x 2`` cache
-elements); its design — all G query heads of a KV group per block, the T
-axis split over blocks, a second kernel merging the splits — is described
-in ``csrc/decode_common.cuh``.  The library builds at first call.
+elements); its design — up to 8 query heads of a KV group per block (more
+as head chunks), the T axis split over blocks, a second kernel merging the
+splits — is described in ``csrc/decode_common.cuh``.  The library builds
+at first call.
 """
 from __future__ import annotations
 

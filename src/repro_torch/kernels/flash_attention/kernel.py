@@ -4,8 +4,10 @@ Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.  At the
 training shape the kernel is bound by operations (the two products); its
 design (64 query rows per block, K/V tiles in shared memory, tiles that no
-row sees skipped, mma.sync for bf16) is described in the source.  Unlike the
-Pallas kernel, any Sq and Sk work.  The library builds at first call.
+row sees skipped, mma.sync for bf16; at head_dim 256 the query tile in
+shared memory too) is described in the source.  Head dims are those of
+``kernels.HEAD_DIMS`` (16 to 256).  Unlike the Pallas kernel, any Sq and Sk
+work.  The library builds at first call.
 """
 from __future__ import annotations
 
@@ -14,14 +16,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import DTYPE_CODES, _build, check_cuda, stream_ptr
+from repro_torch.kernels import (DTYPE_CODES, HEAD_DIMS, _build, check_cuda,
+                                 stream_ptr)
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _ARGTYPES = [_I, _P, _P, _P, _P,                  # dtype, q, k, v, out
              _I, _I, _I, _I, _I, _I,              # B, Sq, Sk, Hq, Hkv, D
              _I, _I, _I, _F, _P]                  # causal, window, q_offset, scale, stream
-
-HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _entry():

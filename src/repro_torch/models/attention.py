@@ -114,17 +114,26 @@ def attn_decode(
     lengths: torch.Tensor,            # (B,) current length BEFORE this token
     angles: Optional[torch.Tensor],   # (B, 1, hd//2)
     window: Optional[int] = None,
+    write_pos: Optional[torch.Tensor] = None,   # ring-buffer write index (B,)
+    valid_len: Optional[torch.Tensor] = None,   # valid entries AFTER the write (B,)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token decode over a contiguous cache.  Returns (out (B,1,d),
-    k_cache, v_cache).  The caches are updated in place (the JAX version
-    returns new arrays): the token's K/V land at ``lengths``, and attention
-    covers ``lengths + 1`` entries."""
+    """One-token decode.  Returns (out (B,1,d), k_cache, v_cache).  The
+    caches are updated in place (the JAX version returns new arrays).
+
+    The default is a contiguous cache: the token's K/V land at ``lengths``
+    and attention covers ``lengths + 1`` entries.  ``write_pos`` and
+    ``valid_len`` make the cache a ring buffer (local-attention windows):
+    the K/V land at ``write_pos`` and attention covers the first
+    ``valid_len`` entries, in ring order, which the softmax does not see
+    because rotary phases were applied with absolute positions at write
+    time."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, angles)      # S == 1
     idx = torch.arange(B, device=x.device)
-    pos = lengths.to(torch.int64)
+    pos = (lengths if write_pos is None else write_pos).to(torch.int64)
     k_cache[idx, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[idx, pos] = v[:, 0].to(v_cache.dtype)
+    vl = lengths + 1 if valid_len is None else valid_len
     out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                           lengths + 1, window=window)
+                           vl, window=window)
     return attn_out(p, out, cfg)[:, None], k_cache, v_cache

@@ -1,7 +1,10 @@
-"""Model facade over the ported families: dense (llama3.2-3b) and ssm
-(mamba2-130m).  The ssm family keeps recurrent caches (conv history and SSD
-state per layer) and, as in the JAX package, is served through
-``Model.prefill`` and ``Model.decode_step``, not the paged engine."""
+"""Model facade over the ported families: dense (llama3.2-3b), ssm
+(mamba2-130m) and hybrid (recurrentgemma-9b).  The ssm family keeps
+recurrent caches (conv history and SSD state per layer), the hybrid family
+recurrent caches for its RG-LRU layers and ring-buffer K/V of the local
+window for its attention layers; as in the JAX package, both are served
+through ``Model.prefill`` and ``Model.decode_step``, not the paged
+engine."""
 from __future__ import annotations
 
 import dataclasses
@@ -56,7 +59,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    """The facade for ``cfg`` on ``device``; a family that is not ported
-    yet raises."""
+    """The facade for ``cfg`` on ``device`` (dense, ssm or hybrid); a family
+    that is not ported yet (moe, encdec, vlm) raises."""
     transformer.check_family(cfg)
     return Model(cfg, resolve_device(device))
