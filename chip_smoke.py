@@ -26,9 +26,13 @@ source, all started together) and runs, in order:
 5. ``flash``: the flash kernel against its plain version, fp32 and bf16, at
    the training shape (B 2, S 1024, 32 heads over 8 KV heads, D 128,
    causal), a ragged shape (Sq = Sk = 1000), a window of 128, a q_offset
-   with Sq < Sk, and G = 1 with D = 16; the q/k/v gradients through the op
-   against autograd through the plain version at the training shape;
-   kernel, plain and SDPA (timed only) times beside the flops bound;
+   with Sq < Sk, G = 1 with D = 16 (bf16: the mma.sync variant) and
+   seamless's width (16 heads over 16, D 64); bf16 rows that see no key
+   (``blind_rows_d*``, the wgmma variant at D 64, 128 and 256 against
+   its tiled plain twin); the q/k/v gradients through
+   the op against autograd through the plain version at the training
+   shape; kernel, plain and SDPA (timed only) times beside the flops bound
+   at the training and D 64 shapes;
 6. ``prefill``: fp32, full width, 4 layers, TF32 off: the logits of
    ``Model.forward`` against the contiguous ``decode_step`` teacher-forced
    over the same prompt (every position within 1e-3, the same argmax),
@@ -39,7 +43,8 @@ source, all started together) and runs, in order:
    depth (28 layers, bf16, remat "full", batch 2 x 1024 tokens from
    ``SyntheticLM``) for 4 steps through ``device_run`` with one immediate
    hook that logs the loss: losses, ms/step, tokens/s, train_mfu, the
-   flash kernel's launches and the peak device memory;
+   flash kernel's launches (all of the bf16 wgmma variant) and the peak
+   device memory;
 8. ``train_profile``: outside the counted path, one llama step timed in
    halves (forward + backward, AdamW) and one under ``torch.profiler``
    (device time by kernel kind, top kernels);
@@ -74,7 +79,8 @@ source, all started together) and runs, in order:
     tests/test_kernels.py; kernel and plain times beside the bytes bound
     (no single PyTorch call computes the recurrence);
 15. ``hybrid_*`` kernel lines: flash at head_dim 256 (16 heads over 1 KV
-    head, causal, window 2048; B 2 x S 3072 and 1 x 1000) and decode at
+    head, causal, window 2048; B 2 x S 3072, 1 x 1000, and 777 queries at
+    q_offset 1023 over 1800 keys) and decode at
     G = 16, D = 256 (a full 2048-slot ring, and ragged lengths), each
     against its plain version in fp32 and bf16, with SDPA under the same
     mask timed beside them;
@@ -84,9 +90,10 @@ source, all started together) and runs, in order:
     prompts x 3072 tokens with max_len 4096 and 32 steps, then 1 x 1000
     and 16 steps; prefill ms and tokens/s, decode ms/step and tok/s, peak
     memory, and the exact launches (rglru_scan 26 and flash 12 a prefill,
-    decode 12 a step); then ``hybrid_profile`` (decode and the 1000-token
-    prefill under ``torch.profiler``) and the bf16 full-depth
-    forward-vs-decode difference, printed without a gate;
+    all of flash's of the wgmma variant, decode 12 a step); then
+    ``hybrid_profile`` (decode and the 1000-token prefill under
+    ``torch.profiler``) and the bf16 full-depth forward-vs-decode
+    difference, printed without a gate;
 17. ``hybrid_prefill``: fp32, full width, 3 layers, TF32 off:
     ``Model.forward`` over 2064 tokens against ``Model.prefill`` of 2040
     and 24 teacher-forced decode steps that wrap the 2048-slot ring
@@ -97,8 +104,10 @@ Every phase raises on failure.  The kernels' launch counts are reset just
 before each counted path (phases 3, 7, 10, 12 and 16) and read just after
 it; each path's count must be the exact number its depth and steps give.
 The ``env`` line carries each source's ``ptxas -v`` summary (registers and
-spills).  The last lines are the ``kernels`` line (with the launches of
-each path, and for flash and decode their numbers at the hybrid shapes),
+spills) and, for each head dim of flash's wgmma variant, its registers,
+spills, dynamic shared memory and HGMMA count in its SASS.  The last
+lines are the ``kernels`` line (with the launches of each path, and for
+flash and decode their numbers at the hybrid shapes),
 the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits with code 1 and prints no result.
 """
@@ -139,6 +148,14 @@ SSD_FP64_MULT = 4.0
 
 def log(obj) -> None:
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def reset_launches(*fns) -> None:
+    """Set each wrapper's launch counts to 0 (flash's per variant too)."""
+    for fn in fns:
+        fn.launches = 0
+        if hasattr(fn, "launches_by_variant"):
+            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
 
 def nvidia_smi() -> str:
@@ -614,10 +631,64 @@ def _flash_bound(dtype_name, es, B, Sq, Sk, Hq, Hkv, D, causal, window,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _blind_rows_cases(rnd):
+    """The wgmma variant where query rows see no key (q_offset past Sk by
+    more than the window), at each of its head dims: held against its
+    plain twin ``attention_reference_tiled`` at every row (a blind row in a
+    block that runs tiles averages the V of those tiles, as the Pallas
+    kernel's rows do over its blocks), against the dense plain version at
+    the rows that see a key, and 0 at the rows of blocks that run no tile."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        WGMMA_TILES, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_reference_tiled, tile_plan)
+
+    tol = TOL["bfloat16"]
+    for D, (B, Sq, Sk, Hq, Hkv, causal, window, q_offset) in (
+            (64, (1, 300, 200, 4, 2, True, 64, 250)),
+            (128, (2, 333, 517, 4, 2, False, 70, 400)),
+            (256, (1, 300, 200, 2, 1, True, 64, 250))):
+        q, k, v = rnd((B, Sq, Hq, D), torch.bfloat16), \
+            rnd((B, Sk, Hkv, D), torch.bfloat16), \
+            rnd((B, Sk, Hkv, D), torch.bfloat16)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        out = flash_attention_cuda(q, k, v, **kw).float()
+        tiled = attention_reference_tiled(q, k, v, **kw).float()
+        dense = plain_attention(q, k, v, causal, window, q_offset,
+                                None).float()
+        bm, bn = WGMMA_TILES[D]
+        sees = torch.tensor([q_offset + i - window + 1 <= Sk - 1
+                             for i in range(Sq)], device="cuda")
+        runs = torch.tensor([bool(tile_plan(i - i % bm, Sq, Sk, bm, bn,
+                                            causal, window, q_offset))
+                             for i in range(Sq)], device="cuda")
+        e_t, e_d = (out - tiled).abs(), (out - dense).abs()[:, sees]
+        rec = {"kernel": "flash_attention", "case": f"blind_rows_d{D}",
+               "dtype": "bfloat16", "shape": [B, Sq, Sk, Hq, Hkv, D],
+               "causal": causal, "window": window, "q_offset": q_offset,
+               "blind_rows_in_running_blocks": int((~sees & runs).sum()),
+               "blind_rows_in_idle_blocks": int((~sees & ~runs).sum()),
+               "max_abs_err_vs_tiled": float(e_t.max()),
+               "max_abs_err_vs_dense_seeing_rows": float(e_d.max()),
+               "tol": tol}
+        rec["ok"] = bool(
+            torch.all(e_t <= tol * (1 + tiled.abs()))
+            and torch.all(e_d <= tol * (1 + dense.abs()[:, sees]))
+            and torch.all(out[:, ~sees & ~runs] == 0)
+            and torch.isfinite(out).all()
+            and (~sees & runs).any() and (~sees & ~runs).any())
+        log(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"flash_attention blind_rows_d{D} disagrees "
+                                 f"with its plain versions: {rec}")
+
+
 def flash_phase(card_line):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, flash_variant)
     from repro_torch.kernels.flash_attention.ops import plain_attention
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -636,6 +707,7 @@ def flash_phase(card_line):
             "window": (2, 1024, 1024, 32, 8, 128, True, 128, 0, False),
             "q_offset": (2, 200, 712, 32, 8, 128, True, None, 512, False),
             "g1_d16": (2, 333, 333, 4, 4, 16, False, None, 0, False),
+            "d64": (2, 1024, 1024, 16, 16, 64, True, None, 0, True),
         }.items():
             q, k, v = rnd((B, Sq, Hq, D), dt), rnd((B, Sk, Hkv, D), dt), \
                 rnd((B, Sk, Hkv, D), dt)
@@ -655,6 +727,7 @@ def flash_phase(card_line):
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
                               for t in (q, k, v))
                 rec.update(
+                    variant=flash_variant(dt, D),
                     kernel_ms=timer(lambda: flash_attention_cuda(q, k, v,
                                                                  **kw)),
                     plain_ms=timer(lambda: plain_attention(
@@ -671,6 +744,8 @@ def flash_phase(card_line):
                                      f"with its plain version: {rec}")
             if case == "train" and dtn == "bfloat16":
                 summary = rec
+        if dt == torch.bfloat16:
+            _blind_rows_cases(rnd)
         # gradients through the op against autograd through the plain version
         B, S, Hq, Hkv, D = 2, 1024, 32, 8, 128
         qkv = [rnd(shape, dt) for shape in ((B, S, Hq, D), (B, S, Hkv, D),
@@ -795,14 +870,14 @@ def train_phase():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # main path: counts from 0 just before, read just after
-    for fn in (flash_attention_cuda, decode_attention_cuda,
-               paged_attention_cuda):
-        fn.launches = 0
+    reset_launches(flash_attention_cuda, decode_attention_cuda,
+                   paged_attention_cuda)
     out = run("llama3.2-3b", preset="full", steps=TRAIN_STEPS,
               batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=1,
               device="cuda")
     torch.cuda.synchronize()
     launches = flash_attention_cuda.launches
+    by_variant = dict(flash_attention_cuda.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
     losses = [l for _, l in out["losses"]]
     times = out["log_times"]
@@ -821,7 +896,7 @@ def train_phase():
            "first_step_s": times[0], "ms_per_step": step_s * 1e3,
            "tokens_per_s": tokens / step_s, "model_flops_per_step": flops,
            "train_mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
-           "flash_launches": launches,
+           "flash_launches": launches, "flash_launches_by_variant": by_variant,
            "expected_launches_fwd_plus_remat": 2 * cfg.num_layers *
            TRAIN_STEPS, "peak_mem_gb": peak / 1e9, "seconds": out["seconds"]}
     log({"train": rec})
@@ -832,6 +907,9 @@ def train_phase():
         raise AssertionError(f"flash_attention launched {launches} times in "
                              f"{TRAIN_STEPS} steps x {cfg.num_layers} "
                              "layers, forward and remat recompute")
+    if by_variant["wgmma"] != launches:
+        raise AssertionError(f"training's flash launches were not all of "
+                             f"the wgmma variant: {by_variant}")
     torch.cuda.empty_cache()
     return {"flash_attention": launches}
 
@@ -1419,7 +1497,8 @@ def hybrid_attn_kernel_phase(card_line):
         decode_attention_cuda)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_reference)
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, flash_variant)
     from repro_torch.kernels.flash_attention.ops import plain_attention
 
     gen = torch.Generator(device="cuda").manual_seed(8642)
@@ -1438,35 +1517,39 @@ def hybrid_attn_kernel_phase(card_line):
     for dt in (torch.float32, torch.bfloat16):
         dtn = str(dt).split(".")[-1]
         es = torch.tensor([], dtype=dt).element_size()
-        for case, (B, S, window, timed) in {
-            "serve": (2, 3072, 2048, True),
-            "s1000": (1, 1000, 2048, False),
+        for case, (B, Sq, Sk, q_offset, timed) in {
+            "serve": (2, 3072, 3072, 0, True),
+            "s1000": (1, 1000, 1000, 0, False),
+            # a continued prefill: ragged Sq and Sk, the window's lower
+            # edge inside the cache
+            "ragged_q_offset": (1, 777, 1800, 1023, False),
         }.items():
-            Hq, Hkv, D = 16, 1, 256
-            q, k, v = rnd((B, S, Hq, D), dt), rnd((B, S, Hkv, D), dt), \
-                rnd((B, S, Hkv, D), dt)
-            kw = dict(causal=True, window=window)
+            Hq, Hkv, D, window = 16, 1, 256, 2048
+            q, k, v = rnd((B, Sq, Hq, D), dt), rnd((B, Sk, Hkv, D), dt), \
+                rnd((B, Sk, Hkv, D), dt)
+            kw = dict(causal=True, window=window, q_offset=q_offset)
             out = flash_attention_cuda(q, k, v, **kw)
-            ref = plain_attention(q, k, v, True, window, 0, None)
+            ref = plain_attention(q, k, v, True, window, q_offset, None)
             torch.cuda.synchronize()
             err, ok = close(out, ref, dtn)
             rec = {"kernel": "flash_attention", "case": f"hybrid_{case}",
-                   "dtype": dtn, "shape": [B, S, S, Hq, Hkv, D],
-                   "causal": True, "window": window, "max_abs_err": err,
-                   "tol": TOL[dtn], "ok": ok}
+                   "dtype": dtn, "shape": [B, Sq, Sk, Hq, Hkv, D],
+                   "causal": True, "window": window, "q_offset": q_offset,
+                   "max_abs_err": err, "tol": TOL[dtn], "ok": ok}
             if timed:
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
                               for t in (q, k, v))
-                pos = torch.arange(S, device="cuda")
-                mask = (pos[None, :] <= pos[:, None]) & \
-                    (pos[None, :] > pos[:, None] - window)
-                bound = _flash_bound(dtn, es, B, S, S, Hq, Hkv, D, True,
-                                     window, 0)
+                qpos = q_offset + torch.arange(Sq, device="cuda")[:, None]
+                kpos = torch.arange(Sk, device="cuda")[None, :]
+                mask = (kpos <= qpos) & (kpos > qpos - window)
+                bound = _flash_bound(dtn, es, B, Sq, Sk, Hq, Hkv, D, True,
+                                     window, q_offset)
                 rec.update(
+                    variant=flash_variant(dt, D),
                     kernel_ms=timer(lambda: flash_attention_cuda(q, k, v,
                                                                  **kw)),
                     plain_ms=timer(lambda: plain_attention(
-                        q, k, v, True, window, 0, None)),
+                        q, k, v, True, window, q_offset, None)),
                     library_ms=timer(lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=mask, enable_gqa=True)),
                     bound_ms=bound[0], bound_by=bound[1], card=card_line)
@@ -1569,8 +1652,8 @@ def hybrid_serve_phase():
     _prefill_and_greedy(model, params, prompts["batch2_3072"][:1, :256], 2)
 
     # main path: counts from 0 just before, read just after
-    for fn in (linear_scan_cuda, flash_attention_cuda, decode_attention_cuda):
-        fn.launches = 0
+    reset_launches(linear_scan_cuda, flash_attention_cuda,
+                   decode_attention_cuda)
     torch.cuda.reset_peak_memory_stats()
     runs = {}
     for name, B, S, n in HYBRID_RUNS:
@@ -1594,13 +1677,18 @@ def hybrid_serve_phase():
     expected = {"rglru_scan": len(HYBRID_RUNS) * HYBRID_REC,
                 "flash_attention": len(HYBRID_RUNS) * HYBRID_ATTN,
                 "decode_attention": steps * HYBRID_ATTN}
+    flash_by_variant = dict(flash_attention_cuda.launches_by_variant)
     log({"hybrid_serve": {"runs": runs, "launches": launches,
+                          "flash_launches_by_variant": flash_by_variant,
                           "expected": expected,
                           "peak_mem_gb": torch.cuda.max_memory_allocated()
                           / 1e9}})
     if launches != expected:
         raise AssertionError(f"hybrid serve launches {launches}, expected "
                              f"{expected}")
+    if flash_by_variant["wgmma"] != launches["flash_attention"]:
+        raise AssertionError(f"the hybrid prefills' flash launches were not "
+                             f"all of the wgmma variant: {flash_by_variant}")
     ssm_serve_profile(model, params, prompts["batch2_3072"],
                       prompts["single_1000"], tag="hybrid_profile")
     fwd, dec = _forward_vs_decode(model, params,
@@ -1691,6 +1779,65 @@ def _ptxas_summary(text: str) -> dict:
     return {"kernels": n, "max_registers": regs, "spilling": spilling}
 
 
+def _cuobjdump():
+    """The toolkit's ``cuobjdump``, else the copy bundled with Triton."""
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = ["/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if os.path.exists(c)), None)
+
+
+def _wgmma_report(ptxas_text: str) -> dict:
+    """For each head dim of flash's wgmma variant: registers and spills
+    from ``ptxas -v``, its dynamic shared memory (from the library), and
+    the HGMMA instructions in its SASS (``cuobjdump -sass``)."""
+    import ctypes
+    import re
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention")
+    lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int]
+    report, entry = {}, None
+    for line in ptxas_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']*flash_fwd_hopperILi"
+                      r"(\d+)E[^']*)'", line)
+        if m:
+            entry = report.setdefault(f"D{m.group(2)}", {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            entry = None
+    for key, rec in report.items():
+        rec["dynamic_smem_bytes"] = lib.flash_attention_wgmma_smem(
+            int(key[1:]))
+    tool = _cuobjdump()
+    if tool is None:
+        report["hgmma"] = "not counted: no cuobjdump"
+        return report
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path(
+        "flash_attention"))], capture_output=True, text=True).stdout
+    for func in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*flash_fwd_hopperILi(\d+)E", func)
+        if m:
+            report.setdefault(f"D{m.group(1)}", {})["hgmma"] = \
+                func.count("HGMMA")
+    return report
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:86"),
@@ -1719,7 +1866,8 @@ def main() -> int:
                  "cuda": torch.version.cuda, "python": sys.version.split()[0],
                  "kernel_build_s": time.perf_counter() - t0,
                  "ptxas": {n: _ptxas_summary(text)
-                           for n, text in build_logs.items()}}})
+                           for n, text in build_logs.items()},
+                 "flash_wgmma": _wgmma_report(build_logs["flash_attention"])}})
     card = torch.cuda.get_device_name(0)
 
     summary = kernel_phase(card)

@@ -5,48 +5,82 @@
 // src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas (body
 // _flash_kernel).
 //
-// Bound on the H100: at the training shape (B 2, Sq = Sk = 1024, Hq 32,
-// Hkv 8, D 128, causal) the two products do 4 * D flops for each of the
-// B * Hq * 524,800 visible (query, key) pairs, 17.2 GFLOP, against 42 MB of
-// q, k, v and out: ~410 flops per byte, above the card's ~295 flops/byte
-// ridge, so the kernel is bound by operations (989 TFLOP/s in bf16: 17.4 us).
+// Bound on the H100.  The two products do 4 * D flops for each visible
+// (query, key) pair and query head.  Training shape (B 2, Sq = Sk = 1024,
+// Hq 32, Hkv 8, D 128, causal): 17.2 GFLOP against 42 MB of q, k, v and out,
+// ~410 flops per byte, above the card's ~295 flops/byte ridge: bound by
+// operations, 17.4 us at 989 TFLOP/s in bf16.  recurrentgemma's prefill
+// (B 2, S 3072, Hq 16, Hkv 1, D 256, causal, window 2048): 137 GFLOP
+// against 107 MB, 0.139 ms, also operations.
 //
-// Design:
-//  * One block of 4 warps owns 64 query rows of one (batch, query head):
-//    grid = (ceil(Sq / 64), Hq, B), 1024 blocks at the training shape.  Query
-//    head h reads KV head h / G; repeated K/V is never formed.
-//  * The Pallas grid walks its K axis in order on one core with (m, l, acc)
-//    in VMEM scratch.  Here each block loops over K/V tiles staged in shared
-//    memory and keeps m, l and acc in registers.
-//  * Tiles that no row of the block can see (past the causal diagonal, or
-//    before the window) are skipped, as the Pallas kernel's pl.when does.
-//    The ragged edge of Sq and Sk is masked, so any Sq and Sk work (the
-//    Pallas kernel asserts divisibility).
-//  * bf16: each warp keeps its 16 query rows in registers as mma fragments;
-//    S = Q K^T and O += P V are mma.sync m16n8k16 (bf16 in, fp32 sums), and
-//    P is rounded to bf16 for the second product, as in the Pallas kernel.
-//  * bf16 at D = 256 (recurrentgemma): the fp32 output accumulator alone is
-//    128 registers a thread, and 64-key K/V tiles would need 67.6 KB, over
-//    the 48 KB of static shared memory.  So the query tile sits in shared
-//    memory and each k-step reads its fragment there (4 registers instead
-//    of 64), the key tiles are 32 rows, and Q, K and V tiles (67.6 KB) are
-//    dynamic shared memory.  D <= 128 keep the layout above.
-//  * fp32: the same tiling on the CUDA cores, since the tensor cores would
-//    round fp32 inputs to TF32 (at D = 256, 141 KB of dynamic shared
-//    memory).
-// Masked scores are -1e30, as in the Pallas kernel; keys past Sk add exactly
-// 0.  A row for which no tile runs (l == 0) is written as 0, as the Pallas
-// finalize does.
+// Three variants, chosen by (dtype, D) and nothing else:
+//  * bf16 at D 64, 128 and 256: flash_fwd_hopper, below.
+//  * bf16 at D 16 and 32: flash_fwd_bf16, mma.sync m16n8k16.
+//  * fp32 at every D: flash_fwd_f32 on the CUDA cores (the tensor cores
+//    would round fp32 inputs to TF32); a gate-only path.
+//
+// flash_fwd_hopper, and what it does about each limit of the mma.sync
+// kernel it replaces at those head dims:
+//  * Copies overlap the products.  A warp-specialised block: one producer
+//    thread issues TMA copies of K/V tiles into a ring of stages (three at
+//    D 64 and 128, two at D 256) with full/empty mbarriers; two consumer
+//    warpgroups of 64 query rows each (128 rows a block) compute.  The
+//    producer warpgroup gives up registers (setmaxnreg 24) and the
+//    consumers take them (240).  The query tile is loaded once per item
+//    and released after the item's last S, so the next item's query tile
+//    lands while this item's last P V and epilogue run.
+//  * The tensor cores run wgmma: S = Q K^T is m64nBNk16 with Q and K both
+//    K-major in shared memory; O += P V is m64nDk16 (two n128 halves at
+//    D 256) with P from registers and V MN-major (the transpose bit).  The
+//    fp32 S accumulator is rounded to bf16 A fragments in place, so no
+//    fragment is loaded by hand.  As in FlashAttention-3, a warpgroup
+//    issues S of tile i with P V of tile i-1 and runs the softmax of tile
+//    i while they run, and the two warpgroups take turns at the tensor
+//    cores (named barriers), so one's softmax overlaps the other's
+//    products.
+//  * Shared tiles are 128-byte swizzled, as TMA writes them and wgmma
+//    reads them: a row of D bf16 is D / 64 boxes of 64 columns, each box
+//    BN rows of 128 bytes; the descriptors walk K across the boxes.
+//  * Each key tile is classified once per item: skipped (no row sees it),
+//    full (every pair visible) or edge (the diagonal, the window's lower
+//    edge or Sk's edge).  Full and edge tiles are separate instantiations,
+//    so full tiles carry no per-element mask: the softmax is bound by
+//    issue slots, not by the exponentials.  The softmax runs in the exp2
+//    domain with scale * log2(e) folded into one FFMA.
+//  * Heaviest query tiles first, no tail: one block per SM walks the
+//    (query tile, head, batch) items from the last query tile (the
+//    longest under a mask) to the first, in a snake order over the grid.
+//    An item's first K/V tiles are issued before its query tile.  Both
+//    the persistent grid (against one block an item) and the snake order
+//    (against the same order every round) are faster on the H100
+//    (tools/flash_schedule_ab.py; numbers in PERF.md).
+//  * D 256 keeps 128 rows a block: 64-key tiles, 192 KB of shared memory
+//    (Q 64 KB, two stages of K and V 128 KB), a 128-register output
+//    accumulator per consumer thread.
+//  * The epilogue normalises by l, writes the block's rows into the last
+//    tile's K/V stage (idle once both warpgroups' last P V is done),
+//    swizzled as TMA reads it, and stores them with one TMA store a box,
+//    which drops rows past Sq; the stage returns to the ring once the
+//    store has read it.  The warps issue no global stores, whose
+//    scattered 4-byte writes stalled them.
+// TMA zero-fills rows past Sq and Sk; keys past Sk are set to -inf, so
+// they add exactly 0.  Masked scores are -1e30 (in the exp2 domain), as in
+// the Pallas kernel; P is rounded to bf16 before P V; sums are fp32.  A row
+// for which no tile runs (l == 0) is written as 0, as the Pallas finalize
+// does.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockM = 16 * kWarps;  // query rows per block
+constexpr int kBlockM = 16 * kWarps;  // query rows per block (mma.sync, fp32)
 constexpr float kNegInf = -1e30f;
 
 struct Shape {
@@ -54,11 +88,12 @@ struct Shape {
   float scale;
 };
 
-// Key tiles [t0, t1) that some query row of the block starting at q0 sees.
-__device__ __forceinline__ void tile_range(const Shape& s, int q0, int bn,
-                                           int& t0, int& t1) {
+// Key tiles [t0, t1) of bn keys that some query row of the block of bm rows
+// starting at q0 sees.
+__device__ __forceinline__ void tile_range(const Shape& s, int q0, int bm,
+                                           int bn, int& t0, int& t1) {
   const int qmin = s.q_offset + q0;
-  const int qmax = s.q_offset + min(q0 + kBlockM, s.Sq) - 1;
+  const int qmax = s.q_offset + min(q0 + bm, s.Sq) - 1;
   int lo = 0, hi = s.Sk;  // keys [lo, hi)
   if (s.causal) hi = min(hi, qmax + 1);
   if (s.window > 0) lo = max(lo, qmin - s.window + 1);
@@ -96,21 +131,8 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16 for both products
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two values into one register, the first in the low half (the element of
-// the lower index in every mma fragment).
+// the lower index in every mma and wgmma fragment).
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -123,6 +145,19 @@ __device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D 16 and 32: mma.sync m16n8k16 for both products
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -133,36 +168,19 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
 //   B 16x8:  {b0,b1} rows 2t..2t+1, col g; {b2,b3} rows 2t+8..2t+9
 //   C 16x8:  {c0,c1} row g, cols 2t..2t+1; {c2,c3} row g+8
 // So the S accumulators of two neighbouring 8-key tiles are, packed to
-// bf16, the A fragment of P for the 16 keys they cover.
-//
-// kQShared: the query tile lives in shared memory (with K and V, all in
-// dynamic shared memory of bf16_smem_bytes<D, BN>()) and each k-step reads
-// its A fragment there; otherwise each warp holds its rows' fragments in
-// registers and K/V tiles are static shared memory.
-template <int D, int BN>
-constexpr int bf16_smem_bytes() {
-  return (kBlockM + 2 * BN) * (D + 8) * 2;
-}
-
-template <int D, int BN, bool kQShared>
+// bf16, the A fragment of P for the 16 keys they cover.  Each warp holds
+// its 16 query rows' fragments in registers; K/V tiles are static shared
+// memory.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    __nv_bfloat16* __restrict__ out, Shape s) {
+  constexpr int BN = 64;     // keys a tile
   constexpr int LD = D + 8;  // shared row stride: fragment reads hit 32 banks
-  __nv_bfloat16 *Qs = nullptr, *Ks, *Vs;
-  if constexpr (kQShared) {
-    extern __shared__ __align__(16) unsigned char flash_bf16_smem[];
-    Qs = reinterpret_cast<__nv_bfloat16*>(flash_bf16_smem);
-    Ks = Qs + kBlockM * LD;
-    Vs = Ks + BN * LD;
-  } else {
-    __shared__ __align__(16) __nv_bfloat16 Ks_static[BN * LD];
-    __shared__ __align__(16) __nv_bfloat16 Vs_static[BN * LD];
-    Ks = Ks_static;
-    Vs = Vs_static;
-  }
+  __shared__ __align__(16) __nv_bfloat16 Ks[BN * LD];
+  __shared__ __align__(16) __nv_bfloat16 Vs[BN * LD];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -180,27 +198,15 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* vb = v + static_cast<size_t>(b) * s.Sk * kv_stride +
                             static_cast<size_t>(hk) * D;
 
-  uint32_t qf[kQShared ? 1 : D / 16][4];
-  if constexpr (kQShared) {
-    // rows past Sq are zero; the first tile's __syncthreads publishes them
-    for (int i = tid; i < kBlockM * D / 8; i += kThreads) {
-      const int row = i / (D / 8), ch = i % (D / 8);
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + row < s.Sq)
-        x = *reinterpret_cast<const uint4*>(qb + (q0 + row) * q_stride +
-                                            ch * 8);
-      *reinterpret_cast<uint4*>(Qs + row * LD + ch * 8) = x;
-    }
-  } else {
+  uint32_t qf[D / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      const bool in0 = r0 < s.Sq, in1 = r1 < s.Sq;
-      qf[kk][0] = in0 ? load_pair(qb + r0 * q_stride + c) : 0u;
-      qf[kk][1] = in1 ? load_pair(qb + r1 * q_stride + c) : 0u;
-      qf[kk][2] = in0 ? load_pair(qb + r0 * q_stride + c + 8) : 0u;
-      qf[kk][3] = in1 ? load_pair(qb + r1 * q_stride + c + 8) : 0u;
-    }
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    const bool in0 = r0 < s.Sq, in1 = r1 < s.Sq;
+    qf[kk][0] = in0 ? load_pair(qb + r0 * q_stride + c) : 0u;
+    qf[kk][1] = in1 ? load_pair(qb + r1 * q_stride + c) : 0u;
+    qf[kk][2] = in0 ? load_pair(qb + r0 * q_stride + c + 8) : 0u;
+    qf[kk][3] = in1 ? load_pair(qb + r1 * q_stride + c + 8) : 0u;
   }
 
   float o[D / 8][4];
@@ -210,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
   int t0, t1;
-  tile_range(s, q0, BN, t0, t1);
+  tile_range(s, q0, kBlockM, BN, t0, t1);
   for (int tile = t0; tile < t1; ++tile) {
     const int k0 = tile * BN;
     __syncthreads();  // the previous tile's reads are done
@@ -235,22 +241,10 @@ __global__ void __launch_bounds__(kThreads)
       sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t* qa;
-      uint32_t qs[4];
-      if constexpr (kQShared) {
-        const __nv_bfloat16* qp = Qs + (warp * 16 + g) * LD + kk * 16 + 2 * t;
-        qs[0] = load_pair(qp);
-        qs[1] = load_pair(qp + 8 * LD);
-        qs[2] = load_pair(qp + 8);
-        qs[3] = load_pair(qp + 8 * LD + 8);
-        qa = qs;
-      } else {
-        qa = qf[kk];
-      }
 #pragma unroll
       for (int nt = 0; nt < BN / 8; ++nt) {
         const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(sc[nt], qa, load_pair(kp), load_pair(kp + 8));
+        mma_bf16(sc[nt], qf[kk], load_pair(kp), load_pair(kp + 8));
       }
     }
 
@@ -397,7 +391,7 @@ __global__ void __launch_bounds__(kThreads)
   float* Pw = Ps + warp * 16 * BN;
   float* Aw = Al + warp * 16;
   int t0, t1;
-  tile_range(s, q0, BN, t0, t1);
+  tile_range(s, q0, kBlockM, BN, t0, t1);
   for (int tile = t0; tile < t1; ++tile) {
     const int k0 = tile * BN;
     __syncthreads();
@@ -480,28 +474,634 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D 64, 128 and 256: TMA ring, wgmma, warp specialisation
+// ---------------------------------------------------------------------------
+
+namespace hopper {
+
+constexpr int kConsumers = 2;           // warpgroups of 64 query rows
+constexpr int kBM = 64 * kConsumers;    // query rows per block
+constexpr int kThreadsWS = 128 * (kConsumers + 1);  // + the producer's
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Keys per tile and ring stages.  Shared memory: Q kBM x D, then STAGES
+// K tiles, then STAGES V tiles (BN x D each), then the barriers; every
+// tile starts on a 1024-byte boundary, as the 128-byte swizzle needs.
+template <int D>
+struct Tiles {
+  static constexpr int BN = D == 256 ? 64 : 128;
+  static constexpr int STAGES = D == 256 ? 2 : 3;
+  static constexpr int q_bytes = kBM * D * 2;
+  static constexpr int kv_bytes = BN * D * 2;
+  static constexpr int k_off = q_bytes;
+  static constexpr int v_off = k_off + STAGES * kv_bytes;
+  static constexpr int bar_off = v_off + STAGES * kv_bytes;
+  static constexpr int smem = bar_off + (2 * STAGES + 2) * 8 + 1024;
+  static_assert(q_bytes % 1024 == 0 && kv_bytes % 1024 == 0, "alignment");
+  static_assert(smem <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// `count` arrivals at once.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a (D, H, S, B) tensor map into shared memory at dst.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int h, int row,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h),
+      "r"(row), "r"(b)
+      : "memory");
+}
+
+// One box from shared memory at src into a (D, H, S, B) tensor map; rows
+// past the map's extent are dropped.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int d, int h, int row,
+                                          int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(d), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at shared address addr:
+// lbo and sbo in bytes (sbo: from one 8-row group to the next).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma registers across
+// the asynchronous products.
+template <int N>
+__device__ __forceinline__ void reg_fence(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (*r)[4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Named barriers (0 is __syncthreads): kTurn + wg hands the tensor cores
+// from one consumer warpgroup to the other; kEpilogue joins both consumer
+// warpgroups, kEpilogue + 1 + wg one of them.
+constexpr int kTurn = 1, kEpilogue = 3;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define F16(i) F4(i), F4(i + 4), F4(i + 8), F4(i + 12)
+#define F32(i) F16(i), F16(i + 16)
+#define R32                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define R64                                                               \
+  R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
+      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+      "%58, %59, %60, %61, %62, %63"
+
+// S (+)= A B^T over k16: A (64 rows) and B (N rows) K-major in shared
+// memory.  d holds N / 2 fp32 values a thread.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F32(0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : F32(0), F32(32)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O += A B over k16: A (64 x 16 bf16) from registers, B (16 x N)
+// MN-major in shared memory (the transpose bit).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : F32(0), F32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F4
+#undef F16
+#undef F32
+#undef R32
+#undef R64
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One block per SM walks work items (query tile, head, batch): item
+// r * gridDim.x + blockIdx.x in even rounds r and from the other end of the
+// grid in odd ones.  Under a mask the items run from the last query tile
+// (the longest) to the first, so the long diagonal items do not trail.
+struct Work {
+  int q0, h, b, t0, t1;
+};
+
+template <int D>
+__device__ __forceinline__ bool work_of(const Shape& s, int r, Work& w) {
+  const int n_m = (s.Sq + kBM - 1) / kBM, hb_n = s.Hq * s.B;
+  const int it = r * gridDim.x +
+                 (r & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  if (it >= n_m * hb_n) return false;
+  int m = it / hb_n;
+  if (s.causal || s.window > 0) m = n_m - 1 - m;
+  const int hb = it % hb_n;
+  w.h = hb % s.Hq;
+  w.b = hb / s.Hq;
+  w.q0 = m * kBM;
+  tile_range(s, w.q0, kBM, Tiles<D>::BN, w.t0, w.t1);
+  return true;
+}
+
+// Accumulator layout of m64nNk16 (f32), for thread tid of the warpgroup
+// (warp w = tid / 32, g = lane / 4, t = lane % 4): d[4j + e] is row
+// 16w + g (e < 2) or 16w + g + 8 (e >= 2), column 8j + 2t + (e & 1).  The
+// A-fragment of k16 step kk from registers is {d[8kk] d[8kk+1]},
+// {d[8kk+2] d[8kk+3]}, {d[8kk+4] d[8kk+5]}, {d[8kk+6] d[8kk+7]} packed to
+// bf16: the S accumulator becomes P's A operand in place.
+template <int D>
+__global__ void __launch_bounds__(kThreadsWS, 1)
+    flash_fwd_hopper(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap to,
+                     __nv_bfloat16* __restrict__ out, Shape s,
+                     float scale_log2) {
+  using T = Tiles<D>;
+  constexpr int BN = T::BN, ST = T::STAGES, NB = D / 64;  // NB boxes a row
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sq = base, sk = base + T::k_off, sv = base + T::v_off;
+  const uint32_t full = base + T::bar_off, empty = full + 8 * ST;
+  const uint32_t qfull = empty + 8 * ST, qempty = qfull + 8;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, kConsumers * 128);
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, kConsumers * 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer: one thread keeps the K/V ring full and loads each item's
+    // query tile once its predecessor's last S is done.  An item's first
+    // tiles go before its query tile (their slots free up while the
+    // previous item ends).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      Work w{};
+      for (int r = 0, c = 0; work_of<D>(s, r, w); ++r) {
+        const int hk = w.h / s.G, n = w.t1 - w.t0;
+        auto load_tile = [&](int i) {
+          const int st = (c + i) % ST, t = w.t0 + i;
+          mbar_wait(empty + 8 * st, (((c + i) / ST) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * st, 2 * T::kv_bytes);
+          for (int box = 0; box < NB; ++box) {
+            const uint32_t off = st * T::kv_bytes + box * BN * 128;
+            tma_load(sk + off, &tk, full + 8 * st, box * 64, hk, t * BN, w.b);
+            tma_load(sv + off, &tv, full + 8 * st, box * 64, hk, t * BN, w.b);
+          }
+        };
+        // the previous item's last slot stays busy until its output is out
+        const int early = n < ST - 1 ? n : ST - 1;
+        for (int i = 0; i < early; ++i) load_tile(i);
+        mbar_wait(qempty, (r & 1) ^ 1);
+        mbar_expect_tx(qfull, T::q_bytes);
+        for (int box = 0; box < NB; ++box)
+          tma_load(sq + box * kBM * 128, &tq, qfull, box * 64, w.h, w.q0,
+                   w.b);
+        for (int i = early; i < n; ++i) load_tile(i);
+        c += n;
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, lane = tid % 32, t4 = lane % 4;
+    const int r0 = wg * 64 + (tid / 32) * 16 + lane / 4;  // rows r0, r0 + 8
+    const uint32_t q_wg = sq + wg * 64 * 128;
+
+    float o[D / 2];
+    float m0, m1, l0, l1;     // l: this thread's share of the row sums
+    uint32_t pa[BN / 16][4];  // P of the previous tile, bf16 A fragments
+    Work w{};
+    int qmin, qmax, qp0, qp1;
+
+    // O += P V for the tile in stage st: keys kk*16.. are rows of V; its
+    // D columns span the boxes (lbo: one box to the next)
+    auto pv = [&](int st) {
+      const uint32_t vt = sv + st * T::kv_bytes;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint32_t v_k = vt + kk * 16 * 128;
+        if constexpr (D == 256) {
+          wgmma_rs<128>(o, pa[kk], desc(v_k, BN * 128, 1024));
+          wgmma_rs<128>(o + 64, pa[kk],
+                        desc(v_k + 2 * BN * 128, BN * 128, 1024));
+        } else {
+          wgmma_rs<D>(o, pa[kk], desc(v_k, BN * 128, 1024));
+        }
+      }
+    };
+
+    // Tile i of the item, at ring position c: the products S_i = Q K_i^T
+    // and O += P_{i-1} V_{i-1} are issued together in this warpgroup's
+    // turn; the softmax of S_i then runs while they and the other
+    // warpgroup's products occupy the tensor cores.  O is rescaled once
+    // P_{i-1} V_{i-1} is done.  Tile 0 (no P V yet) and edge tiles (masked
+    // per element) are instantiations of their own, so that no branch
+    // separates the products of a turn from their waits and full tiles
+    // carry no mask.
+    auto tile = [&](int c, int i, auto first, auto edge) {
+      constexpr bool kFirst = decltype(first)::value;
+      constexpr bool kEdge = decltype(edge)::value;
+      const int st = c % ST, k0 = (w.t0 + i) * BN;
+      mbar_wait(full + 8 * st, (c / ST) & 1);
+      const uint32_t kt = sk + st * T::kv_bytes;
+      float sc[BN / 2];
+      bar_sync(kTurn + wg, 256);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_box = (kk % 4) * 32;
+        wgmma_ss<BN>(sc, desc(q_wg + (kk / 4) * kBM * 128 + in_box, 16, 1024),
+                     desc(kt + (kk / 4) * BN * 128 + in_box, 16, 1024),
+                     kk > 0);
+      }
+      wg_commit();
+      if constexpr (!kFirst) {
+        pv((c - 1) % ST);
+        wg_commit();
+      }
+      bar_arrive(kTurn + 1 - wg, 256);
+      wg_wait<kFirst ? 0 : 1>();
+      reg_fence<BN / 2>(sc);
+
+      // online softmax in the exp2 domain: p = 2^(s * scale * log2(e) - m)
+      float mx0 = kNegInf, mx1 = kNegInf;
+      if constexpr (kEdge) {
+        // this thread's key 8j + (e & 1) of the tile (from k0 + 2 t4) is
+        // present below `in`, and visible to row qp from lo to hi
+        const int base = k0 + 2 * t4, in = s.Sk - base;
+        const int hi0 = s.causal ? qp0 - base : BN, hi1 = hi0 + 8 * s.causal;
+        const int lo0 = s.window > 0 ? qp0 - s.window + 1 - base : -BN;
+        const int lo1 = lo0 + 8 * (s.window > 0);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kc = 8 * j + (e & 1);
+            float x = sc[4 * j + e] * scale_log2;
+            if (kc >= in)
+              x = -INFINITY;  // past the edge: exp2 gives exactly 0
+            else if (kc > (e < 2 ? hi0 : hi1) || kc < (e < 2 ? lo0 : lo1))
+              x = kNegInf;
+            sc[4 * j + e] = x;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      // full tiles still hold raw scores: scale the maxima only
+      const float c0 = kEdge ? 1.f : scale_log2;
+      const float mn0 = fmaxf(m0, quad_max(mx0) * c0);
+      const float mn1 = fmaxf(m1, quad_max(mx1) * c0);
+      const float a0 = exp2_approx(m0 - mn0), a1 = exp2_approx(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        sc[4 * j + 0] = exp2_approx(fmaf(sc[4 * j + 0], c0, -mn0));
+        sc[4 * j + 1] = exp2_approx(fmaf(sc[4 * j + 1], c0, -mn0));
+        sc[4 * j + 2] = exp2_approx(fmaf(sc[4 * j + 2], c0, -mn1));
+        sc[4 * j + 3] = exp2_approx(fmaf(sc[4 * j + 3], c0, -mn1));
+        rs0 += sc[4 * j + 0] + sc[4 * j + 1];
+        rs1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * a0 + rs0;
+      l1 = l1 * a1 + rs1;
+
+      if constexpr (!kFirst) {
+        wg_wait<0>();
+        reg_fence<D / 2>(o);
+        reg_fence<BN / 16>(pa);
+        mbar_arrive(empty + 8 * ((c - 1) % ST));
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 0] *= a0;
+        o[4 * j + 1] *= a0;
+        o[4 * j + 2] *= a1;
+        o[4 * j + 3] *= a1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      }
+    };
+    // a tile is full when every (row, key) pair of the item sees it
+    auto is_full = [&](int i) {
+      const int k0 = (w.t0 + i) * BN;
+      return k0 + BN <= s.Sk && (!s.causal || k0 + BN - 1 <= qmin) &&
+             (s.window <= 0 || k0 > qmax - s.window);
+    };
+    using Yes = std::true_type;
+    using No = std::false_type;
+
+    if (wg == 0) bar_arrive(kTurn, 256);  // warpgroup 0 goes first
+    for (int r = 0, c = 0; work_of<D>(s, r, w); ++r) {
+      qmin = s.q_offset + w.q0;
+      qmax = s.q_offset + min(w.q0 + kBM, s.Sq) - 1;
+      qp0 = qmin + r0;
+      qp1 = qp0 + 8;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      m0 = m1 = kNegInf;
+      l0 = l1 = 0.f;
+      const int n = w.t1 - w.t0;
+      mbar_wait(qfull, r & 1);
+      if (n > 0) {
+        if (is_full(0))
+          tile(c, 0, Yes{}, No{});
+        else
+          tile(c, 0, Yes{}, Yes{});
+      }
+      for (int i = 1; i < n; ++i) {
+        if (is_full(i))
+          tile(c + i, i, No{}, No{});
+        else
+          tile(c + i, i, No{}, Yes{});
+      }
+      mbar_arrive(qempty);  // the item's last S is done: the next Q may land
+      const int last = (c + n - 1) % ST;
+      if (n > 0) {          // the last tile's P V
+        wg_fence();
+        pv(last);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence<D / 2>(o);
+      }
+      c += n;
+
+      // epilogue: normalise; write the rows, swizzled as TMA reads them,
+      // into the last tile's K/V stage (free once both warpgroups' last
+      // P V is done) and store them with one TMA store a box, which drops
+      // rows past Sq; the stage is released once the store has read it.
+      // An item that sees no key writes its zeros directly.
+      const float s0 = quad_sum(l0), s1 = quad_sum(l1);
+      const float inv0 = s0 > 0.f ? 1.f / s0 : 0.f;
+      const float inv1 = s1 > 0.f ? 1.f / s1 : 0.f;
+      const int rr = r0 - wg * 64;  // row in the warpgroup's 64
+      if (n == 0) {
+        const size_t stride = static_cast<size_t>(s.Hq) * D;
+        __nv_bfloat16* ob = out + static_cast<size_t>(w.b) * s.Sq * stride +
+                            static_cast<size_t>(w.h) * D + 2 * t4;
+        for (int j = 0; j < D / 8; ++j)
+          for (int row = w.q0 + r0; row < w.q0 + r0 + 16; row += 8)
+            if (row < s.Sq)
+              *reinterpret_cast<uint32_t*>(ob + row * stride + 8 * j) = 0u;
+        continue;
+      }
+      // warpgroup wg's box b: at D 256 the whole K (wg 0) or V (wg 1) tile
+      // of the stage (64 rows); else rows 64 wg.. of the stage's K tile
+      const uint32_t ot = (D == 256 && wg == 1 ? sv : sk) + last * T::kv_bytes +
+                          (D == 256 ? 0 : wg * 64 * 128);
+      bar_sync(kEpilogue, 256);  // both warpgroups' last products are done
+      unsigned char* os = smem_raw + (ot - raw);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int box = j / 8, chunk = (j % 8) ^ (rr % 8);
+        unsigned char* p = os + box * BN * 128 + rr * 128 + chunk * 16 + 4 * t4;
+        *reinterpret_cast<uint32_t*>(p) =
+            pack(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(p + 8 * 128) =
+            pack(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_sync(kEpilogue + 1 + wg, 128);
+      if (tid == 0) {
+        for (int box = 0; box < NB; ++box)
+          tma_store(&to, ot + box * BN * 128, box * 64, w.h, w.q0 + wg * 64,
+                    w.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(empty + 8 * last, 128);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, H, D) bf16 tensor as a 4-D map (innermost first) whose box is
+// 64 columns of one head over `rows` rows, swizzled 128 B; out-of-range
+// rows read as zero.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+              int rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(H) * D * 2,
+                                 static_cast<cuuint64_t>(S) * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   const Shape& s, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(&tq, q, s.B, s.Sq, s.Hq, D, kBM) ||
+      !make_map(&to, out, s.B, s.Sq, s.Hq, D, 64) ||
+      !make_map(&tk, k, s.B, s.Sk, s.Hkv, D, Tiles<D>::BN) ||
+      !make_map(&tv, v, s.B, s.Sk, s.Hkv, D, Tiles<D>::BN))
+    return cudaErrorInvalidValue;
+  constexpr int smem = Tiles<D>::smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_hopper<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev, sms;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const long long items =
+      static_cast<long long>((s.Sq + kBM - 1) / kBM) * s.Hq * s.B;
+  if (items * 2 > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int blocks = static_cast<int>(items < sms ? items : sms);
+  flash_fwd_hopper<D><<<blocks, kThreadsWS, smem, st>>>(
+      tq, tk, tv, to, static_cast<__nv_bfloat16*>(out), s, s.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
 template <int D>
 cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v,
                      void* out, const Shape& s, cudaStream_t st) {
   const dim3 grid((s.Sq + kBlockM - 1) / kBlockM, s.Hq, s.B);
   if (dtype == 1) {
-    const auto* qt = static_cast<const __nv_bfloat16*>(q);
-    const auto* kt = static_cast<const __nv_bfloat16*>(k);
-    const auto* vt = static_cast<const __nv_bfloat16*>(v);
-    auto* ot = static_cast<__nv_bfloat16*>(out);
-    if constexpr (D <= 128) {
-      flash_fwd_bf16<D, 64, false><<<grid, kThreads, 0, st>>>(qt, kt, vt, ot,
-                                                               s);
-    } else {
-      constexpr int smem = bf16_smem_bytes<D, 32>();
-      cudaError_t err = cudaFuncSetAttribute(
-          flash_fwd_bf16<D, 32, true>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      flash_fwd_bf16<D, 32, true><<<grid, kThreads, smem, st>>>(qt, kt, vt,
-                                                                 ot, s);
+    if constexpr (D <= 32) {
+      flash_fwd_bf16<D><<<grid, kThreads, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<__nv_bfloat16*>(out), s);
+      return cudaGetLastError();
     }
-    return cudaGetLastError();
+    return cudaErrorInvalidValue;  // bf16 at D >= 64: the Hopper entry
   }
   const int smem = static_cast<int>(F32Tile<D>::floats * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
@@ -513,19 +1113,25 @@ cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+bool valid(int B, int Sq, int Sk, int Hq, int Hkv) {
+  return Hkv > 0 && Hq % Hkv == 0 && Sq > 0 && Sk > 0 && B > 0;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, out (B, Sq, Hq, D); k, v (B, Sk,
-// Hkv, D), all contiguous; Hq = Hkv * G; D in {16, 32, 64, 128, 256}; causal
-// 0/1; window <= 0 means none; q_offset >= 0 is the position of q's first
-// row.  Returns the CUDA error of the launch (0 on success).
+// q, out (B, Sq, Hq, D); k, v (B, Sk, Hkv, D), all contiguous and 16-byte
+// aligned; Hq = Hkv * G; causal 0/1; window <= 0 means none; q_offset >= 0
+// is the position of q's first row.  Each entry returns the CUDA error of
+// the launch (0 on success).
+
+// dtype 0 = float32 at D in {16, 32, 64, 128, 256}; dtype 1 = bfloat16 at
+// D in {16, 32} (mma.sync).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Sk, int Hq, int Hkv, int D, int causal,
                                    int window, int q_offset, float scale,
                                    void* stream) {
-  if ((dtype != 0 && dtype != 1) || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
-      Sk <= 0 || B <= 0)
+  if ((dtype != 0 && dtype != 1) || !valid(B, Sq, Sk, Hq, Hkv))
     return cudaErrorInvalidValue;
   const Shape s{B, Sq, Sk, Hq, Hkv, Hq / Hkv, causal, window, q_offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -536,5 +1142,33 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
     case 128: return launch_d<128>(dtype, q, k, v, out, s, st);
     case 256: return launch_d<256>(dtype, q, k, v, out, s, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// bfloat16 at D in {64, 128, 256}: the Hopper kernel (TMA, wgmma).
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
+                                         const void* v, void* out, int B,
+                                         int Sq, int Sk, int Hq, int Hkv,
+                                         int D, int causal, int window,
+                                         int q_offset, float scale,
+                                         void* stream) {
+  if (!valid(B, Sq, Sk, Hq, Hkv)) return cudaErrorInvalidValue;
+  const Shape s{B, Sq, Sk, Hq, Hkv, Hq / Hkv, causal, window, q_offset, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return hopper::launch<64>(q, k, v, out, s, st);
+    case 128: return hopper::launch<128>(q, k, v, out, s, st);
+    case 256: return hopper::launch<256>(q, k, v, out, s, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of the Hopper kernel at head_dim D (0 if none).
+extern "C" int flash_attention_wgmma_smem(int D) {
+  switch (D) {
+    case 64: return hopper::Tiles<64>::smem;
+    case 128: return hopper::Tiles<128>::smem;
+    case 256: return hopper::Tiles<256>::smem;
+    default: return 0;
   }
 }

@@ -3,17 +3,22 @@
 Follows ``repro/kernels/flash_attention/ref.py``: ``attention_reference`` is
 the dense oracle (fp32 scores and softmax), ``attention_reference_chunked``
 the online softmax over K blocks inside a loop over Q blocks, which never
-holds the (Sq, Sk) scores.  Query head h reads KV head ``h // G`` through a
+holds the (Sq, Sk) scores; ``attention_reference_tiled`` walks the tiles as
+the CUDA wgmma kernel does (``tile_plan``: skipped, full and edge tiles; the
+exp2-domain online softmax).  Query head h reads KV head ``h // G`` through a
 (Hkv, G) split of the query heads, so repeated K/V is never formed.  Masks
 (causal, window, ``q_offset``) are applied before the softmax.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.flash_attention.kernel import WGMMA_TILES
+
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 def _mask(Sq: int, Sk: int, q_offset: int, causal: bool,
@@ -108,3 +113,79 @@ def attention_reference_chunked(
         out = acc / torch.clamp(l, min=1e-30)               # (B,Hkv,G,blk_q,D)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, blk_q, Hq, D))
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def tile_plan(q0: int, Sq: int, Sk: int, bm: int, bn: int, causal: bool,
+              window: Optional[int], q_offset: int) -> List[Tuple[int, str]]:
+    """The key tiles that the wgmma kernel's block of query rows
+    ``[q0, min(q0 + bm, Sq))`` visits, in order, as ``(first key, kind)``.
+    Tiles that no row sees are skipped; a tile is ``"full"`` when every
+    (row, key) pair of it is visible and all its keys lie below Sk, else
+    ``"edge"`` (masked per element)."""
+    qmin = q_offset + q0
+    qmax = q_offset + min(q0 + bm, Sq) - 1
+    lo, hi = 0, Sk
+    if causal:
+        hi = min(hi, qmax + 1)
+    if window is not None:
+        lo = max(lo, qmin - window + 1)
+    if hi <= lo:
+        return []
+    plan = []
+    for t in range(lo // bn, -(-hi // bn)):
+        k0 = t * bn
+        full = (k0 + bn <= Sk and (not causal or k0 + bn - 1 <= qmin)
+                and (window is None or k0 > qmax - window))
+        plan.append((k0, "full" if full else "edge"))
+    return plan
+
+
+def attention_reference_tiled(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The wgmma kernel's algorithm in plain PyTorch: blocks of ``bm`` query
+    rows walk the key tiles of :func:`tile_plan` (``bn`` keys each; ``(bm,
+    bn)`` the kernel's tiles at this head dim, :data:`WGMMA_TILES`) with an
+    online softmax in the exp2 domain (scale * log2(e) folded into one
+    multiply), masking only the edge tiles (-1e30; keys past Sk are absent
+    and add exactly 0), p rounded to v's dtype before the PV product, fp32
+    sums.  A row whose block visits no tile is 0."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    if D not in WGMMA_TILES:
+        raise ValueError(f"attention_reference_tiled: no wgmma kernel at "
+                         f"head_dim {D}")
+    bm, bn = WGMMA_TILES[D]
+    c = (D ** -0.5 if scale is None else scale) * LOG2E
+    qf = q.reshape(B, Sq, Hkv, G, D).float()
+    out = torch.zeros((B, Sq, Hkv, G, D), device=q.device)
+    for q0 in range(0, Sq, bm):
+        n = min(bm, Sq - q0)
+        qb = qf[:, q0:q0 + n]
+        m = torch.full((B, Hkv, G, n, 1), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, G, n, 1), device=q.device)
+        acc = torch.zeros((B, Hkv, G, n, D), device=q.device)
+        for k0, kind in tile_plan(q0, Sq, Sk, bm, bn, causal, window,
+                                  q_offset):
+            kb = k[:, k0:k0 + bn].float()
+            vb = v[:, k0:k0 + bn]
+            x = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * c
+            if kind == "edge":
+                mask = _mask(n, kb.shape[1], q_offset, causal, window,
+                             q.device, k_start=k0, q_start=q0)
+                x = torch.where(mask, x, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(x, dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * alpha + torch.sum(p, dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(), vb.float())
+            m = m_new
+        o = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+        out[:, q0:q0 + n] = o.permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)

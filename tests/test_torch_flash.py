@@ -1,8 +1,10 @@
 """The port's flash-attention op on the CPU (its plain versions) against the
 JAX package: the Pallas kernel in interpret mode over the divisible sweep
 of tests/test_kernels.py, the dense reference at ragged Sq/Sk, the chunked
-reference above the op's threshold, and the q/k/v gradients against
-``jax.vjp`` of the JAX op.
+reference above the op's threshold, the q/k/v gradients against
+``jax.vjp`` of the JAX op, and the CUDA wgmma kernel's algorithm in plain
+PyTorch (``attention_reference_tiled``: its tiles, their classification and
+its exp2-domain softmax) against the JAX reference and the Pallas kernel.
 
 Tolerances: forward fp32 2e-5 and bf16 3e-2, those of tests/test_kernels.py
 (the same arithmetic; sums run in another order).  Gradients fp32 1e-4:
@@ -25,9 +27,10 @@ from repro.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as t_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    flash_attention_cuda)
+    WGMMA_TILES, flash_attention_cuda, flash_variant)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_reference_chunked as t_chunked)
+    attention_reference_chunked as t_chunked,
+    attention_reference_tiled as t_tiled, tile_plan)
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 GRAD_TOL = 1e-4
@@ -166,3 +169,126 @@ def test_cpu_op_launches_nothing_and_kernel_refuses_cpu_tensors():
     assert flash_attention_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA tensors only"):
         flash_attention_cuda(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# The wgmma kernel's algorithm (attention_reference_tiled, tile_plan) and
+# the wrapper's choice of variant
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D,B,Sq,Sk,Hq,Hkv,kw", [
+    (64, 1, 300, 300, 4, 1, dict(causal=True)),
+    (64, 2, 77, 333, 2, 2, dict(causal=False)),
+    (64, 1, 300, 300, 4, 2, dict(causal=True, window=100)),
+    (128, 1, 37, 300, 4, 2, dict(causal=True, q_offset=263)),
+    (128, 1, 200, 515, 2, 1, dict(causal=True, window=150, q_offset=315)),
+    (256, 1, 200, 333, 2, 1, dict(causal=True, window=70, q_offset=133)),
+    (256, 1, 150, 150, 4, 1, dict(causal=True)),
+    (128, 1, 5, 9, 2, 1, dict(causal=True, window=3, q_offset=4)),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_reference_vs_jax_reference_ragged(D, B, Sq, Sk, Hq, Hkv, kw,
+                                                 dtype):
+    """Sq and Sk not multiples of the kernel's tiles (128 query rows, 128
+    keys; 64 at D 256), window on and off, q_offset > 0."""
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _qkv(Sq + 3 * Sk + D, B, Sq, Sk, Hq, Hkv, D), dtype)
+    out = t_tiled(tq, tk, tv, **kw)
+    assert out.dtype == T_DT[dtype] and out.shape == tq.shape
+    _close(out, j_ref(jq, jk, jv, **kw), TOL[dtype])
+
+
+@pytest.mark.parametrize("D,S,Hq,Hkv,kw", [
+    (64, 256, 4, 2, dict(causal=True)),
+    (64, 256, 4, 2, dict(causal=True, window=40)),
+    (128, 256, 2, 1, dict(causal=False)),
+    (256, 128, 2, 1, dict(causal=True, window=70)),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_reference_vs_pallas_interpret(D, S, Hq, Hkv, kw, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(S + D, 1, S, S, Hq, Hkv, D),
+                                       dtype)
+    ref = flash_attention_pallas(jq, jk, jv, blk_q=64, blk_k=64,
+                                 interpret=True, **kw)
+    _close(t_tiled(tq, tk, tv, **kw), ref, TOL[dtype])
+
+
+def test_tiled_reference_q_offset_vs_pallas_interpret():
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, 1, 128, 320, 2, 1, 64),
+                                       "bfloat16")
+    ref = flash_attention_pallas(jq, jk, jv, causal=True, q_offset=192,
+                                 blk_q=64, blk_k=64, interpret=True)
+    _close(t_tiled(tq, tk, tv, causal=True, q_offset=192), ref,
+           TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_reference_blind_rows_vs_pallas_interpret(D, causal, dtype):
+    """Rows past Sk by more than the window see no key.  With the Pallas
+    kernel's blocks set to the wgmma kernel's tiles, both average the V of
+    the tiles that a blind row's block visits (every masked score is -1e30,
+    so each weighs 1) and write 0 where the block visits none."""
+    bm, bn = WGMMA_TILES[D]
+    Sq = Sk = 2 * bm
+    window, q_offset = 64, 200
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(D, 1, Sq, Sk, 2, 1, D), dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = t_tiled(tq, tk, tv, **kw)
+    _close(out, flash_attention_pallas(jq, jk, jv, blk_q=bm, blk_k=bn,
+                                       interpret=True, **kw), TOL[dtype])
+    blind = q_offset + torch.arange(Sq) - window + 1 > Sk - 1
+    running = torch.arange(Sq) < bm          # only the first block runs
+    assert bool((blind & running).any()) and bool((blind & ~running).any())
+    assert bool((out[:, blind & running].abs().amax(dim=-1) > 0).all())
+    assert bool((out[:, ~running] == 0).all())
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("Sq,Sk,causal,window,q_offset", [
+    (1024, 1024, True, None, 0),
+    (1000, 1000, True, None, 0),
+    (1024, 1024, True, 128, 0),
+    (200, 712, True, None, 512),
+    (333, 517, False, None, 0),
+    (3072, 3072, True, 2048, 0),
+    (777, 1800, True, 2048, 1023),
+    (300, 300, False, 77, 0),
+    (5, 9, True, 3, 4),
+])
+def test_tile_plan_full_tiles_visible_and_visible_pairs_visited(
+        D, Sq, Sk, causal, window, q_offset):
+    """Every tile classed full has all its (row, key) pairs visible and no
+    key past Sk; every visible pair lies in a visited tile."""
+    bm, bn = WGMMA_TILES[D]
+    qpos = q_offset + torch.arange(Sq)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    vis = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window is not None:
+        vis &= kpos > qpos - window
+    covered = torch.zeros_like(vis)
+    for q0 in range(0, Sq, bm):
+        rows = slice(q0, min(q0 + bm, Sq))
+        for k0, kind in tile_plan(q0, Sq, Sk, bm, bn, causal, window,
+                                  q_offset):
+            assert kind in ("full", "edge")
+            if kind == "full":
+                assert k0 + bn <= Sk
+                assert bool(vis[rows, k0:k0 + bn].all())
+            covered[rows, k0:k0 + bn] = True
+    assert bool(covered[vis].all())
+
+
+@pytest.mark.parametrize("dtype,D,variant", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 32, "mma"), (torch.float32, 16, "fp32"),
+    (torch.float32, 128, "fp32"), (torch.float32, 256, "fp32"),
+])
+def test_flash_variant_by_dtype_and_head_dim(dtype, D, variant):
+    assert flash_variant(dtype, D) == variant
+    with pytest.raises(ValueError, match="not supported"):
+        flash_variant(torch.float16, D)
