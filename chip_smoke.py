@@ -10,7 +10,8 @@ source, all started together) and runs, in order:
    versions, kernel build time);
 2. ``kernels``: each decode kernel against its plain PyTorch version on the
    card, in fp32 and bf16, at the serving engine's full-width shapes and at
-   edge cases (page size 8, G=2/D=16, a window, FAIL page ids), with
+   edge cases (page size 8, G=2/D=16, G=16/D=256 paged, a window, FAIL
+   page ids), with
    kernel, plain and library (SDPA on pre-gathered KV, timed only) times
    beside the memory bound;
 3. ``serve``: llama3.2-3b at full width and depth (28 layers, bf16, random
@@ -50,10 +51,12 @@ source, all started together) and runs, in order:
    (device time by kernel kind, top kernels);
 9. ``ssd_kernel``: the SSD scan kernel against its plain version, fp32 and
    bf16, y and the final state, at mamba2's prefill shape (B 4, S 2048,
-   24 heads, P 64, N 128, chunk 256), at S = 1000 through the op (padded),
-   at S = 100 (chunk = S) and at the shapes of tests/test_kernels.py;
-   kernel and plain times beside the bound (no single PyTorch call
-   computes SSD, so no library time);
+   24 heads, P 64, N 128, chunk 256), at its training shape (B 8), at
+   S = 1000 through the op (padded), at S = 100 (chunk = S) and at the
+   shapes of tests/test_kernels.py; the bf16 tensor-core path also
+   against its rounding twin; kernel and plain times beside the bound at
+   the prefill and training shapes (no single PyTorch call computes SSD,
+   so no library time);
 10. ``ssm_serve``: mamba2-130m at full width and depth (24 layers, bf16,
     random weights from a seed), served through ``Model.prefill`` and
     greedy ``Model.decode_step`` (the ssm family's serving path): one
@@ -82,7 +85,8 @@ source, all started together) and runs, in order:
     head, causal, window 2048; B 2 x S 3072, 1 x 1000, and 777 queries at
     q_offset 1023 over 1800 keys) and decode at
     G = 16, D = 256 (a full 2048-slot ring, and ragged lengths), each
-    against its plain version in fp32 and bf16, with SDPA under the same
+    against its plain version in fp32 and bf16 (decode also against its
+    split twin under the kernel's own plan), with SDPA under the same
     mask timed beside them;
 16. ``hybrid_serve``: recurrentgemma-9b at full width and depth (38
     layers, 26 RG-LRU and 12 local attention, bf16, random weights from a
@@ -104,10 +108,12 @@ Every phase raises on failure.  The kernels' launch counts are reset just
 before each counted path (phases 3, 7, 10, 12 and 16) and read just after
 it; each path's count must be the exact number its depth and steps give.
 The ``env`` line carries each source's ``ptxas -v`` summary (registers and
-spills) and, for each head dim of flash's wgmma variant, its registers,
-spills, dynamic shared memory and HGMMA count in its SASS.  The last
-lines are the ``kernels`` line (with the launches of each path, and for
-flash and decode their numbers at the hybrid shapes),
+spills) and, under ``tensor_cores``, for each head dim of flash's wgmma
+variant, the tensor-core decode (G > 8) and its merge, and the SSD
+tensor-core kernels: registers, spills, shared memory and HMMA / HGMMA
+counts in their SASS.  The last lines are the ``kernels`` line (with the
+launches of each path, for flash and decode their numbers at the hybrid
+shapes and for the SSD scan at the training shape),
 the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits with code 1 and prints no result.
 """
@@ -306,6 +312,8 @@ def kernel_phase(card):
             "page8": (4, 8, 64, 32, 8, 128, [512, 100, 9, 1], None, False),
             "window": (4, 16, 32, 32, 8, 128, serve_lengths, 64, False),
             "g2_d16": (3, 16, 6, 4, 2, 16, [96, 17, 64], None, False),
+            # 16 heads over 1 (bf16: the tensor-core split kernel)
+            "g16_d256": (2, 16, 128, 16, 1, 256, [2048, 700], None, False),
         }.items():
             NP = B * maxp
             q = rnd((B, Hq, D), dt)
@@ -922,7 +930,8 @@ def _kernel_kind(name: str) -> str:
     if any(k in name for k in ("chunk_scan", "chunk_aggregates",
                                "chunk_carries")):
         return "rglru_scan"
-    if "split_kernel" in name or "combine_kernel" in name:
+    if any(k in name for k in ("split_kernel", "combine_kernel",
+                               "split_mma", "merge_kernel")):
         return "decode_attention"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma",
                                "cublas")):
@@ -1049,41 +1058,45 @@ def _ssd_bound(x, B_, chunk):
 def ssd_kernel_phase(card_line):
     """The SSD kernel against its plain version in fp32 and bf16, for y and
     the final state: at the prefill shape of mamba2 (B 4, S 2048, H 24,
-    P 64, N 128, chunk 256; bf16 B and C as the model gives them), at
-    S = 1000 through the op (padded to 1024), at S = 100 (Q = S), and at
-    the shapes of tests/test_kernels.py (bf16 x with fp32 B and C, as that
-    test draws them).  The tolerances are the repo's (fp32 2e-5, bf16 3e-2,
-    atol and rtol).  At the prefill shape the fp32 kernel is also held
-    against a float64 plain version: no further from it than
-    ``SSD_FP64_MULT`` times the fp32 plain version is.  Kernel and plain
-    times (CUDA events, L2 flushed) at the prefill shape.  Then the op's
-    gradients (backward recomputed through the plain version) against
-    autograd through the plain version at the training shape, with the
-    forward + backward times of both."""
-    import torch.nn.functional as F
+    P 64, N 128, chunk 256; bf16 B and C as the model gives them), at its
+    training shape (B 8), at S = 1000 through the op (padded to 1024), at
+    S = 100 (Q = S), and at the shapes of tests/test_kernels.py (bf16 x
+    with fp32 B and C, as that test draws them).  The tolerances are the
+    repo's (fp32 2e-5, bf16 3e-2, atol and rtol).  Where the kernel takes
+    its tensor-core path (bf16 x, B and C at P 64) it is also held within
+    3e-2 of its rounding twin ``ssd_scan_reference_tc``.  At the prefill
+    shape the fp32 kernel is also held against a float64 plain version: no
+    further from it than ``SSD_FP64_MULT`` times the fp32 plain version
+    is.  Kernel and plain times (CUDA events, L2 flushed) at the prefill
+    and training shapes.  Then the op's gradients (backward recomputed
+    through the plain version) against autograd through the plain version
+    at the training shape, with the forward + backward times of both.
+    Returns the bf16 records at the prefill and training shapes."""
     from repro_torch.kernels.ssd_scan import ssd_scan
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
-    from repro_torch.kernels.ssd_scan.ref import ssd_scan_reference
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_cuda,
+                                                     tensor_core_path)
+    from repro_torch.kernels.ssd_scan.ops import pad_to_chunk
+    from repro_torch.kernels.ssd_scan.ref import (ssd_scan_reference,
+                                                  ssd_scan_reference_tc)
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
     timer = Timer(iters=20)
     summary = {}
 
-    def plain_op(args, chunk):
-        """The op's plain path: zero-pad S to the chunk, scan, slice."""
-        x = args[0]
+    def plain_op(args, chunk, fn=ssd_scan_reference):
+        """The op's plain path (or its twin): zero-pad S to the chunk as
+        the op does, scan, slice."""
+        x, dt_, A, B_, C_, D = args
         S = x.shape[1]
-        pad = (-S) % min(chunk, S)
-        if pad:
-            args = [F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
-                    if a.ndim > 1 else a for a in args]
-        y, fs = ssd_scan_reference(*args, chunk=chunk)
+        x, dt_, B_, C_, Q = pad_to_chunk(x, dt_, B_, C_, chunk)
+        y, fs = fn(x, dt_, A, B_, C_, D, chunk=Q)
         return y[:, :S], fs
 
     for dt in (torch.float32, torch.bfloat16):
         dtn = str(dt).split(".")[-1]
         for case, (B, S, H, P, N, chunk, bc_model, via_op, timed) in {
             "prefill": (4, 2048, 24, 64, 128, 256, True, False, True),
+            "train": (8, 2048, 24, 64, 128, 256, True, False, True),
             "s1000_op": (1, 1000, 24, 64, 128, 256, True, True, False),
             "s100": (4, 100, 24, 64, 128, 256, True, False, False),
             "tk_64": (2, 64, 3, 8, 16, 16, False, False, False),
@@ -1110,6 +1123,18 @@ def ssd_kernel_phase(card_line):
                    "bc_dtype": str(args[3].dtype).split(".")[-1],
                    "max_abs_err_y_state": errs, "max_abs_err": max(errs),
                    "tol": tol, "ok": ok}
+            if tensor_core_path(dt, args[3].dtype, P, N):
+                # the rounding twin: the same rounding as the tensor cores
+                ty, tfs = plain_op(args, chunk, ssd_scan_reference_tc)
+                terrs = []
+                for out, ref in ((y, ty), (fs, tfs)):
+                    e = (out.float() - ref.float()).abs()
+                    terrs.append(float(e.max()))
+                    ok = ok and bool(torch.all(e <= tol * (1 + ref.float()
+                                                           .abs())))
+                rec.update(path="tensor_cores",
+                           max_abs_err_vs_twin_y_state=terrs, ok=ok)
+                del ty, tfs
             if case == "prefill" and dtn == "float32":
                 # Against float64: the fp32 kernel may be no further from
                 # it than SSD_FP64_MULT times the fp32 plain version is.
@@ -1139,8 +1164,8 @@ def ssd_kernel_phase(card_line):
             if not ok:
                 raise AssertionError(f"ssd_scan {case} {dtn} disagrees with "
                                      f"its plain version: {rec}")
-            if case == "prefill" and dtn == "bfloat16":
-                summary = rec
+            if case in ("prefill", "train") and dtn == "bfloat16":
+                summary[case] = rec
             del args, y, fs, ry, rfs
         # gradients through the op against autograd through the plain
         # version, at the training shape (B 8, S 2048), y's cotangent only
@@ -1490,13 +1515,15 @@ def hybrid_attn_kernel_phase(card_line):
     over 1 KV head, head_dim 256), each against its plain version in fp32
     and bf16: flash at the prefill shape (B 2, S 3072, causal, window
     2048; and B 1, S 1000), decode over a full 2048-slot ring (B 2) and
-    over ragged lengths.  Times at the serve shapes beside the bound, with
-    SDPA under the same mask as the library time."""
+    over ragged lengths, decode also against its split twin under the
+    kernel's own split plan.  Times at the serve shapes beside the bound,
+    with SDPA under the same mask as the library time."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda)
+    from repro_torch.kernels import decode_plan
     from repro_torch.kernels.decode_attention.ref import (
-        decode_attention_reference)
+        decode_attention_reference, decode_attention_split_reference)
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda, flash_variant)
     from repro_torch.kernels.flash_attention.ops import plain_attention
@@ -1571,12 +1598,18 @@ def hybrid_attn_kernel_phase(card_line):
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             out = decode_attention_cuda(q, k, v, lengths)
             ref = decode_attention_reference(q, k, v, lengths)
+            # the split twin under the kernel's own plan
+            plan = decode_plan(q.device, dt, B, Hkv, Hq // Hkv, D, T)
+            twin = decode_attention_split_reference(q, k, v, lengths,
+                                                    split_len=plan[0])
             torch.cuda.synchronize()
             err, ok = close(out, ref, dtn)
+            terr, tok = close(out, twin, dtn)
             rec = {"kernel": "decode_attention", "case": f"hybrid_{case}",
                    "dtype": dtn, "shape": [B, T, Hq, Hkv, D],
-                   "lengths": lens, "max_abs_err": err, "tol": TOL[dtn],
-                   "ok": ok}
+                   "lengths": lens, "split_plan": list(plan),
+                   "max_abs_err": err, "max_abs_err_vs_split_twin": terr,
+                   "tol": TOL[dtn], "ok": ok and tok}
             if timed:
                 kt, vt = k.transpose(1, 2).contiguous(), \
                     v.transpose(1, 2).contiguous()
@@ -1594,9 +1627,10 @@ def hybrid_attn_kernel_phase(card_line):
                         enable_gqa=True)),
                     bound_ms=bound[0], bound_by=bound[1], card=card_line)
             log(rec)
-            if not ok:
+            if not rec["ok"]:
                 raise AssertionError(f"decode_attention hybrid_{case} {dtn} "
-                                     f"disagrees with its plain version")
+                                     "disagrees with its plain version or "
+                                     "its split twin")
             if case == "serve" and dtn == "bfloat16":
                 summary["decode_attention"] = rec
     del timer
@@ -1757,28 +1791,6 @@ def hybrid_prefill_phase():
     torch.cuda.empty_cache()
 
 
-def _ptxas_summary(text: str) -> dict:
-    """Registers and spills of every kernel in one ``nvcc -Xptxas -v``
-    report: the kernel count, the most registers any uses, and the kernels
-    that spill (mangled name cut to 90 characters, spill store and load
-    bytes)."""
-    import re
-    entry, regs, spilling, n = None, 0, [], 0
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            entry, n = m.group(1), n + 1
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and entry and (int(m.group(1)) or int(m.group(2))):
-            spilling.append([entry[:90], int(m.group(1)), int(m.group(2))])
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            regs = max(regs, int(m.group(1)))
-    return {"kernels": n, "max_registers": regs, "spilling": spilling}
-
-
 def _cuobjdump():
     """The toolkit's ``cuobjdump``, else the copy bundled with Triton."""
     import shutil
@@ -1795,21 +1807,15 @@ def _cuobjdump():
     return next((c for c in cands if os.path.exists(c)), None)
 
 
-def _wgmma_report(ptxas_text: str) -> dict:
-    """For each head dim of flash's wgmma variant: registers and spills
-    from ``ptxas -v``, its dynamic shared memory (from the library), and
-    the HGMMA instructions in its SASS (``cuobjdump -sass``)."""
-    import ctypes
+def _ptxas_entries(text: str) -> dict:
+    """Registers, spill bytes (stores, loads) and static shared memory of
+    each kernel in one ``nvcc -Xptxas -v`` report, by mangled name."""
     import re
-    from repro_torch.kernels import _build
-    lib = _build.load("flash_attention")
-    lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int]
-    report, entry = {}, None
-    for line in ptxas_text.splitlines():
-        m = re.search(r"Compiling entry function '([^']*flash_fwd_hopperILi"
-                      r"(\d+)E[^']*)'", line)
+    out, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            entry = report.setdefault(f"D{m.group(2)}", {})
+            entry = out.setdefault(m.group(1), {})
             continue
         if entry is None:
             continue
@@ -1820,22 +1826,97 @@ def _wgmma_report(ptxas_text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             entry["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entry["static_smem_bytes"] = int(m.group(1)) if m else 0
             entry = None
-    for key, rec in report.items():
-        rec["dynamic_smem_bytes"] = lib.flash_attention_wgmma_smem(
-            int(key[1:]))
+    return out
+
+
+def _ptxas_summary(text: str) -> dict:
+    """Registers and spills of every kernel in one ``nvcc -Xptxas -v``
+    report: the kernel count, the most registers any uses, and the kernels
+    that spill (mangled name cut to 90 characters, spill store and load
+    bytes)."""
+    entries = _ptxas_entries(text)
+    return {"kernels": len(entries),
+            "max_registers": max((e.get("registers", 0)
+                                  for e in entries.values()), default=0),
+            "spilling": [[name[:90], *e["spill_bytes"]]
+                         for name, e in entries.items()
+                         if any(e.get("spill_bytes", (0, 0)))]}
+
+
+def _sass_counts(name: str) -> dict:
+    """HMMA and HGMMA instructions of each kernel in the SASS of
+    ``csrc/<name>.cu``'s library (``cuobjdump -sass``), by mangled name;
+    empty without ``cuobjdump``."""
+    from repro_torch.kernels import _build
     tool = _cuobjdump()
     if tool is None:
-        report["hgmma"] = "not counted: no cuobjdump"
-        return report
-    sass = subprocess.run([tool, "-sass", str(_build._lib_path(
-        "flash_attention"))], capture_output=True, text=True).stdout
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                          capture_output=True, text=True).stdout
+    out = {}
     for func in sass.split("Function : ")[1:]:
-        m = re.match(r"\S*flash_fwd_hopperILi(\d+)E", func)
-        if m:
-            report.setdefault(f"D{m.group(1)}", {})["hgmma"] = \
-                func.count("HGMMA")
+        fname = func.split(None, 1)[0]
+        out[fname] = {"hmma": func.count("HMMA"), "hgmma": func.count("HGMMA")}
+    return out
+
+
+def _kernel_report(name: str, ptxas_text: str, labels: dict,
+                   dynamic_smem: dict) -> dict:
+    """For each kernel of ``csrc/<name>.cu`` whose mangled name matches a
+    regex in ``labels`` (label -> regex): registers, spills and static
+    shared memory from ``ptxas -v``, dynamic shared memory
+    (``dynamic_smem``, label -> bytes) and HMMA / HGMMA counts in its
+    SASS."""
+    import re
+    entries, sass = _ptxas_entries(ptxas_text), _sass_counts(name)
+    report = {}
+    for label, rx in labels.items():
+        for mangled, rec in entries.items():
+            if re.search(rx, mangled):
+                report[label] = dict(rec)
+                report[label]["dynamic_smem_bytes"] = dynamic_smem.get(label, 0)
+                report[label].update(sass.get(mangled) or
+                                     {"hmma": "not counted: no cuobjdump"})
+                break
     return report
+
+
+def _wgmma_report(build_logs: dict) -> dict:
+    """The tensor-core kernels: for each head dim of flash's wgmma variant
+    and for the tensor-core decode (G > 8, D 256, and the parallel merge)
+    and SSD kernels, registers, spills, shared memory and the HMMA /
+    HGMMA instructions in their SASS."""
+    import ctypes
+    from repro_torch.kernels import _build
+    flash = _build.load("flash_attention")
+    flash.flash_attention_wgmma_smem.argtypes = [ctypes.c_int]
+    decode = _build.load("decode_attention")
+    decode.decode_attention_mma_smem.argtypes = [ctypes.c_int]
+    ssd = _build.load("ssd_scan")
+    ssd.ssd_scan_tc_smem.argtypes = [ctypes.c_int]
+    heads = (64, 128, 256)
+    return {
+        "flash_attention": _kernel_report(
+            "flash_attention", build_logs["flash_attention"],
+            {f"D{d}": rf"flash_fwd_hopperILi{d}E" for d in heads},
+            {f"D{d}": flash.flash_attention_wgmma_smem(d) for d in heads}),
+        "decode_attention": _kernel_report(
+            "decode_attention", build_logs["decode_attention"],
+            {"split_mma_d256": r"split_mmaILi256ENS_12ContiguousKV",
+             "merge_kernel_bf16": r"merge_kernelI13__nv_bfloat16",
+             "merge_kernel_f32": r"merge_kernelIfE"},
+            {"split_mma_d256": decode.decode_attention_mma_smem(256)}),
+        "ssd_scan": _kernel_report(
+            "ssd_scan", build_logs["ssd_scan"],
+            {"ssd_state_tc": r"ssd_state_tc", "ssd_cb_tc": r"ssd_cb_tc",
+             "ssd_state_pass": r"ssd_state_pass",
+             "ssd_out_tc": r"ssd_out_tc"},
+            {"ssd_state_tc": ssd.ssd_scan_tc_smem(0),
+             "ssd_out_tc": ssd.ssd_scan_tc_smem(1)}),
+    }
 
 
 SOURCES = {
@@ -1867,7 +1948,7 @@ def main() -> int:
                  "kernel_build_s": time.perf_counter() - t0,
                  "ptxas": {n: _ptxas_summary(text)
                            for n, text in build_logs.items()},
-                 "flash_wgmma": _wgmma_report(build_logs["flash_attention"])}})
+                 "tensor_cores": _wgmma_report(build_logs)}})
     card = torch.cuda.get_device_name(0)
 
     summary = kernel_phase(card)
@@ -1877,7 +1958,8 @@ def main() -> int:
     prefill_phase()
     train = train_phase()
     train_profile()
-    summary["ssd_scan"] = ssd_kernel_phase(card_line)
+    at_ssd = ssd_kernel_phase(card_line)
+    summary["ssd_scan"] = at_ssd["prefill"]
     ssm_serve = ssm_serve_phase()
     ssm_prefill_phase()
     ssm_train = ssm_train_phase()
@@ -1911,13 +1993,17 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         if len(paths) > 1:
             kernels[-1]["launches_by_path"] = paths
-        if name in at_hybrid:
-            h = at_hybrid[name]
-            kernels[-1]["at_hybrid_shape"] = {
-                "shape": h["shape"], "max_abs_err": h["max_abs_err"],
-                "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
-                "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
-                "library_ms": h["library_ms"]}
+        for key, other in (("at_hybrid_shape", at_hybrid.get(name)),
+                           ("at_train_shape", name == "ssd_scan"
+                            and at_ssd["train"])):
+            if other:
+                kernels[-1][key] = {
+                    "shape": other["shape"],
+                    "max_abs_err": other["max_abs_err"],
+                    "ms": other["kernel_ms"], "plain_ms": other["plain_ms"],
+                    "bound_ms": other["bound_ms"],
+                    "bound_by": other["bound_by"],
+                    "library_ms": other["library_ms"]}
     log({"kernels": kernels})
     log(card_line)
     log({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -35,3 +35,16 @@ extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
   }
   return cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory of the tensor-core split kernel at head_dim D (0 if
+// none).
+extern "C" int decode_attention_mma_smem(int D) {
+  switch (D) {
+    case 16: return decode::MmaSmem<16>::bytes;
+    case 32: return decode::MmaSmem<32>::bytes;
+    case 64: return decode::MmaSmem<64>::bytes;
+    case 128: return decode::MmaSmem<128>::bytes;
+    case 256: return decode::MmaSmem<256>::bytes;
+    default: return 0;
+  }
+}

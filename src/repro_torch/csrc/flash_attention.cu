@@ -76,7 +76,16 @@
 
 #include <type_traits>
 
+#include "mma_sync.cuh"
+#include "wgmma.cuh"
+
 namespace {
+
+using tc::load_pair;
+using tc::mma_bf16;
+using tc::pack;
+using tc::quad_max;
+using tc::quad_sum;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -108,16 +117,6 @@ __device__ __forceinline__ bool visible(const Shape& s, int qpos, int kpos) {
   return ok;
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -131,44 +130,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Two values into one register, the first in the low half (the element of
-// the lower index in every mma and wgmma fragment).
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // ---------------------------------------------------------------------------
 // bf16 at D 16 and 32: mma.sync m16n8k16 for both products
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
-//   A 16x16: {a0,a1} row g, cols 2t..2t+1; {a2,a3} row g+8; {a4,a5} row g,
-//            cols 2t+8..; {a6,a7} row g+8, cols 2t+8..
-//   B 16x8:  {b0,b1} rows 2t..2t+1, col g; {b2,b3} rows 2t+8..2t+9
-//   C 16x8:  {c0,c1} row g, cols 2t..2t+1; {c2,c3} row g+8
-// So the S accumulators of two neighbouring 8-key tiles are, packed to
-// bf16, the A fragment of P for the 16 keys they cover.  Each warp holds
+// Fragment layouts: mma_sync.cuh.  The S accumulators of two neighbouring
+// 8-key tiles are, packed to bf16, the A fragment of P for the 16 keys they
+// cover.  Each warp holds
 // its 16 query rows' fragments in registers; K/V tiles are static shared
 // memory.
 template <int D>
@@ -480,6 +448,14 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace hopper {
 
+using wg::desc;
+using wg::reg_fence;
+using wg::wg_commit;
+using wg::wg_fence;
+using wg::wg_wait;
+using wg::wgmma_rs;
+using wg::wgmma_ss;
+
 constexpr int kConsumers = 2;           // warpgroups of 64 query rows
 constexpr int kBM = 64 * kConsumers;    // query rows per block
 constexpr int kThreadsWS = 128 * (kConsumers + 1);  // + the producer's
@@ -565,45 +541,6 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma descriptor of a 128-byte-swizzled operand at shared address addr:
-// lbo and sbo in bytes (sbo: from one 8-row group to the next).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups of products are still running.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of wgmma registers across
-// the asynchronous products.
-template <int N>
-__device__ __forceinline__ void reg_fence(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (*r)[4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
 // Named barriers (0 is __syncthreads): kTurn + wg hands the tensor cores
 // from one consumer warpgroup to the other; kEpilogue joins both consumer
 // warpgroups, kEpilogue + 1 + wg one of them.
@@ -617,79 +554,6 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define F16(i) F4(i), F4(i + 4), F4(i + 8), F4(i + 12)
-#define F32(i) F16(i), F16(i + 16)
-#define R32                                                              \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
-#define R64                                                               \
-  R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
-      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
-      "%58, %59, %60, %61, %62, %63"
-
-// S (+)= A B^T over k16: A (64 rows) and B (N rows) K-major in shared
-// memory.  d holds N / 2 fp32 values a thread.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
-                                         int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F32(0)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : F32(0), F32(32)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// O += A B over k16: A (64 x 16 bf16) from registers, B (16 x N)
-// MN-major in shared memory (the transpose bit).
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : F32(0), F32(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef F4
-#undef F16
-#undef F32
-#undef R32
-#undef R64
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;

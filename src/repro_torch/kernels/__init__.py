@@ -13,6 +13,7 @@ environment override and no fallback from a kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -22,6 +23,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Blocks per SM that a decode launch aims for (splits of the T axis).
 _BLOCKS_PER_SM = 4
+#: The fp32 partials of a decode launch stay within 1/_PARTIAL_SHARE of the
+#: K/V bytes it reads (``split_plan``).
+_PARTIAL_SHARE = 8
 
 
 def is_cpu(t: torch.Tensor) -> bool:
@@ -72,15 +76,52 @@ def check_head_dim(name: str, dtype: torch.dtype, D: int, G: int) -> None:
                          "takes 1 or more")
 
 
-def split_plan(device: torch.device, rows: int, cap: int) -> Tuple[int, int]:
-    """(split_len, n_splits) for ``rows`` = B x Hkv blocks over a cache of
-    ``cap`` tokens: enough splits for ~4 blocks per SM, each a multiple of
-    32 tokens.  Depends only on shapes, so equal shapes split alike."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_row = max(1, (_BLOCKS_PER_SM * sms) // max(rows, 1))
-    split = -(-cap // per_row)
+def decode_heads_per_block(dtype: torch.dtype, D: int, G: int) -> int:
+    """Query heads one decode block serves, as ``launch_d`` in
+    ``csrc/decode_common.cuh`` chooses them: 16 for bf16 at G > 8 (the
+    tensor-core kernel), else 4 for G <= 4 or fp32 at D 256, else 8.  A
+    larger group runs as ``ceil(G / heads)`` head chunks."""
+    if dtype == torch.bfloat16 and G > 8:
+        return 16
+    return 4 if G <= 4 or (dtype == torch.float32 and D > 128) else 8
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(sms: int, B: int, Hkv: int, G: int, cap: int,
+               element_size: int, head_chunks: int = 1) -> Tuple[int, int]:
+    """(split_len, n_splits) of a decode launch over a cache of ``cap``
+    tokens: B x Hkv x ``head_chunks`` blocks before the T axis is split.
+
+    The rule, a pure function of its arguments:
+
+    * fill the card: enough splits for ~4 blocks per SM, so a split is
+      ``cap / (4 sms / (B Hkv head_chunks))`` tokens;
+    * bound the partials: each split writes G x D fp32 values per row and
+      the row reads ``2 D element_size`` bytes of K/V per token, so splits
+      of at least ``16 G / element_size`` tokens keep the partials (written
+      once, read once) to at most 1/8 of the K/V bytes (128 tokens at bf16
+      and G 16);
+    * a multiple of 32 tokens, at least 32.
+    """
+    per_row = max(1, (_BLOCKS_PER_SM * sms) // max(B * Hkv * head_chunks, 1))
+    split = max(-(-cap // per_row), -(-(_PARTIAL_SHARE * 2 * G)
+                                      // element_size))
     split = max(32, -(-split // 32) * 32)
     return split, -(-cap // split)
+
+
+def decode_plan(device: torch.device, dtype: torch.dtype, B: int, Hkv: int,
+                G: int, D: int, cap: int) -> Tuple[int, int]:
+    """The split plan the decode kernels launch with on ``device``."""
+    chunks = -(-G // decode_heads_per_block(dtype, D, G))
+    return split_plan(sm_count(device.index if device.index is not None
+                               else torch.cuda.current_device()),
+                      B, Hkv, G, cap, dtype.itemsize, chunks)
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

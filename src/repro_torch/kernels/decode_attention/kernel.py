@@ -3,10 +3,13 @@
 Replaces the Pallas TPU kernel
 ``repro/kernels/decode_attention/kernel.py::decode_attention_pallas``.  The
 kernel is bound by device memory (it reads ``len x Hkv x D x 2`` cache
-elements); its design — up to 8 query heads of a KV group per block (more
-as head chunks), the T axis split over blocks, a second kernel merging the
-splits — is described in ``csrc/decode_common.cuh``.  The library builds
-at first call.
+elements); its design — the T axis split over blocks under
+``kernels.split_plan``, each block serving a KV group's query heads (16 on
+the tensor cores for bf16 at G > 8; else up to 8 on the CUDA cores, more as
+head chunks), a second kernel merging the splits — is described in
+``csrc/decode_common.cuh``.  Its plain twin under a given plan is
+``ref.py::decode_attention_split_reference``.  The library builds at first
+call.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import (DTYPE_CODES, _build, check_cuda,
-                                 check_head_dim, split_plan, stream_ptr)
+                                 check_head_dim, decode_plan, stream_ptr)
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P,      # dtype, q, k, v, lengths, out, ml, acc
@@ -53,7 +56,8 @@ def decode_attention_cuda(
     check_head_dim("decode_attention", q.dtype, D, G)
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window {window} must be >= 1")
-    split_len, n_splits = split_plan(q.device, B * Hkv, T)
+    split_len, n_splits = decode_plan(q.device, q.dtype, B, Hkv, G, D,
+                                      T)
     out = torch.empty_like(q)
     ml = torch.empty((B, Hkv, n_splits, G, 2), dtype=torch.float32,
                      device=q.device)

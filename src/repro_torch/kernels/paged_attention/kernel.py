@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import (DTYPE_CODES, _build, check_cuda,
-                                 check_head_dim, split_plan, stream_ptr)
+                                 check_head_dim, decode_plan, stream_ptr)
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P,  # dtype, q, k, v, table, lengths, out, ml, acc
@@ -60,7 +60,8 @@ def paged_attention_cuda(
     check_head_dim("paged_attention", q.dtype, D, G)
     if window is not None and window < 1:
         raise ValueError(f"paged_attention: window {window} must be >= 1")
-    split_len, n_splits = split_plan(q.device, B * Hkv, maxp * page)
+    split_len, n_splits = decode_plan(q.device, q.dtype, B, Hkv, G, D,
+                                      maxp * page)
     out = torch.empty_like(q)
     ml = torch.empty((B, Hkv, n_splits, G, 2), dtype=torch.float32,
                      device=q.device)

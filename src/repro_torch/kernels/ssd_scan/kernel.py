@@ -3,11 +3,12 @@
 Replaces the Pallas TPU kernel
 ``repro/kernels/ssd_scan/kernel.py::ssd_scan_pallas``.  The Pallas grid
 walks the chunks in order with the whole (H, P, N) state in VMEM; the CUDA
-version splits the scan into five launches that are each parallel over
-(batch, chunk, head) or (batch, head, state element), described in the
-source.  The wrapper allocates the outputs and the fp32 scratch (the
-per-chunk cumsum, C Bᵀ per chunk, the per-chunk states).  The library
-builds at first call.
+version splits the scan into launches that are each parallel over (batch,
+chunk, head) or (batch, head, state element), described in the source:
+four on the tensor cores for bf16 x, B and C at mamba2's widths (P 64,
+N 128), five on the CUDA cores otherwise.  The wrapper allocates the
+outputs and the fp32 scratch (the per-chunk cumsum, C Bᵀ per chunk, the
+per-chunk states).  The library builds at first call.
 """
 from __future__ import annotations
 
@@ -29,6 +30,14 @@ _ARGTYPES = [_I, _I,                              # x dtype, B/C dtype
 HEAD_DIMS = (4, 8, 16, 64)        # P
 STATE_DIMS = (8, 16, 128)         # N
 MAX_CHUNK = 256
+
+
+def tensor_core_path(x_dtype: torch.dtype, bc_dtype: torch.dtype, P: int,
+                     N: int) -> bool:
+    """Whether the kernel takes its tensor-core path (``run`` in
+    ``csrc/ssd_scan.cu``): bf16 x, B and C at P 64 and N 128 (mamba2's
+    widths).  Its plain twin is ``ref.py::ssd_scan_reference_tc``."""
+    return x_dtype == bc_dtype == torch.bfloat16 and P == 64 and N == 128
 
 
 def _entry():
@@ -81,7 +90,9 @@ def ssd_scan_cuda(
     nc = S // Q
     f32 = dict(dtype=torch.float32, device=x.device)
     cs = torch.empty((bsz, S, H), **f32)
-    G = torch.empty((bsz, nc, Q, Q), **f32)
+    # C Bᵀ per chunk; whole 64 x 64 tiles on the tensor-core path
+    qg = -(-Q // 64) * 64 if tensor_core_path(x.dtype, B.dtype, P, N) else Q
+    G = torch.empty((bsz, nc, qg, qg), **f32)
     states = torch.empty((bsz, nc, H, P, N), **f32)
     err = _entry()(
         DTYPE_CODES[x.dtype], DTYPE_CODES[B.dtype], x.data_ptr(),

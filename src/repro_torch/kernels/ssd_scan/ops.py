@@ -43,17 +43,10 @@ class _SSD(torch.autograd.Function):
         return (*grads, None)
 
 
-def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256,
-             initial_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan. Returns (y, final_state).
-
-    Sequences that do not divide the chunk are zero-padded at the end
-    (dt = 0 gives decay 1 and zero input: the final state is unaffected).
-    ``initial_state`` takes the plain version on both devices (prefill
-    continuation), as in the JAX package; the training path always starts
-    from a zero state.
-    """
+def pad_to_chunk(x, dt, B, C, chunk: int):
+    """(x, dt, B, C, Q): Q = min(chunk, S), and the four sequences
+    zero-padded at the end to a multiple of Q (dt = 0 gives decay 1 and zero
+    input: the final state is unaffected)."""
     S = x.shape[1]
     Q = min(chunk, S)
     pad = (-S) % Q
@@ -61,14 +54,28 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256,
         def pad_s(a):
             return F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
         x, dt, B, C = pad_s(x), pad_s(dt), pad_s(B), pad_s(C)
+    return x, dt, B, C, Q
+
+
+def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan. Returns (y, final_state).
+
+    Sequences that do not divide the chunk are zero-padded at the end
+    (:func:`pad_to_chunk`) and y is sliced back.
+    ``initial_state`` takes the plain version on both devices (prefill
+    continuation), as in the JAX package; the training path always starts
+    from a zero state.
+    """
+    S = x.shape[1]
+    x, dt, B, C, Q = pad_to_chunk(x, dt, B, C, chunk)
     if initial_state is not None:
         y, fs = ssd_scan_reference(x, dt, A, B, C, D, chunk=Q,
                                    initial_state=initial_state)
     else:
         y, fs = _SSD.apply(x, dt, A, B, C, D, Q)
-    if pad:
-        y = y[:, :S]
-    return y, fs
+    return y[:, :S], fs
 
 
 def ssd_decode_step(x, dt, A, B, C, D, state):

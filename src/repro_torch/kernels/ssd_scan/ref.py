@@ -38,6 +38,34 @@ def ssd_scan_reference(
     initial_state: Optional[torch.Tensor] = None,   # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32)."""
+    return _scan(x, dt, A, B, C, D, chunk, initial_state, rounded=False)
+
+
+def ssd_scan_reference_tc(x, dt, A, B, C, D, *, chunk: int = 256
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of the kernel's tensor-core path (bf16 x, B and C):
+    :func:`ssd_scan_reference` with the three operands that carry an fp32
+    factor rounded where the kernel feeds them to the bf16 tensor cores, as
+    two bf16 terms (hi = bf16(t), lo = bf16(t - hi): about 16 bits of
+    mantissa; one bf16 term alone moves y by up to 10% of 1 + |y| at
+    mamba2's widths, against a 3% tolerance): w x (w = exp(cs_end - cs) dt)
+    in the chunk states, M = (C Bᵀ) exp(cs_i - cs_j) dt_j in the
+    intra-chunk term, and the entering state in the inter-chunk term.  C Bᵀ
+    and every product of two bf16 values are exact in fp32.  The carried
+    state itself stays fp32."""
+    return _scan(x, dt, A, B, C, D, chunk, None, rounded=True)
+
+
+def _bf16(t: torch.Tensor, rounded: bool) -> torch.Tensor:
+    """t, or where ``rounded`` the sum of its two bf16 terms as the kernel
+    feeds them to the tensor cores: hi = bf16(t), lo = bf16(t - hi)."""
+    if not rounded:
+        return t
+    hi = t.to(torch.bfloat16).to(t.dtype)
+    return hi + (t - hi).to(torch.bfloat16).to(t.dtype)
+
+
+def _scan(x, dt, A, B, C, D, chunk, initial_state, *, rounded):
     in_dtype = x.dtype
     cdt = torch.float64 if in_dtype == torch.float64 else torch.float32
     bsz, S, H, P = x.shape
@@ -66,11 +94,16 @@ def ssd_scan_reference(
                       torch.full((), -1e30, dtype=cdt, device=x.device))
     seg = torch.exp(arg)
     M = G[..., None] * seg * dtc[:, :, None, :, :]        # weight j -> i
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xc)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", _bf16(M, rounded), xc)
 
     # --- chunk state contributions -------------------------------------------
     decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)       # (b, nc, Q, H)
-    S_c = torch.einsum("bcqh,bcqhp,bcqn->bchpn", decay_to_end * dtc, xc, Bc)
+    if rounded:
+        xw = _bf16((decay_to_end * dtc)[..., None] * xc, True)
+        S_c = torch.einsum("bcqhp,bcqn->bchpn", xw, Bc)
+    else:
+        S_c = torch.einsum("bcqh,bcqhp,bcqn->bchpn", decay_to_end * dtc, xc,
+                           Bc)
 
     # --- inter-chunk linear recurrence over chunk states ----------------------
     T_c = torch.exp(cs[:, :, -1, :])                       # (b, nc, H)
@@ -84,7 +117,7 @@ def ssd_scan_reference(
         state = T_c[:, c, :, None, None] * state + S_c[:, c]
     s_excl = torch.stack(entering, dim=1)                  # (b, nc, H, P, N)
 
-    cstate = torch.einsum("bcin,bchpn->bcihp", Cc, s_excl)
+    cstate = torch.einsum("bcin,bchpn->bcihp", Cc, _bf16(s_excl, rounded))
     y_inter = torch.exp(cs)[..., None] * cstate
 
     y = (y_intra + y_inter).reshape(bsz, S, H, P)

@@ -1,6 +1,7 @@
-"""Port's decode kernels on the CPU: the plain PyTorch versions against the
-JAX references and the Pallas kernels in interpret mode, on the same inputs
-(numpy, seeded).  Tolerances are those of tests/test_kernels.py: fp32 2e-5,
+"""Port's decode kernels on the CPU: the plain PyTorch versions (and the
+plain twin of the kernels' split-and-merge, under the wrappers' split plan)
+against the JAX references and the Pallas kernels in interpret mode, on the
+same inputs (numpy, seeded).  Tolerances are those of tests/test_kernels.py: fp32 2e-5,
 bf16 3e-2 (bf16 rounds p and the output at different places in the two
 frameworks)."""
 import pytest
@@ -17,11 +18,15 @@ from repro.kernels.paged_attention.kernel import (  # noqa: E402
     paged_decode_attention_pallas)
 from repro.kernels.paged_attention.ref import (  # noqa: E402
     paged_decode_attention_reference)
+from repro_torch.kernels import (decode_heads_per_block,  # noqa: E402
+                                 split_plan)
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
     decode_attention_cuda)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_reference as t_decode_ref)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_split_reference as t_split_ref)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.paged_attention.kernel import (  # noqa: E402
@@ -171,3 +176,85 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                              lengths)
     assert decode_attention_cuda.launches == 0
     assert paged_attention_cuda.launches == 0
+
+
+# -- the decode split plan and its plain twin ---------------------------------
+
+def test_split_plan_keeps_the_llama_serve_plan():
+    """llama3.2-3b's serve shape (4 slots, 8 KV heads of 4 query heads,
+    cap 512, bf16) on 132 SMs: the plan of the G <= 8 kernels is unchanged,
+    32-token splits, 16 of them."""
+    assert decode_heads_per_block(torch.bfloat16, 128, 4) == 4
+    assert split_plan(132, 4, 8, 4, 512, 2, 1) == (32, 16)
+
+
+@pytest.mark.parametrize("dtype,heads", [(torch.bfloat16, 16),
+                                         (torch.float32, 4)])
+def test_split_plan_bounds_the_partials_at_the_hybrid_shape(dtype, heads):
+    """recurrentgemma-9b's decode shape (B 2, 1 KV head of 16 query heads,
+    D 256, a 2048-slot ring): the fp32 partials (n_splits x G x D x 4
+    bytes a row) stay within 1/8 of the K/V bytes the row reads
+    (T x D x 2 x element size), and the head chunks count as blocks."""
+    B, Hkv, G, D, T = 2, 1, 16, 256, 2048
+    es = dtype.itemsize
+    assert decode_heads_per_block(dtype, D, G) == heads
+    split, n = split_plan(132, B, Hkv, G, T, es, -(-G // heads))
+    assert n * split >= T > (n - 1) * split
+    assert n * G * D * 4 <= T * D * 2 * es / 8
+    assert (split, n) == ((128, 16) if dtype == torch.bfloat16 else (64, 32))
+
+
+@pytest.mark.parametrize("sms,B,Hkv,G,cap,es,chunks", [
+    (132, 4, 8, 4, 512, 2, 1), (132, 8, 8, 4, 4096, 2, 1),
+    (132, 2, 1, 16, 2048, 2, 1), (132, 2, 1, 16, 2048, 4, 4),
+    (132, 3, 2, 2, 256, 4, 1), (16, 1, 1, 32, 100, 2, 2),
+    (132, 64, 8, 8, 33, 2, 1)])
+def test_split_plan_splits_are_multiples_of_32(sms, B, Hkv, G, cap, es,
+                                               chunks):
+    split, n = split_plan(sms, B, Hkv, G, cap, es, chunks)
+    assert split % 32 == 0 and split >= 32
+    assert n == -(-cap // split)
+
+
+def _ragged_case(seed, B, T, Hq, Hkv, D, dtype):
+    rng = np.random.default_rng(seed)
+    return (_arr(rng, (B, Hq, D), dtype), _arr(rng, (B, T, Hkv, D), dtype),
+            _arr(rng, (B, T, Hkv, D), dtype))
+
+
+@pytest.mark.parametrize("lens,window,split", [
+    ([2048, 1, 0], 2048, 128),       # full cap, one token, none
+    ([2048, 1500, 700], 100, 128),   # splits empty before the window
+    ([2048, 900, 33], None, 64),     # the fp32 plan at this shape
+], ids=["full_one_zero", "empty_before_window", "fp32_plan"])
+def test_split_twin_matches_reference_and_pallas(lens, window, split):
+    """The plain split-and-merge twin at G 16, D 256 over a 2048-slot
+    cache, against the plain version and the JAX Pallas kernel in
+    interpret mode (fp32, 2e-5)."""
+    B, T, Hq, Hkv, D = 3, 2048, 16, 1, 256
+    q, k, v = _ragged_case(7, B, T, Hq, Hkv, D, "float32")
+    lengths = np.asarray(lens, np.int32)
+    twin = t_split_ref(_t(q), _t(k), _t(v), _t(lengths), split_len=split,
+                       window=window)
+    plain = t_decode_ref(_t(q), _t(k), _t(v), _t(lengths), window=window)
+    _close(twin, plain.numpy(), "float32")
+    pallas = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(lengths),
+                                     window=window, blk_t=512,
+                                     interpret=True)
+    # Pallas averages nothing for a row of length 0 either: both give 0
+    _close(twin, pallas, "float32")
+    if 0 in lens:
+        assert not twin[lens.index(0)].any()
+
+
+def test_split_twin_rounds_p_like_the_kernels_in_bf16():
+    """bf16 at the hybrid shape: the twin (p rounded to bf16 before P V, as
+    the kernels round it) within 3e-2 of the plain version."""
+    B, T, Hq, Hkv, D = 2, 2048, 16, 1, 256
+    q, k, v = _ragged_case(8, B, T, Hq, Hkv, D, "bfloat16")
+    lengths = np.asarray([2048, 700], np.int32)
+    twin = t_split_ref(_t(q), _t(k), _t(v), _t(lengths), split_len=128)
+    assert twin.dtype == torch.bfloat16
+    _close(twin, t_decode_ref(_t(q), _t(k), _t(v), _t(lengths)).float()
+           .numpy(), "bfloat16")

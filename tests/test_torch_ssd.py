@@ -5,6 +5,10 @@ gradients) and the Pallas kernel in interpret mode, on the same inputs
 dtype, dt = softplus(normal), A = -exp(normal), B, C and D normal, all but x
 in fp32).
 
+The plain twin of the kernel's bf16 tensor-core path
+(``ssd_scan_reference_tc``) is held against the Pallas kernel and the plain
+version with bf16 x, B and C, as the model feeds them.
+
 Tolerances: fp32 2e-5 and bf16 3e-2 (those of tests/test_kernels.py; bf16
 rounds only y, at the same place in both frameworks); gradients 1e-4 (the
 backward adds products of the recompute's fp32 terms, whose rounding
@@ -24,11 +28,15 @@ from repro.kernels.ssd_scan.ops import ssd_scan as j_ssd_scan  # noqa: E402
 from repro.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_decode_reference, ssd_scan_reference)
 from repro_torch.kernels.ssd_scan import ssd_decode_step, ssd_scan  # noqa: E402
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd_scan.kernel import (  # noqa: E402
+    ssd_scan_cuda, tensor_core_path)
+from repro_torch.kernels.ssd_scan.ops import pad_to_chunk  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_decode_reference as t_decode_ref)
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_scan_reference as t_scan_ref)
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_scan_reference_tc as t_scan_tc)
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 GRAD_TOL = 1e-4
@@ -206,3 +214,50 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="do not match"):
         ssd_scan_cuda(x, dt[:, :8], A, Bm, Cm, D, chunk=8)
     assert ssd_scan_cuda.launches == 0
+
+
+def _bf16_inputs(seed, B, S, H, P, N):
+    """bf16 x, B and C (what the model feeds the kernel's tensor-core
+    path), fp32 dt, A and D."""
+    x, dt, A, Bm, Cm, D = _inputs(seed, B, S, H, P, N, "bfloat16")
+    return (x, dt, A, Bm.astype(ml_dtypes.bfloat16),
+            Cm.astype(ml_dtypes.bfloat16), D)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 100, 2, 64, 128, 64),
+                                             (1, 64, 1, 64, 128, 32)],
+                         ids=["padded", "two_chunks"])
+def test_rounding_twin_matches_pallas_and_reference(B, S, H, P, N, chunk):
+    """The plain twin of the kernel's tensor-core path (w x, M and the
+    entering state as two bf16 terms each) through the op's padding,
+    against the JAX Pallas kernel in interpret mode on the same padding and
+    against the plain version, at bf16 3e-2."""
+    args = _bf16_inputs(5, B, S, H, P, N)
+    assert tensor_core_path(torch.bfloat16, torch.bfloat16, P, N)
+    x, dt, Bm, Cm, Q = pad_to_chunk(*(_t(args[i]) for i in (0, 1, 3, 4)),
+                                    chunk)
+    pa = (x, dt, _t(args[2]), Bm, Cm, _t(args[5]))
+    ty, tfs = t_scan_tc(*pa, chunk=Q)
+    assert ty.dtype == torch.bfloat16 and tfs.dtype == torch.float32
+    ry, rfs = t_scan_ref(*pa, chunk=Q)
+    _close(ty[:, :S], ry[:, :S].float().numpy(), TOL["bfloat16"])
+    _close(tfs, rfs.numpy(), TOL["bfloat16"])
+    pad = x.shape[1] - S
+    jargs = [jnp.asarray(a) for a in args]
+    for i in (0, 1, 3, 4):
+        jargs[i] = jnp.pad(jargs[i], ((0, 0), (0, pad))
+                           + ((0, 0),) * (jargs[i].ndim - 2))
+    jy, jfs = ssd_scan_pallas(*jargs, chunk=Q, interpret=True)
+    _close(ty[:, :S], np.asarray(jy, np.float32)[:, :S], TOL["bfloat16"])
+    _close(tfs, jfs, TOL["bfloat16"])
+
+
+def test_tensor_core_path_is_bf16_at_mamba2_widths():
+    """The wrapper's mirror of the kernel's dispatch: bf16 x, B and C at
+    P 64 and N 128; everything else the CUDA-core kernels."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tensor_core_path(bf, bf, 64, 128)
+    assert not tensor_core_path(bf, bf, 64, 16)
+    assert not tensor_core_path(bf, bf, 16, 16)
+    assert not tensor_core_path(bf, f32, 64, 128)
+    assert not tensor_core_path(f32, f32, 64, 128)

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of this tree against those of another tree
-on one card, in turns (other, this, this, other, ...): the decode kernels
-at the llama3.2-3b serve shape (B 4 slots, 32 padded heads over 8 KV
-heads, D 128, bf16, lengths 216/20/12/9), flash at llama's training shape
-(B 2, S 1024, 32 heads over 8, D 128, causal, bf16) and flash at
+"""Time the port's kernels of this tree against those of another tree on
+one card, in turns (other, this, this, other, ...), at the shapes
+``chip_smoke.py`` times them: the decode kernels at the llama3.2-3b serve
+shape (B 4 slots, 32 padded heads over 8 KV heads, D 128, bf16, lengths
+216/20/12/9), decode at recurrentgemma-9b's decode shape (B 2, a full
+2048-slot ring, 16 heads over 1 KV head, D 256, bf16), flash at llama's
+training shape (B 2, S 1024, 32 heads over 8, D 128, causal, bf16) and at
 recurrentgemma-9b's prefill shape (B 2, S 3072, 16 heads over 1, D 256,
-causal, window 2048, bf16), as ``chip_smoke.py`` times them.
+causal, window 2048, bf16), and the SSD scan at mamba2-130m's prefill
+and training shapes (B 4 and 8, S 2048, 24 heads, P 64, N 128, chunk
+256, bf16 x, B and C).
 
   python3 tools/ab_kernels.py OTHER_ROOT [--rounds 4]
 
@@ -15,12 +19,15 @@ its ``src/repro_torch/csrc`` must keep the C entry points of this tree,
 except that a flash library without the wgmma entry
 (``flash_attention_fwd_wgmma``, before it existed) is called through its
 one entry ``flash_attention_fwd``.  Both libraries are built with this
-tree's flags and called through this tree's wrappers; the registers of
-the kernel entries these shapes launch are printed for both.  Prints one
-JSON line per round and a summary line with the medians and, for each
-kernel, whether the two trees' outputs are equal and whether they are
-within the bf16 tolerance of each other (3e-2, as ``chip_smoke.py``);
-needs a CUDA card and ``nvcc``.
+tree's flags and called through this tree's wrappers, each decode kernel
+under its own tree's split plan (``decode_plan`` in its
+``kernels/__init__.py``, or the older ``split_plan(device, B x Hkv,
+cap)``); the registers of the kernel entries these shapes launch are
+printed for both.  Prints one JSON line per round and a summary line
+with the medians, how many rounds this tree was faster in, and, for each
+kernel, whether the two trees' outputs are equal (bit for bit) and their
+largest difference, within the bf16 tolerance of each other or not (3e-2,
+as ``chip_smoke.py``); needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -60,6 +67,21 @@ def _build_tree(root: str, name: str, tag: str):
     return ctypes.CDLL(out), regs
 
 
+def _plan_of(root: str):
+    """The decode split plan of the tree at ``root``, as its wrappers call
+    it: ``(device, dtype, B, Hkv, G, D, cap) -> (split_len, n_splits)``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_kernels_{abs(hash(root))}",
+        os.path.join(root, "src", "repro_torch", "kernels", "__init__.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if hasattr(mod, "decode_plan"):
+        return mod.decode_plan
+    return lambda device, dtype, B, Hkv, G, D, cap: mod.split_plan(
+        device, B * Hkv, cap)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other")
@@ -68,27 +90,31 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import Timer, nvidia_smi
+    from chip_smoke import Timer, _ssd_inputs, nvidia_smi
     from repro_torch.kernels import _build, stream_ptr
-    from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda)
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
-    from repro_torch.kernels.paged_attention.kernel import (
-        paged_attention_cuda)
+    from repro_torch.kernels.paged_attention import kernel as paged_kernel
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 
-    names = ("decode_attention", "paged_attention", "flash_attention")
+    names = ("decode_attention", "paged_attention", "flash_attention",
+             "ssd_scan")
+    roots = {"this": ROOT, "other": args.other}
     built = {tag: {n: _build_tree(root, n, tag) for n in names}
-             for tag, root in (("this", ROOT), ("other", args.other))}
+             for tag, root in roots.items()}
     libs = {tag: {n: lib for n, (lib, _) in b.items()}
             for tag, b in built.items()}
+    plans = {tag: _plan_of(root) for tag, root in roots.items()}
     # registers of the entries that the shapes launch
-    launched = ("Li128ELi4E", "flash_fwd_bf16ILi128E",
+    launched = ("Li128ELi4E", "Li256ELi4E", "flash_fwd_bf16ILi128E",
                 "flash_fwd_bf16ILi256E", "flash_fwd_hopper",
-                "combine_kernelI13")
+                "combine_kernelI13", "split_mmaILi256E", "merge_kernelI13",
+                "ssd_", "Li64ELi128E")
     print(json.dumps({"registers": {
         tag: {e[-120:]: r for n, (_, regs) in b.items()
               for e, r in regs.items()
-              if "bfloat16" in e and any(k in e for k in launched)}
+              if ("bfloat16" in e or "ssd_" in e)
+              and any(k in e for k in launched)}
         for tag, b in built.items()}}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     dt = torch.bfloat16
@@ -108,6 +134,11 @@ def main(argv=None) -> int:
         rnd((2, 1024, 8, D))
     hq, hk, hv = rnd((2, 3072, 16, 256)), rnd((2, 3072, 1, 256)), \
         rnd((2, 3072, 1, 256))
+    dq, dk, dv = rnd((2, 16, 256)), rnd((2, 2048, 1, 256)), \
+        rnd((2, 2048, 1, 256))
+    ring = torch.tensor([2048, 2048], dtype=torch.int32, device="cuda")
+    ssd_in = {n: _ssd_inputs(gen, b, 2048, 24, 64, 128, dt, dt)
+              for n, b in (("prefill", 4), ("train", 8))}
 
     def flash(lib, q, k, v, **kw):
         """Through this tree's wrapper, or the one entry of a library that
@@ -125,20 +156,31 @@ def main(argv=None) -> int:
             raise RuntimeError(f"flash_attention_fwd: CUDA error {err}")
         return out
 
-    calls = {"decode_attention": lambda lib: decode_attention_cuda(
-                 q, k, v, lengths),
-             "paged_attention": lambda lib: paged_attention_cuda(
+    def ssd(case):
+        """y and the final state of the scan, flattened into one tensor."""
+        y, fs = ssd_scan_cuda(*ssd_in[case], chunk=256)
+        return torch.cat([y.flatten(), fs.flatten().to(y.dtype)])
+
+    calls = {"decode_attention": lambda lib: decode_kernel.
+             decode_attention_cuda(q, k, v, lengths),
+             "decode_attention_hybrid": lambda lib: decode_kernel.
+             decode_attention_cuda(dq, dk, dv, ring),
+             "paged_attention": lambda lib: paged_kernel.paged_attention_cuda(
                  q, kp, vp, table, lengths),
              "flash_attention": lambda lib: flash(lib, fq, fk, fv),
              "flash_attention_hybrid": lambda lib: flash(
-                 lib, hq, hk, hv, causal=True, window=2048)}
-    source = {n: n.replace("_hybrid", "") for n in calls}
+                 lib, hq, hk, hv, causal=True, window=2048),
+             "ssd_scan_prefill": lambda lib: ssd("prefill"),
+             "ssd_scan_train": lambda lib: ssd("train")}
+    source = {n: next(s for s in names if n.startswith(s)) for n in calls}
     timer = Timer(iters=30)
     times = {tree: {n: [] for n in calls} for tree in libs}
     outs = {}
     order = ["other", "this", "this", "other"]
     for r in range(args.rounds):
         for tree in order if r % 2 == 0 else order[::-1]:
+            decode_kernel.decode_plan = paged_kernel.decode_plan = \
+                plans[tree]
             for n, call in calls.items():
                 lib = libs[tree][source[n]]
                 _build._loaded[source[n]] = lib
@@ -147,17 +189,22 @@ def main(argv=None) -> int:
         print(json.dumps({"round": r, "ms": {t: {n: times[t][n][-2:]
                                                  for n in calls}
                                              for t in times}}), flush=True)
-    same, close = {}, {}
+    same, close, wins = {}, {}, {}
     for n in calls:
         a, b = outs[("this", n)], outs[("other", n)]
         same[n] = bool(torch.equal(a, b))
         close[n] = {"max_abs_diff": float((a - b).abs().max()),
                     "within_3e-2": bool(torch.all(
                         (a - b).abs() <= 3e-2 * (1 + b.abs())))}
+        # pairs of one round: this tree's and the other's times in turn
+        wins[n] = sum(t < o for t, o in zip(times["this"][n],
+                                             times["other"][n]))
     print(json.dumps({"ab_kernels": {
         "card": nvidia_smi(), "rounds": args.rounds,
         "median_ms": {t: {n: statistics.median(times[t][n]) for n in calls}
                       for t in times},
+        "this_faster_pairs": {n: [w, len(times["this"][n])]
+                              for n, w in wins.items()},
         "outputs_equal": same, "outputs_close": close}}), flush=True)
     return 0
 
