@@ -8,12 +8,22 @@ source, all started together) and runs, in order:
 
 1. the environment line (``nvidia-smi`` name and power limit, torch and CUDA
    versions, kernel build time);
-2. ``kernels``: each decode kernel against its plain PyTorch version on the
-   card, in fp32 and bf16, at the serving engine's full-width shapes and at
-   edge cases (page size 8, G=2/D=16, G=16/D=256 paged, a window, FAIL
-   page ids), with
-   kernel, plain and library (SDPA on pre-gathered KV, timed only) times
-   beside the memory bound;
+2. ``kernels``: each decode kernel against its plain PyTorch version and
+   against its split twin under the kernel's own plan on the card, in fp32
+   and bf16, at the serving engine's full-width shapes, at the long shape
+   (8 rows up to 4096 tokens), at ``long_b32`` (32 slots of 512..8192
+   tokens, ~1.1 GB of bf16 K/V) and at edge cases (page size 8,
+   G=2/D=16, G=16/D=256 paged, a window, FAIL page ids), with kernel,
+   plain and library (SDPA on pre-gathered KV, timed only) times beside
+   the memory bound (the kernel also after an L2 flush that leaves clean
+   lines, ``kernel_ms_clean_l2``; see ``Timer``; ``timer_floor_ms`` is a
+   one-element fill timed the same ways); then ``decode_reuse``: the
+   one-launch kernels 60 calls back to back with lengths and windows
+   changing every call (rows of length 0 and below, single-split and
+   multi-split rows), every output against the plain version and the
+   arrival counters all zero afterwards; and
+   ``decode_launches_per_call``: ``torch.profiler`` sees exactly one
+   device kernel (``decode_fused_mma`` or ``decode_fused``) a call;
 3. ``serve``: llama3.2-3b at full width and depth (28 layers, bf16, random
    weights from a seed) behind ``ServingEngine(batch_slots=4,
    page_size=16, max_len=512)``, then the contiguous-cache decode
@@ -108,12 +118,14 @@ Every phase raises on failure.  The kernels' launch counts are reset just
 before each counted path (phases 3, 7, 10, 12 and 16) and read just after
 it; each path's count must be the exact number its depth and steps give.
 The ``env`` line carries each source's ``ptxas -v`` summary (registers and
-spills) and, under ``tensor_cores``, for each head dim of flash's wgmma
+spills), under ``tensor_cores``, for each head dim of flash's wgmma
 variant, the tensor-core decode (G > 8) and its merge, and the SSD
 tensor-core kernels: registers, spills, shared memory and HMMA / HGMMA
-counts in their SASS.  The last lines are the ``kernels`` line (with the
-launches of each path, for flash and decode their numbers at the hybrid
-shapes and for the SSD scan at the training shape),
+counts in their SASS; and under ``decode_fused`` the one-launch decode
+kernels' registers, spills and shared memory at D 128.  The last lines
+are the ``kernels`` line (with the launches of each path, for flash and
+decode their numbers at the hybrid shapes and for the SSD scan at the
+training shape),
 the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits with code 1 and prints no result.
 """
@@ -183,11 +195,18 @@ class Timer:
     host needs to enqueue the call, so the events time the device work and
     not the host's launch overhead.  The median drops the rare call that
     the host reaches late (after the flush has drained), whose events would
-    also time the host."""
+    also time the host.
 
-    def __init__(self, iters=30):
+    ``flush="read"`` flushes by reading the 512 MB instead.  The write
+    flush leaves L2 full of dirty lines, whose write-back the timed
+    kernel's first ~50 MB of reads pay; the read flush leaves clean lines,
+    as the engine's weight reads before attention do."""
+
+    def __init__(self, iters=30, flush="write"):
         self.iters = iters
-        self.flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.zeros(512 << 20, dtype=torch.uint8, device="cuda")
+        words = self.flush.view(torch.float32)
+        self.flush_fn = self.flush.zero_ if flush == "write" else words.amax
 
     def __call__(self, fn) -> float:
         for _ in range(3):
@@ -196,7 +215,7 @@ class Timer:
                torch.cuda.Event(enable_timing=True))
               for _ in range(self.iters)]
         for a, b in ev:
-            self.flush.zero_()
+            self.flush_fn()
             a.record()
             fn()
             b.record()
@@ -226,21 +245,41 @@ def _valid_tokens(lengths, cap, window):
     return total
 
 
+def _close(out, ref, dtn):
+    """(largest difference, within TOL[dtn] x (1 + |ref|) and finite)."""
+    e = (out.float() - ref.float()).abs()
+    return float(e.max()), bool(
+        torch.all(e <= TOL[dtn] * (1 + ref.float().abs()))
+        and torch.isfinite(out).all())
+
+
+def _long_b32_lengths():
+    """32 slot lengths in 512..8192, drawn from a seed."""
+    gen = torch.Generator().manual_seed(3232)
+    return torch.randint(512, 8193, (32,), generator=gen).tolist()
+
+
 def kernel_phase(card):
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_plan
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda)
     from repro_torch.kernels.decode_attention.ref import (
-        decode_attention_reference)
+        decode_attention_reference, decode_attention_split_reference)
     from repro_torch.kernels.paged_attention.kernel import (
         paged_attention_cuda)
     from repro_torch.kernels.paged_attention.ref import (
         paged_decode_attention_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    timer = Timer()
+    timer, clean = Timer(), Timer(flush="read")
+    # the Timer's floor: a one-element fill between the same events
+    tiny = torch.zeros(1, device="cuda")
+    log({"timer_floor_ms": {"write_flush": timer(tiny.zero_),
+                            "read_flush": clean(tiny.zero_), "card": card}})
     serve_lengths = [216, 20, 12, 9]
     long_lengths = [4096, 3000, 2049, 1500, 777, 300, 64, 1]
+    b32_lengths = _long_b32_lengths()
     summary = {}
 
     def rnd(shape, dt):
@@ -258,20 +297,23 @@ def kernel_phase(card):
         return timer(lambda: F.scaled_dot_product_attention(
             q4, k, v, attn_mask=m4, enable_gqa=True))
 
-    def check(name, case, dt, out, ref, times=None, bound=None):
+    def check(name, case, dt, out, ref, twin, plan, times=None, bound=None):
+        """out against the plain version and against the split twin under
+        the kernel's own plan, both within the dtype's tolerance."""
         dtn = str(dt).split(".")[-1]
-        err = (out.float() - ref.float()).abs()
-        lim = TOL[dtn] * (1 + ref.float().abs())
-        ok = bool(torch.all(err <= lim)) and bool(torch.isfinite(out).all())
+        err, ok = _close(out, ref, dtn)
+        terr, tok = _close(out, twin, dtn)
         rec = {"kernel": name, "case": case, "dtype": dtn,
-               "max_abs_err": float(err.max()), "tol": TOL[dtn], "ok": ok}
+               "split_plan": list(plan), "max_abs_err": err,
+               "max_abs_err_vs_split_twin": terr, "tol": TOL[dtn],
+               "ok": ok and tok}
         if times:
             rec.update(times)
             rec.update(bound_ms=bound[0], bound_by=bound[1], card=card)
         log(rec)
-        if not ok:
+        if not rec["ok"]:
             raise AssertionError(f"{name} {case} {dtn} disagrees with its "
-                                 f"plain version: {rec}")
+                                 f"plain version or its split twin: {rec}")
         return rec
 
     for dt in (torch.float32, torch.bfloat16):
@@ -281,6 +323,8 @@ def kernel_phase(card):
         for case, (B, T, Hq, Hkv, D, lens, window, timed) in {
             "serve": (4, 512, 32, 8, 128, serve_lengths, None, True),
             "long": (8, 4096, 32, 8, 128, long_lengths, None, True),
+            # 32 slots of 512..8192 tokens: 256 (row, KV head) pairs
+            "long_b32": (32, 8192, 32, 8, 128, b32_lengths, None, True),
             "window": (4, 512, 32, 8, 128, serve_lengths, 64, False),
             "g2_d16": (3, 256, 4, 2, 16, [256, 85, 7], None, False),
         }.items():
@@ -289,6 +333,9 @@ def kernel_phase(card):
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             out = decode_attention_cuda(q, k, v, lengths, window=window)
             ref = decode_attention_reference(q, k, v, lengths, window=window)
+            plan = decode_plan(q.device, dt, B, Hkv, Hq // Hkv, D, T)
+            twin = decode_attention_split_reference(
+                q, k, v, lengths, split_len=plan[0], window=window)
             torch.cuda.synchronize()
             times = bound = None
             if timed:
@@ -297,18 +344,24 @@ def kernel_phase(card):
                 times = {
                     "kernel_ms": timer(lambda: decode_attention_cuda(
                         q, k, v, lengths, window=window)),
+                    "kernel_ms_clean_l2": clean(lambda: decode_attention_cuda(
+                        q, k, v, lengths, window=window)),
                     "plain_ms": timer(lambda: decode_attention_reference(
                         q, k, v, lengths, window=window)),
                     "library_ms": sdpa_ms(q, kt, vt, lengths, window)}
                 bound = _bound(dtn, es, B, Hq, Hkv, D,
                                _valid_tokens(lens, T, window), 0)
-            rec = check("decode_attention", case, dt, out, ref, times, bound)
+                del kt, vt
+            rec = check("decode_attention", case, dt, out, ref, twin, plan,
+                        times, bound)
             if case == "serve" and dtn == "bfloat16":
                 summary["decode_attention"] = rec
+            del q, k, v, out, ref, twin
         # -- paged decode ------------------------------------------------
         for case, (B, page, maxp, Hq, Hkv, D, lens, window, timed) in {
             "serve": (4, 16, 32, 32, 8, 128, serve_lengths, None, True),
             "long": (8, 16, 256, 32, 8, 128, long_lengths, None, True),
+            "long_b32": (32, 16, 512, 32, 8, 128, b32_lengths, None, True),
             "page8": (4, 8, 64, 32, 8, 128, [512, 100, 9, 1], None, False),
             "window": (4, 16, 32, 32, 8, 128, serve_lengths, 64, False),
             "g2_d16": (3, 16, 6, 4, 2, 16, [96, 17, 64], None, False),
@@ -330,16 +383,23 @@ def kernel_phase(card):
                                        window=window)
             ref = paged_decode_attention_reference(q, kp, vp, table, lengths,
                                                    window=window)
+            plan = decode_plan(q.device, dt, B, Hkv, Hq // Hkv, D, maxp * page)
+            safe = table.clamp(0, NP - 1).long()
+            twin = decode_attention_split_reference(
+                q, kp[safe].reshape(B, maxp * page, Hkv, D),
+                vp[safe].reshape(B, maxp * page, Hkv, D), lengths,
+                split_len=plan[0], window=window)
             torch.cuda.synchronize()
             times = bound = None
             if timed:
-                safe = table.clamp(0, NP - 1).long()
                 kg = kp[safe].reshape(B, maxp * page, Hkv, D).transpose(
                     1, 2).contiguous()
                 vg = vp[safe].reshape(B, maxp * page, Hkv, D).transpose(
                     1, 2).contiguous()
                 times = {
                     "kernel_ms": timer(lambda: paged_attention_cuda(
+                        q, kp, vp, table, lengths, window=window)),
+                    "kernel_ms_clean_l2": clean(lambda: paged_attention_cuda(
                         q, kp, vp, table, lengths, window=window)),
                     "plain_ms": timer(lambda: paged_decode_attention_reference(
                         q, kp, vp, table, lengths, window=window)),
@@ -348,10 +408,156 @@ def kernel_phase(card):
                 bound = _bound(dtn, es, B, Hq, Hkv, D,
                                _valid_tokens(lens, maxp * page, window),
                                4 * pages)
-            rec = check("paged_attention", case, dt, out, ref, times, bound)
+                del kg, vg
+            rec = check("paged_attention", case, dt, out, ref, twin, plan,
+                        times, bound)
             if case == "serve" and dtn == "bfloat16":
                 summary["paged_attention"] = rec
+            del q, kp, vp, out, ref, twin
+        torch.cuda.empty_cache()
+    del timer, clean
+    torch.cuda.empty_cache()
     return summary
+
+
+def _reuse_lengths(rng, B, cap, split_len, window):
+    """B lengths of one call: a row of 0, one below 0, one of 1, one within
+    the first split, and the rest anywhere up to cap (past it by less than
+    the window's reach when there is none: every row the plain version
+    computes alike)."""
+    hi = cap + 40 if window is None else cap
+    fixed = [0, -3, 1, int(rng.integers(2, split_len + 1))]
+    return fixed + [int(x) for x in rng.integers(2, hi + 1, B - len(fixed))]
+
+
+def decode_reuse_phase():
+    """The one-launch decode kernels called back to back, 60 calls each,
+    with lengths and windows that change every call: every output against
+    the plain version, and the arrival counters all zero afterwards (a
+    counter that a call did not reset fails the run).  Rows of length 0 and
+    below (no live split), single-split rows, multi-split rows and windows
+    (None, 1, 64, 200) all occur; the log line counts them."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_reference)
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rng = np.random.default_rng(4321)
+    calls, windows = 60, (None, 1, 64, 200)
+    # (kernel, dtype, B, Hq, Hkv, D, cap); paged with page 16
+    cases = [("decode_attention", torch.bfloat16, 8, 32, 8, 128, 512),
+             ("paged_attention", torch.bfloat16, 8, 32, 8, 128, 512),
+             ("decode_attention", torch.float32, 8, 32, 8, 128, 512),
+             ("paged_attention", torch.float32, 8, 32, 8, 128, 512),
+             # fp32 at 16 heads over 1, D 256: four head chunks a row
+             ("decode_attention", torch.float32, 6, 16, 1, 256, 2048)]
+    for name, dt, B, Hq, Hkv, D, cap in cases:
+        dtn = str(dt).split(".")[-1]
+        q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dt)
+        if name == "decode_attention":
+            k, v = (torch.randn((B, cap, Hkv, D), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            run = lambda n, w: decode_attention_cuda(q, k, v, n, window=w)
+            plain = lambda n, w: decode_attention_reference(q, k, v, n,
+                                                            window=w)
+        else:
+            page, maxp = 16, cap // 16
+            kp, vp = (torch.randn((B * maxp, page, Hkv, D), generator=gen,
+                                  device="cuda").to(dt) for _ in range(2))
+            table = torch.randperm(B * maxp, generator=gen, device="cuda"
+                                   ).to(torch.int32).reshape(B, maxp)
+            run = lambda n, w: paged_attention_cuda(q, kp, vp, table, n,
+                                                    window=w)
+            plain = lambda n, w: paged_decode_attention_reference(
+                q, kp, vp, table, n, window=w)
+        split_len = kernels.decode_plan(q.device, dt, B, Hkv, Hq // Hkv, D,
+                                        cap)[0]
+        args, live = [], {"none": 0, "one": 0, "several": 0}
+        for i in range(calls):
+            w = windows[i % len(windows)]
+            lens = _reuse_lengths(rng, B, cap, split_len, w)
+            for n in lens:
+                a = kernels.decode_arrivals(n, cap, w, split_len)
+                live["none" if a == 0 else "one" if a == 1
+                     else "several"] += 1
+            args.append((torch.tensor(lens, dtype=torch.int32,
+                                      device="cuda"), w))
+        torch.cuda.synchronize()
+        outs = [run(n, w) for n, w in args]       # back to back
+        torch.cuda.synchronize()
+        worst, bad = 0.0, 0
+        for (n, w), out in zip(args, outs):
+            err, ok = _close(out, plain(n, w), dtn)
+            worst, bad = max(worst, err), bad + (not ok)
+        dirty = sum(int(torch.count_nonzero(c))
+                    for c in kernels._COUNTERS.values())
+        rec = {"decode_reuse": {"kernel": name, "dtype": dtn,
+                                "shape": [B, Hq, Hkv, D, cap],
+                                "split_len": split_len, "calls": calls,
+                                "rows_by_live_splits": live,
+                                "max_abs_err": worst, "tol": TOL[dtn],
+                                "calls_out_of_tol": bad,
+                                "nonzero_counters": dirty}}
+        log(rec)
+        if bad or dirty or not all(live.values()):
+            raise AssertionError(f"decode reuse run failed: {rec}")
+    torch.cuda.empty_cache()
+
+
+def decode_launch_phase():
+    """torch.profiler over 5 calls of each one-launch path (decode and paged
+    at llama's serve shape in bf16 and fp32, fp32 decode at 16 heads over 1
+    and D 256): exactly one device kernel a call, decode_fused (fp32) or
+    decode_fused_mma (bf16)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda)
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    lengths = torch.tensor([216, 20, 12, 9], dtype=torch.int32, device="cuda")
+    table = torch.arange(4 * 32, dtype=torch.int32, device="cuda").reshape(
+        4, 32)
+    calls, seen = 5, {}
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn((4, 32, 128), generator=gen, device="cuda").to(dt)
+        k = torch.randn((4, 512, 8, 128), generator=gen, device="cuda").to(dt)
+        pages = k.reshape(4 * 32, 16, 8, 128)
+        hq = torch.randn((2, 16, 256), generator=gen, device="cuda").to(dt)
+        hk = torch.randn((2, 2048, 1, 256), generator=gen,
+                         device="cuda").to(dt)
+        paths = {"decode_attention": lambda: decode_attention_cuda(
+                     q, k, k, lengths),
+                 "paged_attention": lambda: paged_attention_cuda(
+                     q, pages, pages, table, lengths)}
+        if dt == torch.float32:
+            paths["decode_attention_g16_d256"] = lambda: \
+                decode_attention_cuda(hq, hk, hk, lengths[:2])
+        for name, fn in paths.items():
+            fn()                       # the counters exist before the window
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            dev = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernels_ = {e.key[:60]: e.count for e in dev}
+            key = f"{name}_{str(dt).split('.')[-1]}"
+            seen[key] = kernels_
+            if sum(kernels_.values()) != calls or not all(
+                    "decode_fused" in k_ for k_ in kernels_):
+                raise AssertionError(f"{key}: {kernels_} in {calls} calls, "
+                                     "not one decode_fused launch a call")
+    log({"decode_launches_per_call": {"calls": calls, "device_kernels": seen}})
 
 
 # ---------------------------------------------------------------------------
@@ -930,8 +1136,7 @@ def _kernel_kind(name: str) -> str:
     if any(k in name for k in ("chunk_scan", "chunk_aggregates",
                                "chunk_carries")):
         return "rglru_scan"
-    if any(k in name for k in ("split_kernel", "combine_kernel",
-                               "split_mma", "merge_kernel")):
+    if any(k in name for k in ("decode_fused", "split_mma", "merge_kernel")):
         return "decode_attention"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma",
                                "cublas")):
@@ -1535,12 +1740,6 @@ def hybrid_attn_kernel_phase(card_line):
     def rnd(shape, dt):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
-    def close(out, ref, dtn):
-        e = (out.float() - ref.float()).abs()
-        return float(e.max()), bool(
-            torch.all(e <= TOL[dtn] * (1 + ref.float().abs()))
-            and torch.isfinite(out).all())
-
     for dt in (torch.float32, torch.bfloat16):
         dtn = str(dt).split(".")[-1]
         es = torch.tensor([], dtype=dt).element_size()
@@ -1558,7 +1757,7 @@ def hybrid_attn_kernel_phase(card_line):
             out = flash_attention_cuda(q, k, v, **kw)
             ref = plain_attention(q, k, v, True, window, q_offset, None)
             torch.cuda.synchronize()
-            err, ok = close(out, ref, dtn)
+            err, ok = _close(out, ref, dtn)
             rec = {"kernel": "flash_attention", "case": f"hybrid_{case}",
                    "dtype": dtn, "shape": [B, Sq, Sk, Hq, Hkv, D],
                    "causal": True, "window": window, "q_offset": q_offset,
@@ -1603,8 +1802,8 @@ def hybrid_attn_kernel_phase(card_line):
             twin = decode_attention_split_reference(q, k, v, lengths,
                                                     split_len=plan[0])
             torch.cuda.synchronize()
-            err, ok = close(out, ref, dtn)
-            terr, tok = close(out, twin, dtn)
+            err, ok = _close(out, ref, dtn)
+            terr, tok = _close(out, twin, dtn)
             rec = {"kernel": "decode_attention", "case": f"hybrid_{case}",
                    "dtype": dtn, "shape": [B, T, Hq, Hkv, D],
                    "lengths": lens, "split_plan": list(plan),
@@ -1906,8 +2105,7 @@ def _wgmma_report(build_logs: dict) -> dict:
         "decode_attention": _kernel_report(
             "decode_attention", build_logs["decode_attention"],
             {"split_mma_d256": r"split_mmaILi256ENS_12ContiguousKV",
-             "merge_kernel_bf16": r"merge_kernelI13__nv_bfloat16",
-             "merge_kernel_f32": r"merge_kernelIfE"},
+             "merge_kernel_bf16": r"merge_kernelI13__nv_bfloat16"},
             {"split_mma_d256": decode.decode_attention_mma_smem(256)}),
         "ssd_scan": _kernel_report(
             "ssd_scan", build_logs["ssd_scan"],
@@ -1917,6 +2115,26 @@ def _wgmma_report(build_logs: dict) -> dict:
             {"ssd_state_tc": ssd.ssd_scan_tc_smem(0),
              "ssd_out_tc": ssd.ssd_scan_tc_smem(1)}),
     }
+
+
+def _fused_report(build_logs: dict) -> dict:
+    """The one-launch decode kernels at head_dim 128 in both sources
+    (decode_fused_mma, bf16 at G <= 8; decode_fused, fp32 with 4 and 8
+    query heads a block): registers, spills, shared memory, HMMA counts."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.load("decode_attention")
+    lib.decode_attention_fused_smem.argtypes = [ctypes.c_int] * 3
+    labels = {"bf16_d128": (1, 8, r"decode_fused_mmaILi128E"),
+              "f32_d128_g4": (0, 4, r"decode_fusedILi128ELi4E"),
+              "f32_d128_g8": (0, 8, r"decode_fusedILi128ELi8E")}
+    smem = {lab: lib.decode_attention_fused_smem(code, 128, maxg)
+            for lab, (code, maxg, _) in labels.items()}
+    return {src: _kernel_report(src, build_logs[src],
+                                {lab: rx + kv for lab, (_, _, rx)
+                                 in labels.items()}, smem)
+            for src, kv in (("decode_attention", "NS_12ContiguousKV"),
+                            ("paged_attention", "NS_7PagedKV"))}
 
 
 SOURCES = {
@@ -1948,10 +2166,13 @@ def main() -> int:
                  "kernel_build_s": time.perf_counter() - t0,
                  "ptxas": {n: _ptxas_summary(text)
                            for n, text in build_logs.items()},
-                 "tensor_cores": _wgmma_report(build_logs)}})
+                 "tensor_cores": _wgmma_report(build_logs),
+                 "decode_fused": _fused_report(build_logs)}})
     card = torch.cuda.get_device_name(0)
 
     summary = kernel_phase(card)
+    decode_reuse_phase()
+    decode_launch_phase()
     serve = serve_phase()
     identity_phase()
     summary["flash_attention"] = flash_phase(card_line)

@@ -1,7 +1,6 @@
 // Tensor-core building blocks shared by the kernels that use mma.sync
 // m16n8k16 (bf16 operands, fp32 accumulators): flash_attention.cu (D 16 and
-// 32), decode_common.cuh (bf16 at more than 8 query heads a KV head) and
-// ssd_scan.cu (bf16 x, B and C).
+// 32), decode_common.cuh (bf16 decode) and ssd_scan.cu (bf16 x, B and C).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
 //   A 16x16: {a0,a1} row g, cols 2t..2t+1; {a2,a3} row g+8; {a4,a5} row g,
@@ -101,6 +100,12 @@ __device__ __forceinline__ void frag_b(uint32_t* b, const __nv_bfloat16* s,
   ldsm4(b, s + (n0 + (mi >> 1) * 8 + r) * ld + k0 + (mi & 1) * 8);
 }
 
+// ... from a tile stored [k][n] (ldmatrix .trans):
+__device__ __forceinline__ void frag_b_t(uint32_t* b, const __nv_bfloat16* s,
+                                         int ld, int n0, int k0, int lane) {
+  const int mi = lane / 8, r = lane % 8;
+  ldsm4_t(b, s + (k0 + (mi & 1) * 8 + r) * ld + n0 + (mi >> 1) * 8);
+}
 
 // 16 bytes from global to shared memory, asynchronously; zeros when !pred
 // (src is then not read).

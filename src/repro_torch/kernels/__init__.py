@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,6 +26,9 @@ _BLOCKS_PER_SM = 4
 #: The fp32 partials of a decode launch stay within 1/_PARTIAL_SHARE of the
 #: K/V bytes it reads (``split_plan``).
 _PARTIAL_SHARE = 8
+#: Shortest and longest split of a decode launch at G <= 8 (``split_plan``),
+#: in tokens.
+_MIN_SPLIT, _MAX_SPLIT = 64, 256
 
 
 def is_cpu(t: torch.Tensor) -> bool:
@@ -79,8 +82,9 @@ def check_head_dim(name: str, dtype: torch.dtype, D: int, G: int) -> None:
 def decode_heads_per_block(dtype: torch.dtype, D: int, G: int) -> int:
     """Query heads one decode block serves, as ``launch_d`` in
     ``csrc/decode_common.cuh`` chooses them: 16 for bf16 at G > 8 (the
-    tensor-core kernel), else 4 for G <= 4 or fp32 at D 256, else 8.  A
-    larger group runs as ``ceil(G / heads)`` head chunks."""
+    tensor-core split kernel), else 4 for G <= 4 or fp32 at D 256, else 8
+    (bf16 at G <= 8 serves all G heads in one block, which these also
+    give).  A larger group runs as ``ceil(G / heads)`` head chunks."""
     if dtype == torch.bfloat16 and G > 8:
         return 16
     return 4 if G <= 4 or (dtype == torch.float32 and D > 128) else 8
@@ -101,6 +105,11 @@ def split_plan(sms: int, B: int, Hkv: int, G: int, cap: int,
 
     * fill the card: enough splits for ~4 blocks per SM, so a split is
       ``cap / (4 sms / (B Hkv head_chunks))`` tokens;
+    * at G <= 8 (one launch, whose last-arriving block merges the splits),
+      between ``_MIN_SPLIT`` and ``_MAX_SPLIT`` tokens: at least 64, so
+      that a short row takes few splits and few merges, and at most 256, so
+      that a long row is spread over many blocks instead of holding the
+      launch's end;
     * bound the partials: each split writes G x D fp32 values per row and
       the row reads ``2 D element_size`` bytes of K/V per token, so splits
       of at least ``16 G / element_size`` tokens keep the partials (written
@@ -109,10 +118,49 @@ def split_plan(sms: int, B: int, Hkv: int, G: int, cap: int,
     * a multiple of 32 tokens, at least 32.
     """
     per_row = max(1, (_BLOCKS_PER_SM * sms) // max(B * Hkv * head_chunks, 1))
-    split = max(-(-cap // per_row), -(-(_PARTIAL_SHARE * 2 * G)
-                                      // element_size))
+    split = -(-cap // per_row)
+    if G <= 8:
+        split = min(max(split, _MIN_SPLIT), _MAX_SPLIT)
+    split = max(split, -(-(_PARTIAL_SHARE * 2 * G) // element_size))
     split = max(32, -(-split // 32) * 32)
     return split, -(-cap // split)
+
+
+def decode_arrivals(length: int, cap: int, window: Optional[int],
+                    split_len: int) -> int:
+    """The splits of a row that hold a valid token, as the one-launch decode
+    kernels count their arrivals (``csrc/decode_common.cuh::Span``):
+    the tokens ``[max(length - window, 0), min(length, cap))`` fall in the
+    consecutive splits ``lo // split_len .. (hi - 1) // split_len``.  0 when
+    no token is valid (``length <= 0``, or a length at least ``window``
+    past ``cap``); then the row's output is 0.  1 means the one split
+    writes the output itself."""
+    hi = min(length, cap)
+    lo = max(length - window, 0) if window else 0
+    return (hi - 1) // split_len - lo // split_len + 1 if hi > lo else 0
+
+
+#: Arrival counters of the one-launch decode kernel, one int32 buffer per
+#: (device, stream).
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters for a decode launch on
+    ``device``'s current stream, zero between launches.
+
+    The kernel's last-arriving block of each row resets its counter, so the
+    buffer is zeroed only when it is first allocated (or grown) and is then
+    kept.  A launch's counters must not be in use by a concurrent launch:
+    the buffer is keyed by stream, and the launches of one stream run one
+    after another."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device.index, stream.cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=stream.device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def decode_plan(device: torch.device, dtype: torch.dtype, B: int, Hkv: int,

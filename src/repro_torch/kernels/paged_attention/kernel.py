@@ -17,13 +17,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import (DTYPE_CODES, _build, check_cuda,
-                                 check_head_dim, decode_plan, stream_ptr)
+from repro_torch.kernels import (DTYPE_CODES, _build, arrival_counters,
+                                 check_cuda, check_head_dim,
+                                 decode_heads_per_block, decode_plan,
+                                 stream_ptr)
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P,  # dtype, q, k, v, table, lengths, out, ml, acc
              _I, _I, _I, _I, _I, _I, _I, _I,      # B, NP, page, maxp, Hkv, G, D, window
-             _F, _I, _I, _P]                      # scale, split_len, n_splits, stream
+             _F, _I, _I, _P, _P]                  # scale, split_len, n_splits, stream, counters
 
 
 def _entry():
@@ -67,13 +69,15 @@ def paged_attention_cuda(
                      device=q.device)
     acc = torch.empty((B, Hkv, n_splits, G, D), dtype=torch.float32,
                       device=q.device)
+    counters = arrival_counters(
+        q.device, B * Hkv * -(-G // decode_heads_per_block(q.dtype, D, G)))
     err = _entry()(
         DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), ml.data_ptr(), acc.data_ptr(),
         B, NP, page, maxp, Hkv, G, D, 0 if window is None else int(window),
         D ** -0.5 if scale is None else float(scale), split_len, n_splits,
-        stream_ptr(q.device))
+        stream_ptr(q.device), counters.data_ptr())
     if err:
         raise RuntimeError(f"paged_attention: launch failed with CUDA "
                            f"error {err}")

@@ -182,10 +182,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_split_plan_keeps_the_llama_serve_plan():
     """llama3.2-3b's serve shape (4 slots, 8 KV heads of 4 query heads,
-    cap 512, bf16) on 132 SMs: the plan of the G <= 8 kernels is unchanged,
-    32-token splits, 16 of them."""
+    cap 512, bf16) on 132 SMs: the one-launch kernel's plan is 8 splits of
+    64 tokens, one tensor-core tile (the card fill alone gives 16 of 32);
+    at the long shape (8 rows of 4096) it spreads a row over 16 splits of
+    256 tokens (the card fill alone gives 8 of 512)."""
     assert decode_heads_per_block(torch.bfloat16, 128, 4) == 4
-    assert split_plan(132, 4, 8, 4, 512, 2, 1) == (32, 16)
+    assert split_plan(132, 4, 8, 4, 512, 2, 1) == (64, 8)
+    assert split_plan(132, 8, 8, 4, 4096, 2, 1) == (256, 16)
 
 
 @pytest.mark.parametrize("dtype,heads", [(torch.bfloat16, 16),

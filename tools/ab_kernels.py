@@ -3,7 +3,9 @@
 one card, in turns (other, this, this, other, ...), at the shapes
 ``chip_smoke.py`` times them: the decode kernels at the llama3.2-3b serve
 shape (B 4 slots, 32 padded heads over 8 KV heads, D 128, bf16, lengths
-216/20/12/9), decode at recurrentgemma-9b's decode shape (B 2, a full
+216/20/12/9) and at the long shape (B 8, T 4096, lengths 4096..1), paged
+also at ``long_b32`` (32 slots of 512..8192 tokens, page 16), decode at
+recurrentgemma-9b's decode shape (B 2, a full
 2048-slot ring, 16 heads over 1 KV head, D 256, bf16), flash at llama's
 training shape (B 2, S 1024, 32 heads over 8, D 128, causal, bf16) and at
 recurrentgemma-9b's prefill shape (B 2, S 3072, 16 heads over 1, D 256,
@@ -90,7 +92,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import Timer, _ssd_inputs, nvidia_smi
+    from chip_smoke import Timer, _long_b32_lengths, _ssd_inputs, nvidia_smi
     from repro_torch.kernels import _build, stream_ptr
     from repro_torch.kernels.decode_attention import kernel as decode_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -109,6 +111,7 @@ def main(argv=None) -> int:
     launched = ("Li128ELi4E", "Li256ELi4E", "flash_fwd_bf16ILi128E",
                 "flash_fwd_bf16ILi256E", "flash_fwd_hopper",
                 "combine_kernelI13", "split_mmaILi256E", "merge_kernelI13",
+                "decode_fused_mmaILi128E",
                 "ssd_", "Li64ELi128E")
     print(json.dumps({"registers": {
         tag: {e[-120:]: r for n, (_, regs) in b.items()
@@ -130,6 +133,19 @@ def main(argv=None) -> int:
                          device="cuda").reshape(B, maxp)
     lengths = torch.tensor([216, 20, 12, 9], dtype=torch.int32,
                            device="cuda")
+    # the long shape (contiguous and paged) and long_b32 (paged)
+    lk, lv = rnd((8, 4096, Hkv, D)), rnd((8, 4096, Hkv, D))
+    lq = rnd((8, Hq, D))
+    long_lengths = torch.tensor([4096, 3000, 2049, 1500, 777, 300, 64, 1],
+                                dtype=torch.int32, device="cuda")
+    long_table = torch.arange(8 * 256, dtype=torch.int32,
+                              device="cuda").reshape(8, 256)
+    bq = rnd((32, Hq, D))
+    bkp, bvp = rnd((32 * 512, page, Hkv, D)), rnd((32 * 512, page, Hkv, D))
+    b_table = torch.randperm(32 * 512, generator=gen, device="cuda").to(
+        torch.int32).reshape(32, 512)
+    b_lengths = torch.tensor(_long_b32_lengths(), dtype=torch.int32,
+                             device="cuda")
     fq, fk, fv = rnd((2, 1024, 32, D)), rnd((2, 1024, 8, D)), \
         rnd((2, 1024, 8, D))
     hq, hk, hv = rnd((2, 3072, 16, 256)), rnd((2, 3072, 1, 256)), \
@@ -165,8 +181,16 @@ def main(argv=None) -> int:
              decode_attention_cuda(q, k, v, lengths),
              "decode_attention_hybrid": lambda lib: decode_kernel.
              decode_attention_cuda(dq, dk, dv, ring),
+             "decode_attention_long": lambda lib: decode_kernel.
+             decode_attention_cuda(lq, lk, lv, long_lengths),
              "paged_attention": lambda lib: paged_kernel.paged_attention_cuda(
                  q, kp, vp, table, lengths),
+             "paged_attention_long": lambda lib: paged_kernel.
+             paged_attention_cuda(lq, lk.reshape(8 * 256, page, Hkv, D),
+                                  lv.reshape(8 * 256, page, Hkv, D),
+                                  long_table, long_lengths),
+             "paged_attention_long_b32": lambda lib: paged_kernel.
+             paged_attention_cuda(bq, bkp, bvp, b_table, b_lengths),
              "flash_attention": lambda lib: flash(lib, fq, fk, fv),
              "flash_attention_hybrid": lambda lib: flash(
                  lib, hq, hk, hv, causal=True, window=2048),
