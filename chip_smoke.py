@@ -23,7 +23,9 @@ source, all started together) and runs, in order:
    multi-split rows), every output against the plain version and the
    arrival counters all zero afterwards; and
    ``decode_launches_per_call``: ``torch.profiler`` sees exactly one
-   device kernel (``decode_fused_mma`` or ``decode_fused``) a call;
+   device kernel (``decode_fused_mma`` or ``decode_fused``) a call, and
+   ``rglru_launches_per_call``: one device kernel (``rglru_stream``) a
+   call of the RG-LRU scan at recurrentgemma's prefill shape;
 3. ``serve``: llama3.2-3b at full width and depth (28 layers, bf16, random
    weights from a seed) behind ``ServingEngine(batch_slots=4,
    page_size=16, max_len=512)``, then the contiguous-cache decode
@@ -40,10 +42,12 @@ source, all started together) and runs, in order:
    with Sq < Sk, G = 1 with D = 16 (bf16: the mma.sync variant) and
    seamless's width (16 heads over 16, D 64); bf16 rows that see no key
    (``blind_rows_d*``, the wgmma variant at D 64, 128 and 256 against
-   its tiled plain twin); the q/k/v gradients through
-   the op against autograd through the plain version at the training
-   shape; kernel, plain and SDPA (timed only) times beside the flops bound
-   at the training and D 64 shapes;
+   its tiled plain twin), and fp32 ones (the CUDA-core variant at D 64,
+   128 and 256 against its twin at its own tiles); the q/k/v gradients
+   through the op against autograd through the plain version at the
+   training shape; kernel (also ``kernel_ms_clean_l2``), plain and SDPA
+   (timed only) times beside the flops bound at the training and D 64
+   shapes, where the fp32 kernel must beat SDPA;
 6. ``prefill``: fp32, full width, 4 layers, TF32 off: the logits of
    ``Model.forward`` against the contiguous ``decode_step`` teacher-forced
    over the same prompt (every position within 1e-3, the same argmax),
@@ -87,17 +91,22 @@ source, all started together) and runs, in order:
     forward and remat recompute), peak memory;
 13. ``ssm_train_profile``: phase 8 for the mamba2 step;
 14. ``rglru_scan``: the RG-LRU scan kernel against its plain version, fp32
-    and bf16, h and h_last, at recurrentgemma-9b's prefill shape (B 2,
-    S 3072, W 4096), at S = 1000 and at the shapes of
-    tests/test_kernels.py; kernel and plain times beside the bytes bound
-    (no single PyTorch call computes the recurrence);
+    and bf16, h and h_last, bit for bit against its twin in the kernel's
+    chunk order and (fp32) within 2e-6 of the step-by-step recurrence, at
+    recurrentgemma-9b's prefill shapes (B 2, S 3072, W 4096; B 1, S 1000)
+    and at the shapes of tests/test_kernels.py; kernel (also
+    ``kernel_ms_clean_l2``) and plain times at both prefill shapes beside
+    the bytes bound (no single PyTorch call computes the recurrence);
+    ``rglru_reuse``: 60 calls back to back over six shapes and dtypes,
+    each output bit-equal to the first call's on the same inputs;
 15. ``hybrid_*`` kernel lines: flash at head_dim 256 (16 heads over 1 KV
     head, causal, window 2048; B 2 x S 3072, 1 x 1000, and 777 queries at
     q_offset 1023 over 1800 keys) and decode at
     G = 16, D = 256 (a full 2048-slot ring, and ragged lengths), each
     against its plain version in fp32 and bf16 (decode also against its
     split twin under the kernel's own plan), with SDPA under the same
-    mask timed beside them;
+    mask timed beside them (flash also ``kernel_ms_clean_l2``; in fp32 it
+    must beat SDPA and the plain version at the serve shape);
 16. ``hybrid_serve``: recurrentgemma-9b at full width and depth (38
     layers, 26 RG-LRU and 12 local attention, bf16, random weights from a
     seed) through ``Model.prefill`` and greedy ``Model.decode_step``: 2
@@ -121,8 +130,11 @@ The ``env`` line carries each source's ``ptxas -v`` summary (registers and
 spills), under ``tensor_cores``, for each head dim of flash's wgmma
 variant, the tensor-core decode (G > 8) and its merge, and the SSD
 tensor-core kernels: registers, spills, shared memory and HMMA / HGMMA
-counts in their SASS; and under ``decode_fused`` the one-launch decode
-kernels' registers, spills and shared memory at D 128.  The last lines
+counts in their SASS; under ``decode_fused`` the one-launch decode
+kernels' registers, spills and shared memory at D 128; and under
+``cuda_cores`` those of ``flash_fwd_f32`` at every head dim and of
+``rglru_stream`` at the chunk lengths the timed shapes take (none may
+spill).  The last lines
 are the ``kernels`` line (with the launches of each path, for flash and
 decode their numbers at the hybrid shapes and for the SSD scan at the
 training shape),
@@ -146,6 +158,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, data sheet
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# The RG-LRU kernel against the fp32 step-by-step recurrence: its chunk
+# boundaries fold (A, H) aggregates, which round apart from the walk.
+SEQ_TOL = 2e-6
 LOGIT_ATOL_BF16 = 0.05           # engine vs contiguous decode, bf16 logits
 LOGIT_ATOL_FP32 = 1e-3           # forward vs contiguous decode, fp32 logits
 SERVE_LAYERS = 28
@@ -845,33 +860,35 @@ def _flash_bound(dtype_name, es, B, Sq, Sk, Hq, Hkv, D, causal, window,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _blind_rows_cases(rnd):
-    """The wgmma variant where query rows see no key (q_offset past Sk by
-    more than the window), at each of its head dims: held against its
-    plain twin ``attention_reference_tiled`` at every row (a blind row in a
-    block that runs tiles averages the V of those tiles, as the Pallas
-    kernel's rows do over its blocks), against the dense plain version at
-    the rows that see a key, and 0 at the rows of blocks that run no tile."""
+def _blind_rows_cases(rnd, dt):
+    """The wgmma (bf16) or fp32 variant where query rows see no key
+    (q_offset past Sk by more than the window), at head dims 64, 128 and
+    256: held against its plain twin ``attention_reference_tiled`` at the
+    variant's tiles at every row (a blind row in a block that runs tiles
+    averages the V of those tiles, as the Pallas kernel's rows do over its
+    blocks), against the dense plain version at the rows that see a key,
+    and 0 at the rows of blocks that run no tile."""
     from repro_torch.kernels.flash_attention.kernel import (
-        WGMMA_TILES, flash_attention_cuda)
+        F32_TILES, WGMMA_TILES, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ops import plain_attention
     from repro_torch.kernels.flash_attention.ref import (
         attention_reference_tiled, tile_plan)
 
-    tol = TOL["bfloat16"]
+    dtn = str(dt).split(".")[-1]
+    tol = TOL[dtn]
     for D, (B, Sq, Sk, Hq, Hkv, causal, window, q_offset) in (
             (64, (1, 300, 200, 4, 2, True, 64, 250)),
             (128, (2, 333, 517, 4, 2, False, 70, 400)),
             (256, (1, 300, 200, 2, 1, True, 64, 250))):
-        q, k, v = rnd((B, Sq, Hq, D), torch.bfloat16), \
-            rnd((B, Sk, Hkv, D), torch.bfloat16), \
-            rnd((B, Sk, Hkv, D), torch.bfloat16)
+        q, k, v = rnd((B, Sq, Hq, D), dt), rnd((B, Sk, Hkv, D), dt), \
+            rnd((B, Sk, Hkv, D), dt)
+        bm, bn = (F32_TILES if dt == torch.float32 else WGMMA_TILES)[D]
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         out = flash_attention_cuda(q, k, v, **kw).float()
-        tiled = attention_reference_tiled(q, k, v, **kw).float()
+        tiled = attention_reference_tiled(q, k, v, tiles=(bm, bn),
+                                          **kw).float()
         dense = plain_attention(q, k, v, causal, window, q_offset,
                                 None).float()
-        bm, bn = WGMMA_TILES[D]
         sees = torch.tensor([q_offset + i - window + 1 <= Sk - 1
                              for i in range(Sq)], device="cuda")
         runs = torch.tensor([bool(tile_plan(i - i % bm, Sq, Sk, bm, bn,
@@ -879,7 +896,8 @@ def _blind_rows_cases(rnd):
                              for i in range(Sq)], device="cuda")
         e_t, e_d = (out - tiled).abs(), (out - dense).abs()[:, sees]
         rec = {"kernel": "flash_attention", "case": f"blind_rows_d{D}",
-               "dtype": "bfloat16", "shape": [B, Sq, Sk, Hq, Hkv, D],
+               "dtype": dtn, "tiles": [bm, bn],
+               "shape": [B, Sq, Sk, Hq, Hkv, D],
                "causal": causal, "window": window, "q_offset": q_offset,
                "blind_rows_in_running_blocks": int((~sees & runs).sum()),
                "blind_rows_in_idle_blocks": int((~sees & ~runs).sum()),
@@ -894,8 +912,8 @@ def _blind_rows_cases(rnd):
             and (~sees & runs).any() and (~sees & ~runs).any())
         log(rec)
         if not rec["ok"]:
-            raise AssertionError(f"flash_attention blind_rows_d{D} disagrees "
-                                 f"with its plain versions: {rec}")
+            raise AssertionError(f"flash_attention blind_rows_d{D} {dtn} "
+                                 f"disagrees with its plain versions: {rec}")
 
 
 def flash_phase(card_line):
@@ -906,7 +924,7 @@ def flash_phase(card_line):
     from repro_torch.kernels.flash_attention.ops import plain_attention
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    timer = Timer(iters=20)
+    timer, clean = Timer(iters=20), Timer(iters=20, flush="read")
     summary = {}
 
     def rnd(shape, dt):
@@ -944,6 +962,8 @@ def flash_phase(card_line):
                     variant=flash_variant(dt, D),
                     kernel_ms=timer(lambda: flash_attention_cuda(q, k, v,
                                                                  **kw)),
+                    kernel_ms_clean_l2=clean(lambda: flash_attention_cuda(
+                        q, k, v, **kw)),
                     plain_ms=timer(lambda: plain_attention(
                         q, k, v, causal, window, q_offset, None)),
                     library_ms=timer(lambda: F.scaled_dot_product_attention(
@@ -952,14 +972,19 @@ def flash_phase(card_line):
                                      window, q_offset)
                 rec.update(bound_ms=bound[0], bound_by=bound[1],
                            card=card_line)
+                if dt == torch.float32:
+                    rec["faster_than_library"] = \
+                        rec["kernel_ms"] < rec["library_ms"]
+                    ok = ok and rec["faster_than_library"]
+                    rec["ok"] = ok
             log(rec)
             if not ok:
                 raise AssertionError(f"flash_attention {case} {dtn} disagrees "
-                                     f"with its plain version: {rec}")
+                                     f"with its plain version or is not "
+                                     f"faster than SDPA: {rec}")
             if case == "train" and dtn == "bfloat16":
                 summary = rec
-        if dt == torch.bfloat16:
-            _blind_rows_cases(rnd)
+        _blind_rows_cases(rnd, dt)
         # gradients through the op against autograd through the plain version
         B, S, Hq, Hkv, D = 2, 1024, 32, 8, 128
         qkv = [rnd(shape, dt) for shape in ((B, S, Hq, D), (B, S, Hkv, D),
@@ -986,7 +1011,7 @@ def flash_phase(card_line):
         if not ok:
             raise AssertionError(f"flash_attention gradients {dtn} disagree")
         del a, b, ga, gb, qkv, g
-    del timer
+    del timer, clean
     torch.cuda.empty_cache()
     return summary
 
@@ -1133,8 +1158,7 @@ def _kernel_kind(name: str) -> str:
         return "flash"
     if "ssd_" in name:
         return "ssd_scan"
-    if any(k in name for k in ("chunk_scan", "chunk_aggregates",
-                               "chunk_carries")):
+    if "rglru_stream" in name:
         return "rglru_scan"
     if any(k in name for k in ("decode_fused", "split_mma", "merge_kernel")):
         return "decode_attention"
@@ -1650,27 +1674,43 @@ def _rglru_bound(a, b):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _scan_chunk(a, b) -> int:
+    """The chunk length of the RG-LRU kernel's plan for a and b."""
+    from repro_torch.kernels import sm_count
+    from repro_torch.kernels.rglru_scan.kernel import scan_plan
+    return scan_plan(sm_count(a.device.index), *a.shape, a.element_size(),
+                     b.element_size()).steps
+
+
 def rglru_kernel_phase(card_line):
-    """The RG-LRU scan kernel against its plain version in fp32 and bf16,
-    h and h_last: at the serve shape of recurrentgemma-9b's prefill (B 2,
-    S 3072, W 4096), at S = 1000 (no multiple of 256) and at the shapes of
-    tests/test_kernels.py; a = sigmoid(normal), b = normal, as that test
-    draws them.  Tolerances fp32 2e-5, bf16 3e-2 (atol and rtol).  Kernel
-    and plain times (CUDA events, L2 flushed, median of 20) at the serve
-    shape beside the bytes bound; no single PyTorch call computes the
-    recurrence (a cumprod/cumsum rewrite divides by underflowing products),
-    so no library time."""
+    """The RG-LRU scan kernel in fp32 and bf16, h and h_last: bit for bit
+    against its twin in the kernel's chunk order
+    (``linear_scan_sequential_reference`` with the plan's chunk: the
+    recurrence step by step in fp32, a product then a sum, each rounded),
+    in fp32 within 2e-6 of the step-by-step walk (the chunk boundaries
+    round apart), and within fp32 2e-5 / bf16 3e-2 (atol and rtol) of the
+    plain doubling scan, at the serve shape of recurrentgemma-9b's prefill (B 2, S 3072,
+    W 4096), at its second prefill (B 1, S 1000; no multiple of 256) and
+    at the shapes of tests/test_kernels.py; a = sigmoid(normal), b =
+    normal, as that test draws them.  Kernel times at the two prefill
+    shapes (CUDA events, L2 flushed by writing, median of 20, and
+    ``kernel_ms_clean_l2`` after a read flush) and the plain version's
+    beside the bytes bound; no single PyTorch call computes the
+    recurrence (a cumprod/cumsum rewrite divides by underflowing
+    products), so no library time.  Then ``rglru_reuse``.  Returns the
+    fp32 serve record (the model's a and b) and the fp32 s1000 one."""
     from repro_torch.kernels.rglru_scan.kernel import linear_scan_cuda
-    from repro_torch.kernels.rglru_scan.ref import linear_scan_reference
+    from repro_torch.kernels.rglru_scan.ref import (
+        linear_scan_reference, linear_scan_sequential_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(1357)
-    timer = Timer(iters=20)
+    timer, clean = Timer(iters=20), Timer(iters=20, flush="read")
     summary = {}
     for dt in (torch.float32, torch.bfloat16):
         dtn = str(dt).split(".")[-1]
         for case, (B, S, W, timed) in {
             "serve": (2, 3072, 4096, True),
-            "s1000": (1, 1000, 4096, False),
+            "s1000": (1, 1000, 4096, True),
             "tk_128": (2, 128, 64, False),
             "tk_64": (1, 64, 16, False),
             "tk_96": (3, 96, 32, False),
@@ -1680,6 +1720,9 @@ def rglru_kernel_phase(card_line):
             b = torch.randn((B, S, W), generator=gen, device="cuda").to(dt)
             h, hl = linear_scan_cuda(a, b)
             rh, rhl = linear_scan_reference(a, b)
+            chunk = _scan_chunk(a, b)
+            th, thl = linear_scan_sequential_reference(a, b, chunk=chunk)
+            sh, shl = linear_scan_sequential_reference(a, b)
             torch.cuda.synchronize()
             tol = TOL[dtn]
             errs, ok = [], bool(torch.isfinite(h).all()
@@ -1689,26 +1732,119 @@ def rglru_kernel_phase(card_line):
                 errs.append(float(e.max()))
                 ok = ok and bool(torch.all(e <= tol * (1 + ref.float()
                                                        .abs())))
+            bits = bool(torch.equal(h, th) and torch.equal(hl, thl))
+            # against the step-by-step walk: the chunk boundaries round
+            # apart; fp32 within 2e-6 (atol and rtol), bf16 only reported
+            e_seq = [float((x.float() - y.float()).abs().max())
+                     for x, y in ((h, sh), (hl, shl))]
+            seq_ok = dtn != "float32" or all(
+                bool(torch.all((x.float() - y.float()).abs()
+                               <= SEQ_TOL * (1 + y.float().abs())))
+                for x, y in ((h, sh), (hl, shl)))
             rec = {"kernel": "rglru_scan", "case": case, "dtype": dtn,
-                   "shape": [B, S, W], "max_abs_err_h_hlast": errs,
-                   "max_abs_err": max(errs), "tol": tol, "ok": ok}
+                   "shape": [B, S, W], "chunk": chunk,
+                   "max_abs_err_h_hlast": errs,
+                   "max_abs_err": max(errs), "tol": tol,
+                   "bit_equal_to_chunk_order_twin": bits,
+                   "max_abs_err_vs_step_by_step_h_hlast": e_seq,
+                   "step_by_step_tol": SEQ_TOL if dtn == "float32" else None,
+                   "ok": ok and bits and seq_ok}
             if timed:
                 bound = _rglru_bound(a, b)
                 rec.update(
                     kernel_ms=timer(lambda: linear_scan_cuda(a, b)),
+                    kernel_ms_clean_l2=clean(lambda: linear_scan_cuda(a, b)),
                     plain_ms=timer(lambda: linear_scan_reference(a, b)),
                     library_ms=None, bound_ms=bound[0], bound_by=bound[1],
                     card=card_line)
             log(rec)
-            if not ok:
+            if not rec["ok"]:
                 raise AssertionError(f"rglru_scan {case} {dtn} disagrees "
-                                     f"with its plain version: {rec}")
-            if case == "serve" and dtn == "float32":   # the model's a, b
-                summary = rec
-            del a, b, h, hl, rh, rhl
-    del timer
+                                     f"with its plain version or its "
+                                     f"sequential twin: {rec}")
+            if timed and dtn == "float32":   # the model's a and b
+                summary[case] = rec
+            del a, b, h, hl, rh, rhl, th, thl, sh, shl
+    del timer, clean
     torch.cuda.empty_cache()
+    rglru_reuse_phase()
     return summary
+
+
+def rglru_reuse_phase():
+    """The RG-LRU kernel 60 times back to back on six inputs whose (B, S,
+    W) and dtypes change every call (the serve and s1000 shapes among
+    them): every output bit-equal to the first call's on the same inputs
+    and to the chunk-order twin.  The kernel keeps no state between calls
+    (no status buffer: each block carries its channels' h in registers),
+    so there is none to check for zeros."""
+    from repro_torch.kernels.rglru_scan.kernel import linear_scan_cuda
+    from repro_torch.kernels.rglru_scan.ref import (
+        linear_scan_sequential_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    shapes = [((2, 3072, 4096), torch.float32, torch.float32),
+              ((1, 1000, 4096), torch.float32, torch.float32),
+              ((3, 77, 36), torch.bfloat16, torch.bfloat16),
+              ((2, 515, 1028), torch.float32, torch.bfloat16),
+              ((1, 1, 8), torch.bfloat16, torch.float32),
+              ((4, 333, 2052), torch.bfloat16, torch.bfloat16)]
+    inputs = [(torch.sigmoid(torch.randn(sh, generator=gen, device="cuda"))
+               .to(da), torch.randn(sh, generator=gen, device="cuda").to(db))
+              for sh, da, db in shapes]
+    calls = 60
+    outs = [linear_scan_cuda(*inputs[i % len(inputs)]) for i in range(calls)]
+    torch.cuda.synchronize()
+    differ = sum(not (torch.equal(h, outs[i % len(inputs)][0])
+                      and torch.equal(hl, outs[i % len(inputs)][1]))
+                 for i, (h, hl) in enumerate(outs))
+    twin = [linear_scan_sequential_reference(a, b, chunk=_scan_chunk(a, b))
+            for a, b in inputs]
+    off_twin = sum(not (torch.equal(outs[i][0], twin[i][0])
+                        and torch.equal(outs[i][1], twin[i][1]))
+                   for i in range(len(inputs)))
+    rec = {"rglru_reuse": {"calls": calls,
+                           "shapes": [[list(sh), str(da).split(".")[-1],
+                                       str(db).split(".")[-1]]
+                                      for sh, da, db in shapes],
+                           "calls_unequal_to_first": differ,
+                           "inputs_unequal_to_twin": off_twin,
+                           "status_buffer": None}}
+    log(rec)
+    if differ or off_twin:
+        raise AssertionError(f"rglru reuse run failed: {rec}")
+    del inputs, outs, twin
+    torch.cuda.empty_cache()
+
+
+def rglru_launch_phase():
+    """torch.profiler over 5 calls at the serve shape in fp32 and bf16:
+    exactly one device kernel a call, ``rglru_stream``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.rglru_scan.kernel import linear_scan_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    calls, seen = 5, {}
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.rand((2, 3072, 4096), generator=gen, device="cuda").to(dt)
+        b = torch.randn((2, 3072, 4096), generator=gen, device="cuda").to(dt)
+        linear_scan_cuda(a, b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                linear_scan_cuda(a, b)
+            torch.cuda.synchronize()
+        dev = {e.key[:60]: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        key = str(dt).split(".")[-1]
+        seen[key] = dev
+        if sum(dev.values()) != calls or not all("rglru_stream" in k
+                                                 for k in dev):
+            raise AssertionError(f"rglru_scan {key}: {dev} in {calls} "
+                                 "calls, not one rglru_stream launch a call")
+        del a, b
+    log({"rglru_launches_per_call": {"calls": calls, "device_kernels": seen}})
 
 
 # ---------------------------------------------------------------------------
@@ -1734,7 +1870,7 @@ def hybrid_attn_kernel_phase(card_line):
     from repro_torch.kernels.flash_attention.ops import plain_attention
 
     gen = torch.Generator(device="cuda").manual_seed(8642)
-    timer = Timer(iters=20)
+    timer, clean = Timer(iters=20), Timer(iters=20, flush="read")
     summary = {}
 
     def rnd(shape, dt):
@@ -1774,16 +1910,25 @@ def hybrid_attn_kernel_phase(card_line):
                     variant=flash_variant(dt, D),
                     kernel_ms=timer(lambda: flash_attention_cuda(q, k, v,
                                                                  **kw)),
+                    kernel_ms_clean_l2=clean(lambda: flash_attention_cuda(
+                        q, k, v, **kw)),
                     plain_ms=timer(lambda: plain_attention(
                         q, k, v, True, window, q_offset, None)),
                     library_ms=timer(lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=mask, enable_gqa=True)),
                     bound_ms=bound[0], bound_by=bound[1], card=card_line)
+                if dt == torch.float32:
+                    rec["faster_than_library_and_plain"] = \
+                        rec["kernel_ms"] < min(rec["library_ms"],
+                                               rec["plain_ms"])
+                    ok = ok and rec["faster_than_library_and_plain"]
+                    rec["ok"] = ok
                 del qt, kt, vt, mask
             log(rec)
             if not ok:
                 raise AssertionError(f"flash_attention hybrid_{case} {dtn} "
-                                     f"disagrees with its plain version")
+                                     f"disagrees with its plain version or "
+                                     f"is not faster than SDPA and it: {rec}")
             if case == "serve" and dtn == "bfloat16":
                 summary["flash_attention"] = rec
             del q, k, v, out, ref
@@ -1832,7 +1977,7 @@ def hybrid_attn_kernel_phase(card_line):
                                      "its split twin")
             if case == "serve" and dtn == "bfloat16":
                 summary["decode_attention"] = rec
-    del timer
+    del timer, clean
     torch.cuda.empty_cache()
     return summary
 
@@ -2137,6 +2282,42 @@ def _fused_report(build_logs: dict) -> dict:
                             ("paged_attention", "NS_7PagedKV"))}
 
 
+def _cuda_core_report(build_logs: dict) -> dict:
+    """The CUDA-core kernels redesigned for Hopper: ``flash_fwd_f32`` at
+    every head dim and ``rglru_stream`` at the chunk lengths that the
+    plans of the timed shapes take (fp32 16 steps, bf16 32, both with
+    16-byte copies): registers, spills and shared memory.  Raises if
+    one is missing from the build report or spills."""
+    import ctypes
+    from repro_torch.kernels import HEAD_DIMS, _build
+    flash = _build.load("flash_attention")
+    flash.flash_attention_f32_smem.argtypes = [ctypes.c_int]
+    scan = _build.load("rglru_scan")
+    scan.rglru_scan_smem.argtypes = [ctypes.c_int] * 3
+    scan_labels = {"f32_l16": (0, 16, r"rglru_streamIffLi16ELi4ELi4E"),
+                   "bf16_l32": (1, 32,
+                                r"rglru_streamI13__nv_bfloat16S\d*_Li32ELi8ELi8E")}
+    report = {
+        "flash_attention": _kernel_report(
+            "flash_attention", build_logs["flash_attention"],
+            {f"f32_D{d}": rf"flash_fwd_f32ILi{d}E" for d in HEAD_DIMS},
+            {f"f32_D{d}": flash.flash_attention_f32_smem(d)
+             for d in HEAD_DIMS}),
+        "rglru_scan": _kernel_report(
+            "rglru_scan", build_logs["rglru_scan"],
+            {lab: rx for lab, (_, _, rx) in scan_labels.items()},
+            {lab: scan.rglru_scan_smem(code, code, k)
+             for lab, (code, k, _) in scan_labels.items()})}
+    want = len(HEAD_DIMS) + len(scan_labels)
+    got = sum(len(r) for r in report.values())
+    spilling = [lab for r in report.values() for lab, e in r.items()
+                if any(e.get("spill_bytes", (0, 0)))]
+    if got != want or spilling:
+        raise AssertionError(f"CUDA-core kernels: {got} of {want} reported, "
+                             f"spilling: {spilling}: {report}")
+    return report
+
+
 SOURCES = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:86"),
@@ -2167,12 +2348,14 @@ def main() -> int:
                  "ptxas": {n: _ptxas_summary(text)
                            for n, text in build_logs.items()},
                  "tensor_cores": _wgmma_report(build_logs),
-                 "decode_fused": _fused_report(build_logs)}})
+                 "decode_fused": _fused_report(build_logs),
+                 "cuda_cores": _cuda_core_report(build_logs)}})
     card = torch.cuda.get_device_name(0)
 
     summary = kernel_phase(card)
     decode_reuse_phase()
     decode_launch_phase()
+    rglru_launch_phase()
     serve = serve_phase()
     identity_phase()
     summary["flash_attention"] = flash_phase(card_line)
@@ -2185,7 +2368,8 @@ def main() -> int:
     ssm_prefill_phase()
     ssm_train = ssm_train_phase()
     train_profile("mamba2-130m", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
-    summary["rglru_scan"] = rglru_kernel_phase(card_line)
+    at_rglru = rglru_kernel_phase(card_line)
+    summary["rglru_scan"] = at_rglru["serve"]
     at_hybrid = hybrid_attn_kernel_phase(card_line)
     hybrid = hybrid_serve_phase()
     hybrid_prefill_phase()
@@ -2216,7 +2400,9 @@ def main() -> int:
             kernels[-1]["launches_by_path"] = paths
         for key, other in (("at_hybrid_shape", at_hybrid.get(name)),
                            ("at_train_shape", name == "ssd_scan"
-                            and at_ssd["train"])):
+                            and at_ssd["train"]),
+                           ("at_s1000_shape", name == "rglru_scan"
+                            and at_rglru["s1000"])):
             if other:
                 kernels[-1][key] = {
                     "shape": other["shape"],

@@ -17,7 +17,41 @@
 //  * bf16 at D 64, 128 and 256: flash_fwd_hopper, below.
 //  * bf16 at D 16 and 32: flash_fwd_bf16, mma.sync m16n8k16.
 //  * fp32 at every D: flash_fwd_f32 on the CUDA cores (the tensor cores
-//    would round fp32 inputs to TF32); a gate-only path.
+//    would round fp32 inputs to TF32), below.
+//
+// flash_fwd_f32 is bound by the CUDA cores' FFMA rate (67 TFLOP/s: the
+// training shape's 17.2 GFLOP take 0.257 ms).  What it does about each
+// limit of the warp-per-16-rows kernel it replaces:
+//  * Register-tiled outer products.  128 threads as 16 row groups x 8
+//    column groups; thread (rg, cg) owns rows rg + 16 i (TM = BM / 16 of
+//    them) and, in S = Q K^T, keys cg + 8 j (8 of a 64-key tile).  Q and
+//    each K chunk lie row-major in shared memory with rows padded to
+//    4 (mod 32) words, so a float4 along d from 8 neighbouring rows hits
+//    all 32 banks: per 4 columns of d a thread loads TM + 8 float4 and
+//    does 4 TM x 8 FFMAs (10.7 FFMAs a load at TM 4, 6.4 at D 256's TM 2).
+//    In O += P V, P goes through shared memory (row-major) and the thread
+//    owns its rows x D / 8 columns of O: per 4 keys TM float4 of P and 4
+//    rows of V's columns, the same ratios.
+//  * Row reductions.  The 8 threads of a row group share its rows: the
+//    tile's max takes 3 shuffles a row; the sum stays per thread until the
+//    end (every thread rescales by the same alpha).  exp2 domain, scale *
+//    log2(e) folded into one FFMA on full tiles, as flash_fwd_hopper.
+//  * Full, edge and skipped tiles, classified once per block from
+//    tile_range and the block's rows: full tiles carry no mask.
+//  * Copies overlap the products.  K and V stream through a three-stage
+//    cp.async ring (16 bytes a thread) in chunks of 64 keys x DC = min(D,
+//    64) columns: a tile is D / DC chunks of K, then as many of V; two
+//    chunks are in flight while one is computed.  Q is copied once, with
+//    the first chunk.
+//  * Two blocks an SM at every D: 64 query rows a block at D <= 128, 32
+//    at D 256 (shared memory: Q BM x (D + 4), the ring 3 x 64 x (DC + 4),
+//    P BM x 68 floats: 37, 54, 87, 103 and 94 KB at D 16, 32, 64, 128 and
+//    256; registers at most 255 by __launch_bounds__(128, 2)).
+//  * Heaviest tiles first: blocks take query tiles from the last.
+// Masked scores are -1e30 in the exp2 domain and keys past Sk -inf, as in
+// flash_fwd_hopper; a row for which no tile runs is written as 0.  Its
+// plain twin is kernels/flash_attention/ref.py::attention_reference_tiled
+// at the tiles of kernel.py::F32_TILES.
 //
 // flash_fwd_hopper, and what it does about each limit of the mma.sync
 // kernel it replaces at those head dims:
@@ -89,8 +123,9 @@ using tc::quad_sum;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockM = 16 * kWarps;  // query rows per block (mma.sync, fp32)
+constexpr int kBlockM = 16 * kWarps;  // query rows per block (mma.sync)
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Shape {
   int B, Sq, Sk, Hq, Hkv, G, causal, window, q_offset;
@@ -117,17 +152,10 @@ __device__ __forceinline__ bool visible(const Shape& s, int qpos, int kpos) {
   return ok;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -294,39 +322,87 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: the same tiling on the CUDA cores
+// fp32: register-tiled on the CUDA cores
 // ---------------------------------------------------------------------------
 
+namespace f32 {
+
+constexpr int kThreads = 128;  // 16 row groups x 8 column groups
+constexpr int kStages = 3;     // ring of K/V chunks, kStages - 1 in flight
+
+// Tiles at head dim D: BM query rows a block, BN keys a tile; K and V
+// stream through the ring in chunks of BN keys x DC columns.
 template <int D>
-struct F32Tile {
-  static constexpr int BN = 32;       // keys per tile: one per lane
-  static constexpr int LDQ = D + 4;   // float4 rows; conflict-free K reads
-  static constexpr int LDK = D + 4;
-  static constexpr int LPR = D < 32 ? D : 32;  // lanes per output row
-  static constexpr int RPP = 32 / LPR;         // rows per pass
-  static constexpr int NC = D / LPR;           // columns per lane and row
-  static constexpr int NPASS = 16 / RPP;
-  static constexpr size_t floats = kBlockM * LDQ + BN * LDK + BN * D +
-                                   kWarps * 16 * BN + kWarps * 16;
+struct Tiles {
+  static constexpr int BM = D > 128 ? 32 : 64;
+  static constexpr int BN = 64;
+  static constexpr int DC = D < 64 ? D : 64;
+  static constexpr int NC = D / DC;       // chunks of K (and of V) a tile
+  static constexpr int TM = BM / 16;      // rows a thread: rg + 16 i
+  static constexpr int TN = BN / 8;       // keys a thread: cg + 8 j
+  static constexpr int VW = DC / 8 < 4 ? DC / 8 : 4;   // vector of V, O
+  static constexpr int NV = DC / 8 / VW;  // vectors a thread and chunk
+  static constexpr int LDQ = D + 4;       // row strides ≡ 4 (mod 32) words:
+  static constexpr int LDC = DC + 4;      // float4 reads of 8 rows hit 32
+  static constexpr int LDP = BN + 4;      // banks
+  static constexpr int floats = BM * LDQ + kStages * BN * LDC + BM * LDP;
+  static constexpr int smem = floats * 4;
 };
 
+template <int VW>
+__device__ __forceinline__ void ld_vec(float* f, const float* p) {
+  if constexpr (VW == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    f[0] = v.x; f[1] = v.y;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void st_vec(float* p, const float* f) {
+  if constexpr (VW == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(f[0], f[1]);
+}
+
+// max over the 8 threads of a row group (lanes that differ in bits 0-2)
+__device__ __forceinline__ float group_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+
+__device__ __forceinline__ float group_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+// grid ceil(Sq / BM) Hq B blocks of kThreads, dynamic shared memory
+// Tiles<D>::smem.  Block i takes query tile n_m - 1 - i / (Hq B) of head
+// and batch i % (Hq B), so the longest tiles under a causal mask start
+// first.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
-                  Shape s) {
-  using F = F32Tile<D>;
-  constexpr int BN = F::BN;
+                  Shape s, float scale_log2) {
+  using T = Tiles<D>;
+  constexpr int BM = T::BM, BN = T::BN, DC = T::DC, NC = T::NC, TM = T::TM,
+                TN = T::TN, VW = T::VW, NV = T::NV;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                     // kBlockM x LDQ
-  float* Ks = Qs + kBlockM * F::LDQ;    // BN x LDK
-  float* Vs = Ks + BN * F::LDK;         // BN x D
-  float* Ps = Vs + BN * D;              // kWarps x 16 x BN
-  float* Al = Ps + kWarps * 16 * BN;    // kWarps x 16: alpha, then 1 / l
+  float* Qs = smem;                          // BM x LDQ
+  float* ring = Qs + BM * T::LDQ;            // kStages x BN x LDC
+  float* Ps = ring + kStages * BN * T::LDC;  // BM x LDP
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / s.G;
+  const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;
+  const int hb_n = s.Hq * s.B, n_m = (s.Sq + BM - 1) / BM;
+  const int q0 = (n_m - 1 - static_cast<int>(blockIdx.x) / hb_n) * BM;
+  const int h = blockIdx.x % hb_n % s.Hq, b = blockIdx.x % hb_n / s.Hq;
+  const int hk = h / s.G;
   const size_t q_stride = static_cast<size_t>(s.Hq) * D;
   const size_t kv_stride = static_cast<size_t>(s.Hkv) * D;
   const float* qb = q + static_cast<size_t>(b) * s.Sq * q_stride +
@@ -335,112 +411,201 @@ __global__ void __launch_bounds__(kThreads)
                     static_cast<size_t>(hk) * D;
   const float* vb = v + static_cast<size_t>(b) * s.Sk * kv_stride +
                     static_cast<size_t>(hk) * D;
-
-  for (int i = tid; i < kBlockM * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    Qs[r * F::LDQ + d] = q0 + r < s.Sq ? qb[(q0 + r) * q_stride + d] : 0.f;
-  }
-
-  // softmax state of the warp's 16 rows, the same in every lane
-  float m[16], l[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-  }
-  // output (pass p, column chunk c): row p * RPP + lr, column c0 + c * LPR
-  const int lr = lane / F::LPR, c0 = lane % F::LPR;
-  float acc[F::NPASS][F::NC];
-#pragma unroll
-  for (int p = 0; p < F::NPASS; ++p)
-#pragma unroll
-    for (int c = 0; c < F::NC; ++c) acc[p][c] = 0.f;
-
-  float* Pw = Ps + warp * 16 * BN;
-  float* Aw = Al + warp * 16;
   int t0, t1;
-  tile_range(s, q0, kBlockM, BN, t0, t1);
+  tile_range(s, q0, BM, BN, t0, t1);
+  const int n_chunks = (t1 - t0) * 2 * NC;
+
+  // Q rows past Sq and K/V rows past Sk are zero-filled
+  for (int i = tid; i < BM * D / 4; i += kThreads) {
+    const int r = i / (D / 4), c4 = i % (D / 4);
+    const bool in = q0 + r < s.Sq;
+    tc::cp_async16(Qs + r * T::LDQ + 4 * c4,
+                   in ? qb + (q0 + r) * q_stride + 4 * c4 : qb, in);
+  }
+  // chunk n: tile t0 + n / (2 NC); K columns (n % 2NC) DC.. first, then V
+  auto fetch = [&](int n) {
+    if (n < n_chunks) {
+      const int w = n % (2 * NC), k0 = (t0 + n / (2 * NC)) * BN;
+      const float* src = (w < NC ? kb : vb) + (w % NC) * DC;
+      float* dst = ring + (n % kStages) * BN * T::LDC;
+      for (int i = tid; i < BN * DC / 4; i += kThreads) {
+        const int r = i / (DC / 4), c4 = i % (DC / 4);
+        const bool in = k0 + r < s.Sk;
+        tc::cp_async16(dst + r * T::LDC + 4 * c4,
+                       in ? src + (k0 + r) * kv_stride + 4 * c4 : src, in);
+      }
+    }
+    tc::cp_async_commit();  // Q joins chunk 0's group; empty past the last
+  };
+#pragma unroll
+  for (int n = 0; n < kStages - 1; ++n) fetch(n);
+  int n = 0;
+  // the next chunk, once every thread's copies have landed and every
+  // thread is done with the slot that the copies fetched here refill
+  auto acquire = [&]() {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    fetch(n + kStages - 1);
+    return static_cast<const float*>(ring + (n++ % kStages) * BN * T::LDC);
+  };
+
+  const int qmin = s.q_offset + q0;
+  const int qmax = s.q_offset + min(q0 + BM, s.Sq) - 1;
+  float m[TM], l[TM], acc[NC][TM][NV * VW];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < NV * VW; ++e) acc[c][i][e] = 0.f;
+  }
+
   for (int tile = t0; tile < t1; ++tile) {
+    // S = Q K^T: rows rg + 16 i, keys cg + 8 j; TM x TN products a d
+    float sc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) sc[i][j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float* kc = acquire();
+#pragma unroll 4
+      for (int d = 0; d < DC; d += 4) {
+        float4 qv[TM], kv[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(
+              Qs + (rg + 16 * i) * T::LDQ + c * DC + d);
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(
+              kc + (cg + 8 * j) * T::LDC + d);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            float x = fmaf(qv[i].x, kv[j].x, sc[i][j]);
+            x = fmaf(qv[i].y, kv[j].y, x);
+            x = fmaf(qv[i].z, kv[j].z, x);
+            sc[i][j] = fmaf(qv[i].w, kv[j].w, x);
+          }
+      }
+    }
+
+    // online softmax in the exp2 domain, p = 2^(s * scale * log2(e) - m);
+    // edge tiles are scaled and masked here, full tiles keep raw scores
     const int k0 = tile * BN;
-    __syncthreads();
-    for (int i = tid; i < BN * D; i += kThreads) {
-      const int row = i / D, d = i % D;
-      const bool in = k0 + row < s.Sk;
-      const size_t off = static_cast<size_t>(k0 + row) * kv_stride + d;
-      Ks[row * F::LDK + d] = in ? kb[off] : 0.f;
-      Vs[row * D + d] = in ? vb[off] : 0.f;
+    const bool full = k0 + BN <= s.Sk && (!s.causal || k0 + BN - 1 <= qmin) &&
+                      (s.window <= 0 || k0 > qmax - s.window);
+    if (!full) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int kpos = k0 + cg + 8 * j;
+          float x = sc[i][j] * scale_log2;
+          if (kpos >= s.Sk)
+            x = -INFINITY;  // past the edge: exp2 gives exactly 0
+          else if (!visible(s, qmin + rg + 16 * i, kpos))
+            x = kNegInf;
+          sc[i][j] = x;
+        }
     }
-    __syncthreads();
+    const float cs = full ? scale_log2 : 1.f;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float mx = sc[i][0];
+#pragma unroll
+      for (int j = 1; j < TN; ++j) mx = fmaxf(mx, sc[i][j]);
+      const float mn = fmaxf(m[i], group_max(mx) * cs);
+      const float alpha = exp2_approx(m[i] - mn);
+      m[i] = mn;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float p = exp2_approx(fmaf(sc[i][j], cs, -mn));
+        rs += p;
+        Ps[(rg + 16 * i) * T::LDP + cg + 8 * j] = p;
+      }
+      l[i] = l[i] * alpha + rs;  // this thread's keys; summed at the end
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < NV * VW; ++e) acc[c][i][e] *= alpha;
+    }
 
-    // scores of the warp's 16 rows against key k0 + lane
-    float sc[16];
+    // O += P V: rows rg + 16 i, columns c DC + 8 VW v + VW cg + e
 #pragma unroll
-    for (int r = 0; r < 16; ++r) sc[r] = 0.f;
-    const float* kr = Ks + lane * F::LDK;
-    for (int d = 0; d < D; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+    for (int c = 0; c < NC; ++c) {
+      const float* vc = acquire();  // its barrier also publishes P
+#pragma unroll 2
+      for (int jj = 0; jj < BN; jj += 4) {
+        float4 pv[TM];
 #pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(
-            Qs + (warp * 16 + r) * F::LDQ + d);
-        float x = sc[r];
-        x = fmaf(qv.x, kv.x, x);
-        x = fmaf(qv.y, kv.y, x);
-        x = fmaf(qv.z, kv.z, x);
-        sc[r] = fmaf(qv.w, kv.w, x);
+        for (int i = 0; i < TM; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(
+              Ps + (rg + 16 * i) * T::LDP + jj);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float vv[NV * VW];
+#pragma unroll
+          for (int w = 0; w < NV; ++w)
+            ld_vec<VW>(vv + w * VW,
+                       vc + (jj + u) * T::LDC + w * 8 * VW + cg * VW);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                          : u == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+            for (int e = 0; e < NV * VW; ++e)
+              acc[c][i][e] = fmaf(p, vv[e], acc[c][i][e]);
+          }
+        }
       }
     }
-    const int kpos = k0 + lane;
-    const bool in_range = kpos < s.Sk;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int qpos = s.q_offset + q0 + warp * 16 + r;
-      float x = sc[r] * s.scale;
-      if (!visible(s, qpos, kpos)) x = kNegInf;
-      const float mn = fmaxf(m[r], warp_max(in_range ? x : kNegInf));
-      const float p = in_range ? expf(x - mn) : 0.f;
-      const float alpha = expf(m[r] - mn);
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = mn;
-      Pw[r * BN + lane] = p;
-      if (lane == 0) Aw[r] = alpha;
-    }
-    __syncwarp();
-
-#pragma unroll
-    for (int p = 0; p < F::NPASS; ++p) {
-      const int row = p * F::RPP + lr;
-      const float al = Aw[row];
-      const float* pr = Pw + row * BN;
-#pragma unroll
-      for (int c = 0; c < F::NC; ++c) {
-        const int col = c0 + c * F::LPR;
-        float a = acc[p][c] * al;
-#pragma unroll 8
-        for (int j = 0; j < BN; ++j) a = fmaf(pr[j], Vs[j * D + col], a);
-        acc[p][c] = a;
-      }
-    }
-    __syncwarp();
   }
+  tc::cp_async_wait<0>();  // only empty groups remain
 
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < 16; ++r) Aw[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
-  }
-  __syncwarp();
   float* ob = out + static_cast<size_t>(b) * s.Sq * q_stride +
               static_cast<size_t>(h) * D;
 #pragma unroll
-  for (int p = 0; p < F::NPASS; ++p) {
-    const int row = p * F::RPP + lr;
-    const int qr = q0 + warp * 16 + row;
-    if (qr >= s.Sq) continue;
+  for (int i = 0; i < TM; ++i) {
+    const float ls = group_sum(l[i]);
+    const float inv = ls > 0.f ? 1.f / ls : 0.f;
+    const int r = q0 + rg + 16 * i;
+    if (r >= s.Sq) continue;
 #pragma unroll
-    for (int c = 0; c < F::NC; ++c)
-      ob[qr * q_stride + c0 + c * F::LPR] = acc[p][c] * Aw[row];
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int w = 0; w < NV; ++w) {
+        float o[VW];
+#pragma unroll
+        for (int e = 0; e < VW; ++e) o[e] = acc[c][i][w * VW + e] * inv;
+        st_vec<VW>(ob + r * q_stride + c * DC + w * 8 * VW + cg * VW, o);
+      }
   }
 }
+
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   float* out, const Shape& s, cudaStream_t st) {
+  constexpr int smem = Tiles<D>::smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>((s.Sq + Tiles<D>::BM - 1) / Tiles<D>::BM) *
+      s.Hq * s.B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_f32<D><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+      q, k, v, out, s, s.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bf16 at D 64, 128 and 256: TMA ring, wgmma, warp specialisation
@@ -459,7 +624,6 @@ using wg::wgmma_ss;
 constexpr int kConsumers = 2;           // warpgroups of 64 query rows
 constexpr int kBM = 64 * kConsumers;    // query rows per block
 constexpr int kThreadsWS = 128 * (kConsumers + 1);  // + the producer's
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Keys per tile and ring stages.  Shared memory: Q kBM x D, then STAGES
 // K tiles, then STAGES V tiles (BN x D each), then the barriers; every
@@ -554,12 +718,6 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // One block per SM walks work items (query tile, head, batch): item
 // r * gridDim.x + blockIdx.x in even rounds r and from the other end of the
@@ -955,9 +1113,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 template <int D>
 cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v,
                      void* out, const Shape& s, cudaStream_t st) {
-  const dim3 grid((s.Sq + kBlockM - 1) / kBlockM, s.Hq, s.B);
   if (dtype == 1) {
     if constexpr (D <= 32) {
+      const dim3 grid((s.Sq + kBlockM - 1) / kBlockM, s.Hq, s.B);
       flash_fwd_bf16<D><<<grid, kThreads, 0, st>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
@@ -967,14 +1125,10 @@ cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v,
     }
     return cudaErrorInvalidValue;  // bf16 at D >= 64: the Hopper entry
   }
-  const int smem = static_cast<int>(F32Tile<D>::floats * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_f32<D><<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), s);
-  return cudaGetLastError();
+  return f32::launch<D>(static_cast<const float*>(q),
+                        static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<float*>(out),
+                        s, st);
 }
 
 bool valid(int B, int Sq, int Sk, int Hq, int Hkv) {
@@ -1024,6 +1178,18 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
     case 128: return hopper::launch<128>(q, k, v, out, s, st);
     case 256: return hopper::launch<256>(q, k, v, out, s, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of the fp32 kernel at head_dim D (0 if none).
+extern "C" int flash_attention_f32_smem(int D) {
+  switch (D) {
+    case 16: return f32::Tiles<16>::smem;
+    case 32: return f32::Tiles<32>::smem;
+    case 64: return f32::Tiles<64>::smem;
+    case 128: return f32::Tiles<128>::smem;
+    case 256: return f32::Tiles<256>::smem;
+    default: return 0;
   }
 }
 

@@ -9,7 +9,9 @@ variants, chosen by (dtype, head_dim) alone (:func:`flash_variant`):
   of K/V tiles, wgmma for both products, one producer and two consumer
   warpgroups; tiles :data:`WGMMA_TILES`);
 * ``mma``: bf16 at head_dim 16 and 32, mma.sync m16n8k16;
-* ``fp32``: float32 at every head dim, on the CUDA cores.
+* ``fp32``: float32 at every head dim, on the CUDA cores: register-tiled
+  outer products for both products, a cp.async ring of K/V chunks
+  (tiles :data:`F32_TILES`).
 
 Each design is described in the source.  Head dims are those of
 ``kernels.HEAD_DIMS`` (16 to 256).  Unlike the Pallas kernel, any Sq and Sk
@@ -29,6 +31,9 @@ from repro_torch.kernels import (DTYPE_CODES, HEAD_DIMS, _build, check_cuda,
 WGMMA_HEAD_DIMS = (64, 128, 256)
 #: (query rows a block, keys a tile) of the wgmma variant, by head dim.
 WGMMA_TILES = {64: (128, 128), 128: (128, 128), 256: (128, 64)}
+#: (query rows a block, keys a tile) of the fp32 variant, by head dim.
+F32_TILES = {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (64, 64),
+             256: (32, 64)}
 VARIANTS = ("wgmma", "mma", "fp32")
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float

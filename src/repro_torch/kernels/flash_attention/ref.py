@@ -4,8 +4,8 @@ Follows ``repro/kernels/flash_attention/ref.py``: ``attention_reference`` is
 the dense oracle (fp32 scores and softmax), ``attention_reference_chunked``
 the online softmax over K blocks inside a loop over Q blocks, which never
 holds the (Sq, Sk) scores; ``attention_reference_tiled`` walks the tiles as
-the CUDA wgmma kernel does (``tile_plan``: skipped, full and edge tiles; the
-exp2-domain online softmax).  Query head h reads KV head ``h // G`` through a
+the CUDA wgmma and fp32 kernels do (``tile_plan``: skipped, full and edge
+tiles; the exp2-domain online softmax).  Query head h reads KV head ``h // G`` through a
 (Hkv, G) split of the query heads, so repeated K/V is never formed.  Masks
 (causal, window, ``q_offset``) are applied before the softmax.
 """
@@ -117,7 +117,7 @@ def attention_reference_chunked(
 
 def tile_plan(q0: int, Sq: int, Sk: int, bm: int, bn: int, causal: bool,
               window: Optional[int], q_offset: int) -> List[Tuple[int, str]]:
-    """The key tiles that the wgmma kernel's block of query rows
+    """The key tiles that a CUDA kernel's block of query rows
     ``[q0, min(q0 + bm, Sq))`` visits, in order, as ``(first key, kind)``.
     Tiles that no row sees are skipped; a tile is ``"full"`` when every
     (row, key) pair of it is visible and all its keys lie below Sk, else
@@ -146,21 +146,23 @@ def attention_reference_tiled(
     window: Optional[int] = None,
     q_offset: int = 0,
     scale: Optional[float] = None,
+    tiles: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """The wgmma kernel's algorithm in plain PyTorch: blocks of ``bm`` query
-    rows walk the key tiles of :func:`tile_plan` (``bn`` keys each; ``(bm,
-    bn)`` the kernel's tiles at this head dim, :data:`WGMMA_TILES`) with an
-    online softmax in the exp2 domain (scale * log2(e) folded into one
+    """A CUDA kernel's algorithm in plain PyTorch: blocks of ``bm`` query
+    rows walk the key tiles of :func:`tile_plan` (``bn`` keys each; ``tiles
+    = (bm, bn)``, by default the wgmma kernel's at this head dim,
+    :data:`WGMMA_TILES`; the fp32 kernel's are ``kernel.F32_TILES``) with
+    an online softmax in the exp2 domain (scale * log2(e) folded into one
     multiply), masking only the edge tiles (-1e30; keys past Sk are absent
     and add exactly 0), p rounded to v's dtype before the PV product, fp32
     sums.  A row whose block visits no tile is 0."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv
-    if D not in WGMMA_TILES:
+    if tiles is None and D not in WGMMA_TILES:
         raise ValueError(f"attention_reference_tiled: no wgmma kernel at "
                          f"head_dim {D}")
-    bm, bn = WGMMA_TILES[D]
+    bm, bn = WGMMA_TILES[D] if tiles is None else tiles
     c = (D ** -0.5 if scale is None else scale) * LOG2E
     qf = q.reshape(B, Sq, Hkv, G, D).float()
     out = torch.zeros((B, Sq, Hkv, G, D), device=q.device)

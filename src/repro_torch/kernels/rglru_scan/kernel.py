@@ -2,29 +2,67 @@
 
 Replaces the Pallas TPU kernel
 ``repro/kernels/rglru_scan/kernel.py::linear_scan_pallas``.  The kernel is
-bound by device memory; its design (the sequence cut into chunks, three
-launches: chunk aggregates, carries across chunks, the scan of each chunk
-from its carry) is described in the source.  The wrapper picks the chunk
-length and allocates the outputs and the fp32 scratch.  The library builds
-at first call.
+bound by device memory; its design (one launch; a block of 8 warps for
+every 32 channels walks the sequence in rounds of 8 chunks, one a warp,
+through a cp.async ring in shared memory, a and b read once; the carry
+between rounds in registers) is described in the source.  The wrapper
+picks the chunk length (:func:`scan_plan`) and allocates the outputs; the
+kernel keeps no state between calls.  The library builds at first call.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import DTYPE_CODES, _build, check_cuda, stream_ptr
+from repro_torch.kernels import (DTYPE_CODES, _build, check_cuda, sm_count,
+                                 stream_ptr)
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_I, _I, _P, _P,                      # a dtype, b dtype, a, b
-             _P, _P, _P, _P,                      # h, h_last, agg_a, agg_h
-             _I, _I, _I, _I, _P]                  # B, S, W, L, stream
+             _P, _P,                              # h, h_last
+             _I, _I, _I, _I, _P]                  # B, S, W, steps, stream
 
-#: Threads (4 channels each) that a launch aims for: ~4 blocks of 128 per SM.
-_THREADS_PER_SM = 512
-_MIN_CHUNK = 16
+#: Channels a block; warps a block (chunks a round); rounds in its ring
+#: (``kLanes``, ``kWarps``, ``kRounds`` in the source).
+LANES, WARPS, ROUNDS = 32, 8, 3
+#: Chunk lengths the source instantiates, longest first.
+STEP_CHOICES = (32, 16)
+#: Shared memory of one SM (H100), and what the runtime keeps a block.
+SM_SMEM, BLOCK_RESERVED = 228 << 10, 1 << 10
+
+
+class ScanPlan(NamedTuple):
+    blocks: int          # ceil(B W / 32), one a group of 32 channels
+    blocks_per_sm: int   # ceil(blocks / SMs): the waves of the launch
+    steps: int           # L, steps a chunk
+    smem: int            # dynamic shared memory of a block, bytes
+
+
+def smem_bytes(steps: int, a_size: int, b_size: int) -> int:
+    """A block's shared memory: each warp's ring of a and b, and the chunk
+    aggregates of two rounds (``smem_bytes`` in the source)."""
+    return (WARPS * ROUNDS * steps * LANES * (a_size + b_size)
+            + 2 * WARPS * LANES * 8)
+
+
+def scan_plan(sms: int, B: int, S: int, W: int, a_size: int,
+              b_size: int) -> ScanPlan:
+    """The launch plan of the scan, a pure function of its arguments.
+
+    One block for every 32 of the B x W channels; its 8 warps take the
+    sequence in rounds of 8 chunks of ``steps`` steps.  ``steps`` is the
+    longest of :data:`STEP_CHOICES` whose block still lets two blocks share
+    an SM (one block's meeting at the end of a round overlaps the other's
+    streaming, and a longer chunk meets less often): 16 in fp32, 32 in
+    bf16.  Any S is covered by ``ceil(S / (8 steps))`` rounds."""
+    blocks = max(1, -(-B * W // LANES))
+    steps = next((k for k in STEP_CHOICES
+                  if 2 * (smem_bytes(k, a_size, b_size) + BLOCK_RESERVED)
+                  <= SM_SMEM), STEP_CHOICES[-1])
+    return ScanPlan(blocks, -(-blocks // max(sms, 1)), steps,
+                    smem_bytes(steps, a_size, b_size))
 
 
 def _entry():
@@ -32,16 +70,6 @@ def _entry():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
-
-
-def chunk_len(device: torch.device, B: int, S: int, W: int) -> int:
-    """Steps per chunk: enough chunks that B x chunks x W/4 threads reach
-    ~4 blocks per SM, each chunk a multiple of 16 steps (at least 16).
-    Depends only on shapes, so equal shapes chunk alike."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = max(1, -(-_THREADS_PER_SM * sms // max(B * W // 4, 1)))
-    L = -(-S // chunks)
-    return max(_MIN_CHUNK, -(-L // _MIN_CHUNK) * _MIN_CHUNK)
 
 
 def linear_scan_cuda(a: torch.Tensor, b: torch.Tensor
@@ -65,14 +93,12 @@ def linear_scan_cuda(a: torch.Tensor, b: torch.Tensor
     h_last = torch.empty((B, W), dtype=torch.float32, device=b.device)
     if S == 0 or B == 0:
         return h, h_last.zero_()
-    L = chunk_len(b.device, B, S, W)
-    nagg = -(-S // L) - 1
-    agg = torch.empty((2, B, max(nagg, 1), W), dtype=torch.float32,
-                      device=b.device)
+    plan = scan_plan(sm_count(b.device.index), B, S, W, a.element_size(),
+                     b.element_size())
     err = _entry()(
         DTYPE_CODES[a.dtype], DTYPE_CODES[b.dtype], a.data_ptr(),
-        b.data_ptr(), h.data_ptr(), h_last.data_ptr(), agg[0].data_ptr(),
-        agg[1].data_ptr(), B, S, W, L, stream_ptr(b.device))
+        b.data_ptr(), h.data_ptr(), h_last.data_ptr(), B, S, W, plan.steps,
+        stream_ptr(b.device))
     if err:
         raise RuntimeError(f"rglru_scan: launch failed with CUDA error {err}")
     linear_scan_cuda.launches += 1

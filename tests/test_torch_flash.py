@@ -2,9 +2,10 @@
 JAX package: the Pallas kernel in interpret mode over the divisible sweep
 of tests/test_kernels.py, the dense reference at ragged Sq/Sk, the chunked
 reference above the op's threshold, the q/k/v gradients against
-``jax.vjp`` of the JAX op, and the CUDA wgmma kernel's algorithm in plain
-PyTorch (``attention_reference_tiled``: its tiles, their classification and
-its exp2-domain softmax) against the JAX reference and the Pallas kernel.
+``jax.vjp`` of the JAX op, and the CUDA wgmma and fp32 kernels' algorithm
+in plain PyTorch (``attention_reference_tiled``: their tiles, their
+classification and the exp2-domain softmax) against the JAX reference and
+the Pallas kernel.
 
 Tolerances: forward fp32 2e-5 and bf16 3e-2, those of tests/test_kernels.py
 (the same arithmetic; sums run in another order).  Gradients fp32 1e-4:
@@ -27,7 +28,7 @@ from repro.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as t_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    WGMMA_TILES, flash_attention_cuda, flash_variant)
+    F32_TILES, WGMMA_TILES, flash_attention_cuda, flash_variant)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_reference_chunked as t_chunked,
     attention_reference_tiled as t_tiled, tile_plan)
@@ -261,7 +262,10 @@ def test_tile_plan_full_tiles_visible_and_visible_pairs_visited(
         D, Sq, Sk, causal, window, q_offset):
     """Every tile classed full has all its (row, key) pairs visible and no
     key past Sk; every visible pair lies in a visited tile."""
-    bm, bn = WGMMA_TILES[D]
+    _check_tile_plan(*WGMMA_TILES[D], Sq, Sk, causal, window, q_offset)
+
+
+def _check_tile_plan(bm, bn, Sq, Sk, causal, window, q_offset):
     qpos = q_offset + torch.arange(Sq)[:, None]
     kpos = torch.arange(Sk)[None, :]
     vis = torch.ones((Sq, Sk), dtype=torch.bool)
@@ -280,6 +284,76 @@ def test_tile_plan_full_tiles_visible_and_visible_pairs_visited(
                 assert bool(vis[rows, k0:k0 + bn].all())
             covered[rows, k0:k0 + bn] = True
     assert bool(covered[vis].all())
+
+
+# ---------------------------------------------------------------------------
+# The fp32 kernel's algorithm at its own tiles (F32_TILES)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("Sq,Sk,causal,window,q_offset", [
+    (1024, 1024, True, None, 0),
+    (1000, 1000, True, None, 0),
+    (1024, 1024, True, 128, 0),
+    (200, 712, True, None, 512),
+    (333, 517, False, None, 0),
+    (3072, 3072, True, 2048, 0),
+    (777, 1800, True, 2048, 1023),
+    (300, 300, False, 77, 0),
+    (5, 9, True, 3, 4),
+])
+def test_tile_plan_at_f32_tiles(D, Sq, Sk, causal, window, q_offset):
+    """The fp32 kernel's tiles (64 query rows, 32 at D 256; 64 keys):
+    full tiles all visible, every visible pair visited."""
+    _check_tile_plan(*F32_TILES[D], Sq, Sk, causal, window, q_offset)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("case", ["causal", "window", "q_offset", "blind"])
+def test_f32_tiled_reference_vs_pallas_interpret(D, case):
+    """The fp32 kernel's twin, at its tiles, against the Pallas kernel in
+    interpret mode with blocks equal to those tiles, fp32 2e-5: causal, a
+    window, q_offset with Sq < Sk, and rows that see no key (q_offset 100,
+    window 32 over 128 keys: rows from 59 see none; a blind row of a block
+    that runs tiles averages their V, and the blocks from row 64 run no
+    tile and are 0)."""
+    bm, bn = F32_TILES[D]
+    Sq, Sk, kw = {
+        "causal": (128, 128, dict(causal=True)),
+        "window": (128, 128, dict(causal=True, window=40)),
+        "q_offset": (bm, 3 * bn, dict(causal=True, q_offset=128)),
+        "blind": (128, 128, dict(causal=True, window=32, q_offset=100)),
+    }[case]
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(D + Sq + Sk, 1, Sq, Sk, 2, 1, D),
+                                       "float32")
+    out = t_tiled(tq, tk, tv, tiles=(bm, bn), **kw)
+    _close(out, flash_attention_pallas(jq, jk, jv, blk_q=bm, blk_k=bn,
+                                       interpret=True, **kw),
+           TOL["float32"])
+    if case == "blind":
+        blind = kw["q_offset"] + torch.arange(Sq) - kw["window"] + 1 > Sk - 1
+        running = torch.tensor([bool(tile_plan(i - i % bm, Sq, Sk, bm, bn,
+                                               **kw)) for i in range(Sq)])
+        assert bool((blind & running).any()) and bool((blind & ~running).any())
+        assert bool((out[:, blind & running].abs().amax(dim=-1) > 0).all())
+        assert bool((out[:, ~running] == 0).all())
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,kw", [
+    (1, 100, 100, 4, 1, dict(causal=True)),
+    (2, 77, 150, 2, 2, dict(causal=True, window=50, q_offset=73)),
+    (1, 37, 300, 4, 2, dict(causal=False)),
+])
+def test_f32_tiled_reference_vs_jax_reference_ragged(D, B, Sq, Sk, Hq, Hkv,
+                                                     kw):
+    """Sq and Sk no multiples of the fp32 tiles, every row seeing a key:
+    the twin at the fp32 tiles against the dense JAX reference."""
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _qkv(Sq + 5 * Sk + D, B, Sq, Sk, Hq, Hkv, D), "float32")
+    out = t_tiled(tq, tk, tv, tiles=F32_TILES[D], **kw)
+    assert out.dtype == torch.float32 and out.shape == tq.shape
+    _close(out, j_ref(jq, jk, jv, **kw), TOL["float32"])
 
 
 @pytest.mark.parametrize("dtype,D,variant", [

@@ -2,7 +2,9 @@
 package: the Pallas kernel in interpret mode and JAX's reference over the
 shapes of tests/test_kernels.py and two more sequence lengths, the op with
 an initial state against JAX's ``linear_scan``, its gradients in a, b and
-h0 against ``jax.vjp``, and the one-token update.
+h0 against ``jax.vjp``, and the one-token update.  Also the CUDA kernel's
+bit twin ``linear_scan_sequential_reference`` against the same oracles and
+float64, and the kernel's launch plan ``scan_plan``.
 
 Tolerances: forward fp32 2e-5 and bf16 3e-2, those of tests/test_kernels.py
 (the same recurrence; the doubling scan here and XLA's associative scan
@@ -28,9 +30,10 @@ from repro.kernels.rglru_scan.ref import (  # noqa: E402
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     linear_scan, linear_scan_decode_step)
 from repro_torch.kernels.rglru_scan.kernel import (  # noqa: E402
-    chunk_len, linear_scan_cuda)
+    LANES, ROUNDS, STEP_CHOICES, WARPS, linear_scan_cuda, scan_plan)
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
-    linear_scan_decode_reference, linear_scan_reference)
+    linear_scan_decode_reference, linear_scan_reference,
+    linear_scan_sequential_reference)
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 GRAD_TOL = 1e-4
@@ -166,15 +169,102 @@ def test_cpu_op_launches_nothing_and_kernel_refuses_cpu_tensors():
         linear_scan_cuda(ta[..., :6].contiguous(), tb[..., :6].contiguous())
 
 
-def test_chunk_len_fills_the_card_and_covers_any_length(monkeypatch):
-    """The chunk plan depends on shapes alone: at the serving shape
-    (B 2, W 4096) on 132 SMs, 96-step chunks (32 of them); at least 16
-    steps, a multiple of 16, and enough chunks to cover S."""
-    class Props:
-        multi_processor_count = 132
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda device: Props())
-    assert chunk_len("cuda", 2, 3072, 4096) == 96
-    for B, S, W in ((1, 1000, 4096), (2, 33, 8), (3, 96, 32), (1, 1, 4)):
-        L = chunk_len("cuda", B, S, W)
-        assert L >= 16 and L % 16 == 0 and -(-S // L) * L >= S
+@pytest.mark.parametrize("B,S,W,blk", [(2, 128, 64, 32), (1, 64, 16, 16),
+                                       (3, 96, 32, 32), (2, 33, 8, 33),
+                                       (1, 100, 16, 100), (2, 1, 8, 1),
+                                       (2, 77, 12, 77), (1, 1000, 16, 250)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sequential_twin_vs_pallas_jax_and_plain(B, S, W, blk, dtype):
+    """The kernel's bit twin, step by step and in the kernel's chunk orders
+    (16 and 32 steps), against the Pallas kernel in interpret mode, JAX's
+    reference and the port's doubling scan, at the existing shapes and
+    ragged S (1, 77, 1000)."""
+    (ja, jb), (ta, tb) = _both(_ab(B * S + W + 1, B, S, W), dtype)
+    ph, phl = linear_scan_pallas(ja, jb, blk=blk, interpret=True)
+    rh, rhl = j_ref(ja, jb)
+    dh, dhl = linear_scan_reference(ta, tb)
+    for chunk in (None, 16, 32):
+        h, hl = linear_scan_sequential_reference(ta, tb, chunk=chunk)
+        assert h.dtype == T_DT[dtype] and hl.dtype == torch.float32
+        assert tuple(h.shape) == (B, S, W) and tuple(hl.shape) == (B, W)
+        for want, want_last in ((ph, phl), (rh, rhl), (dh.float(), dhl)):
+            _close(h, want, TOL[dtype])
+            _close(hl, want_last, TOL[dtype])
+
+
+def _chunk_order_numpy(a, b, L):
+    """The kernel's chunk order in numpy float32, step by step: each
+    chunk's (A, H) from zero, the carry folded c = A c + H, the chunk's h
+    from its carry; every product and sum rounded to float32."""
+    B, S, W = a.shape
+    h = np.zeros((B, S, W), np.float32)
+    c = np.zeros((B, W), np.float32)
+    for t0 in range(0, S, L):
+        A, H, x = np.ones_like(c), np.zeros_like(c), c
+        for t in range(t0, min(t0 + L, S)):
+            x = (a[:, t] * x).astype(np.float32) + b[:, t]
+            h[:, t] = x
+            A = (A * a[:, t]).astype(np.float32)
+            H = (a[:, t] * H).astype(np.float32) + b[:, t]
+        c = (A * c).astype(np.float32) + H
+    return h, x
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 1000, 8), (3, 77, 4)])
+@pytest.mark.parametrize("chunk", [None, 16, 32])
+def test_sequential_twin_matches_float64_and_rounds_each_step(B, S, W,
+                                                              chunk):
+    """Within 1e-5 of the float64 recurrence, and bit-equal to an
+    independent numpy float32 walk in the same order (step by step, or the
+    kernel's chunk order)."""
+    a, b = _ab(13 + S, B, S, W)
+    h, hl = linear_scan_sequential_reference(torch.from_numpy(a),
+                                             torch.from_numpy(b), chunk=chunk)
+    h64 = np.zeros((B, W), np.float64)
+    for t in range(S):
+        h64 = a[:, t].astype(np.float64) * h64 + b[:, t]
+        np.testing.assert_allclose(h[:, t].numpy(), h64, atol=1e-5,
+                                   rtol=1e-5)
+    n32, n32_last = _chunk_order_numpy(a, b, S if chunk is None else chunk)
+    np.testing.assert_array_equal(h.numpy(), n32)
+    np.testing.assert_array_equal(hl.numpy(), n32_last)
+    np.testing.assert_allclose(hl.numpy(), h64, atol=1e-5, rtol=1e-5)
+
+
+_SERVE_SMS = 132
+
+
+@pytest.mark.parametrize("sms,B,S,W,a_size,b_size,steps", [
+    # recurrentgemma-9b's prefill (B 2, S 3072, W 4096) on 132 SMs: 256
+    # blocks, 2 an SM; fp32 a and b take 16-step chunks, bf16 32
+    (_SERVE_SMS, 2, 3072, 4096, 4, 4, 16),
+    (_SERVE_SMS, 2, 3072, 4096, 2, 2, 32),
+    # one prompt of 1000: 128 blocks, one an SM
+    (_SERVE_SMS, 1, 1000, 4096, 4, 4, 16),
+    # mixed dtypes: 6 bytes an element
+    (_SERVE_SMS, 2, 3072, 4096, 4, 2, 16),
+    (_SERVE_SMS, 8, 2048, 4096, 2, 4, 16),
+    (_SERVE_SMS, 3, 77, 36, 2, 2, 32),
+    (_SERVE_SMS, 1, 1, 4, 4, 4, 16),
+    (16, 2, 999, 4096, 2, 2, 32),
+])
+def test_scan_plan_fills_the_card_and_covers_any_length(
+        sms, B, S, W, a_size, b_size, steps):
+    """The plan is a pure function of shapes and the SM count: one block
+    for each 32 channels, the longest chunk of STEP_CHOICES that lets two
+    blocks share an SM's shared memory, ceil(S / (8 steps)) rounds that
+    cover S."""
+    plan = scan_plan(sms, B, S, W, a_size, b_size)
+    assert plan == scan_plan(sms, B, S, W, a_size, b_size)
+    assert plan.steps == steps and plan.steps in STEP_CHOICES
+    assert plan.blocks == -(-B * W // LANES)
+    assert plan.blocks_per_sm == -(-plan.blocks // sms)
+    assert plan.smem == (WARPS * ROUNDS * steps * LANES * (a_size + b_size)
+                         + 2 * WARPS * LANES * 8)
+    assert 2 * (plan.smem + 1024) <= 228 * 1024
+    longer = [k for k in STEP_CHOICES if k > plan.steps]
+    assert all(2 * (WARPS * ROUNDS * k * LANES * (a_size + b_size)
+                    + 2 * WARPS * LANES * 8 + 1024) > 228 * 1024
+               for k in longer)
+    rounds = -(-S // (WARPS * plan.steps))
+    assert rounds * WARPS * plan.steps >= S > (rounds - 1) * WARPS * plan.steps

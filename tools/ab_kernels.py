@@ -9,9 +9,12 @@ recurrentgemma-9b's decode shape (B 2, a full
 2048-slot ring, 16 heads over 1 KV head, D 256, bf16), flash at llama's
 training shape (B 2, S 1024, 32 heads over 8, D 128, causal, bf16) and at
 recurrentgemma-9b's prefill shape (B 2, S 3072, 16 heads over 1, D 256,
-causal, window 2048, bf16), and the SSD scan at mamba2-130m's prefill
-and training shapes (B 4 and 8, S 2048, 24 heads, P 64, N 128, chunk
-256, bf16 x, B and C).
+causal, window 2048, bf16), fp32 flash at the training shape, at 16
+heads over 16 with D 64 and at recurrentgemma-9b's prefill shape, the SSD
+scan at mamba2-130m's prefill and training shapes (B 4 and 8, S 2048, 24
+heads, P 64, N 128, chunk 256, bf16 x, B and C), and the RG-LRU scan at
+recurrentgemma-9b's prefill shapes (B 2, S 3072, W 4096 in fp32 and
+bf16; B 1, S 1000 in fp32).
 
   python3 tools/ab_kernels.py OTHER_ROOT [--rounds 4]
 
@@ -20,14 +23,16 @@ unpacked with ``git archive`` into a directory that ``.gitignore`` lists);
 its ``src/repro_torch/csrc`` must keep the C entry points of this tree,
 except that a flash library without the wgmma entry
 (``flash_attention_fwd_wgmma``, before it existed) is called through its
-one entry ``flash_attention_fwd``.  Both libraries are built with this
-tree's flags and called through this tree's wrappers, each decode kernel
-under its own tree's split plan (``decode_plan`` in its
-``kernels/__init__.py``, or the older ``split_plan(device, B x Hkv,
-cap)``); the registers of the kernel entries these shapes launch are
-printed for both.  Prints one JSON line per round and a summary line
-with the medians, how many rounds this tree was faster in, and, for each
-kernel, whether the two trees' outputs are equal (bit for bit) and their
+one entry ``flash_attention_fwd``, and that the RG-LRU scan is called
+through each tree's own wrapper (``kernels/rglru_scan/kernel.py``), whose
+C entry changed.  Both libraries are built with this tree's flags and
+called through this tree's wrappers, each decode kernel under its own
+tree's split plan (``decode_plan`` in its ``kernels/__init__.py``, or the
+older ``split_plan(device, B x Hkv, cap)``); the registers of the kernel
+entries these shapes launch are printed for both.  Each time is of the
+wrapper call alone (outputs are joined only for the comparison).  Prints
+one JSON line per round and a summary line with the medians, how many
+rounds this tree was faster in, and, for each kernel, whether the two trees' outputs are equal (bit for bit) and their
 largest difference, within the bf16 tolerance of each other or not (3e-2,
 as ``chip_smoke.py``); needs a CUDA card and ``nvcc``.
 """
@@ -69,15 +74,22 @@ def _build_tree(root: str, name: str, tag: str):
     return ctypes.CDLL(out), regs
 
 
+def _module_of(root: str, rel: str):
+    """The module ``src/repro_torch/<rel>`` of the tree at ``root``, loaded
+    from its file (its imports resolve in this tree's package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_{rel.replace('/', '_')[:-3]}_{abs(hash(root))}",
+        os.path.join(root, "src", "repro_torch", rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _plan_of(root: str):
     """The decode split plan of the tree at ``root``, as its wrappers call
     it: ``(device, dtype, B, Hkv, G, D, cap) -> (split_len, n_splits)``."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        f"_kernels_{abs(hash(root))}",
-        os.path.join(root, "src", "repro_torch", "kernels", "__init__.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = _module_of(root, "kernels/__init__.py")
     if hasattr(mod, "decode_plan"):
         return mod.decode_plan
     return lambda device, dtype, B, Hkv, G, D, cap: mod.split_plan(
@@ -100,24 +112,29 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 
     names = ("decode_attention", "paged_attention", "flash_attention",
-             "ssd_scan")
+             "ssd_scan", "rglru_scan")
     roots = {"this": ROOT, "other": args.other}
     built = {tag: {n: _build_tree(root, n, tag) for n in names}
              for tag, root in roots.items()}
     libs = {tag: {n: lib for n, (lib, _) in b.items()}
             for tag, b in built.items()}
     plans = {tag: _plan_of(root) for tag, root in roots.items()}
+    scans = {tag: _module_of(root, "kernels/rglru_scan/kernel.py")
+             for tag, root in roots.items()}
     # registers of the entries that the shapes launch
     launched = ("Li128ELi4E", "Li256ELi4E", "flash_fwd_bf16ILi128E",
                 "flash_fwd_bf16ILi256E", "flash_fwd_hopper",
                 "combine_kernelI13", "split_mmaILi256E", "merge_kernelI13",
                 "decode_fused_mmaILi128E",
                 "ssd_", "Li64ELi128E")
+    launched_any = ("flash_fwd_f32ILi64E", "flash_fwd_f32ILi128E",
+                    "flash_fwd_f32ILi256E", "rglru_stream", "chunk_")
     print(json.dumps({"registers": {
         tag: {e[-120:]: r for n, (_, regs) in b.items()
               for e, r in regs.items()
-              if ("bfloat16" in e or "ssd_" in e)
-              and any(k in e for k in launched)}
+              if (("bfloat16" in e or "ssd_" in e)
+                  and any(k in e for k in launched))
+              or any(k in e for k in launched_any)}
         for tag, b in built.items()}}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     dt = torch.bfloat16
@@ -155,6 +172,27 @@ def main(argv=None) -> int:
     ring = torch.tensor([2048, 2048], dtype=torch.int32, device="cuda")
     ssd_in = {n: _ssd_inputs(gen, b, 2048, 24, 64, 128, dt, dt)
               for n, b in (("prefill", 4), ("train", 8))}
+    f32 = {n: [torch.randn(shape, generator=gen, device="cuda")
+               for shape in shapes]
+           for n, shapes in (
+               ("train", ((2, 1024, 32, 128), (2, 1024, 8, 128),
+                          (2, 1024, 8, 128))),
+               ("d64", ((2, 1024, 16, 64), (2, 1024, 16, 64),
+                        (2, 1024, 16, 64))),
+               ("hybrid", ((2, 3072, 16, 256), (2, 3072, 1, 256),
+                           (2, 3072, 1, 256))))}
+    scan_in = {n: (torch.sigmoid(torch.randn(shape, generator=gen,
+                                             device="cuda")).to(sdt),
+                   torch.randn(shape, generator=gen, device="cuda").to(sdt))
+               for n, shape, sdt in (
+                   ("f32", (2, 3072, 4096), torch.float32),
+                   ("bf16", (2, 3072, 4096), torch.bfloat16),
+                   ("f32_s1000", (1, 1000, 4096), torch.float32))}
+    tree_now = {"tag": "this"}
+
+    def scan(case):
+        """(h, h_last) through the tree's own wrapper."""
+        return scans[tree_now["tag"]].linear_scan_cuda(*scan_in[case])
 
     def flash(lib, q, k, v, **kw):
         """Through this tree's wrapper, or the one entry of a library that
@@ -165,7 +203,8 @@ def main(argv=None) -> int:
         fn.argtypes = [ctypes.c_int] + flash_kernel._SHAPE_ARGS
         out = torch.empty_like(q)
         (B, Sq, Hq, Dq), (Sk, Hkv) = q.shape, k.shape[1:3]
-        err = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        err = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(),
                  B, Sq, Sk, Hq, Hkv, Dq, int(kw.get("causal", True)),
                  kw.get("window") or 0, 0, Dq ** -0.5, stream_ptr(q.device))
         if err:
@@ -173,9 +212,8 @@ def main(argv=None) -> int:
         return out
 
     def ssd(case):
-        """y and the final state of the scan, flattened into one tensor."""
-        y, fs = ssd_scan_cuda(*ssd_in[case], chunk=256)
-        return torch.cat([y.flatten(), fs.flatten().to(y.dtype)])
+        """y and the final state of the scan."""
+        return ssd_scan_cuda(*ssd_in[case], chunk=256)
 
     calls = {"decode_attention": lambda lib: decode_kernel.
              decode_attention_cuda(q, k, v, lengths),
@@ -194,8 +232,15 @@ def main(argv=None) -> int:
              "flash_attention": lambda lib: flash(lib, fq, fk, fv),
              "flash_attention_hybrid": lambda lib: flash(
                  lib, hq, hk, hv, causal=True, window=2048),
+             "flash_attention_f32": lambda lib: flash(lib, *f32["train"]),
+             "flash_attention_f32_d64": lambda lib: flash(lib, *f32["d64"]),
+             "flash_attention_f32_hybrid": lambda lib: flash(
+                 lib, *f32["hybrid"], causal=True, window=2048),
              "ssd_scan_prefill": lambda lib: ssd("prefill"),
-             "ssd_scan_train": lambda lib: ssd("train")}
+             "ssd_scan_train": lambda lib: ssd("train"),
+             "rglru_scan_f32": lambda lib: scan("f32"),
+             "rglru_scan_bf16": lambda lib: scan("bf16"),
+             "rglru_scan_f32_s1000": lambda lib: scan("f32_s1000")}
     source = {n: next(s for s in names if n.startswith(s)) for n in calls}
     timer = Timer(iters=30)
     times = {tree: {n: [] for n in calls} for tree in libs}
@@ -205,10 +250,14 @@ def main(argv=None) -> int:
         for tree in order if r % 2 == 0 else order[::-1]:
             decode_kernel.decode_plan = paged_kernel.decode_plan = \
                 plans[tree]
+            tree_now["tag"] = tree
             for n, call in calls.items():
                 lib = libs[tree][source[n]]
                 _build._loaded[source[n]] = lib
-                outs[(tree, n)] = call(lib).float()
+                out = call(lib)   # a tensor, or a tuple of them
+                outs[(tree, n)] = torch.cat([
+                    t.flatten().float()
+                    for t in (out if isinstance(out, tuple) else (out,))])
                 times[tree][n].append(timer(lambda: call(lib)))
         print(json.dumps({"round": r, "ms": {t: {n: times[t][n][-2:]
                                                  for n in calls}
