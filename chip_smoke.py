@@ -57,9 +57,10 @@ source, all started together) and runs, in order:
 7. ``train``: ``launch/train.run`` trains llama3.2-3b at full width and
    depth (28 layers, bf16, remat "full", batch 2 x 1024 tokens from
    ``SyntheticLM``) for 4 steps through ``device_run`` with one immediate
-   hook that logs the loss: losses, ms/step, tokens/s, train_mfu, the
-   flash kernel's launches (all of the bf16 wgmma variant) and the peak
-   device memory;
+   hook that logs the loss through the RPC channel: losses, ms/step,
+   tokens/s, train_mfu, the flash kernel's launches (all of the bf16
+   wgmma variant), ``rpc_post``'s (one a firing) and the peak device
+   memory;
 8. ``train_profile``: outside the counted path, one llama step timed in
    halves (forward + backward, AdamW) and one under ``torch.profiler``
    (device time by kernel kind, top kernels);
@@ -121,11 +122,37 @@ source, all started together) and runs, in order:
     ``Model.forward`` over 2064 tokens against ``Model.prefill`` of 2040
     and 24 teacher-forced decode steps that wrap the 2048-slot ring
     (within 1e-3, the same argmax), and prefill plus 8 greedy steps
-    against pure decode (the same stream).
+    against pure decode (the same stream);
+18. ``rpc``: the host RPC channel (``csrc/rpc_channel.cu``, the
+    ``rpc_post`` kernel) on the four cases of tests/test_core.py and a
+    bf16 ref, each call bit-equal to the host-synchronous version
+    (``rpc_call_reference``) on the same inputs, one launch a call;
+19. ``rpc_gil``: a posted call whose callee sleeps, followed at once by
+    ``.item()``, ``.cpu()``, ``torch.cuda.synchronize()``,
+    ``Event.synchronize()`` and 4096 launches, each under a 60 s
+    ``faulthandler`` watchdog (a deadlock ends the run, it never hangs);
+20. ``rpc_time``: the empty round trip (CUDA events, median of 200; the
+    kernel's wait and the host thread's time beside it) and READWRITE refs
+    of 4 KB, 1 MB and 64 MB against the host link's rate
+    (``nvidia-smi`` PCIe generation and width), each beside the
+    host-synchronous version's wall time;
+21. ``device_run_hooks``: 1000 steps with a hook every 100 steps, then
+    every step, then every 100 steps of a 64M-float state, under
+    ``set_sync_debug_mode("error")``: exactly one host call and one
+    ``rpc_post`` a firing, values in order, the Python loop's wall time
+    against the device time;
+22. ``gpu_first``: ``examples/gpu_first_port_torch.py``'s program at its
+    own size and at XSBench's "small" geometry (68 nuclides x 11,303
+    points, 2**20 lookups; ``serial_for`` on the first 2048):
+    ``serial_for``, ``parallel_for`` (vmap's fallback warning an error)
+    and the manual port within rtol 1e-5, ``write_results`` through the
+    channel, times and verdict; then the allocator ops under
+    ``set_sync_debug_mode("error")``, bit-equal to the CPU's.
 
 Every phase raises on failure.  The kernels' launch counts are reset just
-before each counted path (phases 3, 7, 10, 12 and 16) and read just after
-it; each path's count must be the exact number its depth and steps give.
+before each counted path (phases 3, 7, 10, 12, 16, 21 and 22) and read
+just after it; each path's count must be the exact number its depth and
+steps give (``rpc_post``: one a firing of a hook or a call).
 The ``env`` line carries each source's ``ptxas -v`` summary (registers and
 spills), under ``tensor_cores``, for each head dim of flash's wgmma
 variant, the tensor-core decode (G > 8) and its merge, and the SSD
@@ -1103,6 +1130,7 @@ def train_phase():
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.paged_attention.kernel import (
         paged_attention_cuda)
+    from repro_torch.kernels.rpc_channel import rpc_post
     from repro_torch.launch.train import run
 
     cfg = get_config("llama3.2-3b")
@@ -1110,12 +1138,13 @@ def train_phase():
     torch.cuda.reset_peak_memory_stats()
     # main path: counts from 0 just before, read just after
     reset_launches(flash_attention_cuda, decode_attention_cuda,
-                   paged_attention_cuda)
+                   paged_attention_cuda, rpc_post)
     out = run("llama3.2-3b", preset="full", steps=TRAIN_STEPS,
               batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=1,
               device="cuda")
     torch.cuda.synchronize()
     launches = flash_attention_cuda.launches
+    hook_launches = rpc_post.launches
     by_variant = dict(flash_attention_cuda.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
     losses = [l for _, l in out["losses"]]
@@ -1137,11 +1166,15 @@ def train_phase():
            "train_mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
            "flash_launches": launches, "flash_launches_by_variant": by_variant,
            "expected_launches_fwd_plus_remat": 2 * cfg.num_layers *
-           TRAIN_STEPS, "peak_mem_gb": peak / 1e9, "seconds": out["seconds"]}
+           TRAIN_STEPS, "peak_mem_gb": peak / 1e9, "seconds": out["seconds"],
+           "loss_hook_firings": len(losses), "rpc_post_launches": hook_launches}
     log({"train": rec})
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(l)
                                              for l in losses):
         raise AssertionError(f"training losses not finite: {losses}")
+    if hook_launches != len(losses):
+        raise AssertionError(f"the loss hook fired {len(losses)} times and "
+                             f"rpc_post launched {hook_launches} times")
     if launches != 2 * cfg.num_layers * TRAIN_STEPS:
         raise AssertionError(f"flash_attention launched {launches} times in "
                              f"{TRAIN_STEPS} steps x {cfg.num_layers} "
@@ -1150,7 +1183,7 @@ def train_phase():
         raise AssertionError(f"training's flash launches were not all of "
                              f"the wgmma variant: {by_variant}")
     torch.cuda.empty_cache()
-    return {"flash_attention": launches}
+    return {"flash_attention": launches, "rpc_post": hook_launches}
 
 
 def _kernel_kind(name: str) -> str:
@@ -1619,6 +1652,7 @@ def ssm_train_phase():
     the forward and the remat recompute of 24 layers), peak memory."""
     import math
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rpc_channel import rpc_post
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
     from repro_torch.launch.train import run
 
@@ -1626,12 +1660,13 @@ def ssm_train_phase():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # main path: counts from 0 just before, read just after
-    ssd_scan_cuda.launches = 0
+    reset_launches(ssd_scan_cuda, rpc_post)
     out = run("mamba2-130m", preset="full", steps=SSM_TRAIN_STEPS,
               batch=SSM_TRAIN_BATCH, seq_len=SSM_TRAIN_SEQ, log_every=1,
               device="cuda")
     torch.cuda.synchronize()
     launches = ssd_scan_cuda.launches
+    hook_launches = rpc_post.launches
     peak = torch.cuda.max_memory_allocated()
     losses = [l for _, l in out["losses"]]
     times = out["log_times"]
@@ -1646,17 +1681,21 @@ def ssm_train_phase():
            "ssd_scan_launches": launches,
            "expected_launches_fwd_plus_remat": 2 * cfg.num_layers *
            SSM_TRAIN_STEPS, "peak_mem_gb": peak / 1e9,
-           "seconds": out["seconds"]}
+           "seconds": out["seconds"], "loss_hook_firings": len(losses),
+           "rpc_post_launches": hook_launches}
     log({"ssm_train": rec})
     if len(losses) != SSM_TRAIN_STEPS or not all(math.isfinite(l)
                                                  for l in losses):
         raise AssertionError(f"ssm training losses not finite: {losses}")
+    if hook_launches != len(losses):
+        raise AssertionError(f"the loss hook fired {len(losses)} times and "
+                             f"rpc_post launched {hook_launches} times")
     if launches != 2 * cfg.num_layers * SSM_TRAIN_STEPS:
         raise AssertionError(f"ssd_scan launched {launches} times in "
                              f"{SSM_TRAIN_STEPS} steps x {cfg.num_layers} "
                              "layers, forward and remat recompute")
     torch.cuda.empty_cache()
-    return launches
+    return launches, hook_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2135,6 +2174,483 @@ def hybrid_prefill_phase():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-22: the GPU First runtime (host RPC, device_run, expansion)
+# ---------------------------------------------------------------------------
+
+#: PCIe rate per lane and direction after line coding, GB/s, by generation.
+PCIE_LANE_GB_S = {1: 0.25, 2: 0.5, 3: 0.985, 4: 1.969, 5: 3.938, 6: 7.563}
+#: The H100 SXM's host link by its data sheet (PCIe Gen5 x16), taken where
+#: ``nvidia-smi`` reports the link as [N/A].
+DATASHEET_LINK = {"gen": 5, "width": 16}
+#: Watchdog of each rpc_gil case: a deadlock between Python's lock and a
+#: spinning rpc_post ends the run with every thread's traceback.
+GIL_WATCHDOG_S = 60
+#: Launches queued behind a posted call in rpc_gil: more than CUDA's
+#: launch queue holds (about a thousand), so a launch blocks.
+GIL_FLOOD = 4096
+#: The gpu_first phase's sizes: the example's own, and XSBench's "small"
+#: problem (68 nuclides x 11,303 energy points each) at 2**20 of its
+#: default 15,000,000 lookups, the single-team loop on the first 2048.
+GPU_FIRST_SIZES = {
+    "example": dict(n_lookups=2048, n_grid=512, n_nuclides=32,
+                    serial_lookups=None),
+    "xsbench_small": dict(n_lookups=1 << 20, n_grid=11303, n_nuclides=68,
+                          serial_lookups=2048),
+}
+
+
+def pcie_link() -> dict:
+    """The host link as ``nvidia-smi`` reports it now, with its rate each
+    way (None where it reports no number)."""
+    fields = ("pcie.link.gen.current", "pcie.link.width.current",
+              "pcie.link.gen.max", "pcie.link.width.max")
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=" + ",".join(fields),
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    vals = [v.strip() for v in out.split(",")]
+    rec = {"nvidia_smi": out, "source": "nvidia-smi"}
+    try:
+        gen, width = int(vals[0]), int(vals[1])
+    except (ValueError, IndexError):
+        gen, width = DATASHEET_LINK["gen"], DATASHEET_LINK["width"]
+        rec["source"] = "data sheet (nvidia-smi reports no link)"
+    rec.update(gen=gen, width=width,
+               bytes_per_s=PCIE_LANE_GB_S[gen] * width * 1e9)
+    return rec
+
+
+def _same_tensor(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def rpc_phase():
+    """The four RPC cases of tests/test_core.py on CUDA tensors through the
+    channel (value and Ref arguments; a READ ref not written back; two
+    landing pads for two signatures of one callee; an ArenaRef over a
+    GenericAllocator heap and over the BalancedAllocator page heap), and
+    a bf16 ref: each call against the host-synchronous version on the same
+    inputs, bit-equal (both only move bytes), with one rpc_post launch a
+    channel call.  Returns the largest difference seen (0.0)."""
+    import numpy as np
+    from repro_torch.core import (READ, ArenaRef, BalancedAllocator,
+                                  GenericAllocator, Ref, ShapeDtype,
+                                  effects_barrier, rpc_call,
+                                  rpc_call_reference, rpc_stats)
+    from repro_torch.core.rpc import REGISTRY
+    from repro_torch.kernels.rpc_channel import rpc_post
+
+    dev = torch.device("cuda", 0)
+    i32, f32 = ShapeDtype((), torch.int32), ShapeDtype((), torch.float32)
+
+    def scanf_like(scale, buf):
+        buf[:] = np.arange(len(buf), dtype=np.float32) * float(scale)
+        return np.int32(len(buf))
+
+    def summer(buf):
+        total = float(buf.sum())
+        buf[:] = -1.0                    # host-side mutation of a READ ref
+        return np.float32(total)
+
+    def vararg_like(*args):
+        return np.int32(len(args))
+
+    def host_fill(ptr, base, size, found, arena):
+        if int(found) != 1 or int(size) != 8:
+            raise AssertionError(f"ArenaRef lookup: found {found} size {size}")
+        arena[int(base):int(base) + int(size)] = 7.0
+        return np.int32(0)
+
+    def third(buf):
+        buf[:] = np.float32(1.0 / 3.0)
+        return np.int32(buf.dtype.itemsize)
+
+    for fn in (scanf_like, summer, vararg_like, host_fill, third):
+        REGISTRY.register("smoke." + fn.__name__, fn)
+    generic, gptr = GenericAllocator.malloc(
+        GenericAllocator.init(64, cap=8, device=dev), 8)
+    pages = BalancedAllocator.init(256, 4, 1, cap=4, device=dev)
+    pages, _ = BalancedAllocator.malloc(pages, 2, 0, 4)
+    pages, pptr = BalancedAllocator.malloc(pages, 2, 0, 8)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    cases = {
+        "value_and_ref": ("scanf_like", i32,
+                          (3, Ref(torch.zeros(4, device=dev)))),
+        "read_only_ref": ("summer", f32,
+                          (Ref(torch.ones(3, device=dev), access=READ),)),
+        "pad_int32": ("vararg_like", i32, (one,)),
+        "pad_int32_float32": ("vararg_like", i32,
+                              (one, torch.full((), 2.0, device=dev))),
+        "arena_generic": ("host_fill", i32,
+                          (ArenaRef(torch.zeros(64, device=dev), gptr + 3,
+                                    generic),)),
+        "arena_balanced": ("host_fill", i32,
+                           (ArenaRef(torch.zeros(256, device=dev), pptr,
+                                     pages),)),
+        "bf16_ref": ("third", i32,
+                     (Ref(torch.zeros(5, dtype=torch.bfloat16,
+                                      device=dev)),)),
+    }
+    rec, outs = {}, {}
+    for case, (name, spec, args) in cases.items():
+        rpc_post.launches = 0
+        chan = rpc_call("smoke." + name, *args, result_shape=spec)
+        launches = rpc_post.launches
+        plain = rpc_call_reference("smoke." + name, *args, result_shape=spec)
+        effects_barrier()
+        equal = _same_tensor(chan[0], plain[0]) and all(
+            _same_tensor(a, b) for a, b in zip(chan[1], plain[1]))
+        rec[case] = {"result": chan[0].item(), "bit_equal": equal,
+                     "launches": launches}
+        outs[case] = chan
+        if not equal or launches != 1:
+            raise AssertionError(f"rpc {case}: channel {chan} vs host "
+                                 f"{plain}, {launches} rpc_post launches")
+    checks = {
+        "value_and_ref": outs["value_and_ref"][1][0].tolist() == [0, 3, 6, 9]
+        and rec["value_and_ref"]["result"] == 4,
+        "read_only_ref": rec["read_only_ref"]["result"] == 3.0
+        and outs["read_only_ref"][1][0] is cases["read_only_ref"][2][0].array
+        and bool((outs["read_only_ref"][1][0] == 1).all()),
+        "two_pads": rpc_stats("smoke.vararg_like")["pads"] == 2,
+        "arena_generic": outs["arena_generic"][1][0].tolist()
+        == [7.0] * 8 + [0.0] * 56,
+        "arena_balanced": float(outs["arena_balanced"][1][0].sum()) == 56.0,
+        "bf16_ref": outs["bf16_ref"][1][0].dtype == torch.bfloat16
+        and rec["bf16_ref"]["result"] == 4,
+        "calls": all(rpc_stats("smoke." + n)["calls"] ==
+                     2 * sum(c[0] == n for c in cases.values())
+                     for n in ("scanf_like", "summer", "vararg_like",
+                               "host_fill", "third")),
+    }
+    log({"rpc": {"cases": rec, "checks": checks}})
+    if not all(checks.values()):
+        raise AssertionError(f"rpc checks failed: {checks}")
+    return 0.0
+
+
+def rpc_gil_phase():
+    """A posted call whose callee sleeps, followed at once by each of
+    ``.item()``, ``.cpu()``, ``torch.cuda.synchronize()``,
+    ``Event.synchronize()`` and a flood of launches longer than CUDA's
+    launch queue, each under a 60 s ``faulthandler`` watchdog that ends
+    the run on a deadlock between Python's lock and the spinning kernel.
+    Records each case's wall time."""
+    import faulthandler
+    import numpy as np
+    from repro_torch.core import ShapeDtype, effects_barrier, rpc_call
+    from repro_torch.core.rpc import REGISTRY
+
+    sleep_s = 0.2
+
+    def slow(x):
+        time.sleep(sleep_s)
+        return np.float32(x.sum())
+
+    REGISTRY.register("smoke.slow", slow)
+    dev = torch.device("cuda", 0)
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    flood = torch.zeros(256, device=dev)
+
+    def event_sync(r):
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+
+    cases = {
+        "item": lambda r: r.item(),
+        "cpu": lambda r: r.cpu(),
+        "cuda_synchronize": lambda r: torch.cuda.synchronize(),
+        "event_synchronize": event_sync,
+        "launch_flood": lambda r: [flood.add_(1.0) for _ in range(GIL_FLOOD)],
+    }
+    rec = {}
+    for case, then in cases.items():
+        faulthandler.dump_traceback_later(GIL_WATCHDOG_S, exit=True)
+        try:
+            t0 = time.perf_counter()
+            r, _ = rpc_call("smoke.slow", x,
+                            result_shape=ShapeDtype((), torch.float32))
+            then(r)
+            torch.cuda.synchronize()
+            rec[case + "_s"] = time.perf_counter() - t0
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+        if r.item() != 28.0:
+            raise AssertionError(f"rpc_gil {case}: result {r.item()}")
+    effects_barrier()
+    rec.update(callee_sleep_s=sleep_s, flood=GIL_FLOOD,
+               watchdog_s=GIL_WATCHDOG_S)
+    log({"rpc_gil": rec})
+    if not bool((flood == GIL_FLOOD).all()):
+        raise AssertionError("rpc_gil: the launch flood lost launches")
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def rpc_time_phase(card_line):
+    """Round trips through the channel beside the host-synchronous version:
+    an empty call (an int32 result; CUDA events around the three stream
+    operations on an idle stream, median of 200, so the host's enqueue is
+    inside; with the host's time in ``rpc_call``, the kernel's own wait,
+    post to reply, the drain thread's time in Python, and the events'
+    time when a 1 GB add ahead on the stream hides the enqueue), and
+    READWRITE refs of 4 KB, 1 MB and 64 MB (GB/s both ways against the
+    host link's rate from ``nvidia-smi``, or the data sheet's where it
+    reports none).  The host-synchronous times are wall times (that
+    version waits for the device by design).  Returns the empty call's
+    numbers for the kernels line."""
+    import numpy as np
+    from repro_torch.core import (Ref, ShapeDtype, effects_barrier, rpc_call,
+                                  rpc_call_reference)
+    from repro_torch.core.rpc import REGISTRY
+    from repro_torch.kernels.rpc_channel import channel_for
+
+    dev = torch.device("cuda", 0)
+    i32 = ShapeDtype((), torch.int32)
+
+    def empty():
+        return np.int32(0)
+
+    def touch(buf):
+        buf[0] += 1.0
+        return np.int32(0)
+
+    REGISTRY.register("smoke.empty", empty)
+    REGISTRY.register("smoke.touch", touch)
+    chan = channel_for(dev)
+
+    def on_channel(fn, n, ahead=None):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        dev_ms, wall_ms, enq_us, waited_us, serve_us = [], [], [], [], []
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            if ahead is not None:
+                ahead()
+            t0 = time.perf_counter()
+            a.record()
+            fn()
+            enq_us.append((time.perf_counter() - t0) * 1e6)
+            b.record()
+            torch.cuda.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(a.elapsed_time(b))
+            waited_us.append(chan.waited_ns() * 1e-3)
+            serve_us.append(chan.last_serve_ns * 1e-3)
+        return {"ms": _median(dev_ms), "wall_ms": _median(wall_ms),
+                "enqueue_us": _median(enq_us),
+                "kernel_wait_us": _median(waited_us),
+                "host_serve_us": _median(serve_us), "calls": n}
+
+    def host_sync(fn, n):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        wall = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        return _median(wall)
+
+    def call_empty():
+        return rpc_call("smoke.empty", result_shape=i32, device=dev)
+
+    empty_rec = on_channel(call_empty, 200)
+    ahead = torch.zeros(128 << 20, device=dev)   # 1 GB moved, ~0.3 ms
+    busy = on_channel(call_empty, 100, ahead=lambda: ahead.add_(1.0))
+    empty_rec.update(behind_busy_stream_ms=busy["ms"],
+                     behind_busy_stream_kernel_wait_us=busy["kernel_wait_us"])
+    del ahead
+    empty_rec["plain_ms"] = host_sync(
+        lambda: rpc_call_reference("smoke.empty", result_shape=i32,
+                                   device=dev), 200)
+    refs = {}
+    for label, nbytes, n in (("4KB", 4 << 10, 100), ("1MB", 1 << 20, 50),
+                             ("64MB", 64 << 20, 10)):
+        buf = torch.zeros(nbytes // 4, device=dev)
+        r = on_channel(lambda: rpc_call("smoke.touch", Ref(buf),
+                                        result_shape=i32), n)
+        r["plain_ms"] = host_sync(
+            lambda: rpc_call_reference("smoke.touch", Ref(buf),
+                                       result_shape=i32), n)
+        r["bytes_each_way"] = nbytes
+        refs[label] = r
+        del buf
+    effects_barrier()
+    link = pcie_link()                   # read just after the 64 MB calls
+    rate = link["bytes_per_s"]
+    for r in [empty_rec] + list(refs.values()):
+        moved = 2 * r.get("bytes_each_way", 0) + 4
+        r["bound_ms"] = moved / rate * 1e3 if rate else None
+        r["gb_per_s"] = moved / (r["ms"] * 1e-3) / 1e9
+        r["plain_gb_per_s"] = moved / (r["plain_ms"] * 1e-3) / 1e9
+    log({"rpc_time": {"card": card_line, "link": link, "empty": empty_rec,
+                      "readwrite": refs}})
+    return empty_rec
+
+
+def device_run_hooks_phase():
+    """``device_run`` on the card: 1000 steps of a (256,) state with a
+    named immediate hook every 100 steps, then every step, then every 100
+    steps of a 64M-float state (a step of ~0.16 ms on the device, so the
+    host can run ahead), each under ``torch.cuda.set_sync_debug_mode(
+    "error")`` (a step that synchronises raises).  Exactly one host call
+    and one rpc_post launch a firing, the hook's values in order; the
+    Python loop's wall time against the device's time for the same steps.
+    Returns the launches of the three runs."""
+    from repro_torch.core import (HostHook, device_run, effects_barrier,
+                                  reset_rpc_stats, rpc_stats)
+    from repro_torch.kernels.rpc_channel import rpc_post
+
+    dev = torch.device("cuda", 0)
+    steps, total, rec = 1000, 0, {}
+    for every, width in ((100, 256), (1, 256), (100, 64 << 20)):
+        seen = []
+        key = f"every_{every}" + ("" if width == 256 else "_state_64M")
+        name = "smoke.hook_" + key
+        hook = HostHook(every=every, extract=lambda i, s: s[:256].sum(),
+                        host_fn=lambda i, v: seen.append((i, float(v))),
+                        name=name)
+        state = torch.zeros(width, device=dev)
+        effects_barrier()
+        reset_rpc_stats()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        # main path: counts from 0 just before, read just after
+        rpc_post.launches = 0
+        t0 = time.perf_counter()
+        a.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            final = device_run(lambda i, s: s + 1.0, state, steps,
+                               hooks=[hook])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        effects_barrier()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = rpc_post.launches
+        calls = rpc_stats(name)["calls"]
+        want = [(s, 256.0 * s) for s in range(every, steps + 1, every)]
+        rec[key] = {
+            "steps": steps, "state_floats": width, "host_calls": calls,
+            "rpc_post_launches": launches, "values_in_order": seen == want,
+            "python_loop_ms": loop_ms, "device_ms": a.elapsed_time(b),
+            "wall_ms": wall_ms, "final_ok": bool((final == steps).all())}
+        total += launches
+        del state, final
+        if not (calls == launches == len(want) and seen == want
+                and rec[key]["final_ok"]):
+            raise AssertionError(f"device_run hooks {key}: {rec[key]}")
+    log({"device_run_hooks": rec})
+    return total
+
+
+def _allocator_ops(dev):
+    """malloc, free, find_obj and realloc on a generic and a balanced heap
+    on ``dev`` (on a card under ``set_sync_debug_mode("error")``): the
+    states and results as CPU tensors."""
+    from repro_torch.core import BalancedAllocator, GenericAllocator, realloc
+    g = GenericAllocator.init(1024, cap=64, device=dev)
+    b = BalancedAllocator.init(1024, 4, 1, cap=16, device=dev)
+    arena = torch.arange(1024.0, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        g, p = GenericAllocator.malloc(g, 16)
+        g, q = GenericAllocator.malloc(g, 8)
+        g = GenericAllocator.free(g, p)
+        found = GenericAllocator.find_obj(g, q + 3)
+        g, arena, q2 = realloc(g, arena, q, 24)
+        g, p3 = GenericAllocator.malloc(g, 12)
+        b, bp = BalancedAllocator.malloc(b, 1, 0, 16)
+        b, bq = BalancedAllocator.malloc(b, 1, 0, 4)
+        b = BalancedAllocator.free(b, bq)
+        bfound = BalancedAllocator.find_obj(b, bp + 15)
+        b, arena, bp2 = realloc(b, arena, bp, 40, tid=1)
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    tensors = [p, q, q2, p3, bp, bq, bp2, arena, *found, *bfound]
+    for st in (g, b):
+        tensors += [getattr(st, f.name) for f in dataclasses.fields(st)
+                    if isinstance(getattr(st, f.name), torch.Tensor)]
+    return [t.cpu() for t in tensors]
+
+
+def gpu_first_phase():
+    """The GPU First example's program (``examples/gpu_first_port_torch.py``)
+    through ``repro_torch.core`` at the example's size and at XSBench's
+    "small" geometry (2**20 lookups): the single-team loop
+    (``serial_for``), the expanded one (``parallel_for``, with vmap's
+    fallback warning an error) and the hand-vectorised manual port agree
+    within rtol 1e-5, and ``write_results`` receives every result through
+    the channel; the three times, the prediction error and the verdict.
+    Then the allocator ops once under ``set_sync_debug_mode("error")``,
+    bit-equal to the same ops on the CPU.  Returns the rpc_post launches
+    of the two runs."""
+    import warnings
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import gpu_first_port_torch as ex
+    from repro_torch.kernels.rpc_channel import rpc_post
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
+    dev = torch.device("cuda", 0)
+    rec, launches = {}, 0
+    for key, size in GPU_FIRST_SIZES.items():
+        # main path: counts from 0 just before, read just after
+        rpc_post.launches = 0
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+            try:
+                out = ex.run(device=dev, **size)
+            finally:
+                torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+        n_rpc = rpc_post.launches
+        launches += n_rpc
+        r1, r2, r3 = out["serial"], out["expanded"], out["manual"]
+        ns = out["n_serial"]
+        t_legacy, t_exp, t_man = (out[k] for k in
+                                  ("t_legacy", "t_expanded", "t_manual"))
+        rec[key] = {
+            **size, "serial_ms": out["t_serial_run"] * 1e3,
+            "serial_us_per_lookup": out["t_serial_run"] / ns * 1e6,
+            "legacy_ms": t_legacy * 1e3, "expanded_ms": t_exp * 1e3,
+            "manual_ms": t_man * 1e3, "speedup": t_legacy / t_exp,
+            "prediction_error": abs(t_exp - t_man) / t_man,
+            "verdict": "PORT" if t_exp < t_legacy * 0.8 else "DON'T PORT",
+            "rel_serial_vs_expanded": rel(r1, r2[:ns]),
+            "rel_manual_vs_expanded": rel(r3, r2),
+            "rpc_wrote": out["rpc_wrote"], "rpc_post_launches": n_rpc}
+        if not (rec[key]["rel_serial_vs_expanded"] <= 1e-5
+                and rec[key]["rel_manual_vs_expanded"] <= 1e-5
+                and out["rpc_wrote"] == size["n_lookups"] and n_rpc == 1
+                and bool(torch.isfinite(r2).all())):
+            raise AssertionError(f"gpu_first {key}: {rec[key]}")
+    card, plain = _allocator_ops(dev), _allocator_ops(torch.device("cpu"))
+    rec["allocator_ops_bit_equal_to_cpu"] = all(
+        torch.equal(a, b) for a, b in zip(card, plain))
+    log({"gpu_first": rec})
+    if not rec["allocator_ops_bit_equal_to_cpu"]:
+        raise AssertionError("allocator ops on the card differ from the CPU")
+    return launches
+
+
 def _cuobjdump():
     """The toolkit's ``cuobjdump``, else the copy bundled with Triton."""
     import shutil
@@ -2329,7 +2845,13 @@ SOURCES = {
                  "src/repro/kernels/ssd_scan/kernel.py:83"),
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/kernel.py:57"),
+    "rpc_channel": ("src/repro_torch/csrc/rpc_channel.cu",
+                    "io_callback (src/repro/core/rpc.py:1317), no Pallas "
+                    "kernel"),
 }
+#: The kernels line's name of a source's kernel, where it is not the
+#: source's own.
+ENTRY_NAMES = {"rpc_channel": "rpc_post"}
 
 
 def main() -> int:
@@ -2366,13 +2888,22 @@ def main() -> int:
     summary["ssd_scan"] = at_ssd["prefill"]
     ssm_serve = ssm_serve_phase()
     ssm_prefill_phase()
-    ssm_train = ssm_train_phase()
+    ssm_train, ssm_hooks = ssm_train_phase()
     train_profile("mamba2-130m", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
     at_rglru = rglru_kernel_phase(card_line)
     summary["rglru_scan"] = at_rglru["serve"]
     at_hybrid = hybrid_attn_kernel_phase(card_line)
     hybrid = hybrid_serve_phase()
     hybrid_prefill_phase()
+    rpc_err = rpc_phase()
+    rpc_gil_phase()
+    empty = rpc_time_phase(card_line)
+    summary["rpc_channel"] = {
+        "max_abs_err": rpc_err, "kernel_ms": empty["ms"],
+        "plain_ms": empty["plain_ms"], "bound_ms": empty["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}
+    hooks = device_run_hooks_phase()
+    gpu_first = gpu_first_phase()
 
     by_path = {
         "decode_attention": {"serve": serve["decode_attention"],
@@ -2382,6 +2913,8 @@ def main() -> int:
                             "hybrid_serve": hybrid["flash_attention"]},
         "ssd_scan": {"ssm_serve": ssm_serve, "ssm_train": ssm_train},
         "rglru_scan": {"hybrid_serve": hybrid["rglru_scan"]},
+        "rpc_channel": {"train": train["rpc_post"], "ssm_train": ssm_hooks,
+                        "device_run_hooks": hooks, "gpu_first": gpu_first},
     }
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -2391,7 +2924,8 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on every path "
                                  f"that runs it: {paths}")
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": ENTRY_NAMES.get(name, name), "route": "cuda",
+            "source": source,
             "replaces": replaces, "launches": sum(paths.values()),
             "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

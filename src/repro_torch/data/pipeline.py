@@ -3,7 +3,7 @@
 :class:`SyntheticLM` draws every batch on the device from the counter-based
 RNG of :mod:`repro_torch.core.libc`, with no host contact; its batches equal
 the JAX package's bit for bit.  The host-RPC feed (``make_host_pipeline``)
-comes with the RPC transport (ROADMAP queue 1, item 3).
+rides the batched RPC queue (ROADMAP queue 1, item 3.2).
 """
 from __future__ import annotations
 

@@ -289,7 +289,7 @@ def test_device_run_refuses_transport_options():
         device_run(lambda i, s: s, torch.zeros(()), 2, hooks=[hook])
     with pytest.raises(NotImplementedError, match="queue 1, item 3"):
         device_run(lambda i, s: s, torch.zeros(()), 2, queue_async=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         device_run(lambda i, s: s, torch.zeros(()), 2, mesh=object())
 
 
