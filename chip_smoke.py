@@ -136,12 +136,34 @@ source, all started together) and runs, in order:
     of 4 KB, 1 MB and 64 MB against the host link's rate
     (``nvidia-smi`` PCIe generation and width), each beside the
     host-synchronous version's wall time;
-21. ``device_run_hooks``: 1000 steps with a hook every 100 steps, then
-    every step, then every 100 steps of a 64M-float state, under
+21. ``rpc_queue``: the batched queue's ``rpc_enqueue`` kernel
+    (``csrc/rpc_queue.cu``) against its plain version on the card and a
+    CPU queue, three seeded plans of 250 records (ring overwrite, arena
+    and reply-arena drops, device ``where``, int/fp32/bf16 scalars and
+    payloads) under ``set_sync_debug_mode("error")``: the queue state
+    bit-equal before each flush, the flush's replay log, replies,
+    statuses and heads bit-equal to the CPU queue's, one ``rpc_enqueue``
+    a record and one ``rpc_post`` a flush;
+22. ``rpc_queue_faults``: seeded ``FaultPlan``s with a 0.1 s timeout,
+    with and without ``RetryPolicy(max_attempts=3)``: statuses, replies
+    and error-log attributions on the card equal the CPU's;
+23. ``rpc_queue_time``: host and device us per ``rpc_enqueue`` and per
+    plain enqueue (behind a device sleep that hides the host) for a
+    scalar record at W 4, a 1 KB and a 64 KB payload, beside the bytes
+    bound; the flush of a full 1024-record ring (events, host, the
+    drain's Python) beside the link's bound;
+24. ``libc_io``: ``fprintf``, ``fwrite``, ``fgets``, ``fread``, remote
+    malloc and ``LogRing`` on a card queue equal to a CPU queue (11
+    ``rpc_enqueue`` launches, 2 ``rpc_post``);
+25. ``device_run_hooks``: 1000 steps with a hook every 100 steps, then
+    every step, then every 100 steps of a 64M-float state, then a
+    batched hook every step and a returning hook every 100 steps, under
     ``set_sync_debug_mode("error")``: exactly one host call and one
-    ``rpc_post`` a firing, values in order, the Python loop's wall time
-    against the device time;
-22. ``gpu_first``: ``examples/gpu_first_port_torch.py``'s program at its
+    ``rpc_post`` a firing of an immediate hook, one ``rpc_enqueue`` a
+    firing and one host call in all for the batched hook, 11 for the
+    returning one, values in order, the final state exact, the Python
+    loop's wall time against the device time;
+26. ``gpu_first``: ``examples/gpu_first_port_torch.py``'s program at its
     own size and at XSBench's "small" geometry (68 nuclides x 11,303
     points, 2**20 lookups; ``serial_for`` on the first 2048):
     ``serial_for``, ``parallel_for`` (vmap's fallback warning an error)
@@ -150,9 +172,10 @@ source, all started together) and runs, in order:
     ``set_sync_debug_mode("error")``, bit-equal to the CPU's.
 
 Every phase raises on failure.  The kernels' launch counts are reset just
-before each counted path (phases 3, 7, 10, 12, 16, 21 and 22) and read
-just after it; each path's count must be the exact number its depth and
-steps give (``rpc_post``: one a firing of a hook or a call).
+before each counted path (phases 3, 7, 10, 12, 16, 21, 24, 25 and 26) and
+read just after it; each path's count must be the exact number its depth
+and steps give (``rpc_post``: one a firing of a hook, a call or a flush;
+``rpc_enqueue``: one a record).
 The ``env`` line carries each source's ``ptxas -v`` summary (registers and
 spills), under ``tensor_cores``, for each head dim of flash's wgmma
 variant, the tensor-core decode (G > 8) and its merge, and the SSD
@@ -170,12 +193,14 @@ CUDA device the script exits with code 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -223,6 +248,17 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """``torch.cuda.set_sync_debug_mode("error")`` for the block: an
+    operation that waits for the device raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 # ---------------------------------------------------------------------------
@@ -2500,27 +2536,58 @@ def rpc_time_phase(card_line):
 
 
 def device_run_hooks_phase():
-    """``device_run`` on the card: 1000 steps of a (256,) state with a
-    named immediate hook every 100 steps, then every step, then every 100
-    steps of a 64M-float state (a step of ~0.16 ms on the device, so the
-    host can run ahead), each under ``torch.cuda.set_sync_debug_mode(
-    "error")`` (a step that synchronises raises).  Exactly one host call
-    and one rpc_post launch a firing, the hook's values in order; the
-    Python loop's wall time against the device's time for the same steps.
-    Returns the launches of the three runs."""
-    from repro_torch.core import (HostHook, device_run, effects_barrier,
-                                  reset_rpc_stats, rpc_stats)
+    """``device_run`` on the card, each run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a step that synchronises
+    raises): 1000 steps of a (256,) state with a named immediate hook
+    every 100 steps, then every step, then every 100 steps of a 64M-float
+    state (a step of ~0.16 ms on the device, so the host can run ahead):
+    exactly one host call and one rpc_post launch a firing; then a batched
+    hook every step (one ``rpc_enqueue`` a step, one flush after the loop:
+    one host call) and a returning hook every 100 steps (an enqueue, a
+    flush and the reply folded into the state a firing, and the final
+    flush: 11 host calls), the hooks' values in order and the final state
+    exact; the Python loop's wall time against the device's time for the
+    same steps.  Returns the rpc_post and rpc_enqueue launches."""
+    import numpy as np
+    from repro_torch.core import (HostHook, ShapeDtype, device_run,
+                                  effects_barrier, reset_rpc_stats,
+                                  rpc_stats)
     from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.kernels.rpc_queue import rpc_enqueue
 
     dev = torch.device("cuda", 0)
-    steps, total, rec = 1000, 0, {}
-    for every, width in ((100, 256), (1, 256), (100, 64 << 20)):
+    steps, posts, enqueues, rec = 1000, 0, 0, {}
+    cases = (("every_100", 100, 256, "immediate"),
+             ("every_1", 1, 256, "immediate"),
+             ("every_100_state_64M", 100, 64 << 20, "immediate"),
+             ("batched_every_1", 1, 256, "batched"),
+             ("returning_every_100", 100, 256, "returning"))
+    for key, every, width, mode in cases:
         seen = []
-        key = f"every_{every}" + ("" if width == 256 else "_state_64M")
         name = "smoke.hook_" + key
-        hook = HostHook(every=every, extract=lambda i, s: s[:256].sum(),
-                        host_fn=lambda i, v: seen.append((i, float(v))),
-                        name=name)
+        if mode == "returning":
+            def host_fn(i, v, seen=seen):
+                seen.append((i, float(v)))
+                return np.float32(1.0)
+
+            hook = HostHook(every=every, extract=lambda i, s: s[:256].sum(),
+                            host_fn=host_fn, name=name, batched=True,
+                            returns=ShapeDtype((), torch.float32),
+                            consume=lambda i, s, v, ok: s + torch.where(
+                                ok, v, 0.0))
+            # state after step 100k, before its firing: 100k + (k - 1)
+            want = [(s, 256.0 * (s + s // every - 1))
+                    for s in range(every, steps + 1, every)]
+            final_want, host_calls = steps + steps // every, \
+                steps // every + 1
+        else:
+            hook = HostHook(every=every, extract=lambda i, s: s[:256].sum(),
+                            host_fn=lambda i, v, seen=seen: seen.append(
+                                (i, float(v))),
+                            name=name, batched=mode == "batched")
+            want = [(s, 256.0 * s) for s in range(every, steps + 1, every)]
+            final_want = steps
+            host_calls = 1 if mode == "batched" else len(want)
         state = torch.zeros(width, device=dev)
         effects_barrier()
         reset_rpc_stats()
@@ -2528,34 +2595,35 @@ def device_run_hooks_phase():
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         # main path: counts from 0 just before, read just after
-        rpc_post.launches = 0
+        rpc_post.launches = rpc_enqueue.launches = 0
         t0 = time.perf_counter()
         a.record()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with sync_errors():
             final = device_run(lambda i, s: s + 1.0, state, steps,
                                hooks=[hook])
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
         loop_ms = (time.perf_counter() - t0) * 1e3
         b.record()
         effects_barrier()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = rpc_post.launches
+        n_post, n_enq = rpc_post.launches, rpc_enqueue.launches
         calls = rpc_stats(name)["calls"]
-        want = [(s, 256.0 * s) for s in range(every, steps + 1, every)]
         rec[key] = {
-            "steps": steps, "state_floats": width, "host_calls": calls,
-            "rpc_post_launches": launches, "values_in_order": seen == want,
+            "steps": steps, "state_floats": width, "hook": mode,
+            "host_calls": n_post, "callee_calls": calls,
+            "rpc_post_launches": n_post, "rpc_enqueue_launches": n_enq,
+            "values_in_order": seen == want,
             "python_loop_ms": loop_ms, "device_ms": a.elapsed_time(b),
-            "wall_ms": wall_ms, "final_ok": bool((final == steps).all())}
-        total += launches
+            "wall_ms": wall_ms,
+            "final_ok": bool((final == final_want).all())}
+        posts += n_post
+        enqueues += n_enq
         del state, final
-        if not (calls == launches == len(want) and seen == want
-                and rec[key]["final_ok"]):
+        if not (calls == len(want) and n_post == host_calls
+                and n_enq == (0 if mode == "immediate" else len(want))
+                and seen == want and rec[key]["final_ok"]):
             raise AssertionError(f"device_run hooks {key}: {rec[key]}")
     log({"device_run_hooks": rec})
-    return total
+    return posts, enqueues
 
 
 def _allocator_ops(dev):
@@ -2649,6 +2717,496 @@ def gpu_first_phase():
     if not rec["allocator_ops_bit_equal_to_cpu"]:
         raise AssertionError("allocator ops on the card differ from the CPU")
     return launches
+
+
+#: The rpc_queue plans: 250 records a plan, a flush every 100, so the
+#: 64-slot ring wraps, and both arenas fill.
+QUEUE_GEOMETRY = dict(capacity=64, width=4, payload_capacity=512,
+                      reply_capacity=96)
+QUEUE_RECORDS, QUEUE_FLUSH_EVERY, QUEUE_SEEDS = 250, 100, (0, 1, 2)
+
+
+def _queue_callees():
+    """The plans' callees (an int and a float reply, each a function of
+    every argument) and ``logged(log)``: handlers for one flush that log
+    each call's argument types and values first."""
+    import numpy as np
+    from repro_torch.core.rpc import REGISTRY
+
+    def q_int(tag, x, *pay):
+        bump = sum(int(np.asarray(p, np.int64).sum()) for p in pay) % 17
+        return np.arange(4, dtype=np.int32) * 3 + tag + bump
+
+    def q_float(tag, x, *pay):
+        return np.arange(4, dtype=np.float32) * np.float32(0.5) + \
+            np.float32(x) + np.float32(tag)
+
+    fns = {"smoke.q_int": q_int, "smoke.q_float": q_float}
+    REGISTRY.register("smoke.q_int", q_int, idempotent=True)
+    REGISTRY.register("smoke.q_float", q_float)
+
+    def logged(log):
+        def wrap(name, fn):
+            def call(*args):
+                log.append((name,) + tuple(
+                    (a.dtype.str, a.tobytes()) if isinstance(a, np.ndarray)
+                    else (type(a).__name__, a) for a in args))
+                return fn(*args)
+            return call
+        return {n: wrap(n, f) for n, f in fns.items()}
+
+    return logged
+
+
+def _queue_plan(dev, seed, n):
+    """``n`` seeded records: (name, args on the card, the same args on the
+    host, returns, where on the card, where on the host).  Tags are Python
+    ints or 0-d int32 tensors, x Python floats or 0-d fp32 or bf16
+    tensors, payloads int32, fp32 or bf16 arrays of 1-40 words; a third of
+    the records carry a device-computed ``where``."""
+    import numpy as np
+    from repro_torch.core import ShapeDtype
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wmask = torch.rand(n, generator=gen, device=dev) < 0.75
+    wmask_cpu = wmask.cpu()
+    plan = []
+    for k in range(n):
+        name = ("smoke.q_int", "smoke.q_float")[rng.integers(2)]
+        tag = int(rng.integers(0, 1000))
+        x = float(rng.standard_normal())
+        card, cpu = [], []
+        kind = rng.integers(3)
+        if kind == 0:
+            card.append(tag)
+            cpu.append(tag)
+        else:
+            t = torch.tensor(tag, dtype=torch.int32)
+            card.append(t.to(dev))
+            cpu.append(t)
+        kind = rng.integers(3)
+        if kind == 0:
+            card.append(x)
+            cpu.append(x)
+        else:
+            t = torch.tensor(x, dtype=torch.float32 if kind == 1
+                             else torch.bfloat16)
+            card.append(t.to(dev))
+            cpu.append(t)
+        if rng.random() < 0.5:
+            length = int(rng.integers(1, 41))
+            dt = (torch.int32, torch.float32, torch.bfloat16)[
+                rng.integers(3)]
+            vals = rng.standard_normal(length) * 100
+            t = torch.tensor(vals).to(dt)
+            card.append(t.to(dev))
+            cpu.append(t)
+        nrep = int(rng.integers(0, 5))
+        returns = None if nrep == 0 else ShapeDtype(
+            (nrep,), torch.int32 if name == "smoke.q_int" else torch.float32)
+        if rng.random() < 0.33:
+            plan.append((name, card, cpu, returns, wmask[k], wmask_cpu[k]))
+        else:
+            plan.append((name, card, cpu, returns, None, None))
+    return plan
+
+
+def _equal_states(a, b) -> bool:
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def rpc_queue_phase():
+    """``rpc_enqueue`` against its plain version on the card and against a
+    CPU queue, on three seeded plans of 250 records (64-slot ring, a
+    512-word arena and a 96-word reply arena, so records are overwritten
+    and dropped at both arenas; mixed int, fp32 and bf16 scalars and
+    payloads; device-computed ``where``), all under
+    ``set_sync_debug_mode("error")``: the whole queue state (lanes, heads,
+    arenas) bit-equal to the plain version's and the CPU's before each
+    flush, tickets equal, the flush's replay log (argument types and
+    bytes), replies, statuses and heads bit-equal to the CPU queue's after
+    it, the last epoch's ``result_ok``/``result_status`` on the card equal
+    to the CPU's; exactly one ``rpc_enqueue`` a record and one
+    ``rpc_post`` a flush.  Returns the ``rpc_enqueue`` and ``rpc_post``
+    launches."""
+    from repro_torch.core import (RpcQueue, effects_barrier, flush_stats,
+                                  reset_rpc_stats)
+    from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.kernels.rpc_queue import enqueue_reference, rpc_enqueue
+
+    dev = torch.device("cuda", 0)
+    logged = _queue_callees()
+    rec, launches, posts = {}, 0, 0
+    for seed in QUEUE_SEEDS:
+        plan = _queue_plan(dev, seed, QUEUE_RECORDS)
+        qk = RpcQueue.create(**QUEUE_GEOMETRY, device=dev)
+        qp = RpcQueue.create(**QUEUE_GEOMETRY, device=dev)
+        qc = RpcQueue.create(**QUEUE_GEOMETRY, device="cpu")
+        logs = {"card": [], "cpu": []}
+        before, after, tickets = [], [], []
+        last = []
+        effects_barrier()
+        reset_rpc_stats()
+        # main path: counts from 0 just before, read just after
+        rpc_enqueue.launches = rpc_post.launches = 0
+        flushes = 0
+        # the plans drop records by design: the flushes' warnings say so
+        with warnings.catch_warnings(), sync_errors():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            for k, (name, card, cpu, returns, wcard, wcpu) in \
+                    enumerate(plan):
+                _, tk = qk.enqueue_ticketed(name, *card, returns=returns,
+                                            where=wcard)
+                tp = enqueue_reference(qp.lanes(), qp.record(
+                    name, card, returns, wcard))
+                _, tc = qc.enqueue_ticketed(name, *cpu, returns=returns,
+                                            where=wcpu)
+                tickets.append((tk, tp, tc))
+                last.append((k, returns))
+                if (k + 1) % QUEUE_FLUSH_EVERY and k + 1 != len(plan):
+                    continue
+                before.append((qk.state.clone(), qp.state.clone(),
+                               qc.state.clone()))
+                qk.flush(logged(logs["card"]))
+                qc.flush(logged(logs["cpu"]))
+                flushes += 1
+                qp.state.copy_(qk.state)
+                after.append((qk.state.clone(), qc.state.clone()))
+                if k + 1 != len(plan):
+                    last = []
+            reads = []
+            for k, returns in last:
+                tk, _, tc = tickets[k]
+                card_read = [qk.result_status(tk)]
+                cpu_read = [qc.result_status(tc)]
+                if returns is not None:
+                    card_read += list(qk.result_ok(tk, returns))
+                    cpu_read += list(qc.result_ok(tc, returns))
+                reads.append((card_read, cpu_read))
+            n_enq, n_post = rpc_enqueue.launches, rpc_post.launches
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            effects_barrier()
+        checks = {
+            "lanes_vs_plain": all(_equal_states(a, b) for a, b, _ in before),
+            "lanes_vs_cpu": all(_equal_states(a, c) for a, _, c in before),
+            "tickets": all(int(a) == int(b) == int(c) for a, b, c in tickets),
+            "replay_log": logs["card"] == logs["cpu"] and bool(logs["cpu"]),
+            "replies_statuses_heads": all(_equal_states(a, c)
+                                          for a, c in after),
+            "last_epoch_reads": all(
+                all(_equal_states(x, y) for x, y in zip(a, b))
+                for a, b in reads),
+            "one_enqueue_launch_a_record": n_enq == len(plan),
+            "one_rpc_post_a_flush": n_post == flushes,
+        }
+        both = flush_stats()              # the card's and the CPU's queue
+        checks["overwrite_and_both_arenas_dropped"] = (
+            both["drops"] > 0 and both["arena_drops"] > 0
+            and both["reply_drops"] > 0)
+        rec[f"seed_{seed}"] = {
+            "checks": checks, "records": len(plan), "flushes": flushes,
+            "dropped_tickets": sum(int(c) < 0 for _, _, c in tickets),
+            "records_replayed": len(logs["cpu"]),
+            "flush_stats_card_plus_cpu": both,
+            "rpc_enqueue_launches": n_enq, "rpc_post_launches": n_post}
+        launches += n_enq
+        posts += n_post
+        if not all(checks.values()):
+            raise AssertionError(f"rpc_queue seed {seed}: {rec}")
+    log({"rpc_queue": rec})
+    return launches, posts
+
+
+def rpc_queue_faults_phase():
+    """The same seeded ``FaultPlan``s (four generated faults and a delay
+    past the 0.1 s timeout) on a card queue and a CPU queue, with and
+    without ``RetryPolicy(max_attempts=3)``: equal statuses, replies,
+    error-log attributions ``(callee, ticket, attempt)`` and fired
+    faults."""
+    _queue_callees()
+    names = ["smoke.q_int", "smoke.q_float"]
+    dev = torch.device("cuda", 0)
+    rec = {}
+    with warnings.catch_warnings():
+        _faults_runs(names, dev, rec)
+    log({"rpc_queue_faults": rec})
+
+
+def _faults_runs(names, dev, rec):
+    """The runs of :func:`rpc_queue_faults_phase`, recorded in ``rec``."""
+    import numpy as np
+    from repro_torch.core import (RetryPolicy, RpcQueue, ShapeDtype,
+                                  clear_error_log, effects_barrier,
+                                  error_log, set_fault_injector)
+    from repro_torch.testing.faults import Fault, FaultPlan
+
+    for seed in QUEUE_SEEDS:
+        rng = np.random.default_rng(100 + seed)
+        recs = [(names[rng.integers(2)], int(rng.integers(0, 500)),
+                 float(rng.standard_normal()), int(rng.integers(1, 4)))
+                for _ in range(40)]
+        for retry in (None, RetryPolicy(max_attempts=3)):
+            out = {}
+            for where in ("card", "cpu"):
+                clear_error_log()
+                d = dev if where == "card" else torch.device("cpu")
+                faults = FaultPlan.generate(seed, names, n_faults=4,
+                                            max_index=20).faults
+                # a delay past the timeout on the callee that is never
+                # retried (not idempotent), so every plan has a TIMEOUT
+                plan = FaultPlan(faults + (Fault("delay", names[1],
+                                                 3 + seed, delay=0.25),))
+                q = RpcQueue.create(48, width=3, payload_capacity=0,
+                                    reply_capacity=128, retry=retry,
+                                    timeout=0.1, device=d)
+                tix = []
+                warnings.simplefilter("ignore", RuntimeWarning)
+                with sync_errors() if where == "card" else \
+                        contextlib.nullcontext():
+                    for name, tag, x, nrep in recs:
+                        dt = torch.int32 if name == names[0] \
+                            else torch.float32
+                        tix.append(q.enqueue_ticketed(
+                            name, tag, x, returns=ShapeDtype((nrep,), dt))[1])
+                    set_fault_injector(plan)
+                    q.flush()
+                try:
+                    effects_barrier()
+                finally:
+                    set_fault_injector(None)
+                tickets = [int(t) for t in tix]
+                out[where] = {
+                    "statuses": q.statuses_host(tickets),
+                    "replies": [q.results_host([t], (n,), torch.float32 if
+                                               nm == names[1]
+                                               else torch.int32)[0][0]
+                                .tobytes() for t, (nm, _, _, n) in
+                                zip(tickets, recs)],
+                    "errors": [(e["callee"], e["ticket"], e["attempt"])
+                               for e in error_log()],
+                    "fired": list(plan.fired)}
+            key = f"seed_{seed}_" + ("retry3" if retry else "no_retry")
+            equal = out["card"] == out["cpu"]
+            sts = out["card"]["statuses"]
+            rec[key] = {"equal": equal,
+                        "statuses": {s: sts.count(s) for s in set(sts)},
+                        "errors": len(out["card"]["errors"]),
+                        "fired": len(out["card"]["fired"])}
+            if not equal or 2 not in sts:
+                raise AssertionError(f"rpc_queue_faults {key}: {rec[key]}")
+
+
+#: Plain enqueues timed behind one device sleep (see rpc_queue_time_phase).
+PLAIN_TIMED_CALLS = 5
+
+
+def _busy_cycles(ms: float) -> int:
+    """``torch.cuda._sleep`` cycles that keep the card busy ``ms``."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    return int(10_000_000 * ms / a.elapsed_time(b))
+
+
+def _behind_busy(fn, n):
+    """Host us and device us per call of ``fn`` over ``n`` calls: the
+    calls are enqueued behind a device sleep longer than the host needs
+    to enqueue them all (sized from the warm-up calls' host time, and
+    doubled up to twice when the host was slower), so the events time the
+    device's own work."""
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) / 3 * 1e3
+    for attempt in range(3):
+        cycles = _busy_cycles((2.0 * warm_ms * n + 5.0) * 2 ** attempt)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        c = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        c.record()
+        torch.cuda.synchronize()
+        busy_ms = a.elapsed_time(b)
+        if host_ms < busy_ms:
+            break
+    return {"host_us": host_ms / n * 1e3,
+            "device_us": b.elapsed_time(c) / n * 1e3,
+            "calls": n, "hidden_behind_ms": busy_ms,
+            "host_hidden": host_ms < busy_ms, "attempts": attempt + 1}
+
+
+def rpc_queue_time_phase(card_line):
+    """Host and device microseconds per ``rpc_enqueue`` and per plain
+    enqueue on the card (behind a device sleep that hides the host) for a
+    scalar record at W 4, a 1 KB and a 64 KB payload, beside the bound
+    (the record's bytes at 3.35 TB/s); then the flush of a full ring of
+    1024 records with a 4096-word arena (CUDA events around the round
+    trip, the host's time in ``flush``, the drain's Python; median of 5).
+    Returns the scalar record's numbers for the kernels line."""
+    import numpy as np
+    from repro_torch.core import RpcQueue, effects_barrier
+    from repro_torch.core.rpc import REGISTRY
+    from repro_torch.kernels.rpc_channel import channel_for
+    from repro_torch.kernels.rpc_queue import enqueue_reference
+
+    REGISTRY.register("smoke.q_sink", lambda *a: None)
+    dev = torch.device("cuda", 0)
+    width = 4
+    cases = {}
+    for label, words in (("scalar_w4", 0), ("payload_1KB", 256),
+                         ("payload_64KB", 16384)):
+        n = 200 if words <= 256 else 50
+        args = ([1, 2.5, torch.tensor(3, dtype=torch.int32, device=dev),
+                 torch.tensor(0.25, device=dev)] if not words else
+                [7, torch.randn(words, device=dev)])
+        # room for the warm-up calls and three attempts: nothing dropped
+        arena = max(1, (3 + 3 * n) * words)
+        q = RpcQueue.create(max(n, 64), width, arena, device=dev)
+        qp = RpcQueue.create(max(n, 64), width, arena, device=dev)
+        kernel = _behind_busy(lambda: q.enqueue("smoke.q_sink", *args), n)
+        # the plain version is ~100 small launches a record: five stay
+        # within CUDA's launch queue behind the sleep (more would block
+        # the host on the sleeping device)
+        plain = _behind_busy(lambda: enqueue_reference(
+            qp.lanes(), qp.record("smoke.q_sink", args)), PLAIN_TIMED_CALLS)
+        equal = int(q.head) == 3 + kernel["attempts"] * n and \
+            int(q.adrops) == 0
+        lanes = 4 + 3 * width
+        nbytes = 4 * lanes + 8 * words + 4 * 6 + 4
+        cases[label] = {
+            "payload_words": words, "kernel": kernel, "plain": plain,
+            "ms": kernel["device_us"] * 1e-3,
+            "plain_ms": plain["device_us"] * 1e-3,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
+            "all_kept": equal}
+        if not (kernel["host_hidden"] and plain["host_hidden"] and equal):
+            raise AssertionError(f"rpc_queue_time {label}: {cases[label]}")
+        del q, qp
+    # flush of a full ring
+    REGISTRY.register("smoke.q_full", lambda i, x, p: None)
+    q = RpcQueue.create(1024, width, 4096, device=dev)
+    payload = torch.arange(4, dtype=torch.int32, device=dev)
+    chan = channel_for(dev)
+    ev_ms, host_us, serve_us = [], [], []
+    for _ in range(6):
+        for i in range(1024):
+            q.enqueue("smoke.q_full", i, 0.5, payload)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        q.flush()
+        host_us.append((time.perf_counter() - t0) * 1e6)
+        b.record()
+        effects_barrier()
+        ev_ms.append(a.elapsed_time(b))
+        serve_us.append(chan.last_serve_ns * 1e-3)
+    link = pcie_link()
+    moved = 4 * (q.layout.in_end + q.layout.words - q.layout.out_start)
+    flush = {"records": 1024, "arena_words": 4096,
+             "ms": _median(ev_ms[1:]), "host_us": _median(host_us[1:]),
+             "drain_python_us": _median(serve_us[1:]),
+             "bytes_moved": moved,
+             "link_bound_ms": moved / link["bytes_per_s"] * 1e3,
+             "flushes_timed": len(ev_ms) - 1}
+    log({"rpc_queue_time": {"card": card_line, "enqueue": cases,
+                            "flush_full_ring": flush}})
+    return cases["scalar_w4"]
+
+
+def _libc_io_run(dev, heap_name):
+    """fprintf, fwrite, fgets, fread, remote malloc and LogRing on a queue
+    on ``dev`` (on a card under ``set_sync_debug_mode("error")``): the
+    host's output as plain values, and the launches on a card."""
+    import numpy as np
+    from repro_torch.core import (GenericAllocator, LogRing, RpcQueue,
+                                  atoi, drain_fwrite, drain_log_lines,
+                                  drain_printf, effects_barrier, fgets,
+                                  fprintf, fread, fread_feed, fwrite,
+                                  remote_heap_register, remote_malloc_enqueue,
+                                  remote_malloc_results)
+    from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.kernels.rpc_queue import rpc_enqueue
+
+    fread_feed(71, "12 apples\n-3.5e2 pears\nrest", reset=True)
+    fread_feed(72, np.arange(6, dtype=np.float32) * 1.5, reset=True)
+    remote_heap_register(heap_name,
+                         GenericAllocator.init(4096, cap=64, device="cpu"))
+    drain_printf()
+    drain_log_lines()
+    q = RpcQueue.create(64, width=4, payload_capacity=1024,
+                        reply_capacity=256, device=dev)
+    ring = LogRing.create(16, payload_capacity=64, device=dev)
+    step = torch.tensor(7, dtype=torch.int32, device=dev)
+    loss = torch.tensor(0.3125, device=dev)
+    hist = torch.arange(5, dtype=torch.int32, device=dev) * 3
+    data_i = torch.arange(10, dtype=torch.int32, device=dev) - 4
+    data_f = torch.linspace(-1, 1, 7, device=dev)
+    sizes = torch.tensor([24, 8, 100], dtype=torch.int32, device=dev)
+    vec = torch.tensor([1.5, -2.0], device=dev)
+    rpc_enqueue.launches = rpc_post.launches = 0
+    with sync_errors() if dev.type == "cuda" else contextlib.nullcontext():
+        fprintf(q, "step %d loss %.4f", step, loss)
+        fprintf(q, "hist %s", hist)
+        fwrite(q, data_i, stream=3)
+        fwrite(q, data_f, stream=4)
+        _, t_line = fgets(q, 16, stream=71)
+        _, t_line2 = fgets(q, 16, stream=71)
+        _, t_f = fread(q, 4, stream=72, dtype=torch.float32)
+        _, t_short = fread(q, 4, stream=72, dtype=torch.float32)
+        _, t_m = remote_malloc_enqueue(q, heap_name, sizes)
+        ring.log(step, loss, payload=vec)
+        ring.log(2, 0.5)
+        q.flush()
+        ring.flush()
+        reads = [q.result(t_line, (16,), torch.int32),
+                 q.result(t_line2, (16,), torch.int32),
+                 q.result(t_f, (4,), torch.float32),
+                 q.result(t_short, (4,), torch.float32),
+                 q.result(t_m, (3,), torch.int32)]
+    launches = (rpc_enqueue.launches, rpc_post.launches)
+    effects_barrier()
+    state, ptrs = remote_malloc_results(heap_name)
+    return {"printf": drain_printf(),
+            "fwrite": [drain_fwrite(3).tolist(), drain_fwrite(4).tolist()],
+            "reads": [r.cpu().tolist() for r in reads],
+            "atoi": int(atoi(reads[0].cpu().to(torch.uint8))),
+            "log": [tuple(np.asarray(x).tolist() for x in line)
+                    for line in drain_log_lines()],
+            "ptrs": [p.tolist() for p in ptrs],
+            "watermark": int(state.watermark)}, launches
+
+
+def libc_io_phase():
+    """The buffered libc on a card queue and on a CPU queue: the same
+    printf lines, fwrite streams, fgets/fread replies (and ``atoi`` of a
+    line), remote-malloc pointers and heap watermark, and LogRing lines;
+    11 ``rpc_enqueue`` launches and 2 ``rpc_post``s on the card.  Returns
+    both counts."""
+    card, (n_enq, n_post) = _libc_io_run(torch.device("cuda", 0),
+                                         "smoke.heap_card")
+    cpu, _ = _libc_io_run(torch.device("cpu"), "smoke.heap_cpu")
+    rec = {"card_equals_cpu": card == cpu, "printf": card["printf"],
+           "atoi": card["atoi"], "ptrs": card["ptrs"],
+           "rpc_enqueue_launches": n_enq, "rpc_post_launches": n_post}
+    log({"libc_io": rec})
+    if not (rec["card_equals_cpu"] and n_enq == 11 and n_post == 2
+            and card["atoi"] == 12 and card["ptrs"] == [[0, 24, 32]]):
+        raise AssertionError(f"libc_io: {rec}; card {card}; cpu {cpu}")
+    return n_enq, n_post
 
 
 def _cuobjdump():
@@ -2848,10 +3406,13 @@ SOURCES = {
     "rpc_channel": ("src/repro_torch/csrc/rpc_channel.cu",
                     "io_callback (src/repro/core/rpc.py:1317), no Pallas "
                     "kernel"),
+    "rpc_queue": ("src/repro_torch/csrc/rpc_queue.cu",
+                  "RpcQueue._enqueue (src/repro/core/rpc.py:2984), array "
+                  "updates fused by XLA, no Pallas kernel"),
 }
 #: The kernels line's name of a source's kernel, where it is not the
 #: source's own.
-ENTRY_NAMES = {"rpc_channel": "rpc_post"}
+ENTRY_NAMES = {"rpc_channel": "rpc_post", "rpc_queue": "rpc_enqueue"}
 
 
 def main() -> int:
@@ -2902,7 +3463,15 @@ def main() -> int:
         "max_abs_err": rpc_err, "kernel_ms": empty["ms"],
         "plain_ms": empty["plain_ms"], "bound_ms": empty["bound_ms"],
         "bound_by": "bytes", "library_ms": None}
-    hooks = device_run_hooks_phase()
+    queue_launches, queue_posts = rpc_queue_phase()
+    rpc_queue_faults_phase()
+    scalar = rpc_queue_time_phase(card_line)
+    summary["rpc_queue"] = {
+        "max_abs_err": 0.0, "kernel_ms": scalar["ms"],
+        "plain_ms": scalar["plain_ms"], "bound_ms": scalar["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}
+    libc_launches, libc_posts = libc_io_phase()
+    hooks, hook_enqueues = device_run_hooks_phase()
     gpu_first = gpu_first_phase()
 
     by_path = {
@@ -2914,7 +3483,10 @@ def main() -> int:
         "ssd_scan": {"ssm_serve": ssm_serve, "ssm_train": ssm_train},
         "rglru_scan": {"hybrid_serve": hybrid["rglru_scan"]},
         "rpc_channel": {"train": train["rpc_post"], "ssm_train": ssm_hooks,
+                        "rpc_queue": queue_posts, "libc_io": libc_posts,
                         "device_run_hooks": hooks, "gpu_first": gpu_first},
+        "rpc_queue": {"rpc_queue": queue_launches, "libc_io": libc_launches,
+                      "device_run_hooks": hook_enqueues},
     }
     kernels = []
     for name, (source, replaces) in SOURCES.items():

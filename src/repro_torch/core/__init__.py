@@ -1,12 +1,17 @@
 """GPU First core on PyTorch/CUDA: the paper's contributions, ported so far.
 
-  device_main — whole-program device execution, immediate hooks (§3.1)
-  rpc         — generated host RPC, immediate calls (§3.2), on a channel of
-                pinned host-mapped memory on the card
+  device_main — whole-program device execution, immediate, batched and
+                returning hooks (§3.1)
+  rpc         — generated host RPC (§3.2): immediate calls on a channel of
+                pinned host-mapped memory on the card, and the batched
+                RpcQueue (one rpc_enqueue launch a record, one round trip
+                a flush) with its status lane, retries and timeouts
   expand      — single-team parallelism expansion: parallel_for vs
                 serial_for (§3.3)
   allocator   — generic and balanced heap allocators (§3.4)
-  libc        — rand, atoi, strtod, realloc (§3.4)
+  libc        — rand, atoi, strtod, realloc, and buffered I/O on the
+                queue: LogRing, fprintf, fwrite, fread, fgets, remote
+                malloc (§3.4)
 """
 from repro_torch.core.allocator import (
     DEAD, FAIL, BalancedAllocator, BalancedState, GenericAllocator,
@@ -16,11 +21,17 @@ from repro_torch.core.expand import (
     barrier, expand, num_teams, num_threads, parallel_for, serial_for,
     team_id, thread_id, ws_range)
 from repro_torch.core.libc import (
-    atoi, rand_init, rand_u32, rand_uniform, realloc, strtod)
+    LogRing, atoi, drain_fwrite, drain_log_lines, drain_printf, fgets,
+    fprintf, fread, fread_feed, fwrite, rand_init, rand_u32, rand_uniform,
+    realloc, remote_heap_register, remote_malloc_enqueue,
+    remote_malloc_results, strtod)
 from repro_torch.core.rpc import (
-    READ, READWRITE, WRITE, ArenaRef, Ref, ShapeDtype, effects_barrier,
-    host_rpc, pad_stats, pad_table, reset_rpc_stats, rpc_call,
-    rpc_call_reference, rpc_stats)
+    READ, READWRITE, STATUS_CALLEE_RAISED, STATUS_DROPPED, STATUS_NAMES,
+    STATUS_OK, STATUS_PENDING, STATUS_REPLY_OVERFLOW, STATUS_STALE,
+    STATUS_TIMEOUT, WRITE, ArenaRef, Ref, RetryPolicy, RpcQueue, ShapeDtype,
+    clear_error_log, effects_barrier, error_log, flush_stats, host_rpc,
+    pad_stats, pad_table, queue_drops, reset_rpc_stats, rpc_call,
+    rpc_call_reference, rpc_stats, set_fault_injector)
 
 __all__ = [
     "DEAD", "FAIL", "BalancedAllocator", "BalancedState", "GenericAllocator",
@@ -28,8 +39,15 @@ __all__ = [
     "HostHook", "device_run",
     "barrier", "expand", "num_teams", "num_threads", "parallel_for",
     "serial_for", "team_id", "thread_id", "ws_range",
-    "atoi", "rand_init", "rand_u32", "rand_uniform", "realloc", "strtod",
-    "READ", "READWRITE", "WRITE", "ArenaRef", "Ref", "ShapeDtype",
-    "effects_barrier", "host_rpc", "pad_stats", "pad_table",
-    "reset_rpc_stats", "rpc_call", "rpc_call_reference", "rpc_stats",
+    "LogRing", "atoi", "drain_fwrite", "drain_log_lines", "drain_printf",
+    "fgets", "fprintf", "fread", "fread_feed", "fwrite", "rand_init",
+    "rand_u32", "rand_uniform", "realloc", "remote_heap_register",
+    "remote_malloc_enqueue", "remote_malloc_results", "strtod",
+    "READ", "READWRITE", "STATUS_CALLEE_RAISED", "STATUS_DROPPED",
+    "STATUS_NAMES", "STATUS_OK", "STATUS_PENDING", "STATUS_REPLY_OVERFLOW",
+    "STATUS_STALE", "STATUS_TIMEOUT", "WRITE", "ArenaRef", "Ref",
+    "RetryPolicy", "RpcQueue", "ShapeDtype", "clear_error_log",
+    "effects_barrier", "error_log", "flush_stats", "host_rpc", "pad_stats",
+    "pad_table", "queue_drops", "reset_rpc_stats", "rpc_call",
+    "rpc_call_reference", "rpc_stats", "set_fault_injector",
 ]

@@ -5,24 +5,35 @@ The JAX package compiles the whole multi-step loop into one program
 (``lax.while_loop``) whose only host contact is its RPC hooks.  The port
 runs the loop in Python over ``step_fn``, with every tensor of the state on
 the card: PyTorch enqueues each step's kernels and returns, so the host
-runs ahead of the device.  An immediate hook dispatches through
-:func:`~repro_torch.core.rpc.rpc_call`, as the JAX ``_fire`` does, and only
-on its firing steps: on the card its payload rides the RPC channel in
-stream order (the host thread is not held), on the CPU the landing pad is
-called directly.  Steps where no hook fires make no host contact at all.
+runs ahead of the device.  A hook's firing test is a Python bool, so a
+silent step does nothing at all:
+
+* an **immediate hook** dispatches through
+  :func:`~repro_torch.core.rpc.rpc_call` on its firing steps, as the JAX
+  ``_fire`` does: on the card its payload rides the RPC channel in stream
+  order (the host thread is not held), on the CPU the landing pad is
+  called directly;
+* a **batched hook** (``batched=True``) enqueues a record on the run's
+  :class:`~repro_torch.core.rpc.RpcQueue` on its firing steps (on the card
+  one ``rpc_enqueue`` launch, no host contact), and one flush after the
+  loop replays every firing on the host in order; a silent step leaves the
+  queue as JAX's ``where=False`` record does;
+* a **returning hook** (``returns=`` and ``consume=``) enqueues a ticketed
+  record, flushes and folds the reply into the state on its firing steps.
+
 Capturing the step in a CUDA graph is later work (ROADMAP queue 1, item
 2.2); the channel's device-side sequence numbers are what make a hook
 capturable.
 
 Hook hygiene, as in JAX: a hook without a ``name`` gets a name derived
 from its host function and ``every`` (a content hash, so reruns bind the
-same landing pads), and its registry entries are retired when
-``device_run`` returns, after :func:`~repro_torch.core.rpc.effects_barrier`
-(so repeated runs leave the registry at a constant size).
+same landing pads and callee ids), and its registry entries are retired
+when ``device_run`` returns, after
+:func:`~repro_torch.core.rpc.effects_barrier` (so repeated runs leave the
+registry at a constant size).
 
-Not ported yet: batched and returning hooks (``batched=``, ``returns=``,
-``consume=``) and the run queue's options ride the batched RPC queue
-(ROADMAP queue 1, item 3.2); ``mesh=`` is item 5.
+Not ported yet: ``queue_async=True`` (ROADMAP queue 1, item 3.3) and
+``mesh=`` (item 5).
 """
 from __future__ import annotations
 
@@ -32,7 +43,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.rpc import (_QUEUE, REGISTRY, ShapeDtype,
+from repro_torch.core.rpc import (_ASYNC, REGISTRY, RpcQueue, ShapeDtype,
                                   effects_barrier, rpc_call, stable_hook_id)
 from repro_torch.tree import leaves
 
@@ -46,14 +57,27 @@ class HostHook:
 
     every:    fire after step ``s`` (counted from 1) when ``s % every == 0``
     extract:  (step, state) -> tree of tensors shipped to the host
-    host_fn:  host callback receiving (step, *leaves) with each leaf a numpy
-              array (bf16 leaves arrive as float32); its return value is
-              ignored.  On a card it runs on the RPC channel's thread while
-              the stream waits: numpy only, no CUDA calls
+    host_fn:  host callback receiving (step, *leaves); immediate hooks get
+              each leaf as a numpy array (bf16 as float32), batched ones a
+              0-d leaf as a Python int or float and an array as a 1-D
+              int32 or float32 array.  Its return value is ignored unless
+              ``returns`` declares one.  On a card it runs on the RPC
+              channel's thread while the stream waits: numpy only, no CUDA
+              calls
     name:     RPC name for the pad table and stats; by default derived
               from host_fn's module, qualname and first line and ``every``
-    batched, returns, consume: options of the batched RPC queue, not
-              ported yet; ``device_run`` refuses a hook that sets them
+    batched:  enqueue firings on the run's queue; one flush after the loop
+              replays them in order
+    returns:  (batched only) the shape and dtype of host_fn's return value,
+              which the device consumes: the firing step enqueues a
+              ticketed record, flushes the queue and folds the reply into
+              the state through ``consume``
+    consume:  ``(step, state, value, ok) -> state``, required with
+              ``returns`` (``ok`` False when the record or its reply was
+              dropped or the callee failed)
+    idempotent: host_fn is safe to re-run, so a queue with a
+              :class:`~repro_torch.core.rpc.RetryPolicy` may redrive a
+              failed firing
     """
     every: int
     extract: Callable[[int, Any], Any]
@@ -62,6 +86,7 @@ class HostHook:
     batched: bool = False
     returns: Any = None
     consume: Optional[Callable] = None
+    idempotent: bool = False
 
 
 def _hook_name(hook: HostHook) -> str:
@@ -92,55 +117,138 @@ def _name_hooks(hooks: Sequence[HostHook]) -> List[Tuple[HostHook, str]]:
 
 
 def _register_hook(hook: HostHook, hname: str) -> None:
-    def adapter(step, *payload):
-        hook.host_fn(int(step), *payload)
-        return np.int32(0)
+    """Bind the hook's host_fn into the RPC registry, JAX's checks
+    first."""
+    if hook.returns is not None:
+        if not hook.batched:
+            raise ValueError(
+                f"hook {hname!r}: returns= is the batched reply path; "
+                "construct it with batched=True (immediate hooks already "
+                "run synchronously)")
+        if hook.consume is None:
+            raise ValueError(
+                f"hook {hname!r}: returns= declares a device-consumed "
+                "reply; pass consume=(step, state, value, ok) -> state "
+                "to fold it into the state")
+
+        def adapter(step, *payload):
+            return hook.host_fn(int(step), *payload)
+    else:
+        def adapter(step, *payload):
+            hook.host_fn(int(step), *payload)
+            return np.int32(0)
 
     adapter.__name__ = hname
-    REGISTRY.register(hname, adapter)
+    REGISTRY.register(hname, adapter, idempotent=hook.idempotent)
+
+
+def _fires(hook: HostHook, step: int) -> bool:
+    return step % hook.every == 0 and step > 0
 
 
 def _fire(hook: HostHook, hname: str, step: int, state: Any) -> None:
     """Immediate hook: one RPC through its landing pad, only on firing
     steps (the JAX ``_fire`` puts the call in the taken branch of a
     ``lax.cond`` for the same reason: silent steps stay on the device)."""
-    if step % hook.every == 0 and step > 0:
+    if _fires(hook, step):
         rpc_call(hname, step, *leaves(hook.extract(step, state)),
                  result_shape=_I32)
 
 
-def device_run(step_fn: Callable[[int, Any], Any], state: Any,
-               n_steps: int, *, hooks: Sequence[HostHook] = (),
-               mesh=None, **queue_options) -> Any:
+def _fire_batched(hook: HostHook, hname: str, step: int, state: Any,
+                  q: RpcQueue) -> None:
+    """Batched hook: one record on firing steps, none on silent ones."""
+    if _fires(hook, step):
+        q.enqueue(hname, step, *leaves(hook.extract(step, state)))
+
+
+def _fire_returning(hook: HostHook, hname: str, step: int, state: Any,
+                    q: RpcQueue) -> Any:
+    """Reply-consuming batched hook: on firing steps a ticketed record, a
+    flush, and the reply folded into the state through ``consume``.
+    Returns the state."""
+    if not _fires(hook, step):
+        return state
+    _, ticket = q.enqueue_ticketed(hname, step,
+                                   *leaves(hook.extract(step, state)),
+                                   returns=hook.returns)
+    q.flush()
+    value, ok = q.result_ok(ticket, hook.returns)
+    return hook.consume(step, state, value, ok)
+
+
+def _device_of(state: Any) -> torch.device:
+    """The device of the state's first tensor (the host without one)."""
+    for leaf in leaves(state):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return torch.device("cpu")
+
+
+def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
+               hooks: Sequence[HostHook] = (), queue_capacity: int = 1024,
+               queue_width: int = 8, queue_payload: int = 4096,
+               queue_reply: int = 0, queue_retry=None,
+               queue_timeout: Optional[float] = None,
+               queue_async: bool = False, thread_queue: bool = False,
+               return_queue: bool = False, mesh=None) -> Any:
     """Run ``state = step_fn(step, state)`` for ``step`` in 0..n_steps-1,
     firing each hook after its step as ``step + 1``.  Returns the final
     state; its tensors may still be in flight on the card (synchronise
     before timing), and so may the hooks' host calls, unless an auto-named
     hook made ``device_run`` wait for them before retiring it.
 
-    ``mesh=`` and the JAX version's queue options (``queue_capacity``,
-    ``queue_async``, ``thread_queue``, ...) raise ``NotImplementedError``,
-    as do hooks with ``batched``, ``returns`` or ``consume``."""
+    Batched and returning hooks share one :class:`RpcQueue` on the state's
+    device (``queue_capacity`` records of ``queue_width`` args, a
+    ``queue_payload``-word arena, a ``queue_reply``-word reply arena,
+    ``queue_retry`` and ``queue_timeout`` its drain's policy), flushed once
+    after the loop.  ``thread_queue=True`` hands the queue to the step:
+    ``step_fn(step, state, queue) -> (state, queue)`` may enqueue, flush
+    and read replies mid-loop.  ``return_queue=True`` returns ``(state,
+    flushed queue)``.  ``queue_async=True`` (item 3.3) and ``mesh=``
+    (item 5) raise ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError(f"device_run(mesh=) needs {_MESH}")
-    if queue_options:
-        raise NotImplementedError(
-            f"device_run options {sorted(queue_options)} need {_QUEUE}")
     for h in hooks:
-        if h.batched or h.returns is not None or h.consume is not None:
-            raise NotImplementedError(
-                f"batched / returning hooks need {_QUEUE}")
         if h.every < 1:
             raise ValueError(f"hook every={h.every} must be >= 1")
     named = _name_hooks(hooks)
     for h, hname in named:
         _register_hook(h, hname)
     try:
+        returning = [hname for h, hname in named if h.returns is not None]
+        if queue_async:
+            raise NotImplementedError(
+                f"device_run(queue_async=True) needs {_ASYNC}")
+        carries_queue = (any(h.batched for h in hooks) or thread_queue
+                         or return_queue)
+        if returning:
+            # each reply-consuming hook flushes at its firing step, so an
+            # epoch holds at most one round of declared replies
+            need = sum(int(np.prod(h.returns.shape) or 1)
+                       for h, _ in named if h.returns is not None)
+            queue_reply = max(queue_reply, need)
+        q = None
+        if carries_queue:
+            q = RpcQueue.create(queue_capacity, queue_width, queue_payload,
+                                queue_reply, retry=queue_retry,
+                                timeout=queue_timeout,
+                                device=_device_of(state))
         for step in range(n_steps):
-            state = step_fn(step, state)
+            if thread_queue:
+                state, q = step_fn(step, state, q)
+            else:
+                state = step_fn(step, state)
             for h, hname in named:
-                _fire(h, hname, step + 1, state)
-        return state
+                if h.returns is not None:
+                    state = _fire_returning(h, hname, step + 1, state, q)
+                elif h.batched:
+                    _fire_batched(h, hname, step + 1, state, q)
+                else:
+                    _fire(h, hname, step + 1, state)
+        if q is not None:
+            q.flush()
+        return (state, q) if return_queue else state
     finally:
         auto = [hname for h, hname in named if h.name is None]
         if auto:

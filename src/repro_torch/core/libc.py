@@ -16,18 +16,31 @@ so it runs on the card as well as on the CPU, without a host sync.
 
 ``atoi`` and ``strtod`` parse a uint8 code buffer on the device, and
 ``realloc`` moves a heap object through the allocator that the state's
-type names; none of them reads a value back to the host.  The rest of the
-JAX libc (``LogRing``, ``fprintf``, ``fwrite``, ``fread``, ``fgets``,
-remote malloc) rides the batched RPC queue (ROADMAP queue 1, item 3.2).
+type names; none of them reads a value back to the host.
+
+Buffered I/O rides the batched queue (:class:`~repro_torch.core.rpc.
+RpcQueue`), as in JAX: ``LogRing`` (records ``(tag, value[, payload])`` to
+a sink), ``fprintf`` (an interned format id and its arguments, formatted
+on the host at flush), ``fwrite`` (an array appended to a host stream),
+``fread``/``fgets`` (a ticketed request whose reply carries the data) and
+remote malloc (a size vector whose reply is the pointers, allocated at the
+flush from a registered host-side heap).  On a card each call is one
+``rpc_enqueue`` launch and the host sees it at the queue's flush.  The
+format table's ids are JAX's (the same content hash); the table does not
+travel in a manifest yet (item 3.5), and ``LogRing.create_sharded`` is
+item 3.4.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.allocator import BalancedState, allocator_for, as_i32
+from repro_torch.core.rpc import (_SHARDED, REGISTRY, RpcQueue, ShapeDtype,
+                                  stable_format_id)
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -239,3 +252,349 @@ def realloc(state, arena: torch.Tensor, ptr, new_size, *, tid=0, team=0):
         f: torch.where(ok, getattr(freed, f), getattr(grown, f))
         for f in fields})
     return state, arena, new_ptr
+
+
+# ---------------------------------------------------------------------------
+# LogRing: buffered device-side logging, flushed by one RPC
+# ---------------------------------------------------------------------------
+
+_LOG_SINK = "logring.sink"
+
+
+@dataclasses.dataclass
+class LogRing:
+    """Buffered device-side logging on the batched queue: records ``(tag
+    int32, value float32[, payload array])`` addressed to the ring's sink
+    callee ``name``; ``log()`` is an enqueue, ``flush()`` the queue's flush
+    (records replayed in order).  A ``sink`` passed to ``flush`` serves
+    that flush alone.  The queue is updated in place."""
+    q: RpcQueue
+    name: str = _LOG_SINK
+
+    @property
+    def tags(self) -> torch.Tensor:
+        return self.q.ivals[..., 0]
+
+    @property
+    def values(self) -> torch.Tensor:
+        return self.q.fvals[..., 1]
+
+    @property
+    def head(self) -> torch.Tensor:
+        return self.q.head
+
+    @staticmethod
+    def create(capacity: int = 1024, name: str = _LOG_SINK,
+               payload_capacity: int = 1024, retry=None,
+               timeout: Optional[float] = None, *,
+               device="cuda") -> "LogRing":
+        if name not in REGISTRY.hosts:
+            # log delivery is retry-safe: at-least-once may duplicate a
+            # line, never corrupt state
+            REGISTRY.register(name, _default_sink, idempotent=True)
+        return LogRing(RpcQueue.create(capacity, width=3,
+                                       payload_capacity=payload_capacity,
+                                       retry=retry, timeout=timeout,
+                                       device=device), name)
+
+    @staticmethod
+    def create_sharded(*args, **kwargs) -> "LogRing":
+        raise NotImplementedError(f"LogRing.create_sharded needs {_SHARDED}")
+
+    def log(self, tag, value, payload=None, where=None) -> "LogRing":
+        """Append one record (the oldest is overwritten when the ring is
+        full); ``payload`` (any shape) reaches the sink as a third
+        argument, 1-D; ``where`` makes the append conditional."""
+        args = (_as_lane(tag, torch.int32), _as_lane(value, torch.float32))
+        if payload is not None:
+            args += (payload,)
+        self.q.enqueue(self.name, *args, where=where)
+        return self
+
+    def flush(self, sink: Optional[Callable] = None) -> "LogRing":
+        """One round trip drains the ring to the host, in enqueue order;
+        ``sink`` serves this flush alone (by default the registry's
+        binding of ``name``)."""
+        self.q.flush({self.name: sink} if sink is not None else None)
+        return self
+
+
+def _as_lane(x, dtype: torch.dtype):
+    """``x`` as JAX's ``jnp.asarray(x, dtype)``: a tensor cast on its
+    device, a number as the Python number of that lane."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    if dtype == torch.int32:
+        return int(np.asarray(x).astype(np.int32))
+    return float(np.float32(x))
+
+
+_LOG_LINES: List[tuple] = []
+
+
+def _default_sink(tag: int, value: float, payload=None):
+    if payload is None:
+        _LOG_LINES.append((int(tag), float(value)))
+    else:
+        _LOG_LINES.append((int(tag), float(value), np.asarray(payload)))
+
+
+REGISTRY.register(_LOG_SINK, _default_sink, idempotent=True)
+
+
+def drain_log_lines():
+    out = list(_LOG_LINES)
+    _LOG_LINES.clear()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fprintf / fwrite: buffered formatted and binary output
+# ---------------------------------------------------------------------------
+
+#: Interned format strings (and remote-heap names): a record carries only
+#: the id, the stable 31-bit content hash of the string (JAX's).
+_FMT_TABLE: Dict[int, str] = {}
+_FMT_IDS: Dict[str, int] = {}
+
+_PRINTF_LINES: List[str] = []
+_WRITE_STREAMS: Dict[int, List[np.ndarray]] = {}
+
+
+def _intern_fmt(fmt: str) -> int:
+    fid = _FMT_IDS.get(fmt)
+    if fid is None:
+        fid = stable_format_id(fmt)
+        other = _FMT_TABLE.get(fid)
+        if other is not None and other != fmt:
+            raise RuntimeError(
+                f"interned-string id collision: {fmt!r} and {other!r} both "
+                f"hash to {fid}; reword one of them")
+        _FMT_TABLE[fid] = fmt
+        _FMT_IDS[fmt] = fid
+    return fid
+
+
+def _resolve_fmt(fid: int) -> str:
+    fmt = _FMT_TABLE.get(int(fid))
+    if fmt is None:
+        raise KeyError(f"unknown interned-string id {int(fid)}: this "
+                       "process never interned it")
+    return fmt
+
+
+def _fprintf_sink(fid, *args):
+    fmt = _resolve_fmt(fid)
+    coerced = tuple(a if isinstance(a, (int, float)) else np.asarray(a)
+                    for a in args)
+    _PRINTF_LINES.append(fmt % coerced)      # zero args still resolves %%
+
+
+def _fwrite_sink(stream, data):
+    _WRITE_STREAMS.setdefault(int(stream), []).append(np.asarray(data))
+
+
+# output sinks are retry-safe as the log sink is: a redriven record appends
+# a duplicate line or chunk
+REGISTRY.register("libc.fprintf", _fprintf_sink, idempotent=True)
+REGISTRY.register("libc.fwrite", _fwrite_sink, idempotent=True)
+
+
+def fprintf(q: RpcQueue, fmt: str, *args, where=None) -> RpcQueue:
+    """Buffered ``fprintf`` from device code: one enqueue, no host contact
+    until the queue flushes.  ``fmt`` is a Python ``%``-format string
+    (interned; the record ships its id); ``args`` are scalars and arrays
+    (arrays ride the payload arena and format via ``%s``).  Read the lines
+    with :func:`drain_printf` after the flush (on a card after
+    ``effects_barrier()``)."""
+    return q.enqueue("libc.fprintf", _intern_fmt(fmt), *args, where=where)
+
+
+def fwrite(q: RpcQueue, data, stream: int = 0, where=None) -> RpcQueue:
+    """Buffered binary write: ``data`` (any shape; delivered as 1-D int32
+    or float32) rides the payload arena and is appended to host stream
+    ``stream`` at the flush.  Read back with :func:`drain_fwrite`."""
+    return q.enqueue("libc.fwrite", int(stream), data, where=where)
+
+
+def drain_printf() -> List[str]:
+    """Formatted lines of the flushed ``fprintf`` records."""
+    out = list(_PRINTF_LINES)
+    _PRINTF_LINES.clear()
+    return out
+
+
+def drain_fwrite(stream: int = 0) -> np.ndarray:
+    """Every chunk written to ``stream``, concatenated (empty int32 when
+    nothing was); a stream that mixes int and float chunks raises and
+    keeps its data."""
+    chunks = _WRITE_STREAMS.get(stream, [])
+    if not chunks:
+        return np.zeros((0,), np.int32)
+    dtypes = {c.dtype for c in chunks}
+    if len(dtypes) > 1:
+        raise ValueError(
+            f"fwrite stream {stream} mixes dtypes {sorted(map(str, dtypes))};"
+            " write int and float data to separate streams")
+    _WRITE_STREAMS.pop(stream, None)
+    return np.concatenate(chunks)
+
+
+# ---------------------------------------------------------------------------
+# fread / fgets: buffered input through the reply arena
+# ---------------------------------------------------------------------------
+
+#: Host input streams: id -> {"buf": 1-D numpy array, "pos"}; text as
+#: uint8 codes widened to int32, numbers as int32 or float32.
+_READ_STREAMS: Dict[int, Dict] = {}
+
+
+def fread_feed(stream: int, data, reset: bool = False) -> None:
+    """Bind host input for :func:`fread`/:func:`fgets` on ``stream``:
+    ``bytes``/``str`` (character codes, which :func:`atoi`/:func:`strtod`
+    parse) or an array (ints as int32, floats as float32); appended unless
+    ``reset``.  One dtype a stream."""
+    if isinstance(data, str):
+        data = data.encode()
+    if isinstance(data, (bytes, bytearray)):
+        arr = np.frombuffer(bytes(data), np.uint8).astype(np.int32)
+    else:
+        if isinstance(data, torch.Tensor):
+            data = data.detach().cpu()
+            data = (data.float() if data.is_floating_point() else data).numpy()
+        arr = np.asarray(data).reshape(-1)
+        arr = (arr.astype(np.float32)
+               if np.issubdtype(arr.dtype, np.floating)
+               else arr.astype(np.int32))
+    st = _READ_STREAMS.get(int(stream))
+    if st is None or reset:
+        _READ_STREAMS[int(stream)] = {"buf": arr, "pos": 0}
+        return
+    if st["buf"].dtype != arr.dtype:
+        raise ValueError(
+            f"fread stream {int(stream)} holds {st['buf'].dtype}; feeding "
+            f"{arr.dtype} would mix dtypes; use one stream per dtype")
+    st["buf"] = np.concatenate([st["buf"][st["pos"]:], arr])
+    st["pos"] = 0
+
+
+def _fread_sink(stream, n):
+    st = _READ_STREAMS.get(int(stream))
+    if st is None:
+        return None                       # unknown stream: reads as zeros
+    take = st["buf"][st["pos"]:st["pos"] + int(n)]
+    st["pos"] += len(take)
+    return take                           # short read: the drain zero-pads
+
+
+def _fgets_sink(stream, n):
+    st = _READ_STREAMS.get(int(stream))
+    if st is None:
+        return None
+    window = st["buf"][st["pos"]:st["pos"] + int(n)]
+    nl = np.nonzero(window == 10)[0]      # stop after the first newline
+    k = int(nl[0]) + 1 if len(nl) else len(window)
+    st["pos"] += k
+    return window[:k]
+
+
+# not retry-safe: each call advances the stream's cursor
+REGISTRY.register("libc.fread", _fread_sink)
+REGISTRY.register("libc.fgets", _fgets_sink)
+
+
+def fread(q: RpcQueue, n: int, stream: int = 0, dtype=torch.int32,
+          where=None) -> Tuple[RpcQueue, torch.Tensor]:
+    """Buffered ``fread``: enqueue a request for ``n`` elements of host
+    stream ``stream`` (fed by :func:`fread_feed`); returns ``(queue,
+    ticket)``.  After the flush ``q.result(ticket, (n,), dtype)`` holds
+    them, zero-padded when the stream ran short.  Needs ``reply_capacity
+    >= n``."""
+    n = int(n)
+    return q.enqueue_ticketed("libc.fread", int(stream), n,
+                              returns=ShapeDtype((n,), dtype), where=where)
+
+
+def fgets(q: RpcQueue, n: int, stream: int = 0, where=None
+          ) -> Tuple[RpcQueue, torch.Tensor]:
+    """Buffered ``fgets``: up to ``n`` character codes of ``stream``
+    through the first newline (kept), zero-padded; returns ``(queue,
+    ticket)``, read as ``q.result(ticket, (n,), torch.int32)``."""
+    n = int(n)
+    return q.enqueue_ticketed("libc.fgets", int(stream), n,
+                              returns=ShapeDtype((n,), torch.int32),
+                              where=where)
+
+
+# ---------------------------------------------------------------------------
+# Remote malloc: bulk size vectors ride the payload arena
+# ---------------------------------------------------------------------------
+
+#: Host-side heaps serving remote-malloc records: name -> allocator state
+#: (on the host), and the pointer vectors each flush returned.
+_REMOTE_HEAPS: Dict[str, object] = {}
+_REMOTE_PTRS: Dict[str, List[np.ndarray]] = {}
+
+
+def _remote_malloc_sink(name_id, dev, sizes):
+    """Serve one remote-malloc record: bulk-allocate ``sizes`` from heap
+    ``name_id`` (``malloc_many``) and return the pointers (the reply)."""
+    del dev                      # shard selector of a sharded heap (3.6)
+    name = _resolve_fmt(name_id)
+    state = _REMOTE_HEAPS[name]
+    state, ptrs = allocator_for(state).malloc_many(
+        state, torch.as_tensor(np.asarray(sizes), dtype=torch.int32))
+    _REMOTE_HEAPS[name] = state
+    out = ptrs.numpy().astype(np.int32)
+    _REMOTE_PTRS.setdefault(name, []).append(out)
+    return out
+
+
+# not retry-safe: a redriven allocation leaks the first block
+REGISTRY.register("libc.remote_malloc", _remote_malloc_sink)
+
+
+def remote_heap_register(name: str, state) -> None:
+    """Bind a host-side allocator state (its tensors on the CPU: the drain
+    runs it on the host) to serve remote mallocs addressed to ``name``.
+    Its allocator must have ``malloc_many`` (the generic heap)."""
+    if not hasattr(allocator_for(state), "malloc_many"):
+        raise TypeError(
+            f"remote heap {name!r}: {type(state).__name__} has no bulk "
+            "malloc_many path; use a GenericAllocator state")
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+            raise ValueError(
+                f"remote heap {name!r}: {f.name} is on {v.device}; the "
+                "heap is served on the host, give it CPU tensors")
+    _REMOTE_HEAPS[name] = state
+
+
+def remote_malloc_enqueue(q: RpcQueue, name: str, sizes, *, device=0,
+                          where=None) -> Tuple[RpcQueue, torch.Tensor]:
+    """Enqueue one record asking the host to bulk-allocate ``sizes`` (an
+    int array, in the payload arena) from the registered heap ``name``;
+    returns ``(queue, ticket)``.  On a reply-carrying queue the ticket's
+    reply is the pointer vector (``q.result(ticket, (k,), torch.int32)``,
+    FAIL pointers -1); otherwise read them with
+    :func:`remote_malloc_results`.  Needs ``width >= 3``."""
+    if name not in _REMOTE_HEAPS:
+        raise KeyError(f"no remote heap registered under {name!r}; call "
+                       "remote_heap_register first")
+    nid = _intern_fmt(name)
+    if not isinstance(sizes, torch.Tensor):
+        sizes = torch.as_tensor(np.asarray(sizes, np.int32))
+    sizes = sizes.reshape(-1).to(torch.int32)
+    returns = (ShapeDtype((sizes.shape[0],), torch.int32)
+               if q.reply_capacity else None)
+    return q.enqueue_ticketed("libc.remote_malloc", nid,
+                              _as_lane(device, torch.int32), sizes,
+                              returns=returns, where=where)
+
+
+def remote_malloc_results(name: str):
+    """``(state, [pointer arrays in flush order])`` of heap ``name``;
+    clears the pointer log."""
+    ptrs = _REMOTE_PTRS.pop(name, [])
+    return _REMOTE_HEAPS.get(name), ptrs

@@ -1,8 +1,9 @@
-"""Generated host RPC (paper §3.2), immediate calls, on the H100.
+"""Generated host RPC (paper §3.2), immediate and batched, on the H100.
 
-The port of ``repro/core/rpc.py``'s immediate-call subset.  Device code
-calls a host-only function as ``fn.rpc(*args)`` (see :func:`host_rpc`) or
-``rpc_call(name, *args, result_shape=...)``.  Arguments may mix values
+The port of ``repro/core/rpc.py``'s immediate calls and its synchronous,
+single-device batched queue.  Device code calls a host-only function as
+``fn.rpc(*args)`` (see :func:`host_rpc`) or ``rpc_call(name, *args,
+result_shape=...)``.  Arguments may mix values
 (tensors, Python numbers), :class:`Ref` (a pointer whose object ships to
 the host and, unless ``access=READ``, back) and :class:`ArenaRef` (a heap
 pointer whose object is found at run time through the allocator's
@@ -34,17 +35,38 @@ Transport, by the operands' device, as the kernels dispatch:
 bf16 operands reach the callee as float32 and a bf16 write-back is rounded
 back.  ``rpc_stats``' byte counts are JAX's: operands in, result and every
 ref out (a READ ref too, as JAX returns it), each at its signature's
-dtype.  Not in this slice (ROADMAP queue 1, item 3.2 and later): the
-batched ``RpcQueue`` and ``ShardedRpcQueue`` (``batched=``, ``returns=``,
-``where=`` raise), ``mode="async"``, ``RetryPolicy``, ``RpcManifest``,
-``events`` and the sanitizer counters.
+dtype.
+
+**The batched transport** (:class:`RpcQueue`, ROADMAP queue 1, item 3.2):
+a ring of records (callee id and up to W arguments: scalars in int32 or
+float32 lanes, arrays in a payload arena) on the queue's device, JAX's
+lanes, tickets, drops and statuses bit for bit.  On a card each
+``enqueue`` is one launch of the ``rpc_enqueue`` kernel
+(``kernels/rpc_queue``, no host contact) and each ``flush`` one round trip
+of the channel whose host side is the drain: it replays the records in
+enqueue order, each callee isolated (an exception or a per-callee
+``timeout`` fails only its record, with ``RetryPolicy`` retries of
+``idempotent`` callees and the :func:`set_fault_injector` seam), and sends
+back the reply arena, the per-slot offsets, lengths and statuses and the
+reset heads.  A CPU queue runs the plain enqueue and calls the drain
+directly.  Unlike JAX's value semantics, a queue's tensors are updated in
+place, and ``enqueue``/``flush`` return the queue itself.  Not in this
+slice: ``mode="async"`` and ``carry_budget`` (item 3.3),
+``ShardedRpcQueue`` and ``shard_deadline`` (item 3.4), ``RpcManifest``
+(item 3.5), ``sanitize=True`` (item 3.7) and ``events``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
+import itertools
 import json
 import threading
+import time
+import traceback as traceback_mod
+import warnings
+from queue import Empty as _QueueEmpty, SimpleQueue as _SimpleQueue
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,9 +75,15 @@ import torch
 from repro_torch.core.allocator import I32, as_i32, find_obj
 from repro_torch.kernels.rpc_channel import (channel_for, channels,
                                              rpc_post)
-from repro_torch.kernels.rpc_channel.kernel import INLINE_WORDS, Staging
+from repro_torch.kernels.rpc_channel.kernel import (INLINE_WORDS, TIMEOUT_S,
+                                                    Staging)
+from repro_torch.kernels.rpc_queue import (Arg, Lanes, Record,
+                                           enqueue_reference, rpc_enqueue)
+from repro_torch.kernels.rpc_queue.ref import DEVICE, IMMEDIATE, PAYLOAD
 
-_QUEUE = "ROADMAP queue 1, item 3.2 (RpcQueue, the batched transport)"
+_ASYNC = "ROADMAP queue 1, item 3.3 (the async double-buffered queue)"
+_SHARDED = "ROADMAP queue 1, item 3.4 (ShardedRpcQueue)"
+_SANITIZER = "ROADMAP queue 1, item 3.7 (the transport's sanitizer)"
 
 READ, WRITE, READWRITE = "read", "write", "readwrite"
 
@@ -146,9 +174,15 @@ def stable_pad_id(name: str, sig: Tuple) -> int:
 
 
 def stable_callee_id(name: str) -> int:
-    """Content-hashed callee id (31 bits: it rides an int32 lane of the
-    batched queue, item 3.2)."""
+    """Content-hashed callee id (31 bits: it rides the batched queue's
+    int32 ``callee`` lane)."""
     return _stable_id("callee", name, 31)
+
+
+def stable_format_id(text: str) -> int:
+    """Content-hashed interned-string id (fprintf formats, heap names),
+    31 bits: it rides an int32 lane too."""
+    return _stable_id("fmt", text, 31)
 
 
 def stable_hook_id(key: str) -> int:
@@ -165,10 +199,13 @@ def _zero_stats() -> Dict[str, float]:
 
 
 class _Registry:
-    """Host-function table, landing-pad table and stats.  ``pads`` maps
-    ``(callee,) + signature`` to a pad id, ``pad_wrappers`` holds the one
-    host wrapper of each pad, ``pad_info``/``pad_stats`` its key and its
-    counters, ``stats`` the counters of each callee."""
+    """Host-function table, landing-pad table, batch-callee table and
+    stats.  ``pads`` maps ``(callee,) + signature`` to a pad id,
+    ``pad_wrappers`` holds the one host wrapper of each pad,
+    ``pad_info``/``pad_stats`` its key and its counters, ``stats`` the
+    counters of each callee; ``batch_ids``/``batch_names`` the queue's
+    callee ids, ``idempotent`` which callees a retry may re-run, and the
+    rest the flushes' drop and error counts."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -178,26 +215,44 @@ class _Registry:
         self.pad_info: Dict[int, Tuple] = {}
         self.pad_stats: Dict[int, Dict[str, float]] = {}
         self.stats: Dict[str, Dict[str, float]] = {}
+        self.batch_ids: Dict[str, int] = {}
+        self.batch_names: Dict[int, str] = {}
+        self.idempotent: Dict[str, bool] = {}
+        self._zero_counts()
 
-    def register(self, name: str, fn: Callable) -> None:
+    def _zero_counts(self) -> None:
+        self.queue_drops = self.arena_drops = self.reply_drops = 0
+        self.callee_errors = self.retries = self.flushes = 0
+        self.last_flush_drops = self.last_flush_arena_drops = 0
+        self.last_flush_reply_drops = self.last_flush_callee_errors = 0
+
+    def register(self, name: str, fn: Callable,
+                 idempotent: bool = False) -> None:
         """(Re-)bind ``name`` to ``fn``; pads and stats survive, and pads
-        already made dispatch to the new function."""
+        already made dispatch to the new function.  ``idempotent=True``
+        declares that re-running ``fn`` with the same arguments is safe:
+        the gate for a queue's :class:`RetryPolicy`."""
         with self.lock:
             self.hosts[name] = fn
+            self.idempotent[name] = bool(idempotent)
             self.stats.setdefault(name, dict(_zero_stats(), pads=0))
 
     def unregister(self, name: str) -> None:
-        """Remove ``name``'s host binding, stats and landing pads; call it
-        only after every posted call of ``name`` has run
-        (:func:`effects_barrier`)."""
+        """Remove ``name``'s host binding, stats, landing pads and batch
+        callee id; call it only after every posted call of ``name`` has
+        run (:func:`effects_barrier`)."""
         with self.lock:
             self.hosts.pop(name, None)
+            self.idempotent.pop(name, None)
             self.stats.pop(name, None)
             for key in [k for k in self.pads if k[0] == name]:
                 pid = self.pads.pop(key)
                 self.pad_wrappers.pop(pid, None)
                 self.pad_info.pop(pid, None)
                 self.pad_stats.pop(pid, None)
+            cid = self.batch_ids.pop(name, None)
+            if cid is not None:
+                self.batch_names.pop(cid, None)
 
     def landing_pad(self, name: str, sig: Tuple) -> Tuple[int, Callable]:
         """The pad of (callee, flattened signature), made at its first
@@ -219,12 +274,51 @@ class _Registry:
                 self.stats[name]["pads"] += 1
             return pid, self.pad_wrappers[pid]
 
-    def bump(self, name: str, pad_id: int, bytes_in: int, bytes_out: int):
+    def batch_callee_id(self, name: str) -> int:
+        """The id addressing ``name`` from queue records: the stable 31-bit
+        content hash of the name (JAX's).  A collision between two
+        registered names is an error."""
         with self.lock:
-            for s in (self.stats[name], self.pad_stats[pad_id]):
-                s["calls"] += 1
+            if name not in self.hosts:
+                raise KeyError(f"no host function registered for RPC {name!r}")
+            cid = self.batch_ids.get(name)
+            if cid is None:
+                cid = stable_callee_id(name)
+                other = self.batch_names.get(cid)
+                if other is not None and other != name:
+                    raise RuntimeError(
+                        f"batch-callee id collision: {name!r} and {other!r} "
+                        f"both hash to callee id {cid}; rename one callee")
+                self.batch_names[cid] = name
+                self.batch_ids[name] = cid
+            return cid
+
+    def bump(self, name: str, pad_id: Optional[int], bytes_in: int,
+             bytes_out: int, calls: int = 1):
+        with self.lock:
+            for s in (self.stats[name],) + (
+                    () if pad_id is None else (self.pad_stats[pad_id],)):
+                s["calls"] += calls
                 s["bytes_in"] += bytes_in
                 s["bytes_out"] += bytes_out
+
+    def bump_drops(self, n: int):
+        with self.lock:
+            self.queue_drops += n
+
+    def bump_flush(self, drops: int, arena_drops: int = 0,
+                   reply_drops: int = 0, callee_errors: int = 0,
+                   retries: int = 0):
+        with self.lock:
+            self.flushes += 1
+            self.last_flush_drops = drops
+            self.arena_drops += arena_drops
+            self.last_flush_arena_drops = arena_drops
+            self.reply_drops += reply_drops
+            self.last_flush_reply_drops = reply_drops
+            self.callee_errors += callee_errors
+            self.last_flush_callee_errors = callee_errors
+            self.retries += retries
 
 
 REGISTRY = _Registry()
@@ -253,12 +347,39 @@ def pad_table():
         return dict(REGISTRY.pad_info)
 
 
+def queue_drops() -> int:
+    """Total queue records overwritten before a flush could drain them."""
+    with REGISTRY.lock:
+        return REGISTRY.queue_drops
+
+
+def flush_stats() -> Dict[str, int]:
+    """Queue-flush accounting, JAX's keys: flushes; records lost to ring
+    overwrite (``drops``), to a full payload arena (``arena_drops``,
+    counted at enqueue) and to a full reply arena (``reply_drops``, callee
+    not run); records whose callee raised or timed out after any retries
+    (``callee_errors``) and the retries spent; each ``last_*`` for the
+    latest flush alone.  Read it after :func:`effects_barrier`."""
+    with REGISTRY.lock:
+        return {"flushes": REGISTRY.flushes,
+                "drops": REGISTRY.queue_drops,
+                "last_drops": REGISTRY.last_flush_drops,
+                "arena_drops": REGISTRY.arena_drops,
+                "last_arena_drops": REGISTRY.last_flush_arena_drops,
+                "reply_drops": REGISTRY.reply_drops,
+                "last_reply_drops": REGISTRY.last_flush_reply_drops,
+                "callee_errors": REGISTRY.callee_errors,
+                "last_callee_errors": REGISTRY.last_flush_callee_errors,
+                "retries": REGISTRY.retries}
+
+
 def reset_rpc_stats() -> None:
     with REGISTRY.lock:
         for s in list(REGISTRY.stats.values()) + \
                 list(REGISTRY.pad_stats.values()):
             for k in s:
                 s[k] = 0
+        REGISTRY._zero_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -413,13 +534,46 @@ def rpc_call(name: str, *args, result_shape=None, pure: bool = False,
     the module docstring); on a card the call returns before the host has
     run it.  ``device`` names the device of a call with no tensor operand
     (by default the host), and must agree with the operands' otherwise.
-    ``pure=True`` refuses write-back refs.  ``batched``,
-    ``queue``, ``where`` and ``returns`` belong to the batched transport,
-    not ported yet."""
-    if batched or queue is not None or where is not None \
-            or returns is not None:
-        raise NotImplementedError(
-            f"rpc_call(batched=, queue=, where=, returns=) needs {_QUEUE}")
+    ``pure=True`` refuses write-back refs.
+
+    ``batched=True`` enqueues the call on ``queue`` (an :class:`RpcQueue`)
+    instead: value arguments only (scalars and arrays), ``where`` makes it
+    conditional, and the host sees it at the queue's flush.  It returns
+    the queue, or ``(queue, ticket)`` with ``returns`` (the reply's shape
+    and dtype, read after the flush with ``queue.result(ticket, returns)``);
+    ``result_shape`` is ignored."""
+    if name not in REGISTRY.hosts:
+        raise KeyError(f"no host function registered for RPC {name!r}")
+    if batched:
+        if queue is None:
+            raise ValueError(
+                "rpc_call(batched=True) needs queue=<RpcQueue>: batched "
+                "RPCs live in the on-device ring until flush")
+        if pure:
+            raise ValueError("batched RPCs are effectful records; "
+                             "pure=True does not apply")
+        for j, a in enumerate(args):
+            if isinstance(a, (Ref, ArenaRef)):
+                raise ValueError(
+                    f"batched RPC {name!r} arg {j}: Ref/ArenaRef arguments "
+                    "need a synchronous round trip (write-back / runtime "
+                    "object lookup) that the batched transport does not "
+                    "provide; pass value args (scalars or arrays) only; "
+                    "host RESULTS do come back: use returns= for a ticket "
+                    "readable via queue.result() after flush")
+        if returns is not None:
+            return queue.enqueue_ticketed(name, *args, returns=returns,
+                                          where=where)
+        return queue.enqueue(name, *args, where=where)
+    if returns is not None:
+        raise ValueError(
+            "rpc_call(returns=...) is only meaningful with batched=True: "
+            "immediate RPCs return results directly via result_shape")
+    if where is not None:
+        raise ValueError(
+            "rpc_call(where=...) is only meaningful with batched=True: an "
+            "immediate call has no conditional form; route it through a "
+            "queue")
     spec, device, sig, ops, refs, pid = _prepare(name, args, result_shape,
                                                  pure, device)
     if device.type == "cpu":
@@ -543,6 +697,1186 @@ def effects_barrier() -> None:
     if errors:
         raise RuntimeError(f"a host RPC callee raised: {errors[0]!r}") \
             from errors[0]
+
+
+# ---------------------------------------------------------------------------
+# Fault-tolerant host boundary: reply statuses, error log, retry, timeout
+# ---------------------------------------------------------------------------
+#
+# Every record's callee is isolated: an exception or a wall-clock timeout
+# fails only that record (traceback in ``error_log()``, count in
+# ``flush_stats()['callee_errors']``) while the rest replay in order, and
+# every ticketed reply carries a status that ``result_status`` reads.
+
+#: Reply statuses (JAX's values).  The drain stamps one per serviced ring
+#: slot; ``result_status`` adds DROPPED for a -1 ticket and STALE for a
+#: ticket outside the last flush's window.
+STATUS_OK = 0               # callee ran, reply (if declared) delivered
+STATUS_CALLEE_RAISED = 1    # callee raised; traceback in error_log()
+STATUS_TIMEOUT = 2          # callee exceeded the queue's per-callee timeout
+STATUS_DROPPED = 3          # record dropped at enqueue (where=False / arena
+#                             full), or its reply dropped by fault injection
+STATUS_REPLY_OVERFLOW = 4   # reply arena full at drain: callee NOT run
+STATUS_STALE = 5            # ticket from an epoch other than the last flush
+STATUS_PENDING = 6          # async transport (item 3.3); a sync queue never
+#                             reads it
+
+STATUS_NAMES = {STATUS_OK: "OK", STATUS_CALLEE_RAISED: "CALLEE_RAISED",
+                STATUS_TIMEOUT: "TIMEOUT", STATUS_DROPPED: "DROPPED",
+                STATUS_REPLY_OVERFLOW: "REPLY_OVERFLOW",
+                STATUS_STALE: "STALE", STATUS_PENDING: "PENDING"}
+
+#: Bounded host-side error log (oldest entries evicted past the cap).
+_ERROR_LOG_CAP = 256
+_ERRORS: List[Dict[str, Any]] = []
+_ERR_LOCK = threading.Lock()
+
+
+def error_log() -> List[Dict[str, Any]]:
+    """Captured callee failures, oldest first: ``{"callee", "ticket",
+    "attempt", "error", "traceback"}`` with ``ticket`` the record's global
+    sequence number and ``attempt`` the 1-based attempt that failed."""
+    with _ERR_LOCK:
+        return [dict(e) for e in _ERRORS]
+
+
+def clear_error_log() -> None:
+    with _ERR_LOCK:
+        _ERRORS.clear()
+
+
+def _log_callee_error(name: str, ticket: int, attempt: int,
+                      exc: BaseException) -> None:
+    entry = {"callee": name, "ticket": int(ticket), "attempt": int(attempt),
+             "error": repr(exc),
+             "traceback": "".join(traceback_mod.format_exception(
+                 type(exc), exc, exc.__traceback__))}
+    with _ERR_LOCK:
+        _ERRORS.append(entry)
+        if len(_ERRORS) > _ERROR_LOG_CAP:
+            del _ERRORS[:len(_ERRORS) - _ERROR_LOG_CAP]
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Host-side retry for transiently failing batched callees: a failed
+    record re-runs up to ``max_attempts`` times in all within its drain,
+    sleeping ``backoff * 2**(attempt-1)`` seconds between attempts;
+    ``retryable`` (``exc -> bool``) filters the exceptions worth retrying.
+    Only callees registered ``idempotent=True`` are re-run."""
+    max_attempts: int = 2
+    backoff: float = 0.0
+    retryable: Optional[Callable[[BaseException], bool]] = None
+
+
+class _CalleeTimeout(Exception):
+    """A callee exceeded the queue's per-callee wall-clock timeout."""
+
+
+class _PipelinedCall:
+    """One record in flight on a :class:`_CalleeWorker`'s inbox.  The
+    worker's ``claim()`` and the drain's ``cancel()`` race under the item's
+    lock and exactly one wins, so a record redriven on a fresh worker
+    after a timeout runs at most once."""
+
+    __slots__ = ("fn", "args", "seq", "src", "_lk", "claimed", "cancelled")
+
+    def __init__(self, fn, args, seq: int, src: "_CalleeWorker") -> None:
+        self.fn = fn
+        self.args = args
+        self.seq = seq
+        self.src = src          # the worker whose outbox holds the result
+        self._lk = threading.Lock()
+        self.claimed = False
+        self.cancelled = False
+
+    def claim(self) -> bool:
+        with self._lk:
+            if self.cancelled:
+                return False
+            self.claimed = True
+            return True
+
+    def cancel(self) -> bool:
+        with self._lk:
+            if self.claimed:
+                return False
+            self.cancelled = True
+            return True
+
+
+class _CalleeWorker:
+    """A daemon thread that runs a serial stream of callee invocations for
+    the ``timeout=`` path: a drain checks one out and streams its records
+    through an inbox/outbox pair.  A timed-out callee wedges its worker
+    (a thread cannot be killed), so the worker is abandoned and the next
+    record gets a fresh one."""
+
+    def __init__(self) -> None:
+        self._inbox: _SimpleQueue = _SimpleQueue()
+        self._outbox: _SimpleQueue = _SimpleQueue()
+        self._seq = 0
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="rpc-callee-worker")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            item = self._inbox.get()
+            if not item.claim():
+                continue                 # cancelled before it ever ran
+            try:
+                out = (True, item.fn(*item.args), item.seq)
+            except BaseException as exc:  # noqa: BLE001 (relayed)
+                out = (False, exc, item.seq)
+            self._outbox.put(out)
+
+    def submit(self, fn, args) -> _PipelinedCall:
+        self._seq += 1
+        item = _PipelinedCall(fn, args, self._seq, self)
+        self._inbox.put(item)
+        return item
+
+    def collect(self, seq: int, timeout: float):
+        while True:
+            try:
+                ok, val, s = self._outbox.get_nowait()
+            except _QueueEmpty:
+                try:
+                    ok, val, s = self._outbox.get(timeout=timeout)
+                except _QueueEmpty:
+                    raise _CalleeTimeout(
+                        f"host callee exceeded the {timeout}s per-callee "
+                        "timeout (still running in its worker thread; "
+                        "record marked TIMEOUT)") from None
+            if s != seq:
+                continue   # stale result from an already-abandoned record
+            if ok:
+                return val
+            raise val
+
+
+_IDLE_WORKERS: List[_CalleeWorker] = []
+_WORKER_LOCK = threading.Lock()
+
+
+def _checkout_worker() -> _CalleeWorker:
+    with _WORKER_LOCK:
+        if _IDLE_WORKERS:
+            return _IDLE_WORKERS.pop()
+    return _CalleeWorker()
+
+
+def _return_worker(w: _CalleeWorker) -> None:
+    with _WORKER_LOCK:
+        _IDLE_WORKERS.append(w)
+
+
+class _WorkerLease:
+    """A drain's handle on one checked-out :class:`_CalleeWorker`: checked
+    out at first use, returned to the idle pool at ``release()``.
+    ``submit``/``collect`` pipeline a fault-free epoch; ``call`` is the
+    strict ping-pong that an injector or a retry policy needs.  A timeout
+    abandons the wedged worker."""
+
+    __slots__ = ("_w",)
+
+    def __init__(self) -> None:
+        self._w: Optional[_CalleeWorker] = None
+
+    def submit(self, fn, args) -> _PipelinedCall:
+        if self._w is None:
+            self._w = _checkout_worker()
+        return self._w.submit(fn, args)
+
+    def collect(self, item: _PipelinedCall, timeout: float):
+        return item.src.collect(item.seq, timeout)
+
+    def call(self, fn, args, timeout: float):
+        item = self.submit(fn, args)
+        try:
+            return item.src.collect(item.seq, timeout)
+        except _CalleeTimeout:
+            self._w = None           # wedged: abandon, never reuse
+            raise
+
+    def handle_timeout(self, pending: List[_PipelinedCall]
+                       ) -> List[_PipelinedCall]:
+        """After the oldest in-flight record timed out: if the worker has
+        claimed the next one, the callee finished late and the worker is
+        healthy; otherwise abandon it and resubmit, in order, every queued
+        record whose cancel wins on a fresh worker."""
+        if not pending:
+            self._w = None
+            return pending
+        if not pending[0].cancel():
+            return pending           # late completion: worker is healthy
+        self._w = None
+        out = [self.submit(pending[0].fn, pending[0].args)]
+        for item in pending[1:]:
+            out.append(self.submit(item.fn, item.args) if item.cancel()
+                       else item)
+        return out
+
+    def release(self) -> None:
+        if self._w is not None:
+            _return_worker(self._w)
+            self._w = None
+
+
+def _call_with_timeout(fn, args, timeout: float, lease=None):
+    """Run ``fn(*args)`` with a wall-clock deadline; a timed-out callee
+    keeps running in its abandoned worker and its record fails TIMEOUT."""
+    if lease is not None:
+        return lease.call(fn, args, timeout)
+    one_shot = _WorkerLease()
+    try:
+        return one_shot.call(fn, args, timeout)
+    finally:
+        one_shot.release()
+
+
+# The deterministic fault-injection seam (repro_torch.testing.faults plugs
+# in here), consulted at dispatch time inside the drain.  Protocol:
+# ``on_call(name, attempt) -> Optional[delay_seconds]`` (may raise to fail
+# the record before its callee runs) and ``on_reply(name, words) ->
+# Optional[int32 words]`` (``None`` drops the reply; a changed array
+# corrupts it).  A synchronous drain passes no occurrence index: the
+# injector counts first attempts itself in replay order.
+_FAULT_INJECTOR: List[Any] = []
+
+
+def set_fault_injector(inj=None) -> None:
+    """Install (or with ``None`` remove) the process-wide drain fault
+    injector (see :mod:`repro_torch.testing.faults`)."""
+    _FAULT_INJECTOR[:] = [] if inj is None else [inj]
+
+
+def _invoke_record(name: str, fn, args, ticket: int, inj,
+                   retry: Optional[RetryPolicy], timeout: Optional[float],
+                   idempotent: bool, lease=None):
+    """Run one record's callee with failure isolation, fault injection,
+    timeout and (idempotent-gated) retry.  Returns ``(status, out,
+    n_retries)``; ``out`` is None on failure."""
+    attempts = retry.max_attempts if (retry is not None and idempotent) \
+        else 1
+    attempt = 1
+    while True:
+        try:
+            delay = None if inj is None else inj.on_call(name, attempt)
+            if delay:
+                call = (lambda *a: (time.sleep(delay), fn(*a))[1])
+            else:
+                call = fn
+            if timeout is not None:
+                out = _call_with_timeout(call, args, timeout, lease=lease)
+            else:
+                out = call(*args)
+            return STATUS_OK, out, attempt - 1
+        except Exception as exc:         # noqa: BLE001 (the isolation point)
+            _log_callee_error(name, ticket, attempt, exc)
+            timed_out = isinstance(exc, _CalleeTimeout)
+            can_retry = (attempt < attempts
+                         and (retry.retryable is None
+                              or retry.retryable(exc)))
+            if not can_retry:
+                return (STATUS_TIMEOUT if timed_out
+                        else STATUS_CALLEE_RAISED), None, attempt - 1
+            if retry.backoff:
+                time.sleep(retry.backoff * (2.0 ** (attempt - 1)))
+            attempt += 1
+
+
+def _coerce_reply_words(name: str, out, want: int) -> Optional[np.ndarray]:
+    """A callee's return as ``|want|`` int32 reply words (``+`` int32,
+    ``-`` float32 bits; short results zero-padded, long ones truncated, a
+    None or non-numeric return zeros); None when ``want == 0``."""
+    if want == 0:
+        return None
+    nw = abs(want)
+    dt = np.int32 if want > 0 else np.float32
+    try:
+        arr = (np.zeros((nw,), dt) if out is None
+               else np.asarray(out).reshape(-1).astype(dt))
+    except (TypeError, ValueError):
+        warnings.warn(
+            f"RPC reply from {name!r} ({type(out).__name__}) is not "
+            f"coercible to {dt.__name__}; its reader sees zeros",
+            RuntimeWarning, stacklevel=2)
+        arr = np.zeros((nw,), dt)
+    if arr.size < nw:
+        arr = np.pad(arr, (0, nw - arr.size))
+    return np.array(arr[:nw].view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# Batched transport: the drain (host side of a flush; numpy only)
+# ---------------------------------------------------------------------------
+
+def _replay_shard(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
+                  rwant, n, overrides, names, hosts, per_name_calls,
+                  per_name_bytes, reply=None, base=0, idem=None,
+                  retry=None, timeout=None) -> Tuple[int, int, int, int]:
+    """Replay a queue's records in enqueue order; returns ``(records
+    overwritten before this flush, replies dropped for a full reply arena,
+    records whose callee failed after retries, retries spent)``.
+
+    Scalars come out of the int/float lanes (Python ints and floats);
+    payloads (``pmask`` bit set) are reattached from the arena through
+    their descriptors as 1-D int32 or float32 arrays.  ``reply`` (``(rwords,
+    roff, rlen, rstat)``, or None on a reply-less queue) collects each
+    result-bearing record's return, coerced to its declared words, at the
+    reply watermark, with its slot's offset, length and status.  A record
+    whose reply cannot fit is dropped whole: callee not run,
+    ``REPLY_OVERFLOW``.  Each callee is isolated; ``retry`` re-runs failed
+    records of idempotent callees; ``timeout`` bounds each callee's wall
+    time; ``base`` is the epoch's global ticket base."""
+    cap = callee.shape[0]
+    lo = max(0, n - cap)
+    fbuf = pbuf.view(np.float32)
+    rhead = rdrops = cerrs = nretries = 0
+    inj = _FAULT_INJECTOR[0] if _FAULT_INJECTOR else None
+    fast = inj is None and retry is None and timeout is None
+    lease = _WorkerLease() if timeout is not None else None
+    # With a timeout but no injector or retry the drain pipelines the whole
+    # epoch through one worker; either of those forces the ping-pong.
+    pipelined = timeout is not None and inj is None and retry is None
+    rsize = reply[0].shape[0] if reply is not None else 0
+    # each entry: [call, j, k, name, want, nbytes]
+    inflight: List[list] = []
+    ahead_words = 0    # reply words reserved by in-flight records
+
+    def _post(j, k, name, want, status, out, rr, nbytes):
+        nonlocal rhead, cerrs, nretries
+        nretries += rr
+        if status != STATUS_OK:
+            cerrs += 1
+        if reply is not None:
+            rwords, roff, rlen, rstat = reply
+            if want != 0 and status == STATUS_OK:
+                words = _coerce_reply_words(name, out, want)
+                if inj is not None:
+                    words = inj.on_reply(name, words)
+                if words is None:
+                    # injected reply drop: the callee ran, the reply never
+                    # lands
+                    status = STATUS_DROPPED
+                else:
+                    nw = abs(want)
+                    rwords[rhead:rhead + nw] = words
+                    roff[k] = rhead
+                    rlen[k] = nw
+                    rhead += nw
+                    nbytes += 4 * nw
+            rstat[k] = status
+        per_name_calls[name] = per_name_calls.get(name, 0) + 1
+        per_name_bytes[name] = per_name_bytes.get(name, 0) + nbytes
+
+    def _settle_oldest():
+        nonlocal ahead_words
+        call_obj, j, k, name, want, nbytes = inflight.pop(0)
+        ahead_words -= abs(want)
+        try:
+            out = lease.collect(call_obj, timeout)
+            status = STATUS_OK
+        except _CalleeTimeout as exc:
+            _log_callee_error(name, int(base) + j, 1, exc)
+            status, out = STATUS_TIMEOUT, None
+            redriven = lease.handle_timeout([r[0] for r in inflight])
+            for r, c in zip(inflight, redriven):
+                r[0] = c             # redriven on the replacement worker
+        except Exception as exc:     # noqa: BLE001 (the isolation point)
+            _log_callee_error(name, int(base) + j, 1, exc)
+            status, out = STATUS_CALLEE_RAISED, None
+        _post(j, k, name, want, status, out, 0, nbytes)
+
+    for j in range(lo, n):
+        k = j % cap
+        cid = int(callee[k])
+        name = names.get(cid)
+        if name is None:
+            raise KeyError(
+                f"RpcQueue record carries unknown callee id {cid}: this "
+                "process never bound it")
+        fn = (overrides or {}).get(name) or hosts[name]
+        na = int(nargs[k])
+        mask = int(imask[k])
+        pm = int(pmask[k])
+        args = []
+        nbytes = 12 + 4 * na
+        for t in range(na):
+            if (pm >> t) & 1:
+                off, ln = int(ivals[k, t]), int(plens[k, t])
+                buf = pbuf if (mask >> t) & 1 else fbuf
+                args.append(buf[off:off + ln])
+                nbytes += 4 * ln
+            elif (mask >> t) & 1:
+                args.append(int(ivals[k, t]))
+            else:
+                args.append(float(fvals[k, t]))
+        want = int(rwant[k]) if reply is not None else 0
+        if want != 0 and rhead + ahead_words + abs(want) > rsize:
+            # checked before the callee runs, so the drop is atomic; a
+            # pipelined record ahead may still land its words, so settle
+            # them first to learn the exact watermark
+            while inflight:
+                _settle_oldest()
+            if rhead + abs(want) > rsize:
+                rdrops += 1
+                reply[3][k] = STATUS_REPLY_OVERFLOW
+                continue
+        is_idem = bool((idem or {}).get(name, False))
+        if fast:
+            try:
+                out = fn(*args)
+                status = STATUS_OK
+            except Exception as exc:     # noqa: BLE001 (isolation point)
+                _log_callee_error(name, int(base) + j, 1, exc)
+                status, out = STATUS_CALLEE_RAISED, None
+            _post(j, k, name, want, status, out, 0, nbytes)
+        elif pipelined:
+            inflight.append([lease.submit(fn, args), j, k, name, want,
+                             nbytes])
+            ahead_words += abs(want)
+        else:
+            status, out, rr = _invoke_record(
+                name, fn, args, int(base) + j, inj, retry, timeout, is_idem,
+                lease=lease)
+            _post(j, k, name, want, status, out, rr, nbytes)
+    while inflight:
+        _settle_oldest()
+    if lease is not None:
+        lease.release()
+    return lo, rdrops, cerrs, nretries
+
+
+def _finish_flush(drops: int, arena_drops: int, per_name_calls,
+                  per_name_bytes, reply_drops: int = 0,
+                  callee_errors: int = 0, retries: int = 0):
+    if drops:
+        REGISTRY.bump_drops(drops)
+        warnings.warn(
+            f"RpcQueue flush dropped {drops} record(s): more records were "
+            "enqueued than the queue capacity between flushes; the oldest "
+            "were overwritten.  Flush more often or enlarge the queue.",
+            RuntimeWarning, stacklevel=2)
+    if arena_drops:
+        warnings.warn(
+            f"RpcQueue dropped {arena_drops} payload record(s) at enqueue: "
+            "the payload arena was full (records dropped atomically, no "
+            "partial payloads).  Flush more often or enlarge "
+            "payload_capacity.", RuntimeWarning, stacklevel=2)
+    if reply_drops:
+        warnings.warn(
+            f"RpcQueue flush dropped {reply_drops} result-bearing "
+            "record(s): the reply arena was full (records dropped "
+            "atomically: callee NOT run, readers see zeros).  Flush more "
+            "often or enlarge reply_capacity.", RuntimeWarning,
+            stacklevel=2)
+    if callee_errors:
+        warnings.warn(
+            f"RpcQueue flush isolated {callee_errors} failing callee "
+            "record(s): the callee raised or timed out, the record reads "
+            "CALLEE_RAISED/TIMEOUT, and the rest of the flush completed; "
+            "tracebacks in repro_torch.core.rpc.error_log().",
+            RuntimeWarning, stacklevel=2)
+    REGISTRY.bump_flush(drops, arena_drops, reply_drops,
+                        callee_errors=callee_errors, retries=retries)
+    for name, calls in per_name_calls.items():
+        REGISTRY.bump(name, None, per_name_bytes[name], 0, calls=calls)
+
+
+def _bind_drain(fn, handlers, retry=None, timeout=None):
+    """Close a flush's ``handlers`` and the queue's retry and timeout over
+    a drain callable (``fn`` itself when there is nothing to bind).  The
+    fault injector is looked up at dispatch time, not bound."""
+    if not handlers and retry is None and timeout is None:
+        return fn
+    bound = dict(handlers) if handlers else None
+
+    def drain(*flat):
+        return fn(*flat, overrides=bound, retry=retry, timeout=timeout)
+
+    return drain
+
+
+def _registry_snapshot():
+    with REGISTRY.lock:                    # one snapshot, not per record
+        return (dict(REGISTRY.batch_names), dict(REGISTRY.hosts),
+                dict(REGISTRY.idempotent))
+
+
+def _drain_queue(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
+                 head, phead, adrops, base, overrides=None, retry=None,
+                 timeout=None):
+    """Host side of a reply-less :meth:`RpcQueue.flush`: replay the queued
+    records in enqueue order, each to its registered callee (resolved at
+    drain time) unless ``overrides`` maps its name to this flush's
+    handler.  Returns the number of records enqueued."""
+    n = int(head)
+    per_name_calls: Dict[str, int] = {}
+    per_name_bytes: Dict[str, int] = {}
+    names, hosts, idem = _registry_snapshot()
+    drops, _, cerrs, nretries = _replay_shard(
+        callee, nargs, imask, pmask, ivals, fvals, plens, pbuf, None, n,
+        overrides, names, hosts, per_name_calls, per_name_bytes,
+        base=int(base), idem=idem, retry=retry, timeout=timeout)
+    _finish_flush(drops, int(adrops), per_name_calls, per_name_bytes,
+                  callee_errors=cerrs, retries=nretries)
+    return np.int32(n)
+
+
+def _drain_queue_replies(callee, nargs, imask, pmask, ivals, fvals, plens,
+                         pbuf, rwant, head, phead, adrops, base, rc,
+                         overrides=None, retry=None, timeout=None):
+    """Host side of the two-phase flush (``reply_capacity > 0``): the
+    replay of :func:`_drain_queue`, then the reply quadruple ``(rbuf,
+    roff, rlen, rstat)``: the flat int32 reply buffer and each ring slot's
+    offset, length and status."""
+    n = int(head)
+    rc = int(rc)
+    cap = callee.shape[0]
+    rwords = np.zeros((rc,), np.int32)
+    roff = np.zeros((cap,), np.int32)
+    rlen = np.zeros((cap,), np.int32)
+    rstat = np.zeros((cap,), np.int32)
+    per_name_calls: Dict[str, int] = {}
+    per_name_bytes: Dict[str, int] = {}
+    names, hosts, idem = _registry_snapshot()
+    drops, rdrops, cerrs, nretries = _replay_shard(
+        callee, nargs, imask, pmask, ivals, fvals, plens, pbuf, rwant, n,
+        overrides, names, hosts, per_name_calls, per_name_bytes,
+        reply=(rwords, roff, rlen, rstat), base=int(base), idem=idem,
+        retry=retry, timeout=timeout)
+    _finish_flush(drops, int(adrops), per_name_calls, per_name_bytes,
+                  reply_drops=rdrops, callee_errors=cerrs, retries=nretries)
+    return rwords, roff, rlen, rstat
+
+
+# ---------------------------------------------------------------------------
+# Batched transport: the queue
+# ---------------------------------------------------------------------------
+
+def _wrap_i32(v: int) -> int:
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """Where each field of a queue lives in its one int32 state buffer.
+    A flush ships ``[0, in_end)`` to the host (the records, the arena, the
+    heads and the reply window) and receives ``[out_start, words)`` (the
+    heads, the window and the replies), each in one copy."""
+    capacity: int
+    width: int
+    payload_capacity: int
+    reply_capacity: int
+
+    @property
+    def rslots(self) -> int:
+        return self.capacity if self.reply_capacity else 0
+
+    def offsets(self) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
+        return _layout_offsets(self)
+
+    @property
+    def in_end(self) -> int:
+        return self.offsets()["rbase"][0] + len(_WINDOW)
+
+    @property
+    def out_start(self) -> int:
+        return self.offsets()["head"][0]
+
+    @property
+    def words(self) -> int:
+        return self.offsets()["words"][0]
+
+    def views(self, buf, base: int = 0) -> Dict[str, Any]:
+        """Each field held in ``buf`` as a view (``buf`` a torch tensor or
+        a numpy array holding the layout's words from ``base`` on);
+        ``fvals`` as float32."""
+        out = {}
+        for name, (at, shape) in self.offsets().items():
+            n = int(np.prod(shape, dtype=np.int64))
+            if name == "words" or at < base or at + n > base + len(buf):
+                continue
+            v = buf[at - base:at - base + n]
+            if name == "fvals":
+                v = v.view(torch.float32 if isinstance(v, torch.Tensor)
+                           else np.float32)
+            out[name] = v.reshape(shape)
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_offsets(layout: "_Layout"
+                    ) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
+    N, W = layout.capacity, layout.width
+    rslots = layout.rslots
+    fields = [("callee", (N,)), ("nargs", (N,)), ("imask", (N,)),
+              ("pmask", (N,)), ("ivals", (N, W)), ("fvals", (N, W)),
+              ("plens", (N, W)), ("rwant", (rslots,)),
+              ("pbuf", (layout.payload_capacity,))]
+    fields += [(n, ()) for n in _HEADS + _WINDOW]
+    fields += [("roff", (rslots,)), ("rlen", (rslots,)),
+               ("rstat", (rslots,)), ("rbuf", (layout.reply_capacity,))]
+    out, at = {}, 0
+    for name, shape in fields:
+        out[name] = (at, shape)
+        at += int(np.prod(shape, dtype=np.int64))
+    out["words"] = (at, ())
+    return out
+
+
+#: The heads a flush reads and resets, and the reply window it stamps.
+_HEADS = ("head", "phead", "adrops", "base")
+_WINDOW = ("rbase", "rcount", "fonce", "pbase", "pcount", "cdepth")
+
+
+class _FlushCtx:
+    """One flush's handlers and fault policy, for its drain."""
+    __slots__ = ("handlers", "retry", "timeout")
+
+    def __init__(self, handlers, retry, timeout):
+        self.handlers, self.retry, self.timeout = handlers, retry, timeout
+
+
+def _serve_flush(layout: _Layout, ctx: _FlushCtx, src: np.ndarray,
+                 dst: np.ndarray) -> None:
+    """The landing pad of a queue's flush: drain the records of ``src``
+    (the layout's ``[0, in_end)``) and write the reset heads, the reply
+    window and the replies into ``dst`` (``[out_start, words)``)."""
+    v = layout.views(src)
+    o = layout.views(dst, layout.out_start)
+    lanes = (v["callee"], v["nargs"], v["imask"], v["pmask"], v["ivals"],
+             v["fvals"], v["plens"], v["pbuf"])
+    head, phead, adrops, base = (int(v[n]) for n in _HEADS)
+    for name in _WINDOW:
+        o[name][...] = v[name]
+    if layout.reply_capacity:
+        drain = _bind_drain(_drain_queue_replies, ctx.handlers, ctx.retry,
+                            ctx.timeout)
+        rbuf, roff, rlen, rstat = drain(
+            *lanes, v["rwant"], head, phead, adrops, base,
+            layout.reply_capacity)
+        o["rbuf"][...] = rbuf
+        o["roff"][...] = roff
+        o["rlen"][...] = rlen
+        o["rstat"][...] = rstat
+        o["rbase"][...] = base
+        o["rcount"][...] = head
+    else:
+        drain = _bind_drain(_drain_queue, ctx.handlers, ctx.retry,
+                            ctx.timeout)
+        drain(*lanes, head, phead, adrops, base)
+    o["head"][...] = 0
+    o["phead"][...] = 0
+    o["adrops"][...] = 0
+    o["base"][...] = _wrap_i32(base + head)
+    o["fonce"][...] = 1
+
+
+#: Flush contexts posted on a channel, by the id their record carries.
+_FLUSHES: Dict[int, _FlushCtx] = {}
+_FLUSH_IDS = itertools.count(1)
+_FLUSH_LOCK = threading.Lock()
+
+
+def _queue_staging(channel, layout: _Layout) -> Tuple[int, Staging]:
+    """The staging region of ``channel`` for queues of ``layout``'s
+    geometry (one for all of them: a channel's round trips are serial),
+    made at the first flush; its ``serve`` drains the flush whose id the
+    record's first scalar word carries."""
+    pid = _stable_id("queue", json.dumps(dataclasses.astuple(layout)), 63)
+    entry = channel.pads.get(pid)
+    if entry is None:
+        staging = Staging([4 * layout.in_end,
+                           4 * (layout.words - layout.out_start)])
+        src = staging.slot(0).view(np.int32)
+        dst = staging.slot(1).view(np.int32)
+
+        def serve():
+            fid = int(staging.word(0).view(np.uint32)[0])
+            with _FLUSH_LOCK:
+                ctx = _FLUSHES.pop(fid)
+            _serve_flush(layout, ctx, src, dst)
+
+        entry = channel.pads[pid] = (staging, serve, layout)
+    return pid, entry[0]
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros((), np.dtype(dtype))).dtype
+
+
+def _is_int_dtype(dtype: torch.dtype) -> bool:
+    return not (dtype.is_floating_point or dtype.is_complex)
+
+
+def _immediate(a) -> Arg:
+    """A Python or numpy number as a lane value known to the host: JAX's
+    dtype for it (x64 off), int lane for integers and bools."""
+    v = _scalar(a)
+    is_int = v.dtype.kind in "biu"
+    bits = np.asarray(v, np.int32 if is_int else np.float32).view(np.uint32)
+    return Arg(IMMEDIATE, is_int, word=int(bits))
+
+
+class RpcQueue:
+    """A ring of pending RPC records on one device (the batched transport).
+
+    Each record is ``(callee id, up to W args)``: scalar integer and bool
+    args in int32 lanes, scalar floats in float32 lanes, ``imask`` bit j
+    saying which lane argument j used; array args ride the payload arena
+    ``pbuf`` (one watermark bump reserves all of a record's payloads at
+    static prefix offsets) with descriptors in their lanes (offset in
+    ``ivals``, length in ``plens``, presence in ``pmask`` bit j, int vs
+    float32 words in ``imask`` bit j).  The oldest records are overwritten
+    past ``capacity``; a record whose payloads do not fit is dropped
+    atomically (``adrops``).  With ``reply_capacity > 0`` a flush also
+    brings back each ticketed record's reply (``rwant`` declares it,
+    ``rbuf``/``roff``/``rlen``/``rstat`` hold the last flush's replies and
+    statuses); tickets are global sequence numbers (``base`` + the order
+    within the epoch) and the reply table answers only tickets in its
+    ``(rbase, rcount)`` window.
+
+    The fields are JAX's, as views of one int32 state buffer on the
+    queue's device (``fvals`` a float32 view), so a flush moves the state
+    in one copy each way.  Deliberately unlike JAX's value semantics the
+    tensors are updated in place, and ``enqueue`` and ``flush`` return the
+    queue itself.  ``pbase``/``pcount``/``cdepth`` (the async transport's)
+    stay 0."""
+
+    def __init__(self, layout: _Layout, state: torch.Tensor,
+                 retry: Optional[RetryPolicy] = None,
+                 timeout: Optional[float] = None):
+        self.layout, self.state = layout, state
+        self.retry, self.timeout = retry, timeout
+        self.arrivals = torch.zeros(1, dtype=torch.int32,
+                                    device=state.device)
+        for name, view in layout.views(state).items():
+            setattr(self, name, view)
+        self._failed_read_warned = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.state.device
+
+    @property
+    def capacity(self) -> int:
+        return self.layout.capacity
+
+    @property
+    def width(self) -> int:
+        return self.layout.width
+
+    @property
+    def payload_capacity(self) -> int:
+        return self.layout.payload_capacity
+
+    @property
+    def reply_capacity(self) -> int:
+        return self.layout.reply_capacity
+
+    @staticmethod
+    def create(capacity: int = 1024, width: int = 4,
+               payload_capacity: int = 1024, reply_capacity: int = 0,
+               sanitize: bool = False,
+               retry: Optional[RetryPolicy] = None,
+               timeout: Optional[float] = None, mode: str = "sync",
+               carry_budget: int = 0,
+               shard_deadline: Optional[float] = None, *,
+               device="cuda") -> "RpcQueue":
+        """A queue of ``capacity`` records of ``width`` args, a
+        ``payload_capacity``-word arena (0: scalar-only) and a
+        ``reply_capacity``-word reply arena (0: fire-and-forget), on
+        ``device`` (the card unless the caller asks for the CPU).
+        ``retry`` re-runs failing records of ``idempotent`` callees at the
+        drain; ``timeout`` (seconds) bounds every callee's wall time
+        (overrun: ``STATUS_TIMEOUT``, the drain goes on)."""
+        if not 0 < width <= 31:
+            raise ValueError(
+                f"width must be in [1, 31] to fit the int32 interleave "
+                f"mask; got {width}")
+        if mode not in ("sync", "async"):
+            raise ValueError(f"mode must be 'sync' or 'async'; got {mode!r}")
+        if mode == "async" or carry_budget:
+            raise NotImplementedError(
+                f"RpcQueue(mode='async', carry_budget=) needs {_ASYNC}")
+        if shard_deadline is not None:
+            raise NotImplementedError(
+                f"RpcQueue(shard_deadline=) needs {_SHARDED}")
+        if sanitize:
+            raise NotImplementedError(
+                f"RpcQueue(sanitize=True) needs {_SANITIZER}")
+        if capacity < 1 or payload_capacity < 0 or reply_capacity < 0:
+            raise ValueError(
+                f"capacity {capacity}, payload_capacity {payload_capacity}, "
+                f"reply_capacity {reply_capacity}: capacity must be >= 1, "
+                "the arenas >= 0")
+        layout = _Layout(int(capacity), int(width), int(payload_capacity),
+                         int(reply_capacity))
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        state = torch.zeros(layout.words, dtype=torch.int32, device=device)
+        return RpcQueue(layout, state, retry=retry, timeout=timeout)
+
+    def lanes(self) -> Lanes:
+        """The views an enqueue reads and writes."""
+        return Lanes(self.callee, self.nargs, self.imask, self.pmask,
+                     self.ivals, self.fvals, self.plens, self.pbuf,
+                     self.head, self.phead, self.adrops, self.rwant,
+                     self.base)
+
+    def enqueue(self, name: str, *args, where=None) -> "RpcQueue":
+        """Queue one fire-and-forget RPC to host function ``name``; see
+        :meth:`enqueue_ticketed`.  Returns the queue."""
+        return self._enqueue(name, args, None, where)[0]
+
+    def enqueue_ticketed(self, name: str, *args, returns=None, where=None
+                         ) -> Tuple["RpcQueue", torch.Tensor]:
+        """Queue one RPC and return ``(queue, ticket)``.
+
+        ``args`` are scalars (Python numbers, or 0-d tensors read on the
+        device; the dtype picks the lane) and arrays (any shape: flattened
+        into the payload arena and delivered to the host as 1-D int32 or
+        float32 numpy arrays).  ``returns`` (shape and dtype, 32 bits or
+        narrower) declares a reply, read after the next flush with
+        ``queue.result(ticket, returns)``; it needs ``reply_capacity >
+        0``.  The ticket is a 0-d int32 tensor on the queue's device: the
+        record's global sequence number, or -1 when it was dropped
+        (``where`` false or a full arena).  ``where`` (a Python bool or a
+        0-d bool tensor) makes the append conditional.  On a card this is
+        one ``rpc_enqueue`` launch and reads nothing back."""
+        return self._enqueue(name, args, returns, where)
+
+    def _reply_words(self, name: str, returns) -> int:
+        rc = self.reply_capacity
+        rshape = tuple(returns.shape)
+        rdtype = _torch_dtype(returns.dtype)
+        nw = int(np.prod(rshape)) if rshape else 1
+        if torch.empty((), dtype=rdtype).element_size() > 4:
+            raise TypeError(
+                f"RPC record for {name!r}: reply dtype {rdtype} is "
+                "wider than the 32-bit reply arena words (a 64-bit "
+                "reply would be silently truncated); use int32/float32")
+        if rc == 0:
+            raise ValueError(
+                f"RPC record for {name!r} declares returns= but the "
+                "queue has no reply arena; create the queue with "
+                "reply_capacity > 0")
+        if nw > rc:
+            raise ValueError(
+                f"RPC record for {name!r} expects {nw} reply words but "
+                f"the reply arena only holds {rc}; enlarge "
+                "reply_capacity")
+        if rdtype.is_complex:
+            raise TypeError(
+                f"RPC record for {name!r}: unsupported reply dtype "
+                f"{rdtype} (int, bool and float replies ride the i32 "
+                "reply arena)")
+        return -nw if rdtype.is_floating_point else nw
+
+    def record(self, name: str, args, returns=None, where=None) -> Record:
+        """The record an enqueue of ``name(*args)`` appends, with JAX's
+        checks: the input of the ``rpc_enqueue`` kernel and of its plain
+        version (``kernels/rpc_queue/ref.py::enqueue_reference``)."""
+        cid = REGISTRY.batch_callee_id(name)
+        w, pc, dev = self.width, self.payload_capacity, self.device
+        if len(args) > w:
+            raise ValueError(
+                f"RPC record for {name!r} has {len(args)} args; queue "
+                f"width is {w}")
+        rw = self._reply_words(name, returns) if returns is not None else 0
+        mask = pm = npay = 0
+        rargs = []
+        for j, a in enumerate(args):
+            arg = self._arg(name, j, a, npay)
+            if arg.kind == PAYLOAD:
+                pm |= 1 << j
+                npay += arg.length
+            if arg.is_int:
+                mask |= 1 << j
+            rargs.append(arg)
+        if npay > pc:
+            raise ValueError(
+                f"RPC record for {name!r} carries {npay} payload words but "
+                f"the arena only holds {pc}; enlarge payload_capacity")
+        if isinstance(where, torch.Tensor):
+            if where.dim() != 0:
+                raise ValueError("where must be a scalar")
+            where = where.detach().to(device=dev, dtype=torch.bool)
+        elif where is not None:
+            where = bool(where)
+        return Record(cid, mask, pm, rw, npay, rargs, where)
+
+    def _arg(self, name: str, j: int, a, offset: int) -> Arg:
+        """Argument ``j`` of a record: a Python number (or a 0-d tensor on
+        another device) rides as an immediate, a 0-d tensor on the queue's
+        device is read there, an array goes to the payload arena at
+        ``offset`` words into the record's reservation."""
+        if isinstance(a, (bool, int, float, np.generic)):
+            return _immediate(a)
+        t = a.detach() if isinstance(a, torch.Tensor) else \
+            torch.as_tensor(np.asarray(a))
+        if t.dtype.is_complex:
+            raise TypeError(f"RPC record arg {j} for {name!r}: complex "
+                            f"dtype {t.dtype}")
+        if t.dim() == 0:
+            if t.device != self.device:
+                return _immediate(t.item())
+            return Arg(DEVICE, _is_int_dtype(t.dtype), src=t)
+        if self.payload_capacity == 0:
+            raise ValueError(
+                f"RPC record arg {j} for {name!r} is an array but the "
+                "queue has no payload arena; create the queue with "
+                "payload_capacity > 0")
+        t = t.to(self.device).contiguous().reshape(-1)
+        return Arg(PAYLOAD, _is_int_dtype(t.dtype), src=t, offset=offset,
+                   length=t.shape[0])
+
+    def _enqueue(self, name: str, args, returns, where
+                 ) -> Tuple["RpcQueue", torch.Tensor]:
+        rec = self.record(name, args, returns, where)
+        if self.device.type == "cpu":
+            return self, enqueue_reference(self.lanes(), rec)
+        return self, rpc_enqueue(self.lanes(), self.arrivals, rec)
+
+    def flush(self, handlers: Optional[Dict[str, Callable]] = None
+              ) -> "RpcQueue":
+        """Drain every queued record and the arena to the host, replayed in
+        enqueue order, and start the next epoch: heads zeroed, ``base``
+        advanced, and on a reply-carrying queue the replies and statuses
+        installed for :meth:`result`.  ``handlers`` maps callee names to
+        this flush's own handlers.  On a card the flush is one round trip
+        of the RPC channel (one ``rpc_post``): the host returns at once
+        and the stream carries the drain; on the CPU the drain runs here.
+        Returns the queue."""
+        ctx = _FlushCtx(dict(handlers) if handlers else None, self.retry,
+                        self.timeout)
+        L = self.layout
+        if self.device.type == "cpu":
+            src = self.state[:L.in_end].numpy().copy()
+            _serve_flush(L, ctx, src, self.state[L.out_start:].numpy())
+            return self
+        self._check_policy()
+        channel = channel_for(self.device)
+        pid, staging = _queue_staging(channel, L)
+        with _FLUSH_LOCK:
+            fid = next(_FLUSH_IDS) % (1 << 32)
+            _FLUSHES[fid] = ctx
+        rpc_post(channel, pid, staging, [(0, self.state[:L.in_end])], [fid],
+                 [(1, self.state[L.out_start:])])
+        return self
+
+    def _check_policy(self) -> None:
+        """Refuse a retry and timeout policy whose worst case over a full
+        ring outlasts the channel's wait (the kernel would trap)."""
+        if self.timeout is None:
+            return
+        tries = self.retry.max_attempts if self.retry is not None else 1
+        backoff = (self.retry.backoff * (2.0 ** (tries - 1) - 1.0)
+                   if self.retry is not None else 0.0)
+        worst = self.capacity * (tries * self.timeout + backoff)
+        if worst > TIMEOUT_S:
+            raise ValueError(
+                f"RpcQueue flush on a card: {self.capacity} records x "
+                f"({tries} attempts x {self.timeout}s timeout + {backoff}s "
+                f"backoff) = {worst:.1f}s may outlast the channel's "
+                f"{TIMEOUT_S}s wait; lower the timeout, the retries or "
+                "the capacity")
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """True: a synchronous queue's flushes drain inline (async queues,
+        item 3.3, wait here)."""
+        return True
+
+    def carry_outcomes(self, dev: int = 0) -> Dict[int, Tuple[int, Any]]:
+        """``{}``: only async queues carry records across epochs."""
+        return {}
+
+    def _ticket(self, ticket) -> torch.Tensor:
+        if isinstance(ticket, torch.Tensor):
+            return ticket.to(device=self.device, dtype=torch.int32)
+        return torch.full((), int(ticket), dtype=torch.int32,
+                          device=self.device)
+
+    def _slot(self, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        local = t - self.rbase
+        slot = torch.remainder(torch.where(local >= 0, local, 0),
+                               self.capacity).long().view(1)
+        return local, slot
+
+    def result(self, ticket, shape=(), dtype=None) -> torch.Tensor:
+        """Read ``ticket``'s reply from the last flush, as ``shape`` and
+        ``dtype`` (or a ShapeDtype): zeros for a dropped, overflowed,
+        failed or stale ticket (see :meth:`result_ok`)."""
+        return self.result_ok(ticket, shape, dtype, _via_result=True)[0]
+
+    def result_ok(self, ticket, shape=(), dtype=None, *, _via_result=False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`result` and its validity: ``ok`` (a 0-d bool tensor) is
+        True iff the ticket's slot holds a ``STATUS_OK`` reply of exactly
+        the expected length from the last flush.  Device ops only; the
+        warnings JAX gives on a concrete read are given for CPU queues
+        (on a card they would read the device)."""
+        shape, dtype, nw = self._reply_spec(shape, dtype)
+        on_cpu = self.device.type == "cpu"
+        if on_cpu and not bool(self.fonce):
+            warnings.warn(
+                "RpcQueue.result() on a queue that has NEVER flushed: the "
+                "reply table has never been written, so this read returns "
+                "all-zeros indistinguishable from a real zero reply.  "
+                "Flush the queue before reading tickets.",
+                RuntimeWarning, stacklevel=3)
+        rc = self.reply_capacity
+        t = self._ticket(ticket)
+        local, slot = self._slot(t)
+        rlen = self.rlen.index_select(0, slot).view(())
+        ok = (t >= 0) & (local >= 0) & (local < self.rcount) & (rlen == nw)
+        ok = ok & (self.rstat.index_select(0, slot).view(()) == STATUS_OK)
+        off = self.roff.index_select(0, slot).clamp(0, rc - nw)
+        idx = off.long() + torch.arange(nw, device=self.device)
+        words = self.rbuf.index_select(0, idx)
+        if dtype.is_floating_point:
+            vals = words.view(torch.float32).to(dtype)
+        else:
+            vals = words.to(dtype)
+        vals = torch.where(ok, vals, torch.zeros_like(vals))
+        if _via_result and on_cpu and not bool(ok):
+            if not self._failed_read_warned:
+                self._failed_read_warned = True
+                warnings.warn(
+                    f"RpcQueue.result() on failed/dropped ticket "
+                    f"{int(t)}: the read returns zeros indistinguishable "
+                    "from a real zero reply; consult result_status() or "
+                    "use result_ok() (warning once per queue).",
+                    RuntimeWarning, stacklevel=3)
+        return vals.reshape(shape), ok
+
+    def result_status(self, ticket) -> torch.Tensor:
+        """The status of ``ticket`` against the last flush (a 0-d int32
+        tensor): OK, CALLEE_RAISED, TIMEOUT, REPLY_OVERFLOW, DROPPED (a -1
+        ticket, or an injected reply drop) or STALE (outside the last
+        flush's window).  Device ops only."""
+        if self.reply_capacity == 0:
+            raise ValueError(
+                "result_status() on a queue with no reply arena; create "
+                "the queue with reply_capacity > 0")
+        t = self._ticket(ticket)
+        local, slot = self._slot(t)
+        st = self.rstat.index_select(0, slot).view(())
+        in_window = (local >= 0) & (local < self.rcount)
+        plocal = t - self.pbase
+        pend = (plocal >= 0) & (plocal < self.pcount)
+
+        def const(v):
+            return torch.full((), v, dtype=torch.int32, device=self.device)
+
+        return torch.where(
+            t < 0, const(STATUS_DROPPED),
+            torch.where(in_window, st,
+                        torch.where(pend, const(STATUS_PENDING),
+                                    const(STATUS_STALE))))
+
+    def pressure(self) -> torch.Tensor:
+        """Occupancy of the current epoch in ``[0, 1+)`` (a 0-d float32
+        tensor): the max of ring, payload-arena and declared-reply
+        occupancy; ``>= 1`` means the next enqueue or the drain drops."""
+        cap = self.capacity
+        p = self.head.to(torch.float32) / cap
+        if self.payload_capacity:
+            p = torch.maximum(p, self.phead.to(torch.float32)
+                              / self.payload_capacity)
+        if self.reply_capacity:
+            live = (torch.arange(cap, dtype=torch.int32, device=self.device)
+                    < torch.minimum(self.head, torch.full_like(self.head,
+                                                               cap)))
+            declared = (self.rwant.abs() * live).sum()
+            p = torch.maximum(p, declared.to(torch.float32)
+                              / self.reply_capacity)
+        return torch.maximum(p, self.cdepth.to(torch.float32) / cap)
+
+    def _reply_spec(self, shape, dtype):
+        """A reply read's ``(shape, dtype, words)``, checked against the
+        reply arena and the 32-bit words."""
+        if hasattr(shape, "shape") and hasattr(shape, "dtype"):
+            dtype = shape.dtype
+            shape = tuple(shape.shape)
+        shape = tuple(shape)
+        dtype = _torch_dtype(dtype if dtype is not None else torch.int32)
+        nw = int(np.prod(shape)) if shape else 1
+        rc = self.reply_capacity
+        if rc == 0:
+            raise ValueError(
+                "result() on a queue with no reply arena; create the queue "
+                "with reply_capacity > 0 and enqueue with returns=")
+        if nw > rc:
+            raise ValueError(
+                f"result() reads {nw} words but the reply arena only holds "
+                f"{rc}")
+        if torch.empty((), dtype=dtype).element_size() > 4:
+            raise TypeError(
+                f"result() dtype {dtype} is wider than the 32-bit reply "
+                "arena words; use int32/float32")
+        return shape, dtype, nw
+
+    def results_host(self, tickets, shape=(), dtype=None):
+        """Host-side batch read, ``[(numpy value, ok), ...]``, with one
+        device-to-host copy of the reply table (this waits for the
+        device); the semantics of :meth:`result_ok`, ticket for ticket."""
+        shape, dtype, nw = self._reply_spec(shape, dtype)
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype \
+            if dtype != torch.bfloat16 else np.dtype(np.float32)
+        L = self.layout
+        v = L.views(self.state[L.out_start:].cpu().numpy(), L.out_start)
+        rbuf, roff, rlen, rstat = v["rbuf"], v["roff"], v["rlen"], v["rstat"]
+        rbase, rcount = int(v["rbase"]), int(v["rcount"])
+        out = []
+        for t in tickets:
+            t = int(t)
+            local = t - rbase
+            slot = local % self.capacity if local >= 0 else 0
+            ok = (t >= 0 and 0 <= local < rcount and int(rlen[slot]) == nw
+                  and int(rstat[slot]) == STATUS_OK)
+            if ok:
+                words = rbuf[int(roff[slot]):int(roff[slot]) + nw]
+                vals = (words.view(np.float32).astype(np_dtype)
+                        if np.issubdtype(np_dtype, np.floating)
+                        else words.astype(np_dtype))
+            else:
+                vals = np.zeros((nw,), np_dtype)
+            out.append((vals.reshape(shape), ok))
+        return out
+
+    def statuses_host(self, tickets) -> List[int]:
+        """Host-side batch :meth:`result_status`, one int per ticket, with
+        one device-to-host copy of the status lane (this waits)."""
+        if self.reply_capacity == 0:
+            raise ValueError(
+                "statuses_host() on a queue with no reply arena; create "
+                "the queue with reply_capacity > 0")
+        L = self.layout
+        v = L.views(self.state[L.out_start:].cpu().numpy(), L.out_start)
+        rstat = v["rstat"]
+        rbase, rcount = int(v["rbase"]), int(v["rcount"])
+        pbase, pcount = int(v["pbase"]), int(v["pcount"])
+        out = []
+        for t in tickets:
+            t = int(t)
+            if t < 0:
+                out.append(STATUS_DROPPED)
+                continue
+            local = t - rbase
+            if not 0 <= local < rcount:
+                out.append(STATUS_PENDING if 0 <= t - pbase < pcount
+                           else STATUS_STALE)
+                continue
+            out.append(int(rstat[local % self.capacity]))
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 :class:`SyntheticLM` draws every batch on the device from the counter-based
 RNG of :mod:`repro_torch.core.libc`, with no host contact; its batches equal
 the JAX package's bit for bit.  The host-RPC feed (``make_host_pipeline``)
-rides the batched RPC queue (ROADMAP queue 1, item 3.2).
+is an immediate ordered call with several results, which the port's
+``rpc_call`` (one result) does not make yet (ROADMAP queue 1, item 3.8).
 """
 from __future__ import annotations
 

@@ -208,8 +208,9 @@ def test_rpc_refusals():
     with pytest.raises(ValueError, match="pure"):
         tcall(trpc.Ref(torch.zeros(2)), pure=True)
     tcall(trpc.Ref(torch.zeros(2), access=trpc.READ), pure=True)
-    for kw in ({"batched": True}, {"returns": 1}, {"where": True}):
-        with pytest.raises(NotImplementedError, match="3.2"):
+    for kw, what in (({"batched": True}, "queue"), ({"returns": 1}, "batched"),
+                     ({"where": True}, "batched")):
+        with pytest.raises(ValueError, match=what):
             tcall(1, **kw)
     with pytest.raises(KeyError):
         trpc.rpc_call("torch_parity_nobody",

@@ -286,7 +286,8 @@ def test_device_run_refuses_transport_options():
     hook = HostHook(every=1, extract=lambda s, st: st, host_fn=print,
                     batched=True)
     with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        device_run(lambda i, s: s, torch.zeros(()), 2, hooks=[hook])
+        device_run(lambda i, s: s, torch.zeros(()), 2, hooks=[hook],
+                   queue_async=True)
     with pytest.raises(NotImplementedError, match="queue 1, item 3"):
         device_run(lambda i, s: s, torch.zeros(()), 2, queue_async=True)
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
