@@ -12,8 +12,10 @@ source, all started together) and runs, in order:
    against its split twin under the kernel's own plan on the card, in fp32
    and bf16, at the serving engine's full-width shapes, at the long shape
    (8 rows up to 4096 tokens), at ``long_b32`` (32 slots of 512..8192
-   tokens, ~1.1 GB of bf16 K/V) and at edge cases (page size 8,
-   G=2/D=16, G=16/D=256 paged, a window, FAIL page ids), with kernel,
+   tokens, ~1.1 GB of bf16 K/V), at qwen2.5-14b's grouping (48 padded
+   heads over 8, G=6, D=128: rows 0..5 of the 16-row mma tile) and at
+   edge cases (page size 8, G=2/D=16, G=16/D=256 paged, a window, FAIL
+   page ids), with kernel,
    plain and library (SDPA on pre-gathered KV, timed only) times beside
    the memory bound (the kernel also after an L2 flush that leaves clean
    lines, ``kernel_ms_clean_l2``; see ``Timer``; ``timer_floor_ms`` is a
@@ -171,11 +173,40 @@ source, all started together) and runs, in order:
     channel, times and verdict; then the allocator ops under
     ``set_sync_debug_mode("error")``, bit-equal to the CPU's.
 
+Between ``identity`` and ``flash`` runs
+``dense_serve``: qwen2.5-14b at full width and depth (48 layers, 40
+heads padded to 48 over 8 KV heads of 128, QKV bias, bf16, ~15.3e9
+random parameters from seed 0 built on the card) through the engine as
+``serve`` runs llama: ms/tick, tok/s, init time, peak memory, the
+logits gate against the teacher-forced contiguous decode and exact
+launches (paged 48 a tick, decode 48 a step), and ``dense_profile`` (8
+busy ticks under ``torch.profiler``).  Between
+``device_run_hooks`` and ``gpu_first`` run:
+``rpc_queue_async``: ``rpc_queue``'s three plans on async queues
+(``carry_budget`` 2, a flaky idempotent callee) on the card (the
+``rpc_async_post`` and ``rpc_async_collect`` kernels of
+``csrc/rpc_async.cu``, under ``set_sync_debug_mode("error")``), through
+the kernels' plain versions on the card, and on a CPU queue: the queue
+state bit-equal after every flush, the replay logs, statuses, replies,
+carry outcomes and ``flush_stats`` equal after the last join, one launch
+of each kernel a flush; ``rpc_async_time``: each kernel alone (CUDA
+events behind a device sleep) beside its plain version and the bytes
+bound, and a deadline overrun on the card (TIMEOUT stamped by the
+device, the late drain abandoned) equal to a CPU queue;
+``device_run_async``: 1000 steps with a batched hook every step, then
+a 64M-float state whose step flushes the threaded queue every 100
+steps, each with the sync and the async queue under
+``set_sync_debug_mode("error")`` (loop and device ms side by side); and
+``host_pipeline``: ``device_run`` over 16 batches fetched through
+``make_host_pipeline`` (one ``rpc_post`` a fetch).
+
 Every phase raises on failure.  The kernels' launch counts are reset just
-before each counted path (phases 3, 7, 10, 12, 16, 21, 24, 25 and 26) and
-read just after it; each path's count must be the exact number its depth
+before each counted path (phases 3, 7, 10, 12, 16, 21, 24, 25 and 26,
+``dense_serve``, ``rpc_queue_async``, ``device_run_async`` and
+``host_pipeline``) and read just after it; each path's count must be the exact number its depth
 and steps give (``rpc_post``: one a firing of a hook, a call or a flush;
-``rpc_enqueue``: one a record).
+``rpc_enqueue``: one a record; ``rpc_async_post`` and
+``rpc_async_collect``: one each an async flush).
 The ``env`` line carries each source's ``ptxas -v`` summary (registers and
 spills), under ``tensor_cores``, for each head dim of flash's wgmma
 variant, the tensor-core decode (G > 8) and its merge, and the SSD
@@ -216,6 +247,7 @@ SEQ_TOL = 2e-6
 LOGIT_ATOL_BF16 = 0.05           # engine vs contiguous decode, bf16 logits
 LOGIT_ATOL_FP32 = 1e-3           # forward vs contiguous decode, fp32 logits
 SERVE_LAYERS = 28
+DENSE_LAYERS = 48                # qwen2.5-14b, the dense_serve phase
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 1024
 SSM_LAYERS = 24
 SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 8, 2048
@@ -405,6 +437,8 @@ def kernel_phase(card):
             "long_b32": (32, 8192, 32, 8, 128, b32_lengths, None, True),
             "window": (4, 512, 32, 8, 128, serve_lengths, 64, False),
             "g2_d16": (3, 256, 4, 2, 16, [256, 85, 7], None, False),
+            # qwen2.5-14b's grouping: 48 padded heads over 8 (G 6)
+            "g6_d128": (4, 512, 48, 8, 128, serve_lengths, None, True),
         }.items():
             q, k, v = rnd((B, Hq, D), dt), rnd((B, T, Hkv, D), dt), \
                 rnd((B, T, Hkv, D), dt)
@@ -432,8 +466,9 @@ def kernel_phase(card):
                 del kt, vt
             rec = check("decode_attention", case, dt, out, ref, twin, plan,
                         times, bound)
-            if case == "serve" and dtn == "bfloat16":
-                summary["decode_attention"] = rec
+            if dtn == "bfloat16" and case in ("serve", "g6_d128"):
+                summary["decode_attention" + (
+                    "" if case == "serve" else "@g6")] = rec
             del q, k, v, out, ref, twin
         # -- paged decode ------------------------------------------------
         for case, (B, page, maxp, Hq, Hkv, D, lens, window, timed) in {
@@ -445,6 +480,8 @@ def kernel_phase(card):
             "g2_d16": (3, 16, 6, 4, 2, 16, [96, 17, 64], None, False),
             # 16 heads over 1 (bf16: the tensor-core split kernel)
             "g16_d256": (2, 16, 128, 16, 1, 256, [2048, 700], None, False),
+            # qwen2.5-14b's grouping: 48 padded heads over 8 (G 6)
+            "g6_d128": (4, 16, 32, 48, 8, 128, serve_lengths, None, True),
         }.items():
             NP = B * maxp
             q = rnd((B, Hq, D), dt)
@@ -489,8 +526,9 @@ def kernel_phase(card):
                 del kg, vg
             rec = check("paged_attention", case, dt, out, ref, twin, plan,
                         times, bound)
-            if case == "serve" and dtn == "bfloat16":
-                summary["paged_attention"] = rec
+            if dtn == "bfloat16" and case in ("serve", "g6_d128"):
+                summary["paged_attention" + (
+                    "" if case == "serve" else "@g6")] = rec
             del q, kp, vp, out, ref, twin
         torch.cuda.empty_cache()
     del timer, clean
@@ -683,8 +721,17 @@ def _teacher_forced(model, params, seqs, prompt_lens, n_out, max_len):
     return [torch.stack(r) for r in rows]
 
 
-def serve_phase():
-    from repro_torch.configs import get_config
+def _engine_serve(tag, cfg, n_short, long_len, seed):
+    """``cfg`` at full width and depth (bf16, random weights from seed 0,
+    built on the card) behind ``ServingEngine(batch_slots=4,
+    page_size=16, max_len=512)``: a ``long_len``-token prompt and
+    ``n_short`` short ones, 16 new tokens each.  The counts are reset just
+    before the engine runs and read after the contiguous check: paged
+    attention exactly once a layer a tick, decode once a layer a step of
+    the contiguous decode (``Model.decode_step``) that is teacher-forced on
+    the first four requests and held to the engine's logits (within
+    ``LOGIT_ATOL_BF16``) and argmax.  Returns (launches, model, params,
+    prompts, max_new, max_len)."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda)
     from repro_torch.kernels.paged_attention.kernel import (
@@ -692,40 +739,44 @@ def serve_phase():
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_config("llama3.2-3b")
-    assert cfg.num_layers == SERVE_LAYERS and cfg.padded_heads == 32
+    layers = cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda")
     params = model.init(seed=0)
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model},"
-        f" {cfg.padded_heads} padded heads over {cfg.num_kv_heads} KV heads, "
-        f"{n_params} parameters ({cfg.param_dtype}), init "
-        f"{time.perf_counter() - t0:.1f}s")
+    log(f"[{tag}] {cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.padded_heads} padded heads ({cfg.num_heads} real) over "
+        f"{cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, qkv_bias "
+        f"{cfg.qkv_bias}, {n_params} parameters ({cfg.param_dtype}), init "
+        f"{init_s:.1f}s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     max_new, max_len = 16, 512
     engine = ServingEngine(model, params, batch_slots=4, page_size=16,
                            max_len=max_len, device="cuda")
-    prompts = _prompts(cfg.vocab_size, 8, 200, seed=7)
+    prompts = _prompts(cfg.vocab_size, n_short, long_len, seed=seed)
     rids = [engine.submit(p, max_new=max_new) for p in prompts]
     check_rids = rids[:4]                # the four that start at tick 0
 
     # main path: counts from 0 just before, read just after
     decode_attention_cuda.launches = 0
     paged_attention_cuda.launches = 0
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ticks, engine_logits = _run_recording(engine, check_rids)
+    torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     results = engine.finished
     n_tok = sum(len(v) for v in results.values())
     for rid in rids:
-        log(f"[serve] request {rid} (prompt {len(prompts[rid])}): "
+        log(f"[{tag}] request {rid} (prompt {len(prompts[rid])}): "
             f"{results[rid]}")
-    log({"serve": {"requests": len(rids), "generated_tokens": n_tok,
-                   "ticks": ticks, "seconds": dt, "tok_per_s": n_tok / dt,
-                   "ms_per_tick": dt / ticks * 1e3,
-                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}})
+    log({tag: {"model": cfg.name, "layers": layers, "requests": len(rids),
+               "generated_tokens": n_tok, "ticks": ticks, "seconds": dt,
+               "tok_per_s": n_tok / dt, "ms_per_tick": dt / ticks * 1e3,
+               "init_s": init_s, "parameters": n_params,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}})
     assert len(results) == len(rids)
     assert all(len(results[r]) == max_new for r in rids)
     assert all(0 <= t < cfg.vocab_size for r in rids for t in results[r])
@@ -736,36 +787,46 @@ def serve_phase():
     torch.cuda.synchronize()
     launches = {"paged_attention": paged_attention_cuda.launches,
                 "decode_attention": decode_attention_cuda.launches}
-    log({"kernels_main_path": launches,
-         "expected_paged": ticks * SERVE_LAYERS,
-         "expected_decode": max(len(s) for s in seqs) * SERVE_LAYERS})
-    if launches["paged_attention"] != ticks * SERVE_LAYERS:
-        raise AssertionError(f"paged_attention launched "
+    log({"kernels_main_path": launches, "path": tag,
+         "expected_paged": ticks * layers,
+         "expected_decode": max(len(s) for s in seqs) * layers})
+    if launches["paged_attention"] != ticks * layers:
+        raise AssertionError(f"{tag}: paged_attention launched "
                              f"{launches['paged_attention']} times in "
-                             f"{ticks} ticks x {SERVE_LAYERS} layers")
-    if launches["decode_attention"] != \
-            max(len(s) for s in seqs) * SERVE_LAYERS:
-        raise AssertionError("decode_attention did not run once per layer "
-                             "and step of the contiguous check")
+                             f"{ticks} ticks x {layers} layers")
+    if launches["decode_attention"] != max(len(s) for s in seqs) * layers:
+        raise AssertionError(f"{tag}: decode_attention did not run once per "
+                             "layer and step of the contiguous check")
 
     for rid, c in zip(check_rids, cont):
         e = engine_logits[rid]
         if not (torch.isfinite(e).all() and torch.isfinite(c).all()):
-            raise AssertionError(f"request {rid}: non-finite logits")
+            raise AssertionError(f"{tag} request {rid}: non-finite logits")
         real = slice(0, cfg.vocab_size)
         diff = float((e[:, real] - c[:, real]).abs().max())
         same = torch.equal(e.argmax(-1), c.argmax(-1))
         tokens = e.argmax(-1).tolist() == results[rid]
-        log({"contiguous_check": {"request": rid, "steps": e.shape[0],
+        log({"contiguous_check": {"path": tag, "request": rid,
+                                  "steps": e.shape[0],
                                   "max_abs_logit_diff": diff,
                                   "tol": LOGIT_ATOL_BF16,
                                   "same_argmax": same,
                                   "argmax_is_stream": tokens}})
         if diff > LOGIT_ATOL_BF16 or not same or not tokens:
-            raise AssertionError(f"request {rid}: engine and contiguous "
-                                 "decode disagree")
-    del engine
+            raise AssertionError(f"{tag} request {rid}: engine and "
+                                 "contiguous decode disagree")
+    del engine, cont, engine_logits
     torch.cuda.empty_cache()
+    return launches, model, params, prompts, max_new, max_len
+
+
+def serve_phase():
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3.2-3b")
+    assert cfg.num_layers == SERVE_LAYERS and cfg.padded_heads == 32
+    launches, model, params, prompts, max_new, max_len = _engine_serve(
+        "serve", cfg, 8, 200, 7)
     profile_window(model, params, prompts, max_new, max_len)
     tokens = torch.tensor([prompts[0][:64]], device="cuda")
     fwd, dec = _forward_vs_decode(model, params, tokens)
@@ -781,6 +842,29 @@ def serve_phase():
     return launches
 
 
+def dense_serve_phase():
+    """qwen2.5-14b at full width and depth on one card: 48 layers, d_model
+    5120, 40 query heads padded to 48 over 8 KV heads of 128 (G 6), QKV
+    bias, bf16, random weights from seed 0 built on the card, through the
+    engine as ``serve`` runs llama (9 prompts, one of 200 tokens, 16 new
+    tokens each) with the same logits gate and exact launch counts, then
+    ``torch.profiler`` over 8 ticks (``dense_profile``).  Returns the
+    launches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2.5-14b")
+    assert (cfg.num_layers, cfg.d_model, cfg.padded_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.qkv_bias) == \
+        (DENSE_LAYERS, 5120, 48, 8, 128, True)
+    launches, model, params, prompts, max_new, max_len = _engine_serve(
+        "dense_serve", cfg, 8, 200, 14)
+    profile_window(model, params, prompts, max_new, max_len,
+                   tag="dense_profile")
+    del model, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _dev_us(evt) -> float:
     """Self device time (us) of a profiler entry, across torch versions."""
     for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -790,7 +874,7 @@ def _dev_us(evt) -> float:
 
 
 def profile_window(model, params, prompts, max_new, max_len,
-                   warm=10, ticks=8):
+                   warm=10, ticks=8, tag="profile"):
     """Serve ``prompts`` again on a fresh engine: ``warm`` ticks, then
     ``ticks`` ticks timed on the host clock, then ``ticks`` more under
     ``torch.profiler``.  All four slots stay busy over both windows (the
@@ -828,7 +912,7 @@ def profile_window(model, params, prompts, max_new, max_len,
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device time in the serve "
                              "window")
-    log({"profile": {
+    log({tag: {
         "ticks": ticks, "after_ticks": warm + ticks,
         "tick_us": tick_us, "profiled_tick_us": profiled_us,
         "device_busy_us_per_tick": busy_us,
@@ -3209,6 +3293,508 @@ def libc_io_phase():
     return n_enq, n_post
 
 
+# ---------------------------------------------------------------------------
+# The async queue (csrc/rpc_async.cu) and the host data feed
+# ---------------------------------------------------------------------------
+
+ASYNC_CARRY_BUDGET = 2
+
+
+def _flaky(handlers, counts):
+    """``handlers`` with ``smoke.q_int`` (idempotent) made flaky: a record
+    whose tag is an odd multiple of 5 fails its first attempt, one whose
+    tag is a multiple of 10 every attempt (so it exhausts the carry
+    budget).
+    Attempts are counted per argument list in ``counts``; every attempt is
+    logged by the wrapped handler first."""
+    import numpy as np
+    inner = handlers["smoke.q_int"]
+
+    def call(tag, *rest):
+        key = (tag,) + tuple(a.tobytes() if isinstance(a, np.ndarray) else a
+                             for a in rest)
+        n = counts[key] = counts.get(key, 0) + 1
+        out = inner(tag, *rest)
+        if tag % 5 == 0 and (n == 1 or tag % 10 == 0):
+            raise RuntimeError(f"flaky q_int tag {tag} attempt {n}")
+        return out
+
+    return dict(handlers, **{"smoke.q_int": call})
+
+
+def _async_plan_run(plan, q, logs, counts, flush):
+    """Enqueue ``plan`` (``(name, args, returns, where)``) on ``q``,
+    flushing through ``flush(q, handlers)`` every QUEUE_FLUSH_EVERY
+    records and at the end, then once to collect the tail and
+    ASYNC_CARRY_BUDGET more times to retire carried records.  Returns the
+    tickets and the queue state after each flush (clones)."""
+    logged = _queue_callees()
+    tickets, states = [], []
+    n = len(plan)
+    for k, (name, args, returns, where) in enumerate(plan):
+        _, t = q.enqueue_ticketed(name, *args, returns=returns, where=where)
+        tickets.append(t)
+        if (k + 1) % QUEUE_FLUSH_EVERY == 0 or k + 1 == n:
+            flush(q, _flaky(logged(logs), counts))
+            states.append(q.state.clone())
+    for _ in range(1 + ASYNC_CARRY_BUDGET):
+        flush(q, _flaky(logged(logs), counts))
+        states.append(q.state.clone())
+    return tickets, states
+
+
+def rpc_queue_async_phase():
+    """The three plans of ``rpc_queue`` on async queues (``carry_budget``
+    2, ``smoke.q_int`` made flaky: some records are carried and redriven,
+    some exhaust the budget): a card queue (the ``rpc_async_post`` and
+    ``rpc_async_collect`` kernels) under ``set_sync_debug_mode("error")``,
+    then the same plan on a card queue through the kernels' plain versions
+    (``RpcQueue.flush_reference``) and on a CPU queue.  After every flush
+    the whole queue state is bit-equal across the three, and after the
+    final join the replay logs (every attempt's argument types and
+    bytes), every ticket's host status and reply, the carry outcomes and
+    ``flush_stats`` are equal; exactly one launch of each kernel a flush
+    and no ``rpc_post``.  Returns the launches of each kernel."""
+    from repro_torch.core import (RpcQueue, effects_barrier, flush_stats,
+                                  reset_rpc_stats)
+    from repro_torch.kernels.rpc_async import (rpc_async_collect,
+                                               rpc_async_post)
+    from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.kernels.rpc_queue import rpc_enqueue
+
+    dev = torch.device("cuda", 0)
+    geo = dict(QUEUE_GEOMETRY, mode="async", carry_budget=ASYNC_CARRY_BUDGET)
+    rec, launches = {}, {"rpc_async_post": 0, "rpc_async_collect": 0}
+    for seed in QUEUE_SEEDS:
+        plan = _queue_plan(dev, seed, QUEUE_RECORDS)
+        runs = {}
+        for label in ("card", "plain", "cpu"):
+            on_card = label != "cpu"
+            q = RpcQueue.create(**geo, device=dev if on_card else "cpu")
+            sub = [(n, card if on_card else cpu, r, wk if on_card else wc)
+                   for n, card, cpu, r, wk, wc in plan]
+            logs, counts = [], {}
+            effects_barrier()
+            reset_rpc_stats()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                if label == "card":
+                    # main path: counts from 0 just before, read just after
+                    rpc_async_post.launches = rpc_async_collect.launches = 0
+                    rpc_post.launches = rpc_enqueue.launches = 0
+                    with sync_errors():
+                        tickets, states = _async_plan_run(
+                            sub, q, logs, counts,
+                            lambda q, h: q.flush(h))
+                    n_post, n_coll = (rpc_async_post.launches,
+                                      rpc_async_collect.launches)
+                    n_chan, n_enq = rpc_post.launches, rpc_enqueue.launches
+                else:
+                    tickets, states = _async_plan_run(
+                        sub, q, logs, counts,
+                        lambda q, h: q.flush_reference(h))
+                assert q.join(timeout=60)
+            effects_barrier()
+            tix = [int(t) for t in tickets]
+            live = [t for t in tix if t >= 0]
+            outcomes = {t: (st, None if w is None else w.tolist())
+                        for t, (st, w) in q.carry_outcomes().items()}
+            reads = []
+            for t, (_, _, r, _) in zip(tix, sub):
+                if t >= 0 and r is not None:
+                    (v, ok), = q.results_host([t], r)
+                    reads.append((t, v.tolist(), ok))
+            runs[label] = {"tickets": tix, "states": states, "logs": logs,
+                           "statuses": q.statuses_host(live),
+                           "reads": reads, "outcomes": outcomes,
+                           "stats": flush_stats()}
+            del q
+        flushes = len(runs["card"]["states"])
+        card, plain, cpu = runs["card"], runs["plain"], runs["cpu"]
+        checks = {
+            "states_vs_plain_and_cpu": all(
+                _equal_states(a, b) and _equal_states(a, c)
+                for a, b, c in zip(card["states"], plain["states"],
+                                   cpu["states"])),
+            "tickets": card["tickets"] == plain["tickets"] == cpu["tickets"],
+            "replay_log": card["logs"] == plain["logs"] == cpu["logs"]
+            and bool(cpu["logs"]),
+            "statuses": card["statuses"] == plain["statuses"]
+            == cpu["statuses"],
+            "replies": card["reads"] == plain["reads"] == cpu["reads"],
+            "carry_outcomes": card["outcomes"] == plain["outcomes"]
+            == cpu["outcomes"],
+            "flush_stats": card["stats"] == plain["stats"] == cpu["stats"],
+            "carried_ok_and_exhausted": any(
+                st == 0 for st, _ in cpu["outcomes"].values()) and any(
+                st == 1 for st, _ in cpu["outcomes"].values()),
+            "one_post_and_one_collect_a_flush": n_post == n_coll == flushes,
+            "no_rpc_post": n_chan == 0,
+            "one_enqueue_launch_a_record": n_enq == len(plan),
+        }
+        rec[f"seed_{seed}"] = {
+            "checks": checks, "records": len(plan), "flushes": flushes,
+            "carried_outcomes": len(cpu["outcomes"]),
+            "attempts_replayed": len(cpu["logs"]),
+            "flush_stats": cpu["stats"],
+            "rpc_async_post_launches": n_post,
+            "rpc_async_collect_launches": n_coll}
+        launches["rpc_async_post"] += n_post
+        launches["rpc_async_collect"] += n_coll
+        if not all(checks.values()):
+            raise AssertionError(f"rpc_queue_async seed {seed}: {rec}")
+    log({"rpc_queue_async": rec})
+    return launches
+
+
+def _deadline_case(dev):
+    """A collect past ``shard_deadline`` on the card: the device stamps
+    TIMEOUT across the window and raises the abandon flag, and the late
+    drain stops before the failing idempotent record behind the slow one
+    (never run, never carried), as on a CPU queue."""
+    import numpy as np
+    from repro_torch.core import RpcQueue, ShapeDtype
+    from repro_torch.core.rpc import REGISTRY
+
+    out = {}
+    for label, device in (("card", dev), ("cpu", "cpu")):
+        calls = []
+
+        def slow(x, calls=calls):
+            calls.append(("slow", int(x)))
+            time.sleep(1.0)
+            return np.int32(x) * 2
+
+        def bad(x, calls=calls):
+            calls.append(("bad", int(x)))
+            raise RuntimeError("carried if reached")
+
+        REGISTRY.register("smoke.dl_slow", slow)
+        REGISTRY.register("smoke.dl_bad", bad, idempotent=True)
+        i32 = ShapeDtype((), torch.int32)
+        q = RpcQueue.create(4, width=1, reply_capacity=8, mode="async",
+                            carry_budget=1, shard_deadline=0.2,
+                            device=device)
+        _, t0 = q.enqueue_ticketed("smoke.dl_slow", 3, returns=i32)
+        _, t1 = q.enqueue_ticketed("smoke.dl_bad", 4, returns=i32)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            q.flush()
+            q.flush()
+            state = q.state.cpu().clone()
+            assert q.join(timeout=30)
+            q.flush()
+            assert q.join(timeout=30)
+        out[label] = {"state": state, "calls": list(calls),
+                      "outcomes": q.carry_outcomes(),
+                      "statuses": q.statuses_host([int(t0), int(t1)])}
+    ok = (torch.equal(out["card"]["state"], out["cpu"]["state"])
+          and out["card"]["calls"] == out["cpu"]["calls"] == [("slow", 3)]
+          and out["card"]["outcomes"] == out["cpu"]["outcomes"] == {}
+          and out["card"]["statuses"] == out["cpu"]["statuses"])
+    return {"window_stamped_timeout_equal_to_cpu": ok,
+            "calls": out["card"]["calls"]}
+
+
+def rpc_async_time_phase(card_line):
+    """The two kernels alone on a ring of the ``rpc_queue`` geometry whose
+    host side answers each epoch at once: device time of ``rpc_async_post``
+    (the state's copy into the ring and the kernel) and of
+    ``rpc_async_collect`` with the previous epoch already answered, each
+    between CUDA events behind a device sleep (median of 50), beside their
+    plain versions on the card (``post_reference``; ``collect_reference``
+    with its host-to-device copy) and the bytes bound; then a deadline
+    overrun on the card against a CPU queue.  Returns the two kernels'
+    numbers for the kernels line."""
+    import numpy as np
+    from repro_torch.core import RpcQueue
+    from repro_torch.kernels.rpc_async import (AsyncRing, collect_reference,
+                                               post_reference,
+                                               rpc_async_collect,
+                                               rpc_async_post)
+    from repro_torch.kernels.rpc_async.ref import H_CDEPTH
+
+    dev = torch.device("cuda", 0)
+    q = RpcQueue.create(**QUEUE_GEOMETRY, device=dev)
+    L = q.layout
+    out_words = L.words - L.out_start - H_CDEPTH
+    answer = np.arange(out_words, dtype=np.int32)
+    holder = {}
+
+    def on_posted(epoch, words):
+        holder["ring"].complete(epoch, answer)
+
+    ring = holder["ring"] = AsyncRing(dev, L.in_end, out_words, on_posted)
+    cycles = _busy_cycles(0.5)
+    post_ms, coll_ms = [], []
+    saved = (rpc_async_post.launches, rpc_async_collect.launches)
+    for _ in range(51):
+        epoch = ring.issue()
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda._sleep(cycles)
+        a.record()
+        rpc_async_post(ring, epoch, q.state, L.out_start, True)
+        b.record()
+        rpc_async_collect(ring, epoch, q.state, L.out_start, L.rslots,
+                          L.reply_capacity, None)
+        c.record()
+        torch.cuda.synchronize()
+        assert ring.wait_ingested(timeout=10)
+        if epoch > 1:                    # the first collect waits for none
+            post_ms.append(a.elapsed_time(b))
+            coll_ms.append(b.elapsed_time(c))
+    installed = q.state[L.out_start + H_CDEPTH:].cpu().numpy()
+    ring.close()
+    rpc_async_post.launches, rpc_async_collect.launches = saved
+    # the plain versions on the card
+    h = q.state[L.out_start:]
+    timer = Timer(iters=50)
+    plain_post = timer(lambda: post_reference(h, True))
+    plain_coll = timer(lambda: collect_reference(
+        h, torch.from_numpy(answer).to(dev)))
+    link = pcie_link()
+    in_bytes, out_bytes = 4 * L.in_end, 4 * out_words
+    post_bytes = 2 * in_bytes + 2 * 4 * H_CDEPTH
+    coll_bytes = 2 * out_bytes
+    rec = {
+        "card": card_line, "geometry": QUEUE_GEOMETRY,
+        "installed_equals_answer": bool(np.array_equal(installed, answer)),
+        "rpc_async_post": {
+            "ms": _median(post_ms), "plain_ms": plain_post,
+            "bound_ms": post_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_bytes": post_bytes,
+            "link_bound_ms": in_bytes / link["bytes_per_s"] * 1e3},
+        "rpc_async_collect": {
+            "ms": _median(coll_ms), "plain_ms": plain_coll,
+            "bound_ms": coll_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_bytes": coll_bytes,
+            "link_bound_ms": out_bytes / link["bytes_per_s"] * 1e3},
+        "deadline": _deadline_case(dev)}
+    log({"rpc_async_time": rec})
+    if not (rec["installed_equals_answer"]
+            and rec["deadline"]["window_stamped_timeout_equal_to_cpu"]):
+        raise AssertionError(f"rpc_async_time: {rec}")
+    return {k: dict(rec[k], max_abs_err=0.0, bound_by="bytes",
+                    library_ms=None)
+            for k in ("rpc_async_post", "rpc_async_collect")}
+
+
+def device_run_async_phase():
+    """``device_run`` with an async queue against the sync one in the same
+    run, each under ``set_sync_debug_mode("error")``: 1000 steps of a
+    (256,) state with a batched hook every step (one epoch, flushed at the
+    boundary: the async run's two boundary flushes are one launch of each
+    kernel each), then 1000 steps of a 64M-float state whose step flushes
+    the threaded queue every 100 steps (a sync flush holds the stream for
+    its drain; an async one hands it over).  Values in order, final state
+    exact, launches exact, loop and device ms.  Returns the launches of
+    each async kernel."""
+    from repro_torch.core import HostHook, device_run, effects_barrier
+    from repro_torch.core.rpc import REGISTRY
+    from repro_torch.kernels.rpc_async import (rpc_async_collect,
+                                               rpc_async_post)
+    from repro_torch.kernels.rpc_channel import rpc_post
+
+    dev = torch.device("cuda", 0)
+    steps, rec = 1000, {}
+    launches = {"rpc_async_post": 0, "rpc_async_collect": 0}
+    for case, width in (("batched_every_1", 256),
+                        ("thread_flush_every_100", 64 << 20)):
+        for mode in ("sync", "async"):
+            seen = []
+            name = f"smoke.async_{case}_{mode}"
+            kw = {}
+            if case == "batched_every_1":
+                kw["hooks"] = [HostHook(
+                    every=1, extract=lambda i, s: s[:256].sum(),
+                    host_fn=lambda i, v, seen=seen: seen.append(
+                        (i, float(v))), name=name, batched=True)]
+                step = (lambda i, s: s + 1.0)
+                want = [(i, 256.0 * i) for i in range(1, steps + 1)]
+                flushes = 2 if mode == "async" else 1
+            else:
+                REGISTRY.register(name, lambda i, v, seen=seen: seen.append(
+                    (i, float(v))))
+
+                def step(i, s, q, name=name):
+                    s = s + 1.0
+                    q.enqueue(name, i, s[:256].sum())
+                    if (i + 1) % 100 == 0:
+                        q.flush()
+                    return s, q
+
+                kw["thread_queue"] = True
+                want = [(i, 256.0 * (i + 1)) for i in range(steps)]
+                flushes = steps // 100 + (2 if mode == "async" else 1)
+            state = torch.zeros(width, device=dev)
+            effects_barrier()
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            # main path: counts from 0 just before, read just after
+            rpc_async_post.launches = rpc_async_collect.launches = 0
+            rpc_post.launches = 0
+            t0 = time.perf_counter()
+            a.record()
+            with sync_errors():
+                final = device_run(step, state, steps,
+                                   queue_async=mode == "async", **kw)
+            loop_ms = (time.perf_counter() - t0) * 1e3
+            b.record()
+            effects_barrier()
+            torch.cuda.synchronize()
+            n = (rpc_async_post.launches, rpc_async_collect.launches,
+                 rpc_post.launches)
+            expect = (flushes, flushes, 0) if mode == "async" else \
+                (0, 0, flushes)
+            r = rec.setdefault(case, {})[mode] = {
+                "steps": steps, "state_floats": width, "flushes": flushes,
+                "launches_post_collect_rpc_post": list(n),
+                "values_in_order": seen == want,
+                "final_ok": bool((final == steps).all()),
+                "python_loop_ms": loop_ms, "device_ms": a.elapsed_time(b)}
+            if mode == "async":
+                launches["rpc_async_post"] += n[0]
+                launches["rpc_async_collect"] += n[1]
+            del state, final
+            if not (n == expect and r["values_in_order"] and r["final_ok"]):
+                raise AssertionError(f"device_run async {case} {mode}: {r}")
+    rec["immediate_beside_async"] = beside = _immediate_beside_async(dev)
+    launches["rpc_async_post"] += beside["rpc_async_post_launches"]
+    launches["rpc_async_collect"] += beside["rpc_async_collect_launches"]
+    log({"device_run_async": rec})
+    return launches
+
+
+def _immediate_beside_async(dev):
+    """200 steps whose step enqueues a record on the async queue and
+    flushes it every 10 steps (a callee that sleeps 0.5 ms a record, so
+    each epoch's drain runs for 5 ms on the queue's thread), with an
+    immediate hook every 10 steps on the RPC channel's thread, under a
+    ``faulthandler`` watchdog (a deadlock between the two drains ends the
+    run) and ``set_sync_debug_mode("error")``: both callees' values in
+    order, one ``rpc_post`` a firing, one launch of each async kernel a
+    flush (20 in the loop and 2 at the boundary)."""
+    import faulthandler
+    from repro_torch.core import HostHook, device_run, effects_barrier
+    from repro_torch.core.rpc import REGISTRY
+    from repro_torch.kernels.rpc_async import (rpc_async_collect,
+                                               rpc_async_post)
+    from repro_torch.kernels.rpc_channel import rpc_post
+
+    steps, every = 200, 10
+    drained, fired = [], []
+
+    def slow_sink(i, v):
+        time.sleep(0.0005)
+        drained.append((i, float(v)))
+
+    REGISTRY.register("smoke.beside_sink", slow_sink)
+    hook = HostHook(every=every, extract=lambda i, s: s[:256].sum(),
+                    host_fn=lambda i, v: fired.append((i, float(v))),
+                    name="smoke.beside_hook")
+
+    def step(i, s, q):
+        s = s + 1.0
+        q.enqueue("smoke.beside_sink", i, s[:256].sum())
+        if (i + 1) % every == 0:
+            q.flush()
+        return s, q
+
+    state = torch.zeros(256, device=dev)
+    effects_barrier()
+    torch.cuda.synchronize()
+    # main path: counts from 0 just before, read just after
+    rpc_async_post.launches = rpc_async_collect.launches = 0
+    rpc_post.launches = 0
+    faulthandler.dump_traceback_later(GIL_WATCHDOG_S, exit=True)
+    try:
+        t0 = time.perf_counter()
+        with sync_errors():
+            final = device_run(step, state, steps, hooks=[hook],
+                               thread_queue=True, queue_async=True)
+        effects_barrier()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    flushes = steps // every + 2
+    rec = {"steps": steps, "wall_ms": wall_ms,
+           "rpc_post_launches": rpc_post.launches,
+           "rpc_async_post_launches": rpc_async_post.launches,
+           "rpc_async_collect_launches": rpc_async_collect.launches,
+           "async_values_in_order": drained == [
+               (i, 256.0 * (i + 1)) for i in range(steps)],
+           "immediate_values_in_order": fired == [
+               (s, 256.0 * s) for s in range(every, steps + 1, every)],
+           "final_ok": bool((final == steps).all())}
+    if not (rec["async_values_in_order"] and rec["immediate_values_in_order"]
+            and rec["final_ok"] and rpc_post.launches == steps // every
+            and rpc_async_post.launches == rpc_async_collect.launches
+            == flushes):
+        raise AssertionError(f"immediate beside async: {rec}")
+    return rec
+
+
+def host_pipeline_phase():
+    """``make_host_pipeline`` on the card: ``device_run`` over 16 batches
+    (an (8, 512) int32 token block and a (1024,) fp32 vector each) fetched
+    from a host iterator through the RPC channel (one ``rpc_post`` a
+    fetch, a prefetch thread staging 4) under
+    ``set_sync_debug_mode("error")``; the device's sums equal the host's.
+    Returns the rpc_post launches."""
+    import numpy as np
+    from repro_torch.core import ShapeDtype, device_run, effects_barrier
+    from repro_torch.data.pipeline import make_host_pipeline
+    from repro_torch.kernels.rpc_channel import rpc_post
+
+    dev = torch.device("cuda", 0)
+    n = 16
+
+    def batches():
+        rng = np.random.default_rng(16)
+        while True:
+            yield {"tokens": rng.integers(0, 152064, (8, 512)),
+                   "x": rng.standard_normal(1024).astype(np.float32)}
+
+    ref = batches()
+    want_tok = want_x = 0.0
+    for _ in range(n):
+        b = next(ref)
+        want_tok += int(b["tokens"].sum())
+        want_x += float(b["x"].astype(np.float64).sum())
+    fetch = make_host_pipeline(
+        batches(), {"tokens": ShapeDtype((8, 512), torch.int32),
+                    "x": ShapeDtype((1024,), torch.float32)},
+        prefetch=4, device=dev)
+
+    def step(i, s):
+        b = fetch(i)
+        return {"tok": s["tok"] + b["tokens"].sum(dtype=torch.int64),
+                "x": s["x"] + b["x"].sum(dtype=torch.float64)}
+
+    state = {"tok": torch.zeros((), dtype=torch.int64, device=dev),
+             "x": torch.zeros((), dtype=torch.float64, device=dev)}
+    effects_barrier()
+    torch.cuda.synchronize()
+    # main path: counts from 0 just before, read just after
+    rpc_post.launches = 0
+    t0 = time.perf_counter()
+    with sync_errors():
+        final = device_run(step, state, n)
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    effects_barrier()
+    fetch.stop()
+    posts = rpc_post.launches
+    rec = {"batches": n, "rpc_post_launches": posts,
+           "tokens_sum_equal": int(final["tok"]) == want_tok,
+           "x_sum_close": abs(float(final["x"]) - want_x) <= 1e-3,
+           "python_loop_ms": loop_ms}
+    log({"host_pipeline": rec})
+    if not (posts == n and rec["tokens_sum_equal"] and rec["x_sum_close"]):
+        raise AssertionError(f"host_pipeline: {rec}")
+    return posts
+
+
 def _cuobjdump():
     """The toolkit's ``cuobjdump``, else the copy bundled with Triton."""
     import shutil
@@ -3409,10 +3995,15 @@ SOURCES = {
     "rpc_queue": ("src/repro_torch/csrc/rpc_queue.cu",
                   "RpcQueue._enqueue (src/repro/core/rpc.py:2984), array "
                   "updates fused by XLA, no Pallas kernel"),
+    "rpc_async": ("src/repro_torch/csrc/rpc_async.cu",
+                  "RpcQueue.flush with mode='async' "
+                  "(src/repro/core/rpc.py:3180), an ordered io_callback, no "
+                  "Pallas kernel"),
 }
-#: The kernels line's name of a source's kernel, where it is not the
+#: The kernels line's names of a source's kernels, where they are not the
 #: source's own.
-ENTRY_NAMES = {"rpc_channel": "rpc_post", "rpc_queue": "rpc_enqueue"}
+ENTRY_NAMES = {"rpc_channel": ("rpc_post",), "rpc_queue": ("rpc_enqueue",),
+               "rpc_async": ("rpc_async_post", "rpc_async_collect")}
 
 
 def main() -> int:
@@ -3441,6 +4032,7 @@ def main() -> int:
     rglru_launch_phase()
     serve = serve_phase()
     identity_phase()
+    dense = dense_serve_phase()
     summary["flash_attention"] = flash_phase(card_line)
     prefill_phase()
     train = train_phase()
@@ -3472,46 +4064,64 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": None}
     libc_launches, libc_posts = libc_io_phase()
     hooks, hook_enqueues = device_run_hooks_phase()
+    async_queue = rpc_queue_async_phase()
+    summary.update(rpc_async_time_phase(card_line))
+    async_run = device_run_async_phase()
+    pipeline_posts = host_pipeline_phase()
     gpu_first = gpu_first_phase()
 
     by_path = {
         "decode_attention": {"serve": serve["decode_attention"],
+                             "dense_serve": dense["decode_attention"],
                              "hybrid_serve": hybrid["decode_attention"]},
-        "paged_attention": {"serve": serve["paged_attention"]},
+        "paged_attention": {"serve": serve["paged_attention"],
+                            "dense_serve": dense["paged_attention"]},
         "flash_attention": {"train": train["flash_attention"],
                             "hybrid_serve": hybrid["flash_attention"]},
         "ssd_scan": {"ssm_serve": ssm_serve, "ssm_train": ssm_train},
         "rglru_scan": {"hybrid_serve": hybrid["rglru_scan"]},
         "rpc_channel": {"train": train["rpc_post"], "ssm_train": ssm_hooks,
                         "rpc_queue": queue_posts, "libc_io": libc_posts,
-                        "device_run_hooks": hooks, "gpu_first": gpu_first},
+                        "device_run_hooks": hooks,
+                        "host_pipeline": pipeline_posts,
+                        "gpu_first": gpu_first},
         "rpc_queue": {"rpc_queue": queue_launches, "libc_io": libc_launches,
                       "device_run_hooks": hook_enqueues},
     }
+    for name in ENTRY_NAMES["rpc_async"]:
+        by_path[name] = {"rpc_queue_async": async_queue[name],
+                         "device_run_async": async_run[name]}
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
-        rec = summary[name]
-        paths = by_path[name]
+    # a source with one kernel keys its records by the source's name
+    entries = [(name, name if name in by_path else src_name, source,
+                replaces)
+               for src_name, (source, replaces) in SOURCES.items()
+               for name in ENTRY_NAMES.get(src_name, (src_name,))]
+    for name, key, source, replaces in entries:
+        rec = summary[key]
+        paths = by_path[key]
         if not all(n >= 1 for n in paths.values()):
             raise AssertionError(f"{name} was not launched on every path "
                                  f"that runs it: {paths}")
         kernels.append({
-            "name": ENTRY_NAMES.get(name, name), "route": "cuda",
-            "source": source,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(paths.values()),
-            "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["kernel_ms"] if "kernel_ms" in rec else rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         if len(paths) > 1:
             kernels[-1]["launches_by_path"] = paths
         for key, other in (("at_hybrid_shape", at_hybrid.get(name)),
+                           ("at_dense_serve_shape",
+                            summary.get(name + "@g6")),
                            ("at_train_shape", name == "ssd_scan"
                             and at_ssd["train"]),
                            ("at_s1000_shape", name == "rglru_scan"
                             and at_rglru["s1000"])):
             if other:
                 kernels[-1][key] = {
-                    "shape": other["shape"],
+                    "shape": other.get("shape", other.get("case")),
                     "max_abs_err": other["max_abs_err"],
                     "ms": other["kernel_ms"], "plain_ms": other["plain_ms"],
                     "bound_ms": other["bound_ms"],

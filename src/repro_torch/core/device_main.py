@@ -32,8 +32,11 @@ when ``device_run`` returns, after
 :func:`~repro_torch.core.rpc.effects_barrier` (so repeated runs leave the
 registry at a constant size).
 
-Not ported yet: ``queue_async=True`` (ROADMAP queue 1, item 3.3) and
-``mesh=`` (item 5).
+``queue_async=True`` makes the run's queue async (its flushes hand each
+epoch to a host drain that overlaps the device's work) and owns its
+boundary: the flush after the loop only submits the last epoch, so the
+run flushes once more to collect it and joins the queue's drains before
+it returns.  Not ported yet: ``mesh=`` (ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.rpc import (_ASYNC, REGISTRY, RpcQueue, ShapeDtype,
+from repro_torch.core.rpc import (REGISTRY, RpcQueue, ShapeDtype,
                                   effects_barrier, rpc_call, stable_hook_id)
 from repro_torch.tree import leaves
 
@@ -205,8 +208,10 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
     after the loop.  ``thread_queue=True`` hands the queue to the step:
     ``step_fn(step, state, queue) -> (state, queue)`` may enqueue, flush
     and read replies mid-loop.  ``return_queue=True`` returns ``(state,
-    flushed queue)``.  ``queue_async=True`` (item 3.3) and ``mesh=``
-    (item 5) raise ``NotImplementedError``."""
+    flushed queue)``.  ``queue_async=True`` runs the queue async (see the
+    module docstring): in-loop flushes land replies one epoch late, so it
+    refuses returning hooks, and every host effect has retired when the
+    run returns.  ``mesh=`` (item 5) raises ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError(f"device_run(mesh=) needs {_MESH}")
     for h in hooks:
@@ -217,9 +222,13 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
         _register_hook(h, hname)
     try:
         returning = [hname for h, hname in named if h.returns is not None]
-        if queue_async:
-            raise NotImplementedError(
-                f"device_run(queue_async=True) needs {_ASYNC}")
+        if queue_async and returning:
+            raise ValueError(
+                f"hook(s) {returning} use returns= with queue_async=True: "
+                "the double-buffered transport lands replies one epoch "
+                "late, but a consume step folds its reply into the SAME "
+                "firing step's state; use the synchronous queue for "
+                "reply-consuming hooks")
         carries_queue = (any(h.batched for h in hooks) or thread_queue
                          or return_queue)
         if returning:
@@ -233,6 +242,7 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
             q = RpcQueue.create(queue_capacity, queue_width, queue_payload,
                                 queue_reply, retry=queue_retry,
                                 timeout=queue_timeout,
+                                mode="async" if queue_async else "sync",
                                 device=_device_of(state))
         for step in range(n_steps):
             if thread_queue:
@@ -248,6 +258,11 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
                     _fire(h, hname, step + 1, state)
         if q is not None:
             q.flush()
+            if queue_async:
+                # that flush only submitted the last epoch: collect it,
+                # then wait for the drains (JAX's boundary protocol)
+                q.flush()
+                q.join()
         return (state, q) if return_queue else state
     finally:
         auto = [hname for h, hname in named if h.name is None]

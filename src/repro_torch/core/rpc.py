@@ -50,10 +50,19 @@ enqueue order, each callee isolated (an exception or a per-callee
 back the reply arena, the per-slot offsets, lengths and statuses and the
 reset heads.  A CPU queue runs the plain enqueue and calls the drain
 directly.  Unlike JAX's value semantics, a queue's tensors are updated in
-place, and ``enqueue``/``flush`` return the queue itself.  Not in this
-slice: ``mode="async"`` and ``carry_budget`` (item 3.3),
-``ShardedRpcQueue`` and ``shard_deadline`` (item 3.4), ``RpcManifest``
-(item 3.5), ``sanitize=True`` (item 3.7) and ``events``.
+place, and ``enqueue``/``flush`` return the queue itself.
+
+**The async transport** (``RpcQueue.create(mode="async")``): a flush
+submits the closing epoch's drain to the queue's own single-thread
+executor and installs the previous epoch's replies, so replies land one
+epoch late and the drain overlaps the device's work; ``carry_budget``
+redrives failed idempotent records in later epochs.  On a card a flush is
+two launches (``kernels/rpc_async``): ``rpc_async_post`` hands the epoch
+to the queue's ingest thread through mapped memory without waiting, and
+``rpc_async_collect`` waits on the device for the previous epoch's answer
+(or its deadline) and installs it.  Not in this slice:
+``ShardedRpcQueue`` and a sync queue's ``shard_deadline`` (item 3.4),
+``RpcManifest`` (item 3.5), ``sanitize=True`` (item 3.7) and ``events``.
 """
 from __future__ import annotations
 
@@ -66,6 +75,9 @@ import threading
 import time
 import traceback as traceback_mod
 import warnings
+import weakref
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from queue import Empty as _QueueEmpty, SimpleQueue as _SimpleQueue
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -73,6 +85,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.allocator import I32, as_i32, find_obj
+from repro_torch.kernels.rpc_async import (AsyncRing, collect_reference,
+                                           post_reference, rpc_async_collect,
+                                           rpc_async_post)
+from repro_torch.kernels.rpc_async.ref import H_CDEPTH
 from repro_torch.kernels.rpc_channel import (channel_for, channels,
                                              rpc_post)
 from repro_torch.kernels.rpc_channel.kernel import (INLINE_WORDS, TIMEOUT_S,
@@ -80,8 +96,8 @@ from repro_torch.kernels.rpc_channel.kernel import (INLINE_WORDS, TIMEOUT_S,
 from repro_torch.kernels.rpc_queue import (Arg, Lanes, Record,
                                            enqueue_reference, rpc_enqueue)
 from repro_torch.kernels.rpc_queue.ref import DEVICE, IMMEDIATE, PAYLOAD
+from repro_torch.tree import leaves, tree_map
 
-_ASYNC = "ROADMAP queue 1, item 3.3 (the async double-buffered queue)"
 _SHARDED = "ROADMAP queue 1, item 3.4 (ShardedRpcQueue)"
 _SANITIZER = "ROADMAP queue 1, item 3.7 (the transport's sanitizer)"
 
@@ -393,17 +409,19 @@ def _entry_bytes(entry: Tuple) -> int:
 def _make_pad_wrapper(name: str, pad_id: int, sig: Tuple):
     """The host landing pad (paper Fig. 3b): ``wrapper(flat)`` calls the
     callee on the flat operand arrays (an ``ArenaRef`` is five: ptr, base,
-    size, found, arena), counts the call and returns the result as an
-    array.  The callee writes refs in place: the transport hands it
-    buffers of its own and decides what comes back.  The callee is looked
-    up at each call, so re-registering a name rebinds its pads."""
+    size, found, arena), counts the call and returns the callee's result
+    as it came (a pytree, one leaf per declared result).  The callee
+    writes refs in place: the transport hands it buffers of its own and
+    decides what comes back.  The callee is looked up at each call, so
+    re-registering a name rebinds its pads."""
     bytes_in = sum(_entry_bytes(e) + (16 if e[0] == ARENA else 0)
                    for e in sig)
     bytes_refs = sum(_entry_bytes(e) for e in sig if e[0] != VAL)
 
-    def wrapper(flat: Sequence[np.ndarray]) -> np.ndarray:
-        result = np.asarray(REGISTRY.hosts[name](*flat))
-        REGISTRY.bump(name, pad_id, bytes_in, result.nbytes + bytes_refs)
+    def wrapper(flat: Sequence[np.ndarray]):
+        result = REGISTRY.hosts[name](*flat)
+        out = sum(np.asarray(x).nbytes for x in leaves(result))
+        REGISTRY.bump(name, pad_id, bytes_in, out + bytes_refs)
         return result
 
     wrapper.__name__ = f"rpc_pad_{pad_id}_{name}"
@@ -495,11 +513,54 @@ def _marshal(args, device: torch.device):
     return tuple(sig), ops, refs
 
 
-def _store(view: np.ndarray, out: np.ndarray, name: str) -> None:
+def _store(view: np.ndarray, out, name: str) -> None:
+    out = np.asarray(out)
     if out.shape != view.shape:
         raise ValueError(f"RPC {name!r} returned shape {out.shape}; its "
                          f"result_shape is {view.shape}")
     view[...] = out
+
+
+def _result_specs(result_shape):
+    """``result_shape`` (any pytree of objects with ``shape`` and
+    ``dtype``, as JAX takes it; ``()`` for no result) as the same tree of
+    :class:`ShapeDtype`."""
+    def spec(s):
+        if not (hasattr(s, "shape") and hasattr(s, "dtype")):
+            raise TypeError(f"result_shape leaf {s!r} has no shape and dtype")
+        return ShapeDtype(s.shape, _torch_dtype(s.dtype))
+
+    return tree_map(spec, result_shape)
+
+
+def _result_leaves(specs, result, name: str) -> List[Any]:
+    """The callee's ``result`` cut along the structure of ``specs``: one
+    array-like per declared leaf (a leaf spec takes the whole result, so
+    a list fills a 1-D result; ``None`` answers an empty tree)."""
+    if specs is None or (isinstance(specs, (tuple, list, dict))
+                         and not leaves(specs)):
+        return []
+    if isinstance(specs, ShapeDtype):
+        return [result]
+    if isinstance(specs, dict):
+        if not isinstance(result, dict) or sorted(result) != sorted(specs):
+            raise ValueError(f"RPC {name!r} returned {type(result).__name__}"
+                             f"; its result_shape is a dict of "
+                             f"{sorted(specs)}")
+        return [x for k in sorted(specs)
+                for x in _result_leaves(specs[k], result[k], name)]
+    if not isinstance(result, (tuple, list)) or len(result) != len(specs):
+        raise ValueError(f"RPC {name!r} returned {type(result).__name__}; "
+                         f"its result_shape is a sequence of {len(specs)}")
+    return [x for s, r in zip(specs, result)
+            for x in _result_leaves(s, r, name)]
+
+
+def _rebuild(specs, values: List[torch.Tensor]):
+    """``values`` (one per leaf of ``specs``, in order) in the tree of
+    ``specs``."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), specs)
 
 
 def _prepare(name: str, args, result_shape, pure: bool, device):
@@ -508,7 +569,7 @@ def _prepare(name: str, args, result_shape, pure: bool, device):
     if result_shape is None:
         raise TypeError("rpc_call() missing required keyword argument "
                         "'result_shape'")
-    spec = ShapeDtype(result_shape.shape, result_shape.dtype)
+    specs = _result_specs(result_shape)
     device = _device_of(args, device)
     sig, ops, refs = _marshal(args, device)
     if pure and any(acc != READ for _, acc, _ in refs):
@@ -517,7 +578,7 @@ def _prepare(name: str, args, result_shape, pure: bool, device):
             "call may be elided or reordered, so host-side mutation has no "
             "defined meaning")
     pid, _ = REGISTRY.landing_pad(name, sig)
-    return spec, device, sig, ops, refs, pid
+    return specs, device, sig, ops, refs, pid
 
 
 def rpc_call(name: str, *args, result_shape=None, pure: bool = False,
@@ -574,13 +635,13 @@ def rpc_call(name: str, *args, result_shape=None, pure: bool = False,
             "rpc_call(where=...) is only meaningful with batched=True: an "
             "immediate call has no conditional form; route it through a "
             "queue")
-    spec, device, sig, ops, refs, pid = _prepare(name, args, result_shape,
-                                                 pure, device)
+    specs, device, sig, ops, refs, pid = _prepare(name, args, result_shape,
+                                                  pure, device)
     if device.type == "cpu":
-        return _call_host(name, pid, sig, ops, refs, spec, device)
+        return _call_host(name, pid, sig, ops, refs, specs, device)
     if device.type != "cuda":
         raise ValueError(f"RPC operands on {device}")
-    return _call_channel(name, pid, sig, ops, refs, spec, device)
+    return _call_channel(name, pid, sig, ops, refs, specs, device)
 
 
 def rpc_call_reference(name: str, *args, result_shape=None,
@@ -589,12 +650,12 @@ def rpc_call_reference(name: str, *args, result_shape=None,
     the host (for CUDA tensors this waits for the device), call the
     landing pad, copy the result and the write-backs back.  ``rpc_call``
     takes it for CPU operands."""
-    spec, device, sig, ops, refs, pid = _prepare(name, args, result_shape,
-                                                 pure, device)
-    return _call_host(name, pid, sig, ops, refs, spec, device)
+    specs, device, sig, ops, refs, pid = _prepare(name, args, result_shape,
+                                                  pure, device)
+    return _call_host(name, pid, sig, ops, refs, specs, device)
 
 
-def _call_host(name, pid, sig, ops, refs, spec, device):
+def _call_host(name, pid, sig, ops, refs, specs, device):
     ref_at = {i for i, _, _ in refs}
     arrays = []
     for i, op in enumerate(ops):
@@ -608,32 +669,35 @@ def _call_host(name, pid, sig, ops, refs, spec, device):
             op = a
         arrays.append(op)
     out = REGISTRY.pad_wrappers[pid](_flat(sig, arrays))
-    staged = _DTYPES[spec.dtype][1]
-    res = np.empty(spec.shape, _np_dtype(staged))
-    _store(res, out, name)
-    result = torch.from_numpy(res).to(device=device, dtype=spec.dtype)
+    results = []
+    for spec, o in zip(leaves(specs), _result_leaves(specs, out, name)):
+        res = np.empty(spec.shape, _np_dtype(_DTYPES[spec.dtype][1]))
+        _store(res, o, name)
+        results.append(torch.from_numpy(res).to(device=device,
+                                                dtype=spec.dtype))
     updated = [orig if acc == READ else
                torch.from_numpy(arrays[i]).to(device=device, dtype=orig.dtype)
                for i, acc, orig in refs]
-    return result, updated
+    return _rebuild(specs, results), updated
 
 
-def _pad_staging(channel, name, pid, sig, ops, spec):
+def _pad_staging(channel, name, pid, sig, ops, specs):
     """The pad's staging region on ``channel`` and its ``serve`` callable,
     made at the pad's first call there.  Tensor operands get a slot each,
-    Python numbers a scalar word, the result the last slot."""
+    Python numbers a scalar word, each result leaf a slot after them."""
     entry = channel.pads.get(pid)
     if entry is not None:
-        if entry[2] != spec:
-            raise ValueError(f"RPC {name!r}: result_shape {spec} differs from "
-                             f"{entry[2]}, this landing pad's first")
+        if entry[2] != specs:
+            raise ValueError(f"RPC {name!r}: result_shape {specs} differs "
+                             f"from {entry[2]}, this landing pad's first")
         return entry[0]
     tensors = [op for op in ops if isinstance(op, torch.Tensor)]
-    staged = _DTYPES[spec.dtype][1]
-    res_bytes = int(np.prod(spec.shape, dtype=np.int64)) * \
-        torch.empty((), dtype=staged).element_size()
+    spec_leaves = leaves(specs)
+    res_bytes = [int(np.prod(s.shape, dtype=np.int64))
+                 * torch.empty((), dtype=_DTYPES[s.dtype][1]).element_size()
+                 for s in spec_leaves]
     staging = Staging([t.numel() * t.element_size() for t in tensors]
-                      + [res_bytes])
+                      + res_bytes)
     views, slot, word = [], 0, 0
     for op in ops:
         if isinstance(op, torch.Tensor):
@@ -644,19 +708,22 @@ def _pad_staging(channel, name, pid, sig, ops, spec):
             views.append(staging.word(word)[:op.dtype.itemsize]
                          .view(op.dtype).reshape(()))
             word += 1
-    res_view = staging.slot(slot).view(_np_dtype(staged)).reshape(spec.shape)
+    res_views = [staging.slot(slot + i)
+                 .view(_np_dtype(_DTYPES[s.dtype][1])).reshape(s.shape)
+                 for i, s in enumerate(spec_leaves)]
 
     def serve():
         out = REGISTRY.pad_wrappers[pid](_flat(sig, views))
-        _store(res_view, out, name)
+        for view, o in zip(res_views, _result_leaves(specs, out, name)):
+            _store(view, o, name)
 
-    channel.pads[pid] = (staging, serve, spec)
+    channel.pads[pid] = (staging, serve, specs)
     return staging
 
 
-def _call_channel(name, pid, sig, ops, refs, spec, device):
+def _call_channel(name, pid, sig, ops, refs, specs, device):
     channel = channel_for(device)
-    staging = _pad_staging(channel, name, pid, sig, ops, spec)
+    staging = _pad_staging(channel, name, pid, sig, ops, specs)
     slots, inputs, words = {}, [], []
     for i, op in enumerate(ops):
         if isinstance(op, torch.Tensor):
@@ -669,9 +736,9 @@ def _call_channel(name, pid, sig, ops, refs, spec, device):
     if len(words) > INLINE_WORDS:
         raise ValueError(f"RPC {name!r}: {len(words)} Python-number operands, "
                          f"at most {INLINE_WORDS}; pass tensors")
-    staged = _DTYPES[spec.dtype][1]
-    result = torch.empty(spec.shape, dtype=staged, device=device)
-    outputs = [(len(inputs), result)]
+    results = [torch.empty(s.shape, dtype=_DTYPES[s.dtype][1], device=device)
+               for s in leaves(specs)]
+    outputs = [(len(inputs) + i, r) for i, r in enumerate(results)]
     backs = {}
     for i, acc, _ in refs:
         if acc != READ:
@@ -680,7 +747,8 @@ def _call_channel(name, pid, sig, ops, refs, spec, device):
     rpc_post(channel, pid, staging, inputs, words, outputs)
     updated = [orig if acc == READ else backs[i].to(orig.dtype)
                for i, acc, orig in refs]
-    return result.to(spec.dtype), updated
+    return _rebuild(specs, [r.to(s.dtype) for r, s in
+                            zip(results, leaves(specs))]), updated
 
 
 def effects_barrier() -> None:
@@ -718,8 +786,8 @@ STATUS_DROPPED = 3          # record dropped at enqueue (where=False / arena
 #                             full), or its reply dropped by fault injection
 STATUS_REPLY_OVERFLOW = 4   # reply arena full at drain: callee NOT run
 STATUS_STALE = 5            # ticket from an epoch other than the last flush
-STATUS_PENDING = 6          # async transport (item 3.3); a sync queue never
-#                             reads it
+STATUS_PENDING = 6          # async transport: the ticket's epoch is submitted
+#                             but not collected, or its record is carried
 
 STATUS_NAMES = {STATUS_OK: "OK", STATUS_CALLEE_RAISED: "CALLEE_RAISED",
                 STATUS_TIMEOUT: "TIMEOUT", STATUS_DROPPED: "DROPPED",
@@ -918,6 +986,11 @@ class _WorkerLease:
                        else item)
         return out
 
+    def drop(self) -> None:
+        """Forget the worker without pooling it: a deadline-abandoned drain
+        walks away while the worker may still run a record nobody reads."""
+        self._w = None
+
     def release(self) -> None:
         if self._w is not None:
             _return_worker(self._w)
@@ -938,11 +1011,14 @@ def _call_with_timeout(fn, args, timeout: float, lease=None):
 
 # The deterministic fault-injection seam (repro_torch.testing.faults plugs
 # in here), consulted at dispatch time inside the drain.  Protocol:
-# ``on_call(name, attempt) -> Optional[delay_seconds]`` (may raise to fail
-# the record before its callee runs) and ``on_reply(name, words) ->
-# Optional[int32 words]`` (``None`` drops the reply; a changed array
-# corrupts it).  A synchronous drain passes no occurrence index: the
-# injector counts first attempts itself in replay order.
+# ``on_call(name, attempt, index=None) -> Optional[delay_seconds]`` (may
+# raise to fail the record before its callee runs) and ``on_reply(name,
+# words, index=None) -> Optional[int32 words]`` (``None`` drops the reply;
+# a changed array corrupts it).  A synchronous drain passes no occurrence
+# index: the injector counts first attempts itself in replay order.  An
+# async drain reserves the indices at its flush, in flush order
+# (``reserve(names)``), and passes them, so a drain on another thread and
+# an epoch-late carried redrive keep the serial numbering.
 _FAULT_INJECTOR: List[Any] = []
 
 
@@ -954,16 +1030,25 @@ def set_fault_injector(inj=None) -> None:
 
 def _invoke_record(name: str, fn, args, ticket: int, inj,
                    retry: Optional[RetryPolicy], timeout: Optional[float],
-                   idempotent: bool, lease=None):
+                   idempotent: bool, first_attempt: int = 1,
+                   occ_index: Optional[int] = None, lease=None):
     """Run one record's callee with failure isolation, fault injection,
     timeout and (idempotent-gated) retry.  Returns ``(status, out,
-    n_retries)``; ``out`` is None on failure."""
-    attempts = retry.max_attempts if (retry is not None and idempotent) \
-        else 1
-    attempt = 1
+    n_retries)``; ``out`` is None on failure.  ``first_attempt`` numbers
+    the attempts for the injector and the budget (a carried record's
+    redrive goes on where its drain stopped); ``occ_index`` is a reserved
+    occurrence index."""
+    attempts = (first_attempt - 1 + retry.max_attempts
+                if (retry is not None and idempotent) else first_attempt)
+    attempt = first_attempt
     while True:
         try:
-            delay = None if inj is None else inj.on_call(name, attempt)
+            if inj is None:
+                delay = None
+            elif occ_index is None:
+                delay = inj.on_call(name, attempt)
+            else:
+                delay = inj.on_call(name, attempt, index=occ_index)
             if delay:
                 call = (lambda *a: (time.sleep(delay), fn(*a))[1])
             else:
@@ -972,7 +1057,7 @@ def _invoke_record(name: str, fn, args, ticket: int, inj,
                 out = _call_with_timeout(call, args, timeout, lease=lease)
             else:
                 out = call(*args)
-            return STATUS_OK, out, attempt - 1
+            return STATUS_OK, out, attempt - first_attempt
         except Exception as exc:         # noqa: BLE001 (the isolation point)
             _log_callee_error(name, ticket, attempt, exc)
             timed_out = isinstance(exc, _CalleeTimeout)
@@ -981,7 +1066,8 @@ def _invoke_record(name: str, fn, args, ticket: int, inj,
                               or retry.retryable(exc)))
             if not can_retry:
                 return (STATUS_TIMEOUT if timed_out
-                        else STATUS_CALLEE_RAISED), None, attempt - 1
+                        else STATUS_CALLEE_RAISED), None, \
+                    attempt - first_attempt
             if retry.backoff:
                 time.sleep(retry.backoff * (2.0 ** (attempt - 1)))
             attempt += 1
@@ -1016,7 +1102,8 @@ def _coerce_reply_words(name: str, out, want: int) -> Optional[np.ndarray]:
 def _replay_shard(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
                   rwant, n, overrides, names, hosts, per_name_calls,
                   per_name_bytes, reply=None, base=0, idem=None,
-                  retry=None, timeout=None) -> Tuple[int, int, int, int]:
+                  retry=None, timeout=None, occ=None, carry=None,
+                  abandoned=None) -> Tuple[int, int, int, int]:
     """Replay a queue's records in enqueue order; returns ``(records
     overwritten before this flush, replies dropped for a full reply arena,
     records whose callee failed after retries, retries spent)``.
@@ -1030,7 +1117,12 @@ def _replay_shard(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
     whose reply cannot fit is dropped whole: callee not run,
     ``REPLY_OVERFLOW``.  Each callee is isolated; ``retry`` re-runs failed
     records of idempotent callees; ``timeout`` bounds each callee's wall
-    time; ``base`` is the epoch's global ticket base."""
+    time; ``base`` is the epoch's global ticket base.  The async drain
+    adds ``occ`` (the occurrence indices reserved at its flush, one per
+    surviving record), ``carry`` (a :class:`_CarrySink`: a failed
+    idempotent record is carried into the next epoch and its slot reads
+    ``PENDING``) and ``abandoned`` (a nullary callable: a drain whose
+    deadline passed stops early)."""
     cap = callee.shape[0]
     lo = max(0, n - cap)
     fbuf = pbuf.view(np.float32)
@@ -1042,21 +1134,31 @@ def _replay_shard(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
     # epoch through one worker; either of those forces the ping-pong.
     pipelined = timeout is not None and inj is None and retry is None
     rsize = reply[0].shape[0] if reply is not None else 0
-    # each entry: [call, j, k, name, want, nbytes]
+    # each entry: [call, j, k, name, args, want, occ_idx, is_idem, nbytes]
     inflight: List[list] = []
     ahead_words = 0    # reply words reserved by in-flight records
 
-    def _post(j, k, name, want, status, out, rr, nbytes):
+    def _post(j, k, name, args, want, occ_idx, is_idem, status, out, rr,
+              nbytes):
         nonlocal rhead, cerrs, nretries
         nretries += rr
         if status != STATUS_OK:
             cerrs += 1
+            if (carry is not None and is_idem
+                    and status in (STATUS_CALLEE_RAISED, STATUS_TIMEOUT)
+                    and carry.accept(name, args, int(base) + j,
+                                     int(rwant[k]) if rwant is not None
+                                     else 0, 1 + rr, occ_idx)):
+                # redriven at the next epoch's drain; the final outcome
+                # lands in the slot's outcome table
+                status = STATUS_PENDING
         if reply is not None:
             rwords, roff, rlen, rstat = reply
             if want != 0 and status == STATUS_OK:
                 words = _coerce_reply_words(name, out, want)
                 if inj is not None:
-                    words = inj.on_reply(name, words)
+                    words = (inj.on_reply(name, words) if occ_idx is None
+                             else inj.on_reply(name, words, index=occ_idx))
                 if words is None:
                     # injected reply drop: the callee ran, the reply never
                     # lands
@@ -1074,7 +1176,8 @@ def _replay_shard(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
 
     def _settle_oldest():
         nonlocal ahead_words
-        call_obj, j, k, name, want, nbytes = inflight.pop(0)
+        (call_obj, j, k, name, args, want, occ_idx, is_idem,
+         nbytes) = inflight.pop(0)
         ahead_words -= abs(want)
         try:
             out = lease.collect(call_obj, timeout)
@@ -1088,9 +1191,16 @@ def _replay_shard(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
         except Exception as exc:     # noqa: BLE001 (the isolation point)
             _log_callee_error(name, int(base) + j, 1, exc)
             status, out = STATUS_CALLEE_RAISED, None
-        _post(j, k, name, want, status, out, 0, nbytes)
+        _post(j, k, name, args, want, occ_idx, is_idem, status, out, 0,
+              nbytes)
 
     for j in range(lo, n):
+        if abandoned is not None and abandoned():
+            if inflight:
+                # the worker may still run a record nobody will read
+                lease.drop()
+                inflight.clear()
+            break
         k = j % cap
         cid = int(callee[k])
         name = names.get(cid)
@@ -1125,6 +1235,7 @@ def _replay_shard(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
                 rdrops += 1
                 reply[3][k] = STATUS_REPLY_OVERFLOW
                 continue
+        occ_idx = occ[j - lo] if occ is not None else None
         is_idem = bool((idem or {}).get(name, False))
         if fast:
             try:
@@ -1133,16 +1244,18 @@ def _replay_shard(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
             except Exception as exc:     # noqa: BLE001 (isolation point)
                 _log_callee_error(name, int(base) + j, 1, exc)
                 status, out = STATUS_CALLEE_RAISED, None
-            _post(j, k, name, want, status, out, 0, nbytes)
+            _post(j, k, name, args, want, occ_idx, is_idem, status, out, 0,
+                  nbytes)
         elif pipelined:
-            inflight.append([lease.submit(fn, args), j, k, name, want,
-                             nbytes])
+            inflight.append([lease.submit(fn, args), j, k, name, args, want,
+                             occ_idx, is_idem, nbytes])
             ahead_words += abs(want)
         else:
             status, out, rr = _invoke_record(
                 name, fn, args, int(base) + j, inj, retry, timeout, is_idem,
-                lease=lease)
-            _post(j, k, name, want, status, out, rr, nbytes)
+                occ_index=occ_idx, lease=lease)
+            _post(j, k, name, args, want, occ_idx, is_idem, status, out, rr,
+                  nbytes)
     while inflight:
         _settle_oldest()
     if lease is not None:
@@ -1254,6 +1367,346 @@ def _drain_queue_replies(callee, nargs, imask, pmask, ivals, fvals, plens,
 
 
 # ---------------------------------------------------------------------------
+# Async transport: double-buffered epochs and the cross-epoch carry
+# ---------------------------------------------------------------------------
+#
+# An async flush submits the closing epoch's drain to its queue's slot (a
+# single-thread executor: one queue's drains run FIFO, while the device
+# computes) and installs the PREVIOUS epoch's replies, so replies land one
+# epoch late and the submitted epoch's tickets read STATUS_PENDING.  A
+# failing idempotent record of a queue with ``carry_budget`` is carried:
+# redriven at the head of each later drain, oldest first, one attempt a
+# round, until it succeeds or the budget runs out, and finalized into the
+# slot's outcome table that the host reads fold in.
+
+def _reserve_occurrences(inj, names_in_order):
+    """Reserve per-callee occurrence indices for an async drain, in its
+    replay order; None without an injector or one without ``reserve``."""
+    if inj is None or not names_in_order:
+        return None
+    reserve = getattr(inj, "reserve", None)
+    if reserve is None:
+        return None
+    return list(reserve(names_in_order))
+
+
+def _surviving_names(callee_row, names, n: int) -> List[Optional[str]]:
+    """Callee names of an epoch's surviving records, in replay order."""
+    cap = callee_row.shape[0]
+    lo = max(0, n - cap)
+    return [names.get(int(callee_row[j % cap])) for j in range(lo, n)]
+
+
+class _CarryRec:
+    """One record carried across epochs: its arguments (copied out of the
+    epoch's arena), global ticket, reply declaration, the attempts spent,
+    its reserved occurrence index and the carry rounds left."""
+
+    __slots__ = ("name", "args", "ticket", "want", "attempts_done",
+                 "occ_index", "tries_left")
+
+    def __init__(self, name, args, ticket, want, attempts_done, occ_index,
+                 tries_left):
+        self.name = name
+        self.args = [np.array(a) if isinstance(a, np.ndarray) else a
+                     for a in args]
+        self.ticket = int(ticket)
+        self.want = int(want)
+        self.attempts_done = int(attempts_done)
+        self.occ_index = occ_index
+        self.tries_left = int(tries_left)
+
+
+class _CarrySink:
+    """The records of one drain that failed and may carry into the next
+    epoch (idempotent callees, ``carry_budget > 0``)."""
+
+    def __init__(self, budget: int):
+        self.budget = int(budget)
+        self.records: List[_CarryRec] = []
+
+    def accept(self, name, args, ticket, want, attempts_done, occ_index
+               ) -> bool:
+        if self.budget <= 0:
+            return False
+        self.records.append(_CarryRec(name, args, ticket, want,
+                                      attempts_done, occ_index, self.budget))
+        return True
+
+
+#: Finalized carry outcomes kept per queue slot for host reads.
+_OUTCOME_CAP = 4096
+
+
+class _EpochJob:
+    """One submitted epoch drain: its reply quadruple once drained, the
+    carried depth after it, and a done event.  ``abandoned`` turns true
+    when the collect's deadline passed (set here by a CPU queue, read from
+    the device's flag through ``probe`` on a card): the late drain stops
+    early and carries nothing."""
+
+    __slots__ = ("base", "out", "cdepth", "done", "_abandoned", "probe")
+
+    def __init__(self, base: int, probe: Optional[Callable[[], bool]] = None):
+        self.base = int(base)
+        self.out = None
+        self.cdepth = 0
+        self.done = threading.Event()
+        self._abandoned = False
+        self.probe = probe
+
+    @property
+    def abandoned(self) -> bool:
+        return self._abandoned or (self.probe is not None and self.probe())
+
+    @abandoned.setter
+    def abandoned(self, value: bool) -> None:
+        self._abandoned = bool(value)
+
+
+class _QueueSlot:
+    """Host-side state of one async queue: its single-thread executor
+    (the FIFO epoch sequence that makes drains replayable), the epochs
+    in flight, the carry list, the finalized carry outcomes and, on a
+    card, the queue's :class:`~repro_torch.kernels.rpc_async.AsyncRing`
+    (whose live carried-depth word mirrors the carry list)."""
+
+    def __init__(self, sid: int):
+        self.id = sid
+        self.lock = threading.Lock()
+        self.executor: Optional[ThreadPoolExecutor] = None
+        self.pending: deque = deque()
+        self.carry: List[_CarryRec] = []
+        self.outcomes: Dict[int, Tuple[int, Optional[np.ndarray]]] = {}
+        self.ring = None
+        self.ctxs: Dict[int, "_FlushCtx"] = {}   # a card's flushes, by epoch
+
+    def submit(self, job: _EpochJob, runner: Callable
+               ) -> Optional[_EpochJob]:
+        """Queue ``runner`` on the executor; returns the epoch job it runs
+        behind (the previous uncollected one, if any)."""
+        with self.lock:
+            if self.executor is None:
+                self.executor = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix=f"rpc-async-{self.id}")
+            if self.ring is not None:
+                # a card's collects run on the device: forget what is done
+                while self.pending and self.pending[0].done.is_set():
+                    self.pending.popleft()
+            prev = self.pending[-1] if self.pending else None
+            self.pending.append(job)
+            ex = self.executor
+        ex.submit(runner)
+        return prev
+
+    def collect(self, prev: Optional[_EpochJob], deadline: Optional[float],
+                cap: int, rc: int) -> Tuple[Tuple[np.ndarray, ...], int]:
+        """Wait for the previous epoch's drain and return its reply
+        quadruple and the carried depth; zeros (and depth 0) at the first
+        flush.  Past
+        ``deadline`` the job is abandoned and a TIMEOUT-stamped window
+        returned (never the job's arrays, which may still be written)."""
+        zeros = (np.zeros((rc,), np.int32), np.zeros((cap,), np.int32),
+                 np.zeros((cap,), np.int32), np.zeros((cap,), np.int32))
+        if prev is None:
+            # the first flush: nothing has been drained, so nothing is
+            # carried (read before this epoch's drain can carry any)
+            return zeros, 0
+        ok = prev.done.wait(deadline) if deadline is not None else (
+            prev.done.wait() or True)
+        with self.lock:
+            if self.pending and self.pending[0] is prev:
+                self.pending.popleft()
+            cd = prev.cdepth if ok else len(self.carry)
+        if not ok:
+            prev.abandoned = True
+            return (zeros[0], zeros[1], zeros[2],
+                    np.full((cap,), STATUS_TIMEOUT, np.int32)), cd
+        return (prev.out if prev.out is not None else zeros), cd
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait until every submitted drain has finished; False on
+        ``timeout``.  Installs nothing: the next flush does.  Raises what
+        a card's ingest thread caught handing an epoch over (the epoch
+        was answered with zeros)."""
+        t0 = time.monotonic()
+        if self.ring is not None:
+            ingested = self.ring.wait_ingested(timeout)
+            err, self.ring.error = self.ring.error, None
+            if err is not None:
+                raise RuntimeError(f"async RpcQueue hand-off failed: "
+                                   f"{err!r}") from err
+            if not ingested:
+                return False
+        with self.lock:
+            jobs = list(self.pending)
+        for j in jobs:
+            left = (None if timeout is None
+                    else max(0.0, timeout - (time.monotonic() - t0)))
+            if not j.done.wait(left):
+                return False
+        return True
+
+    def take_carry(self) -> List[_CarryRec]:
+        with self.lock:
+            recs, self.carry = self.carry, []
+            self._mirror_depth()
+            return recs
+
+    def put_carry(self, recs: List[_CarryRec]) -> None:
+        if not recs:
+            return
+        with self.lock:
+            self.carry.extend(recs)
+            self._mirror_depth()
+
+    def _mirror_depth(self) -> None:
+        if self.ring is not None:
+            self.ring.live[0] = len(self.carry)
+
+    def finalize(self, ticket: int, status: int,
+                 words: Optional[np.ndarray]) -> None:
+        with self.lock:
+            self.outcomes[ticket] = (int(status), words)
+            while len(self.outcomes) > _OUTCOME_CAP:
+                self.outcomes.pop(next(iter(self.outcomes)))
+
+    def carried_tickets(self) -> List[int]:
+        with self.lock:
+            return [r.ticket for r in self.carry]
+
+
+_SLOTS: Dict[int, _QueueSlot] = {}
+_SLOT_LOCK = threading.Lock()
+_SLOT_IDS = itertools.count()
+
+
+def _new_slot() -> int:
+    with _SLOT_LOCK:
+        sid = next(_SLOT_IDS)
+        _SLOTS[sid] = _QueueSlot(sid)
+        return sid
+
+
+def _slot(sid: int) -> _QueueSlot:
+    with _SLOT_LOCK:
+        return _SLOTS[sid]
+
+
+def _replay_carry(slot: _QueueSlot, hosts, idem, overrides, timeout
+                  ) -> Tuple[int, int]:
+    """Redrive the records carried into this drain, oldest first, one
+    attempt each.  A success (or a spent budget, or an injected reply
+    drop) finalizes into the outcome table; a failure with budget left
+    carries on.  Returns ``(callee errors, records finalized)``."""
+    recs = slot.take_carry()
+    if not recs:
+        return 0, 0
+    inj = _FAULT_INJECTOR[0] if _FAULT_INJECTOR else None
+    cerrs = finalized = 0
+    survivors: List[_CarryRec] = []
+    for rec in recs:
+        fn = (overrides or {}).get(rec.name) or hosts.get(rec.name)
+        if fn is None:
+            slot.finalize(rec.ticket, STATUS_CALLEE_RAISED, None)
+            finalized += 1
+            continue
+        status, out, _ = _invoke_record(
+            rec.name, fn, rec.args, rec.ticket, inj, None, timeout,
+            bool((idem or {}).get(rec.name, False)),
+            first_attempt=rec.attempts_done + 1, occ_index=rec.occ_index)
+        if status == STATUS_OK:
+            words = _coerce_reply_words(rec.name, out, rec.want)
+            if inj is not None and words is not None:
+                words = (inj.on_reply(rec.name, words)
+                         if rec.occ_index is None
+                         else inj.on_reply(rec.name, words,
+                                           index=rec.occ_index))
+                if words is None:
+                    status = STATUS_DROPPED
+            slot.finalize(rec.ticket, status, words)
+            finalized += 1
+            continue
+        cerrs += 1
+        rec.attempts_done += 1
+        rec.tries_left -= 1
+        if rec.tries_left <= 0:
+            slot.finalize(rec.ticket, status, None)
+            finalized += 1
+        else:
+            survivors.append(rec)
+    slot.put_carry(survivors)
+    return cerrs, finalized
+
+
+def _run_async_epoch(slot: _QueueSlot, job: _EpochJob, arrs, rwant, n: int,
+                     adrops: int, base: int, rc: int, cap: int,
+                     carry_budget: int, occ, ctx: _FlushCtx,
+                     on_done: Optional[Callable[[_EpochJob], None]] = None
+                     ) -> None:
+    """The background body of one epoch's drain, on the slot's executor
+    (strictly after the previous epoch's): carried redrives first, then
+    the epoch's records, into a reply quadruple published on the job
+    (and through ``on_done`` to a card's ring)."""
+    callee, nargs, imask, pmask, ivals, fvals, plens, pbuf = arrs
+    pnc: Dict[str, int] = {}
+    pnb: Dict[str, int] = {}
+    try:
+        names, hosts, idem = _registry_snapshot()
+        ccerrs, _ = _replay_carry(slot, hosts, idem, ctx.handlers,
+                                  ctx.timeout)
+        reply = None
+        if rc:
+            reply = (np.zeros((rc,), np.int32), np.zeros((cap,), np.int32),
+                     np.zeros((cap,), np.int32), np.zeros((cap,), np.int32))
+        sink = (_CarrySink(carry_budget)
+                if (carry_budget and rc and not job.abandoned) else None)
+        drops, rdrops, cerrs, nretries = _replay_shard(
+            callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
+            rwant, n, ctx.handlers, names, hosts, pnc, pnb, reply=reply,
+            base=base, idem=idem, retry=ctx.retry, timeout=ctx.timeout,
+            occ=occ, carry=sink, abandoned=(lambda: job.abandoned))
+        if sink is not None and not job.abandoned:
+            slot.put_carry(sink.records)
+        job.out = reply
+        _finish_flush(drops, adrops, pnc, pnb, reply_drops=rdrops,
+                      callee_errors=cerrs + ccerrs, retries=nretries)
+    except BaseException as exc:  # noqa: BLE001 (background isolation)
+        _log_callee_error("<async-drain>", base, 1, exc)
+        warnings.warn(
+            f"async RpcQueue drain failed wholesale: {exc!r} (traceback in "
+            "repro_torch.core.rpc.error_log(); the epoch's records read "
+            "status 0/zeros)", RuntimeWarning, stacklevel=2)
+    finally:
+        with slot.lock:
+            job.cdepth = len(slot.carry)
+        if on_done is not None:
+            on_done(job)
+        job.done.set()
+
+
+def _submit_epoch(slot: _QueueSlot, layout: "_Layout", src: np.ndarray,
+                  ctx: _FlushCtx, carry_budget: int, probe=None,
+                  on_done=None) -> Optional[_EpochJob]:
+    """Submit the epoch whose queue words ``[0, in_end)`` are ``src`` (a
+    copy the drain owns), with its fault occurrences reserved here, in
+    flush order.  Returns the job it runs behind."""
+    v = layout.views(src)
+    arrs = tuple(v[k] for k in ("callee", "nargs", "imask", "pmask",
+                                "ivals", "fvals", "plens", "pbuf"))
+    rc = layout.reply_capacity
+    n, adrops, base = int(v["head"]), int(v["adrops"]), int(v["base"])
+    names, _, _ = _registry_snapshot()
+    inj = _FAULT_INJECTOR[0] if _FAULT_INJECTOR else None
+    occ = _reserve_occurrences(inj, _surviving_names(arrs[0], names, n))
+    job = _EpochJob(base, probe)
+    runner = (lambda: _run_async_epoch(
+        slot, job, arrs, v["rwant"] if rc else None, n, adrops, base, rc,
+        layout.capacity, carry_budget if rc else 0, occ, ctx, on_done))
+    return slot.submit(job, runner)
+
+
+# ---------------------------------------------------------------------------
 # Batched transport: the queue
 # ---------------------------------------------------------------------------
 
@@ -1331,6 +1784,9 @@ def _layout_offsets(layout: "_Layout"
 #: The heads a flush reads and resets, and the reply window it stamps.
 _HEADS = ("head", "phead", "adrops", "base")
 _WINDOW = ("rbase", "rcount", "fonce", "pbase", "pcount", "cdepth")
+# the async kernels and their plain versions address the words from
+# ``head`` on in this order (``kernels/rpc_async/ref.py``)
+assert (_HEADS + _WINDOW).index("cdepth") == H_CDEPTH
 
 
 class _FlushCtx:
@@ -1405,6 +1861,24 @@ def _queue_staging(channel, layout: _Layout) -> Tuple[int, Staging]:
     return pid, entry[0]
 
 
+def _reply_words(quad, cdepth: int, rc: int) -> np.ndarray:
+    """A drain's reply quadruple ``(rbuf, roff, rlen, rstat)`` and the
+    carried depth as the queue's words from ``cdepth`` on."""
+    if not rc:
+        return np.array([cdepth], np.int32)
+    rbuf, roff, rlen, rstat = quad
+    return np.concatenate([np.array([cdepth], np.int32), roff, rlen, rstat,
+                           rbuf]).astype(np.int32)
+
+
+def _decode_words(words: np.ndarray, np_dtype) -> np.ndarray:
+    """Reply words (int32) as ``np_dtype`` (float replies travel as
+    float32 bits)."""
+    if np.issubdtype(np_dtype, np.floating):
+        return words.view(np.float32).astype(np_dtype)
+    return words.astype(np_dtype)
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
@@ -1446,14 +1920,25 @@ class RpcQueue:
     queue's device (``fvals`` a float32 view), so a flush moves the state
     in one copy each way.  Deliberately unlike JAX's value semantics the
     tensors are updated in place, and ``enqueue`` and ``flush`` return the
-    queue itself.  ``pbase``/``pcount``/``cdepth`` (the async transport's)
-    stay 0."""
+    queue itself.
+
+    ``mode="async"`` double-buffers the epochs: a flush submits the
+    closing epoch's drain to the queue's slot and installs the previous
+    epoch's replies, so the reply window trails one epoch, ``pbase`` and
+    ``pcount`` hold the submitted epoch (its tickets read
+    ``STATUS_PENDING``) and ``cdepth`` the carried-record depth that
+    ``pressure()`` counts.  A sync queue keeps the three at 0."""
 
     def __init__(self, layout: _Layout, state: torch.Tensor,
                  retry: Optional[RetryPolicy] = None,
-                 timeout: Optional[float] = None):
+                 timeout: Optional[float] = None, mode: str = "sync",
+                 carry_budget: int = 0,
+                 shard_deadline: Optional[float] = None):
         self.layout, self.state = layout, state
         self.retry, self.timeout = retry, timeout
+        self.mode, self.carry_budget = mode, int(carry_budget)
+        self.shard_deadline = shard_deadline
+        self.qslot = _new_slot() if mode == "async" else None
         self.arrivals = torch.zeros(1, dtype=torch.int32,
                                     device=state.device)
         for name, view in layout.views(state).items():
@@ -1495,19 +1980,41 @@ class RpcQueue:
         ``device`` (the card unless the caller asks for the CPU).
         ``retry`` re-runs failing records of ``idempotent`` callees at the
         drain; ``timeout`` (seconds) bounds every callee's wall time
-        (overrun: ``STATUS_TIMEOUT``, the drain goes on)."""
+        (overrun: ``STATUS_TIMEOUT``, the drain goes on).
+
+        ``mode="async"`` double-buffers the epochs: a flush submits the
+        closing epoch's drain and installs the previous epoch's replies
+        (see the class docstring).  ``carry_budget`` (async, reply-carrying
+        queues) gives failed idempotent records that many more rounds,
+        one a later drain; ``shard_deadline`` (seconds; async here) bounds
+        the collect's wait for the previous drain, past which the window
+        reads ``STATUS_TIMEOUT`` and the late drain carries nothing."""
         if not 0 < width <= 31:
             raise ValueError(
                 f"width must be in [1, 31] to fit the int32 interleave "
                 f"mask; got {width}")
         if mode not in ("sync", "async"):
             raise ValueError(f"mode must be 'sync' or 'async'; got {mode!r}")
-        if mode == "async" or carry_budget:
+        if carry_budget:
+            if mode != "async":
+                raise ValueError(
+                    "carry_budget requires mode='async' (the carry list "
+                    "lives on the async slot; a sync drain has nowhere to "
+                    "redrive from)")
+            if not reply_capacity:
+                raise ValueError(
+                    "carry_budget requires reply_capacity > 0: a carried "
+                    "record's PENDING stamp and final outcome need the "
+                    "status lane")
+        if shard_deadline is not None and not reply_capacity:
+            raise ValueError(
+                "shard_deadline requires reply_capacity > 0: a stalled "
+                "drain's records are stamped STATUS_TIMEOUT in the status "
+                "lane")
+        if shard_deadline is not None and mode == "sync":
             raise NotImplementedError(
-                f"RpcQueue(mode='async', carry_budget=) needs {_ASYNC}")
-        if shard_deadline is not None:
-            raise NotImplementedError(
-                f"RpcQueue(shard_deadline=) needs {_SHARDED}")
+                f"RpcQueue(shard_deadline=) on a sync queue bounds the "
+                f"concurrent drain of a sharded one: {_SHARDED}")
         if sanitize:
             raise NotImplementedError(
                 f"RpcQueue(sanitize=True) needs {_SANITIZER}")
@@ -1522,7 +2029,9 @@ class RpcQueue:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         state = torch.zeros(layout.words, dtype=torch.int32, device=device)
-        return RpcQueue(layout, state, retry=retry, timeout=timeout)
+        return RpcQueue(layout, state, retry=retry, timeout=timeout,
+                        mode=mode, carry_budget=carry_budget,
+                        shard_deadline=shard_deadline)
 
     def lanes(self) -> Lanes:
         """The views an enqueue reads and writes."""
@@ -1654,10 +2163,13 @@ class RpcQueue:
         this flush's own handlers.  On a card the flush is one round trip
         of the RPC channel (one ``rpc_post``): the host returns at once
         and the stream carries the drain; on the CPU the drain runs here.
-        Returns the queue."""
+        An async queue hands the epoch over instead (see
+        :meth:`create`).  Returns the queue."""
         ctx = _FlushCtx(dict(handlers) if handlers else None, self.retry,
                         self.timeout)
         L = self.layout
+        if self.mode == "async":
+            return self._flush_async(ctx)
         if self.device.type == "cpu":
             src = self.state[:L.in_end].numpy().copy()
             _serve_flush(L, ctx, src, self.state[L.out_start:].numpy())
@@ -1672,31 +2184,144 @@ class RpcQueue:
                  [(1, self.state[L.out_start:])])
         return self
 
+    def _flush_async(self, ctx: _FlushCtx) -> "RpcQueue":
+        """The double-buffered hand-off: submit this epoch's drain, install
+        the previous epoch's replies ((rbase, rcount) <- (pbase, pcount))
+        and make this epoch the pending window.  On the CPU the collect
+        waits here; on a card it is the ``rpc_async_collect`` launch, and
+        the host never waits."""
+        L, slot = self.layout, _slot(self.qslot)
+        rc = L.reply_capacity
+        if self.device.type == "cpu":
+            return self._flush_async_host(ctx)
+        self._check_policy()
+        ring = self._ring(slot)
+        epoch = ring.issue()
+        with slot.lock:
+            slot.ctxs[epoch] = ctx
+        rpc_async_post(ring, epoch, self.state, L.out_start, bool(rc))
+        rpc_async_collect(ring, epoch, self.state, L.out_start, L.rslots, rc,
+                          self.shard_deadline)
+        return self
+
+    def _flush_async_host(self, ctx: _FlushCtx) -> "RpcQueue":
+        """The async flush through the plain versions of its kernels, the
+        collect waiting on the host (a CPU queue's flush)."""
+        L, slot = self.layout, _slot(self.qslot)
+        rc = L.reply_capacity
+        h = self.state[L.out_start:]
+        src = self.state[:L.in_end].cpu().numpy().copy()
+        prev = _submit_epoch(slot, L, src, ctx, self.carry_budget)
+        quad, cd = slot.collect(prev, self.shard_deadline, L.capacity, rc)
+        post_reference(h, bool(rc))
+        collect_reference(h, torch.from_numpy(
+            _reply_words(quad, cd, rc)).to(h.device))
+        return self
+
+    def flush_reference(self, handlers: Optional[Dict[str, Callable]] = None
+                        ) -> "RpcQueue":
+        """An async queue's flush through the plain versions of its two
+        kernels (``kernels/rpc_async/ref.py``) on any device: the records
+        are copied to the host and the previous epoch is collected there
+        (this waits for the device and for the drain).  What a CPU queue's
+        flush runs; on a card, the twin ``rpc_async_post`` and
+        ``rpc_async_collect`` are held against."""
+        if self.mode != "async":
+            raise ValueError("flush_reference() is the async flush's plain "
+                             "version; this queue is sync")
+        return self._flush_async_host(_FlushCtx(
+            dict(handlers) if handlers else None, self.retry, self.timeout))
+
+    def _ring(self, slot: _QueueSlot) -> AsyncRing:
+        """The queue's ring on its card, made at the first flush: each
+        posted epoch is submitted from the ring's ingest thread, in flush
+        order, and its drain answers into the ring."""
+        if slot.ring is not None:
+            return slot.ring
+        L, budget = self.layout, self.carry_budget
+        rc = L.reply_capacity
+
+        def on_posted(epoch: int, words: np.ndarray) -> None:
+            ring = slot.ring
+            with slot.lock:
+                ctx = slot.ctxs.pop(epoch)
+
+            def on_done(job: _EpochJob) -> None:
+                quad = job.out if job.out is not None else (
+                    np.zeros((rc,), np.int32),
+                    *(np.zeros((L.rslots,), np.int32) for _ in range(3)))
+                ring.complete(epoch, _reply_words(quad, job.cdepth, rc))
+
+            _submit_epoch(slot, L, words, ctx, budget,
+                          probe=lambda: ring.abandoned(epoch),
+                          on_done=on_done)
+
+        ring = AsyncRing(self.device, L.in_end, L.words - L.out_start -
+                         H_CDEPTH, on_posted)
+        with slot.lock:
+            slot.ring = ring
+            slot._mirror_depth()
+        # the ring's thread ends with the queue, once it has handed every
+        # flushed epoch to the drain
+        weakref.finalize(self, ring.close)
+        return ring
+
     def _check_policy(self) -> None:
-        """Refuse a retry and timeout policy whose worst case over a full
-        ring outlasts the channel's wait (the kernel would trap)."""
+        """Refuse a policy whose worst case outlasts the channel's wait on
+        a card (the posted kernel would trap): a sync flush's retries and
+        timeouts over a full ring; an async collect's wait for a drain
+        that also redrives up to ``carry_budget`` carried rounds of a
+        ring, unless a deadline shorter than the wait bounds it."""
+        if self.mode == "async" and self.shard_deadline is not None:
+            if self.shard_deadline >= TIMEOUT_S:
+                raise ValueError(
+                    f"RpcQueue flush on a card: shard_deadline "
+                    f"{self.shard_deadline}s is not below the channel's "
+                    f"{TIMEOUT_S}s wait")
+            return
         if self.timeout is None:
             return
         tries = self.retry.max_attempts if self.retry is not None else 1
         backoff = (self.retry.backoff * (2.0 ** (tries - 1) - 1.0)
                    if self.retry is not None else 0.0)
-        worst = self.capacity * (tries * self.timeout + backoff)
+        worst = self.capacity * (tries * self.timeout + backoff
+                                 + self.carry_budget * self.timeout)
         if worst > TIMEOUT_S:
             raise ValueError(
                 f"RpcQueue flush on a card: {self.capacity} records x "
                 f"({tries} attempts x {self.timeout}s timeout + {backoff}s "
-                f"backoff) = {worst:.1f}s may outlast the channel's "
-                f"{TIMEOUT_S}s wait; lower the timeout, the retries or "
-                "the capacity")
+                f"backoff + {self.carry_budget} carried rounds x "
+                f"{self.timeout}s) = {worst:.1f}s may outlast the channel's "
+                f"{TIMEOUT_S}s wait; lower the timeout, the retries, the "
+                "carry budget or the capacity")
 
     def join(self, timeout: Optional[float] = None) -> bool:
-        """True: a synchronous queue's flushes drain inline (async queues,
-        item 3.3, wait here)."""
-        return True
+        """Async queues: wait until every submitted epoch's drain has
+        finished on the host (on a card, after the device has handed it
+        over); True, or False on ``timeout``.  It installs no replies:
+        flush an empty epoch to collect.  A synchronous queue's flushes
+        drain inline: True at once."""
+        if self.qslot is None:
+            return True
+        return _slot(self.qslot).join(timeout)
 
     def carry_outcomes(self, dev: int = 0) -> Dict[int, Tuple[int, Any]]:
-        """``{}``: only async queues carry records across epochs."""
-        return {}
+        """Final outcomes of records carried across epochs: ``{ticket:
+        (status, words or None)}``, the newest 4096 (async queues with
+        ``carry_budget``; run :meth:`join` after the last flush for a
+        settled view).  ``dev`` is 0: one device a queue."""
+        if self.qslot is None:
+            return {}
+        slot = _slot(self.qslot)
+        with slot.lock:
+            return dict(slot.outcomes)
+
+    def _carried(self) -> Tuple[Dict[int, Any], set]:
+        """Finalized outcomes and still-carried tickets (host reads)."""
+        if self.qslot is None or not self.carry_budget:
+            return {}, set()
+        return self.carry_outcomes(), set(
+            _slot(self.qslot).carried_tickets())
 
     def _ticket(self, ticket) -> torch.Tensor:
         if isinstance(ticket, torch.Tensor):
@@ -1835,18 +2460,27 @@ class RpcQueue:
         v = L.views(self.state[L.out_start:].cpu().numpy(), L.out_start)
         rbuf, roff, rlen, rstat = v["rbuf"], v["roff"], v["rlen"], v["rstat"]
         rbase, rcount = int(v["rbase"]), int(v["rcount"])
+        outcomes, _ = self._carried()
         out = []
         for t in tickets:
             t = int(t)
+            oc = outcomes.get(t)
+            if oc is not None:
+                # a carried record resolves through the outcome table
+                st, words = oc
+                ok = st == STATUS_OK and words is not None and \
+                    words.size == nw
+                vals = (_decode_words(words, np_dtype) if ok
+                        else np.zeros((nw,), np_dtype))
+                out.append((vals.reshape(shape), ok))
+                continue
             local = t - rbase
             slot = local % self.capacity if local >= 0 else 0
             ok = (t >= 0 and 0 <= local < rcount and int(rlen[slot]) == nw
                   and int(rstat[slot]) == STATUS_OK)
             if ok:
-                words = rbuf[int(roff[slot]):int(roff[slot]) + nw]
-                vals = (words.view(np.float32).astype(np_dtype)
-                        if np.issubdtype(np_dtype, np.floating)
-                        else words.astype(np_dtype))
+                vals = _decode_words(rbuf[int(roff[slot]):int(roff[slot])
+                                          + nw], np_dtype)
             else:
                 vals = np.zeros((nw,), np_dtype)
             out.append((vals.reshape(shape), ok))
@@ -1864,11 +2498,20 @@ class RpcQueue:
         rstat = v["rstat"]
         rbase, rcount = int(v["rbase"]), int(v["rcount"])
         pbase, pcount = int(v["pbase"]), int(v["pcount"])
+        # a finalized carry outcome wins over an older window's stamp; a
+        # still-carried ticket reads PENDING
+        outcomes, carried = self._carried()
         out = []
         for t in tickets:
             t = int(t)
             if t < 0:
                 out.append(STATUS_DROPPED)
+                continue
+            if t in outcomes:
+                out.append(int(outcomes[t][0]))
+                continue
+            if t in carried:
+                out.append(STATUS_PENDING)
                 continue
             local = t - rbase
             if not 0 <= local < rcount:

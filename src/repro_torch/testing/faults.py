@@ -23,9 +23,9 @@ generated from a seed via :meth:`FaultPlan.generate`; a plan holds
 mutable occurrence counters, so call :meth:`FaultPlan.reset` (or build a
 fresh plan from the same seed) before replaying it.
 
-The port's drains are synchronous so far (the async and sharded
-transports are ROADMAP queue 1, items 3.3 and 3.4); :meth:`FaultPlan.reserve`
-and the ``index=`` keyword are kept for them.
+The port's async queue reserves occurrences at each flush through
+:meth:`FaultPlan.reserve` and passes them back with ``index=``; the
+sharded transport (ROADMAP queue 1, item 3.4) is not ported yet.
 
 **Concurrent drains (async / sharded-async transports).**  When drains
 run on background threads, arrival order at ``on_call`` is scheduler

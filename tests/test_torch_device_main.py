@@ -4,8 +4,9 @@ with a hook every 100 steps makes exactly 10 host calls and nothing else,
 auto-named hooks get JAX's names and leave the registry at a constant
 size; batched, returning (``consume``) and mixed immediate and batched
 hooks give JAX's ``host_fn`` call sequence and JAX's final fp32 state, a
-step may flush its queue mid-loop (``thread_queue``), and what is not
-ported (``queue_async``, ``mesh``) is refused by its ROADMAP item."""
+step may flush its queue mid-loop (``thread_queue``), an async queue
+refuses returning hooks as JAX's does, and what is not ported (``mesh``)
+is refused by its ROADMAP item."""
 import numpy as np
 import pytest
 
@@ -85,13 +86,19 @@ def test_device_run_retires_auto_named_hooks():
 
 def test_device_run_refuses_the_batched_transport():
     """What of the batched transport is not ported is refused by its item
-    (the async queue, 3.3; meshes, 5), and a returning hook needs
-    ``batched`` and ``consume``, as in JAX."""
+    (meshes, 5); a returning hook needs ``batched`` and ``consume`` and a
+    synchronous queue (``queue_async`` lands replies an epoch late), as
+    in JAX."""
     hook = dict(every=1, extract=lambda i, s: s, host_fn=lambda i, v: None)
-    with pytest.raises(NotImplementedError, match="item 3.3"):
-        tdm.device_run(lambda i, s: s, torch.tensor(0.0), 1,
-                       hooks=[tdm.HostHook(**hook, batched=True)],
-                       queue_async=True)
+    for mod in (jdm, tdm):
+        with pytest.raises(ValueError, match="queue_async=True"):
+            mod.device_run(lambda i, s: s, 0.0 if mod is jdm else
+                           torch.tensor(0.0), 1,
+                           hooks=[mod.HostHook(**hook, batched=True,
+                                               returns=_F32 if mod is tdm
+                                               else _JF32,
+                                               consume=lambda *a: a[1])],
+                           queue_async=True)
     with pytest.raises(ValueError, match="batched=True"):
         tdm.device_run(lambda i, s: s, torch.tensor(0.0), 1,
                        hooks=[tdm.HostHook(**hook, returns=_F32,
@@ -277,3 +284,48 @@ def test_idempotent_hook_retried_by_the_run_queue():
     assert st["retries"] == 1 and st["callee_errors"] == 1
     assert [(e["callee"], e["attempt"]) for e in trpc.error_log()] == \
         [("hook.torch_flaky", 1), ("hook.torch_broken", 1)]
+
+
+# -- pytrees as jax.tree flattens them (None is an empty subtree) ----------
+
+class _Pair(__import__("typing").NamedTuple):
+    a: object
+    b: object
+
+
+_TREES = [
+    {"a": 1, "b": None, "c": (2, None)},
+    [None, {"z": 3, "y": [4, (5, None)]}, ()],
+    _Pair(6, {"k": None, "j": _Pair(7, [8])}),
+    (None,),
+    {"b": {"c": None}, "a": [[], 9]},
+]
+
+
+@pytest.mark.parametrize("tree", _TREES, ids=range(len(_TREES)))
+def test_tree_flattens_and_maps_like_jax_tree(tree):
+    from repro_torch.tree import leaves, tree_map
+    assert leaves(tree) == jax.tree.leaves(tree)
+    out = tree_map(lambda x: x * 10, tree)
+    assert out == jax.tree.map(lambda x: x * 10, tree)
+    assert type(out) is type(tree)
+    twin = tree_map(lambda x: x + 1, tree)
+    assert tree_map(lambda x, y: x - y, twin, tree) == \
+        jax.tree.map(lambda x, y: x - y, twin, tree)
+
+
+def test_hook_extract_with_none_leaf_fires_like_jax():
+    """A hook whose ``extract`` returns ``{"v": state, "n": None}`` ships
+    only ``v`` (None is an empty subtree) and fires twice in 4 steps of
+    every 2, as JAX's."""
+    logs = {"jax": [], "port": []}
+    for mod, state, log in ((jdm, jnp.float32(1.0), logs["jax"]),
+                            (tdm, torch.tensor(1.0), logs["port"])):
+        hook = mod.HostHook(every=2, extract=lambda i, s: {"v": s, "n": None},
+                            host_fn=lambda i, *v, log=log: log.append(
+                                (int(i), [float(x) for x in v])))
+        kw = {"donate": False} if mod is jdm else {}
+        mod.device_run(lambda i, s: s + 1.0, state, 4, hooks=[hook], **kw)
+        jax.effects_barrier()
+        effects_barrier()
+    assert logs["port"] == logs["jax"] == [(2, [3.0]), (4, [5.0])]

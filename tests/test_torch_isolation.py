@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` (nor chip_smoke.py)
-imports ``jax`` or the JAX package, and its entry points refuse to run on a
-card that is absent unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``repro_torch`` (nor chip_smoke.py,
+nor the port's examples) imports ``jax`` or the JAX package, and its entry
+points refuse to run on a card that is absent unless the caller asks for
+the CPU."""
 import ast
 import os
 import subprocess
@@ -49,7 +50,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py"] +
+                         sorted(ROOT.glob("examples/*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     for name in _imports(path):
@@ -81,3 +83,16 @@ def test_train_entry_point_needs_a_card_unless_told_cpu(monkeypatch):
     out = run("llama3.2-3b", steps=1, batch=1, seq_len=8, log_every=0,
               device="cpu")
     assert out["steps"] == 1 and out["losses"] == []
+
+
+@pytest.mark.parametrize("script", ["quickstart_torch.py",
+                                    "serve_demo_torch.py"])
+def test_examples_need_a_card_unless_told_cpu(monkeypatch, script):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        script[:-3], ROOT / "examples" / script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([])

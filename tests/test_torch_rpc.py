@@ -219,3 +219,122 @@ def test_rpc_refusals():
         trpc.rpc_call(name, result_shape=trpc.ShapeDtype((3,), torch.int32))
     with pytest.raises(ValueError):
         trpc.Ref(torch.zeros(1), access="rw")
+
+
+# -- result_shape as a pytree (JAX's contract): no result, several results --
+
+def _two_results(x):
+    return (5, 8.0)
+
+
+def test_rpc_empty_and_tuple_result_shapes_match_jax():
+    """``result_shape=()`` returns ``()`` (no result slot) and a tuple of
+    shapes returns a tuple of results, as JAX's ``rpc_call`` does; the
+    bookkeeping (bytes out of the callee's result leaves) agrees."""
+    name = f"torch_parity_tuple_{next(_ids)}"
+    jrpc.REGISTRY.register(name, _two_results)
+    trpc.REGISTRY.register(name, _two_results)
+    jshape = (jax.ShapeDtypeStruct((), jnp.int32),
+              jax.ShapeDtypeStruct((), jnp.float32))
+    tshape = (trpc.ShapeDtype((), torch.int32),
+              trpc.ShapeDtype((), torch.float32))
+    jr, _ = jax.jit(lambda: jrpc.rpc_call(name, jnp.int32(1),
+                                          result_shape=jshape))()
+    tr, _ = trpc.rpc_call(name, 1, result_shape=tshape)
+    assert isinstance(tr, tuple) and len(tr) == 2
+    assert [t.dtype for t in tr] == [torch.int32, torch.float32]
+    assert [t.item() for t in tr] == [np.asarray(j).item() for j in jr] \
+        == [5, 8.0]
+    _same_bookkeeping(name)
+
+    seen = []
+    empty = f"torch_parity_empty_{next(_ids)}"
+
+    def sink(x):
+        seen.append(int(x))
+
+    jrpc.REGISTRY.register(empty, sink)
+    trpc.REGISTRY.register(empty, sink)
+    jout = jax.jit(lambda: jrpc.rpc_call(empty, jnp.int32(7),
+                                         result_shape=())[0])()
+    jax.effects_barrier()
+    tout, upd = trpc.rpc_call(empty, 7, result_shape=())
+    assert tout == () == jout and upd == [] and seen == [7, 7]
+    _same_bookkeeping(empty)
+    # host_rpc goes through the same path
+    deco = trpc.host_rpc(f"torch_parity_deco_{next(_ids)}",
+                         result_shape=tshape)(_two_results)
+    out, _ = deco.rpc(3)
+    assert [t.item() for t in out] == [5, 8.0]
+
+
+def _issue_conformance(pkg, call):
+    """tests/test_rpc_transport.py's immediate and batched conformance
+    issuers of ``libc.fprintf``/``libc.fwrite`` (``result_shape=()``),
+    through one package: returns the host effect."""
+    if pkg == "jax":
+        from repro.core import libc
+        from repro.core.rpc import RpcQueue, rpc_call
+        i32 = lambda v: jnp.int32(v)       # noqa: E731
+        f32 = lambda v: jnp.float32(v)     # noqa: E731
+        arr = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
+        run = lambda f: (jax.jit(f)(), jax.effects_barrier())  # noqa: E731
+        queue = lambda **kw: RpcQueue.create(8, **kw)  # noqa: E731
+    else:
+        from repro_torch.core import libc
+        from repro_torch.core.rpc import RpcQueue, rpc_call
+        i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+        arr = i32
+        run = lambda f: (f(), trpc.effects_barrier())  # noqa: E731
+        queue = lambda **kw: RpcQueue.create(8, device="cpu", **kw)  # noqa
+    transport, what = call
+    stream = {"immediate": 31, "batched": 32}[transport]
+    libc.drain_printf()                  # what earlier tests left
+    libc.drain_fwrite(stream)
+    if what == "fprintf":
+        fmt = "conf %d %.1f"
+        fid = libc._intern_fmt(fmt)
+        calls = [(3, 1.5), (4, -0.5)]
+        if transport == "immediate":
+            def prog():
+                for a, b in calls:
+                    rpc_call("libc.fprintf", i32(fid), i32(a), f32(b),
+                             result_shape=())
+                return i32(0)
+        else:
+            def prog():
+                q = queue(width=4, payload_capacity=16)
+                for a, b in calls:
+                    q = libc.fprintf(q, fmt, i32(a), f32(b))
+                return q.flush().head
+        run(prog)
+        return libc.drain_printf()
+    chunks = [[10, 20, 30], [40]]
+    if transport == "immediate":
+        def prog():
+            for c in chunks:
+                rpc_call("libc.fwrite", i32(stream), arr(c),
+                         result_shape=())
+            return i32(0)
+    else:
+        def prog():
+            q = queue(width=2, payload_capacity=16)
+            for c in chunks:
+                q = libc.fwrite(q, arr(c), stream=stream)
+            return q.flush().head
+    run(prog)
+    return libc.drain_fwrite(stream).tolist()
+
+
+@pytest.mark.parametrize("transport", ["immediate", "batched"])
+@pytest.mark.parametrize("what", ["fprintf", "fwrite"])
+def test_cross_transport_conformance_matches_jax(transport, what):
+    """The immediate and batched branches of JAX's
+    ``test_cross_transport_conformance``: the same host effect from both
+    packages, and the same from both transports."""
+    got = {pkg: _issue_conformance(pkg, (transport, what))
+           for pkg in ("jax", "port")}
+    want = (["conf 3 1.5", "conf 4 -0.5"] if what == "fprintf"
+            else [10, 20, 30, 40])
+    assert got["port"] == got["jax"] == want

@@ -671,11 +671,12 @@ def test_reply_rejected_without_reply_arena():
 
 
 def test_later_items_are_refused_by_name():
-    for kw, item in (({"mode": "async"}, "3.3"), ({"carry_budget": 1}, "3.3"),
-                     ({"shard_deadline": 1.0}, "3.4"),
+    for kw, item in (({"shard_deadline": 1.0, "reply_capacity": 4}, "3.4"),
                      ({"sanitize": True}, "3.7")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             _q(4, **kw)
+    with pytest.raises(ValueError, match="carry_budget requires mode"):
+        _q(4, carry_budget=1)
     with pytest.raises(ValueError, match="mode"):
         _q(4, mode="later")
 

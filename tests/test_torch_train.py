@@ -50,6 +50,7 @@ from repro.train.step import make_train_step as j_make_train_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.device_main import HostHook, device_run  # noqa: E402
+from repro_torch.core.rpc import ShapeDtype  # noqa: E402
 from repro_torch.core.libc import rand_init, rand_u32, rand_uniform  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.launch.train import run, tiny_preset  # noqa: E402
@@ -283,13 +284,18 @@ def test_device_run_hooks_fire_as_in_jax():
 
 
 def test_device_run_refuses_transport_options():
-    hook = HostHook(every=1, extract=lambda s, st: st, host_fn=print,
-                    batched=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        device_run(lambda i, s: s, torch.zeros(()), 2, hooks=[hook],
+    seen = []
+    hook = HostHook(every=1, extract=lambda s, st: st,
+                    host_fn=lambda i, v: seen.append(i), batched=True)
+    device_run(lambda i, s: s, torch.zeros(()), 2, hooks=[hook],
+               queue_async=True)
+    assert seen == [1, 2]
+    ret = HostHook(every=1, extract=lambda s, st: st, host_fn=print,
+                   batched=True, returns=ShapeDtype((), torch.float32),
+                   consume=lambda i, s, v, ok: s)
+    with pytest.raises(ValueError, match="queue_async=True"):
+        device_run(lambda i, s: s, torch.zeros(()), 2, hooks=[ret],
                    queue_async=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        device_run(lambda i, s: s, torch.zeros(()), 2, queue_async=True)
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         device_run(lambda i, s: s, torch.zeros(()), 2, mesh=object())
 
