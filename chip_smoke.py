@@ -198,12 +198,28 @@ a 64M-float state whose step flushes the threaded queue every 100
 steps, each with the sync and the async queue under
 ``set_sync_debug_mode("error")`` (loop and device ms side by side); and
 ``host_pipeline``: ``device_run`` over 16 batches fetched through
-``make_host_pipeline`` (one ``rpc_post`` a fetch).
+``make_host_pipeline`` (one ``rpc_post`` a fetch).  Inside ``serve``,
+on its model, runs ``serve_spill``: the same traffic through an engine
+with a page-spill sink on its async queue (streams equal to ``serve``'s,
+each spill's pages the page-table prefix and its ``n_tokens`` prompt +
+generated - 1, acks the page counts, exact launches; a flaky and a dead
+sink on five short requests; ms/tick and tok/s beside an engine without
+a sink).  After ``host_pipeline`` run ``sanitizer`` (``rpc_queue``'s
+plans on sanitized sync and async queues: the arena bit-equal to
+``enqueue_reference``'s after every enqueue, deliveries, replies and
+statuses equal to unsanitized and CPU runs, the epoch records equal to
+the CPU's; three seeded faults counted once each; sanitized against
+plain enqueue times and the pre-check's host time), ``allocators``
+(size-class churns at ``cap`` 4096 and 65536 on a 2**24-word heap, the
+page heap's grid and scan paths, a 4-shard heap stacked on the card:
+bit-equal to the CPU with no device read; each operation's host and
+device us) and ``events`` (the card's event kinds and counts equal the
+CPU's, nothing waiting for the device).
 
 Every phase raises on failure.  The kernels' launch counts are reset just
 before each counted path (phases 3, 7, 10, 12, 16, 21, 24, 25 and 26,
-``dense_serve``, ``rpc_queue_async``, ``device_run_async`` and
-``host_pipeline``) and read just after it; each path's count must be the exact number its depth
+``dense_serve``, ``rpc_queue_async``, ``device_run_async``,
+``host_pipeline``, ``serve_spill`` and ``sanitizer``) and read just after it; each path's count must be the exact number its depth
 and steps give (``rpc_post``: one a firing of a hook, a call or a flush;
 ``rpc_enqueue``: one a record; ``rpc_async_post`` and
 ``rpc_async_collect``: one each an async flush).
@@ -731,7 +747,7 @@ def _engine_serve(tag, cfg, n_short, long_len, seed):
     the contiguous decode (``Model.decode_step``) that is teacher-forced on
     the first four requests and held to the engine's logits (within
     ``LOGIT_ATOL_BF16``) and argmax.  Returns (launches, model, params,
-    prompts, max_new, max_len)."""
+    prompts, max_new, max_len, the greedy streams)."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda)
     from repro_torch.kernels.paged_attention.kernel import (
@@ -815,9 +831,10 @@ def _engine_serve(tag, cfg, n_short, long_len, seed):
         if diff > LOGIT_ATOL_BF16 or not same or not tokens:
             raise AssertionError(f"{tag} request {rid}: engine and "
                                  "contiguous decode disagree")
+    streams = dict(results)
     del engine, cont, engine_logits
     torch.cuda.empty_cache()
-    return launches, model, params, prompts, max_new, max_len
+    return launches, model, params, prompts, max_new, max_len, streams
 
 
 def serve_phase():
@@ -825,8 +842,10 @@ def serve_phase():
 
     cfg = get_config("llama3.2-3b")
     assert cfg.num_layers == SERVE_LAYERS and cfg.padded_heads == 32
-    launches, model, params, prompts, max_new, max_len = _engine_serve(
-        "serve", cfg, 8, 200, 7)
+    launches, model, params, prompts, max_new, max_len, streams = \
+        _engine_serve("serve", cfg, 8, 200, 7)
+    spill = serve_spill_phase(model, params, prompts, max_new, max_len,
+                              streams)
     profile_window(model, params, prompts, max_new, max_len)
     tokens = torch.tensor([prompts[0][:64]], device="cuda")
     fwd, dec = _forward_vs_decode(model, params, tokens)
@@ -839,7 +858,7 @@ def serve_phase():
                                    .float().mean())}})
     del params, model, fwd, dec
     torch.cuda.empty_cache()
-    return launches
+    return launches, spill
 
 
 def dense_serve_phase():
@@ -856,7 +875,7 @@ def dense_serve_phase():
     assert (cfg.num_layers, cfg.d_model, cfg.padded_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, cfg.qkv_bias) == \
         (DENSE_LAYERS, 5120, 48, 8, 128, True)
-    launches, model, params, prompts, max_new, max_len = _engine_serve(
+    launches, model, params, prompts, max_new, max_len, _ = _engine_serve(
         "dense_serve", cfg, 8, 200, 14)
     profile_window(model, params, prompts, max_new, max_len,
                    tag="dense_profile")
@@ -3795,6 +3814,805 @@ def host_pipeline_phase():
     return posts
 
 
+# ---------------------------------------------------------------------------
+# The page spill, the sanitizer, the allocators and events
+# ---------------------------------------------------------------------------
+
+def _spill_engine_run(model, params, prompts, max_new, max_len, sink,
+                      releases, **kw):
+    """A spill engine on ``prompts``, run to the end; ``releases`` gets
+    the page table, lengths and mask at each release (snapshots on the
+    card; a sink reads its length to know its tick).  Returns the engine,
+    the request ids, the flushes ``_deliver_spills`` made and the seconds
+    it took."""
+    from repro_torch.serving import kvcache
+    from repro_torch.serving.engine import ServingEngine
+
+    release = kvcache.release_slots
+
+    def recording(kv, mask):
+        releases.append((kv.page_table.clone(), kv.lengths.clone(),
+                         mask.clone()))
+        return release(kv, mask)
+
+    engine = ServingEngine(model, params, batch_slots=4, page_size=16,
+                           max_len=max_len, device="cuda", spill_sink=sink,
+                           **kw)
+    rids = [engine.submit(p, max_new=max_new) for p in prompts]
+    flushes = [0]
+    flush = engine.spill_q.flush
+
+    def counted(*a, **k):
+        flushes[0] += 1
+        return flush(*a, **k)
+
+    engine.spill_q.flush = counted
+    kvcache.release_slots = recording
+    try:
+        t0 = time.perf_counter()
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        kvcache.release_slots = release
+    return engine, rids, flushes[0], dt
+
+
+def _spill_counts():
+    from repro_torch.kernels.rpc_async import (rpc_async_collect,
+                                               rpc_async_post)
+    from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.kernels.rpc_queue import rpc_enqueue
+    return {"rpc_enqueue": rpc_enqueue.launches,
+            "rpc_async_post": rpc_async_post.launches,
+            "rpc_async_collect": rpc_async_collect.launches,
+            "rpc_post": rpc_post.launches}
+
+
+def serve_spill_phase(model, params, prompts, max_new, max_len, streams):
+    """llama3.2-3b at full width and depth (``serve``'s model, traffic and
+    engine geometry) with a page-spill sink on the engine's async queue.
+    Gates: the greedy streams equal ``serve``'s; each spill's pages are
+    the slot's page-table prefix just before its release and its
+    ``n_tokens`` is prompt + generated - 1; each ack is its page count;
+    the launches are exact: one ``rpc_enqueue`` a request, one
+    ``rpc_async_post`` and one ``rpc_async_collect`` a flush that
+    ``_deliver_spills`` makes (two a tick that retires requests; under
+    ``spill_retries=2`` one more a tick whose carried record still read
+    PENDING after the collect, which depends on whether its redrive had
+    finished), no ``rpc_post``.  Then a flaky sink (the first
+    call of each odd request raises; ``spill_retries=2``) acks every
+    request and leaves its failures in ``error_log()``, and a dead sink
+    leaves every request in ``recompute_on_readmit`` with a None ack (both
+    on five short requests).  ms/tick and tok/s beside an engine without
+    a sink on the same traffic, run just before it.  Returns the main
+    path's launches."""
+    from repro_torch.core import clear_error_log, error_log
+    from repro_torch.kernels import rpc_async, rpc_channel, rpc_queue
+    from repro_torch.serving.engine import ServingEngine
+
+    def reset():
+        rpc_queue.rpc_enqueue.launches = 0
+        rpc_async.rpc_async_post.launches = 0
+        rpc_async.rpc_async_collect.launches = 0
+        rpc_channel.rpc_post.launches = 0
+
+    def no_sink():
+        plain = ServingEngine(model, params, batch_slots=4, page_size=16,
+                              max_len=max_len, device="cuda")
+        for p in prompts:
+            plain.submit(p, max_new=max_new)
+        t0 = time.perf_counter()
+        ticks = 0
+        while plain.queue or any(s.request_id >= 0 for s in plain.slots):
+            plain.step()
+            ticks += 1
+        torch.cuda.synchronize()
+        return plain, ticks, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    plain, ticks, plain_s = no_sink()
+
+    calls = []
+    releases = []
+
+    def sink(rid, n_tokens, pages):
+        calls.append((len(releases), int(rid), int(n_tokens),
+                      pages.tolist()))
+
+    # main path: counts from 0 just before, read just after
+    reset()
+    engine, rids, n_flush, spill_s = _spill_engine_run(
+        model, params, prompts, max_new, max_len, sink, releases)
+    launches = _spill_counts()
+    n_tok = sum(len(v) for v in engine.finished.values())
+    page_ok, tokens_ok = True, True
+    for k, (table, lengths, mask) in enumerate(releases):
+        slots = mask.nonzero().flatten().tolist()
+        mine = [c for c in calls if c[0] == k]
+        table, lengths = table.cpu(), lengths.cpu()
+        for slot, (_, rid, n, pages) in zip(slots, mine):
+            want = table[slot, :-(-int(lengths[slot]) // 16)].tolist()
+            page_ok &= pages == want and n == int(lengths[slot])
+            tokens_ok &= n == len(prompts[rid]) + max_new - 1
+        page_ok &= len(slots) == len(mine)
+    flushes = 2 * len(releases)
+    checks = {
+        "streams_equal_serve": engine.finished == streams
+        and plain.finished == streams,
+        "one_spill_a_request": sorted(c[1] for c in calls) == rids,
+        "pages_are_the_page_table_prefix": page_ok,
+        "n_tokens_prompt_plus_generated_minus_1": tokens_ok,
+        "acks_are_page_counts": engine.spill_acks == {
+            c[1]: len(c[3]) for c in calls},
+        "nothing_to_recompute": engine.recompute_on_readmit == set(),
+        "one_enqueue_a_request": launches["rpc_enqueue"] == len(rids),
+        "two_flushes_a_retiring_tick": launches["rpc_async_post"]
+        == launches["rpc_async_collect"] == n_flush == flushes,
+        "no_rpc_post": launches["rpc_post"] == 0,
+    }
+    rec = {"checks": checks, "requests": len(rids), "ticks": ticks,
+           "retiring_ticks": len(releases), "launches": launches,
+           "spill": {"seconds": spill_s, "ms_per_tick": spill_s / ticks * 1e3,
+                     "tok_per_s": n_tok / spill_s},
+           "no_sink": {"seconds": plain_s,
+                       "ms_per_tick": plain_s / ticks * 1e3,
+                       "tok_per_s": n_tok / plain_s}}
+
+    short = prompts[1:6]
+    frel, drel, attempts = [], [], []
+
+    def flaky(rid, n_tokens, pages):
+        rid = int(rid)
+        n = 1 + sum(r == rid for _, r in attempts)
+        attempts.append((len(frel), rid))
+        if rid % 2 and n == 1:
+            raise RuntimeError(f"spill store hiccup, request {rid}")
+
+    def dead(rid, n_tokens, pages):
+        raise RuntimeError("spill store down")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        clear_error_log()
+        reset()
+        eng, frids, f_flush, _ = _spill_engine_run(
+            model, params, short, 4, max_len, flaky, frel, spill_retries=2)
+        fl = _spill_counts()
+        errs = [e for e in error_log() if e["callee"] == "kvcache.spill"]
+        reset()
+        deng, drids, d_flush, _ = _spill_engine_run(
+            model, params, short, 4, max_len, dead, drel, spill_retries=1)
+        dl = _spill_counts()
+    odd = [r for r in frids if r % 2]
+    # a retiring tick with an odd request grants its carry one more flush
+    carried_ticks = len({k for k, r in attempts if r % 2})
+    checks.update({
+        "flaky_every_rid_acked": set(eng.spill_acks) == set(frids)
+        and all(v is not None for v in eng.spill_acks.values())
+        and eng.recompute_on_readmit == set(),
+        "flaky_retried_once_each": sorted(r for _, r in attempts)
+        == sorted(frids + odd),
+        "flaky_failures_in_error_log": len(errs) == len(odd),
+        "flaky_launches": fl["rpc_enqueue"] == len(frids)
+        and fl["rpc_async_post"] == fl["rpc_async_collect"] == f_flush
+        and 2 * len(frel) <= f_flush <= 2 * len(frel) + carried_ticks,
+        "dead_sink_recompute": deng.recompute_on_readmit == set(drids)
+        and deng.spill_acks == {r: None for r in drids},
+        "dead_launches": dl["rpc_enqueue"] == len(drids)
+        and dl["rpc_async_post"] == dl["rpc_async_collect"] == d_flush
+        == 2 * len(drel),
+        "short_streams_unaffected": deng.finished == eng.finished,
+    })
+    rec.update({"flaky_launches": fl, "dead_launches": dl,
+                "flaky_flushes": f_flush, "flaky_carried_ticks": carried_ticks,
+                "flaky_errors": len(errs),
+                "phase_seconds": time.perf_counter() - t_phase})
+    log({"serve_spill": rec})
+    if not all(checks.values()):
+        raise AssertionError(f"serve_spill: {rec}")
+    return launches
+
+
+#: The sanitizer's plans: rpc_queue's, on an arena large enough that
+#: neither a sanitized nor a plain queue drops at it (a canary-bracketed
+#: reservation takes 2 more words, so drops there would differ by design).
+SAN_GEOMETRY = dict(QUEUE_GEOMETRY, payload_capacity=8192)
+
+
+def _san_plan_run(plan, q, logs, twin=None):
+    """Enqueue ``plan`` on ``q`` (flush every QUEUE_FLUSH_EVERY records
+    and at the end; an async queue once more to collect the tail).  With
+    ``twin`` (a queue of the same kind on the card) each record also goes
+    through ``enqueue_reference`` there and both states are kept after
+    every enqueue.  Returns the tickets, the reply regions after each
+    flush and the per-enqueue state pairs (clones)."""
+    from repro_torch.kernels.rpc_queue import enqueue_reference
+    logged = _queue_callees()
+    L = q.layout
+    tickets, replies, pairs = [], [], []
+    n = len(plan)
+    for k, (name, args, returns, where) in enumerate(plan):
+        _, t = q.enqueue_ticketed(name, *args, returns=returns, where=where)
+        tickets.append(t)
+        if twin is not None:
+            enqueue_reference(twin.lanes(), twin.record(name, args, returns,
+                                                        where))
+            pairs.append((q.state.clone(), twin.state.clone()))
+        if (k + 1) % QUEUE_FLUSH_EVERY == 0 or k + 1 == n:
+            q.flush(logged(logs))
+            if twin is not None:
+                twin.state.copy_(q.state)
+            replies.append(q.state[L.out_start:].clone())
+    if q.mode == "async":
+        q.flush(logged(logs))
+        replies.append(q.state[L.out_start:].clone())
+    return tickets, replies, pairs
+
+
+def _san_faults(dev):
+    """The three seeded faults on the card, each alone: a trailing canary
+    overwritten on the device (``canary_stomps``), a payload copied from
+    a block freed by ``poison_free`` (``poison_hits``) and an ArenaRef to
+    a freed pointer through ``rpc_call`` (``uaf_marshals``).  Returns
+    each fault's counters."""
+    import numpy as np
+    from repro_torch.analysis import poison_free
+    from repro_torch.core import (READ, ArenaRef, GenericAllocator,
+                                  RpcQueue, ShapeDtype, effects_barrier,
+                                  reset_sanitize_stats, rpc_call,
+                                  sanitize_stats)
+    from repro_torch.core.rpc import REGISTRY
+
+    REGISTRY.register("smoke.san_rec", lambda *a: None)
+    REGISTRY.register("smoke.san_probe",
+                      lambda ptr, base, size, found, arena: np.int32(found))
+    keys = ("canary_stomps", "poison_hits", "uaf_marshals")
+    out = {}
+
+    def counted(label, fn):
+        effects_barrier()
+        reset_sanitize_stats()
+        with sync_errors():
+            fn()
+        effects_barrier()
+        st = sanitize_stats()
+        out[label] = {k: st[k] for k in keys}
+
+    def stomp():
+        q = RpcQueue.create(8, 4, 64, sanitize=True, device=dev)
+        q.enqueue("smoke.san_rec", torch.arange(4, dtype=torch.int32,
+                                                device=dev))
+        q.pbuf[5].fill_(7)        # the 4-word payload's trailing canary
+        q.flush()
+
+    def poison():
+        st = GenericAllocator.init(64, cap=8, device=dev)
+        buf = torch.arange(64, dtype=torch.int32, device=dev)
+        st, p = GenericAllocator.malloc(st, 8)
+        st, buf = poison_free(GenericAllocator, st, buf, p)
+        stale = buf.index_select(0, p.long() + torch.arange(8, device=dev))
+        q = RpcQueue.create(8, 4, 64, sanitize=True, device=dev)
+        q.enqueue("smoke.san_rec", stale).flush()
+
+    def uaf():
+        st = GenericAllocator.init(64, cap=8, device=dev)
+        st, p = GenericAllocator.malloc(st, 8)
+        st = GenericAllocator.free(st, p)
+        rpc_call("smoke.san_probe", ArenaRef(
+            torch.zeros(64, dtype=torch.int32, device=dev), p, st,
+            access=READ), result_shape=ShapeDtype((), torch.int32))
+
+    counted("canary_stomp", stomp)
+    counted("poison_free_then_marshal", poison)
+    counted("freed_arena_ref", uaf)
+    return out
+
+
+def sanitizer_phase(card_line):
+    """The transport's sanitizer on the card.  ``rpc_queue``'s three plans
+    (on ``SAN_GEOMETRY``) on sanitized sync and async card queues (the
+    main path, under ``set_sync_debug_mode("error")``), each record also
+    through ``enqueue_reference`` with ``sanitize`` on the card, then on
+    unsanitized card queues and on sanitized CPU queues.  Gates: the
+    state after every enqueue bit-equal to the plain version's (canaries
+    included); the replay logs, tickets and reply regions (heads, window,
+    offsets, lengths, statuses, replies) after every flush bit-equal to
+    the unsanitized run's and the CPU's; the counters zero and the epoch
+    records equal to the CPU run's; one ``rpc_enqueue`` a record.  Then
+    the three seeded faults each count once.  Times: ``rpc_enqueue``
+    sanitized against plain (device us behind a sleep) at a scalar
+    record, 1 KB and 64 KB, and the host pre-check of a 1024-record
+    flush.  Returns (sanitized ``rpc_enqueue`` launches, async kernels'
+    launches)."""
+    from repro_torch.core import (RpcQueue, effects_barrier,
+                                  reset_sanitize_stats, sanitize_stats)
+    from repro_torch.kernels.rpc_async import (rpc_async_collect,
+                                               rpc_async_post)
+    from repro_torch.kernels.rpc_queue import rpc_enqueue
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    zero = ("canary_stomps", "poison_hits", "uaf_marshals",
+            "stale_ticket_reads", "failed_ticket_reads")
+    rec, launches = {}, 0
+    async_launches = {"rpc_async_post": 0, "rpc_async_collect": 0}
+    for mode in ("sync", "async"):
+        for seed in QUEUE_SEEDS:
+            plan = _queue_plan(dev, seed, QUEUE_RECORDS)
+            card = [(n, c, r, wk) for n, c, _, r, wk, _ in plan]
+            cpu = [(n, c, r, wc) for n, _, c, r, _, wc in plan]
+            runs = {}
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                for label, sub, san, where in (
+                        ("san", card, True, dev), ("plain", card, False, dev),
+                        ("cpu", cpu, True, "cpu")):
+                    q = RpcQueue.create(**SAN_GEOMETRY, mode=mode,
+                                        sanitize=san, device=where)
+                    twin = (RpcQueue.create(**SAN_GEOMETRY, mode=mode,
+                                            sanitize=True, device=dev)
+                            if label == "san" else None)
+                    logs = []
+                    effects_barrier()
+                    reset_sanitize_stats()
+                    if label == "san":
+                        # main path: counts from 0 just before, read after
+                        rpc_enqueue.launches = 0
+                        rpc_async_post.launches = 0
+                        rpc_async_collect.launches = 0
+                        with sync_errors():
+                            out = _san_plan_run(sub, q, logs, twin)
+                        n_enq = rpc_enqueue.launches
+                        n_post = rpc_async_post.launches
+                        n_coll = rpc_async_collect.launches
+                    else:
+                        out = _san_plan_run(sub, q, logs)
+                    assert q.join(timeout=60)
+                    effects_barrier()
+                    tickets, replies, pairs = out
+                    runs[label] = {"tickets": [int(t) for t in tickets],
+                                   "replies": [r.cpu() for r in replies],
+                                   "pairs": pairs, "logs": logs,
+                                   "stats": sanitize_stats()}
+                    del q, twin
+            san, plain, cpu_run = runs["san"], runs["plain"], runs["cpu"]
+            flushes = len(san["replies"])
+            checks = {
+                "arena_vs_plain_version_every_enqueue": all(
+                    _equal_states(a, b) for a, b in san["pairs"]),
+                "canaries_written": all(
+                    bool((a == 0x7FC0FFEE).any()) for a, _ in
+                    san["pairs"][-1:]),
+                "tickets": san["tickets"] == plain["tickets"]
+                == cpu_run["tickets"],
+                "records_as_unsanitized_and_cpu": san["logs"]
+                == plain["logs"] == cpu_run["logs"] and bool(san["logs"]),
+                "replies_statuses_as_unsanitized_and_cpu": all(
+                    torch.equal(a, b) and torch.equal(a, c)
+                    for a, b, c in zip(san["replies"], plain["replies"],
+                                       cpu_run["replies"])),
+                "counters_zero": all(san["stats"][k] == 0 for k in zero),
+                "epochs_as_cpu": san["stats"]["epochs"]
+                == cpu_run["stats"]["epochs"]
+                and len(san["stats"]["epochs"]) == flushes,
+                "plain_run_no_epochs": plain["stats"]["epochs"] == [],
+                "one_enqueue_launch_a_record": n_enq == len(plan),
+            }
+            if mode == "async":
+                checks["one_post_and_collect_a_flush"] = \
+                    n_post == n_coll == flushes
+                async_launches["rpc_async_post"] += n_post
+                async_launches["rpc_async_collect"] += n_coll
+            rec[f"{mode}_seed_{seed}"] = {
+                "checks": checks, "records": len(plan), "flushes": flushes,
+                "epochs": len(san["stats"]["epochs"]),
+                "payloads_checked": sum(e["payloads_checked"]
+                                        for e in san["stats"]["epochs"]),
+                "rpc_enqueue_launches": n_enq}
+            launches += n_enq
+            if not all(checks.values()):
+                raise AssertionError(f"sanitizer {mode} seed {seed}: "
+                                     f"{rec[f'{mode}_seed_{seed}']}")
+    faults = _san_faults(dev)
+    want = {"canary_stomp": "canary_stomps",
+            "poison_free_then_marshal": "poison_hits",
+            "freed_arena_ref": "uaf_marshals"}
+    fault_ok = all(v == {k: int(k == want[f]) for k in v}
+                   for f, v in faults.items())
+    rec["seeded_faults"] = faults
+    rec["times"] = _san_times(dev)
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    log({"sanitizer": rec, "card": card_line})
+    if not fault_ok:
+        raise AssertionError(f"sanitizer seeded faults: {faults}")
+    return launches, async_launches
+
+
+def _san_times(dev):
+    """``rpc_enqueue`` device and host us, sanitized and plain, at a
+    scalar record, 1 KB and 64 KB (behind a device sleep); the host
+    pre-check of a 1024-record flush and the drain's Python for it,
+    sanitized and plain (median of 5)."""
+    from repro_torch.core import RpcQueue, effects_barrier
+    from repro_torch.core.rpc import REGISTRY, _san_precheck
+    from repro_torch.kernels.rpc_channel import channel_for
+
+    REGISTRY.register("smoke.q_sink", lambda *a: None)
+    out = {}
+    for label, words in (("scalar_w4", 0), ("payload_1KB", 256),
+                         ("payload_64KB", 16384)):
+        n = 200 if words <= 256 else 50
+        args = ([1, 2.5, torch.tensor(3, dtype=torch.int32, device=dev),
+                 torch.tensor(0.25, device=dev)] if not words else
+                [7, torch.randn(words, device=dev)])
+        arena = max(1, (3 + 3 * n) * (words + 2))
+        row = {}
+        for san in (False, True):
+            q = RpcQueue.create(max(n, 64), 4, arena, sanitize=san,
+                                device=dev)
+            t = _behind_busy(lambda: q.enqueue("smoke.q_sink", *args), n)
+            kept = int(q.adrops) == 0
+            row["sanitized" if san else "plain"] = dict(t, all_kept=kept)
+            if not (t["host_hidden"] and kept):
+                raise AssertionError(f"sanitizer times {label}: {t}")
+            del q
+        out[label] = row
+    REGISTRY.register("smoke.q_full", lambda i, x, p: None)
+    chan = channel_for(dev)
+    payload = torch.arange(4, dtype=torch.int32, device=dev)
+    flush = {}
+    for san in (False, True):
+        q = RpcQueue.create(1024, 4, 8192, sanitize=san, device=dev)
+        serve, pre = [], []
+        for _ in range(6):
+            for i in range(1024):
+                q.enqueue("smoke.q_full", i, 0.5, payload)
+            L = q.layout
+            words = q.state[:L.in_end].cpu().numpy()
+            if san:
+                t0 = time.perf_counter()
+                _san_precheck(L.views(words), 0)
+                pre.append((time.perf_counter() - t0) * 1e6)
+            q.flush()
+            effects_barrier()
+            serve.append(chan.last_serve_ns * 1e-3)
+        flush["sanitized" if san else "plain"] = {
+            "drain_python_us": _median(serve[1:])}
+        if san:
+            flush["precheck_host_us"] = _median(pre[1:])
+        del q
+    out["flush_1024_records"] = flush
+    return out
+
+
+#: The size-class heaps of the allocators phase: (heap words, entries).
+SIZECLASS_GEOMETRIES = ((1 << 20, 4096), (1 << 24, 65536))
+
+
+def _states(*sts):
+    """Every tensor field of allocator states, cloned."""
+    out = []
+    for st in sts:
+        inner = getattr(st, "shards", st)
+        out += [getattr(inner, f.name).clone()
+                for f in dataclasses.fields(inner)
+                if isinstance(getattr(inner, f.name), torch.Tensor)]
+    return out
+
+
+def _sizeclass_churn(dev, heap, cap, seed, n_ops=24):
+    """A seeded churn on a size-class heap on ``dev``: bulk malloc_many and
+    free_many, single malloc and free, coalesce and find_obj.  Which
+    handles an op frees is drawn on the host; the pointers stay on the
+    device (a handle is a slice of an earlier result).  Returns a closure
+    that runs it (every tensor it needs made first, so the run copies
+    nothing to the device) and returns the results and states after
+    every op (clones)."""
+    import numpy as np
+    from repro_torch.core import SizeClassAllocator as A
+
+    rng = np.random.default_rng(seed)
+    big = max(heap // 64, 2)
+    st0 = A.init(heap, cap=cap, device=dev)
+    ar = torch.arange(32, dtype=torch.int32, device=dev)
+    plan, n_handles = [], 0
+    for _ in range(n_ops):
+        r = rng.random()
+        if r < 0.3 or not n_handles:
+            k = int(rng.integers(1, 33))
+            plan.append(("malloc_many", k, int(rng.integers(1, big))))
+            n_handles += k
+        elif r < 0.5:
+            plan.append(("free_many", sorted(set(rng.integers(
+                0, n_handles, int(rng.integers(1, 9))).tolist()))))
+        elif r < 0.7:
+            plan.append(("malloc", int(rng.integers(1, big))))
+            n_handles += 1
+        elif r < 0.85:
+            plan.append(("free", int(rng.integers(n_handles))))
+        elif r < 0.93:
+            plan.append(("coalesce",))
+        else:
+            plan.append(("find_obj", int(rng.integers(n_handles)),
+                         int(rng.integers(0, 3))))
+
+    def go():
+        st, handles, trail = st0, [], []
+        for op, *a in plan:
+            out = []
+            if op == "malloc_many":
+                st, ptrs = A.malloc_many(st, ar[:a[0]] + a[1])
+                handles += [ptrs[j:j + 1] for j in range(a[0])]
+                out = [ptrs]
+            elif op == "free_many":
+                st = A.free_many(st, torch.cat([handles[j] for j in a[0]]))
+            elif op == "malloc":
+                st, p = A.malloc(st, a[0])
+                handles.append(p.reshape(1))
+                out = [p]
+            elif op == "free":
+                st = A.free(st, handles[a[0]][0])
+            elif op == "coalesce":
+                st = A.coalesce(st)
+            else:
+                out = list(A.find_obj(st, handles[a[0]][0] + a[1]))
+            trail.append([o.clone() for o in out] + _states(st))
+        return trail
+
+    return go
+
+
+def _page_heap_churn(dev, seed, n_ops=12):
+    """The engine's page heap geometry (4 slots x 32 pages: 512 tokens at
+    page 16): malloc_grid and malloc_grid_scan of (4, 1) page requests,
+    free_grid and free_grid_scan of earlier pages, reset_chunks.  Returns
+    a closure, as :func:`_sizeclass_churn`."""
+    import numpy as np
+    from repro_torch.core import BalancedAllocator as A
+
+    rng = np.random.default_rng(seed)
+    st0 = A.init(128, 4, 1, cap=32, first_chunk_ratio=1.0, device=dev)
+    plan, grids = [], 0
+    for _ in range(n_ops):
+        r = rng.random()
+        need = torch.from_numpy(rng.random((4, 1)) < 0.7).to(dev)
+        if r < 0.55 or not grids:
+            plan.append(("malloc_grid" if r < 0.3 else "malloc_grid_scan",
+                         need))
+            grids += 1
+        elif r < 0.85:
+            plan.append(("free_grid" if r < 0.7 else "free_grid_scan",
+                         int(rng.integers(grids))))
+        else:
+            plan.append(("reset_chunks", need.reshape(4)))
+
+    def go():
+        st, pages, trail = st0, [], []
+        for op, arg in plan:
+            out = []
+            if op.startswith("malloc"):
+                st, p = getattr(A, op)(st, 4, 1, arg.to(torch.int32))
+                pages.append(p)
+                out = [p]
+            elif op.startswith("free"):
+                st = getattr(A, op)(st, 4, 1, pages[arg])
+            else:
+                st = A.reset_chunks(st, arg)
+            trail.append([o.clone() for o in out] + _states(st))
+        return trail
+
+    return go
+
+
+def _sharded_churn(dev, seed, n_ops=10):
+    """A 4-shard heap stacked on ``dev`` (balanced shards of 2**22 words in
+    4 x 2 chunks): malloc_grid of (4, 8, 4) requests, free_grid,
+    reset_chunks and find_obj of global pointers.  Returns a closure, as
+    :func:`_sizeclass_churn`."""
+    import numpy as np
+    from repro_torch.core import (BalancedAllocator, ShardedAllocator as A,
+                                  find_obj, shard_heap)
+
+    rng = np.random.default_rng(seed)
+    span = 1 << 22
+    st0 = shard_heap(BalancedAllocator.init(span, 4, 2, cap=256,
+                                            device=dev), 4, span=span)
+    plan, grids = [], 0
+    for _ in range(n_ops):
+        r = rng.random()
+        if r < 0.45 or not grids:
+            plan.append(("malloc_grid", torch.from_numpy(rng.integers(
+                -1, 4096, (4, 8, 4)).astype(np.int32)).to(dev)))
+            grids += 1
+        elif r < 0.7:
+            plan.append(("free_grid", int(rng.integers(grids))))
+        elif r < 0.85:
+            plan.append(("reset_chunks", torch.from_numpy(
+                rng.random((4, 8)) < 0.25).to(dev)))
+        else:
+            plan.append(("find_obj", (int(rng.integers(grids)),
+                                      *(int(x) for x in rng.integers(
+                                          0, (4, 8, 4))),
+                                      int(rng.integers(0, 5)))))
+
+    def go():
+        st, gps, trail = st0, [], []
+        for op, arg in plan:
+            out = []
+            if op == "malloc_grid":
+                st, p = A.malloc_grid(st, 8, 4, arg)
+                gps.append(p)
+                out = [p]
+            elif op == "free_grid":
+                st = A.free_grid(st, 8, 4, gps[arg])
+            elif op == "reset_chunks":
+                st = A.reset_chunks(st, arg)
+            else:
+                g, d, i, j, off = arg
+                out = list(find_obj(st, gps[g][d, i, j] + off))
+            trail.append([o.clone() for o in out] + _states(st))
+        return trail
+
+    return go
+
+
+def _alloc_op_times(dev):
+    """Host and device us of one call of each operation (behind a device
+    sleep), on heaps filled half way: the size-class ops at both
+    geometries, the page heap's grid ops and the sharded heap's."""
+    from repro_torch.core import (BalancedAllocator as B,
+                                  ShardedAllocator as S,
+                                  SizeClassAllocator as A, find_obj,
+                                  shard_heap)
+
+    def timed(fn):
+        t = _behind_busy(fn, 1)
+        return {"host_us": t["host_us"], "device_us": t["device_us"],
+                "host_hidden": t["host_hidden"]}
+
+    out = {}
+    for heap, cap in SIZECLASS_GEOMETRIES:
+        st = A.init(heap, cap=cap, device=dev)
+        sizes = torch.full((cap // 2,), heap // cap, dtype=torch.int32,
+                           device=dev)
+        st, ptrs = A.malloc_many(st, sizes[:32])
+        st, _ = A.malloc_many(st, sizes[32:64])
+        st = A.free_many(st, ptrs[::2])
+        k32 = torch.full((32,), 8, dtype=torch.int32, device=dev)
+        out[f"sizeclass_cap{cap}"] = {
+            "malloc": timed(lambda: A.malloc(st, 100)),
+            "free": timed(lambda: A.free(st, ptrs[1])),
+            "malloc_many_32": timed(lambda: A.malloc_many(st, k32)),
+            "free_many_16": timed(lambda: A.free_many(st, ptrs[1::2])),
+            "coalesce": timed(lambda: A.coalesce(st)),
+            "find_obj": timed(lambda: find_obj(st, ptrs[3])),
+        }
+    pg = B.init(128, 4, 1, cap=32, first_chunk_ratio=1.0, device=dev)
+    ones = torch.ones((4, 1), dtype=torch.int32, device=dev)
+    for _ in range(8):
+        pg, p = B.malloc_grid(pg, 4, 1, ones)
+    out["page_heap"] = {
+        "malloc_grid": timed(lambda: B.malloc_grid(pg, 4, 1, ones)),
+        "malloc_grid_scan": timed(lambda: B.malloc_grid_scan(pg, 4, 1,
+                                                             ones)),
+        "free_grid": timed(lambda: B.free_grid(pg, 4, 1, p)),
+        "free_grid_scan": timed(lambda: B.free_grid_scan(pg, 4, 1, p)),
+    }
+    span = 1 << 22
+    sh = shard_heap(B.init(span, 4, 2, cap=256, device=dev), 4, span=span)
+    req = torch.full((4, 8, 4), 64, dtype=torch.int32, device=dev)
+    sh, gp = S.malloc_grid(sh, 8, 4, req)
+    mask = torch.zeros((4, 8), dtype=torch.bool, device=dev)
+    out["sharded_4x8_chunks"] = {
+        "malloc_grid": timed(lambda: S.malloc_grid(sh, 8, 4, req)),
+        "free_grid": timed(lambda: S.free_grid(sh, 8, 4, gp)),
+        "reset_chunks": timed(lambda: S.reset_chunks(sh, mask)),
+        "find_obj": timed(lambda: find_obj(sh, gp[2, 3, 1])),
+    }
+    return out
+
+
+def allocators_phase(card_line):
+    """The heaps on the card against the same sequences on CPU tensors,
+    bit for bit after every operation, the card's run under
+    ``set_sync_debug_mode("error")``: seeded size-class churns (bulk and
+    single malloc and free, coalesce, find_obj) at ``cap`` 4096 (a 2**20
+    word heap) and 65536 (2**24 words); the engine's page heap geometry
+    through ``malloc_grid``, ``malloc_grid_scan``, ``free_grid``,
+    ``free_grid_scan`` and ``reset_chunks``; and a 4-shard
+    ``ShardedAllocator`` stacked on the card (``malloc_grid``,
+    ``free_grid``, ``reset_chunks``, ``find_obj`` of global pointers).
+    Then each operation's host and device us."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cpu = torch.device("cpu")
+    runs = {f"sizeclass_cap{cap}": (
+        lambda d, h=heap, c=cap: _sizeclass_churn(d, h, c, seed=c))
+        for heap, cap in SIZECLASS_GEOMETRIES}
+    runs["page_heap"] = lambda d: _page_heap_churn(d, seed=5)
+    runs["sharded_4_shards"] = lambda d: _sharded_churn(d, seed=6)
+    rec = {}
+    for label, make in runs.items():
+        go = make(dev)
+        t0 = time.perf_counter()
+        with sync_errors():
+            card = go()
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        host = make(cpu)()
+        equal = len(card) == len(host) and all(
+            len(a) == len(b) and all(torch.equal(x.cpu(), y)
+                                     for x, y in zip(a, b))
+            for a, b in zip(card, host))
+        rec[label] = {"ops": len(card), "bit_equal_to_cpu": equal,
+                      "card_seconds": card_s}
+        if not equal:
+            raise AssertionError(f"allocators {label}: the card's states "
+                                 "differ from the CPU's")
+    rec["op_times"] = _alloc_op_times(dev)
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    log({"allocators": rec, "card": card_line})
+
+
+def events_phase():
+    """``events.record`` around a size-class churn, a sanitized queue's
+    enqueues and flush, and a 10-step ``device_run`` with a batched and an
+    immediate hook, on the card under ``set_sync_debug_mode("error")``
+    (nothing may wait for the device) and on the CPU: the same event kinds
+    and counts."""
+    from collections import Counter
+
+    from repro_torch.core import (HostHook, RpcQueue, device_run,
+                                  effects_barrier, events)
+
+    def program(dev, churn):
+        churn()
+        q = RpcQueue.create(16, 4, 256, reply_capacity=8, sanitize=True,
+                            device=dev)
+        q.enqueue("smoke.san_rec", 3, torch.arange(5, device=dev))
+        q.enqueue_ticketed("smoke.san_rec", torch.ones((), device=dev),
+                           returns=None)
+        q.flush()
+        hooks = [HostHook(every=2, extract=lambda s, st: st,
+                          host_fn=lambda s, x: None, name="smoke.ev_b",
+                          batched=True),
+                 HostHook(every=5, extract=lambda s, st: st[0],
+                          host_fn=lambda s, x: None, name="smoke.ev_i")]
+        device_run(lambda s, st: st + 1, torch.zeros(4, device=dev), 10,
+                   hooks=hooks)
+
+    from repro_torch.core.rpc import REGISTRY
+    t_phase = time.perf_counter()
+    REGISTRY.register("smoke.san_rec", lambda *a: None)
+    streams = {}
+    for label, dev in (("card", torch.device("cuda", 0)),
+                       ("cpu", torch.device("cpu"))):
+        sink = []
+        churn = _sizeclass_churn(dev, 1 << 16, 256, seed=3, n_ops=10)
+        with events.record(sink):
+            if label == "card":
+                with sync_errors():
+                    program(dev, churn)
+            else:
+                program(dev, churn)
+        effects_barrier()
+        streams[label] = sink
+    counts = {k: Counter(e["kind"] for e in v) for k, v in streams.items()}
+    kinds = {k: [e["kind"] for e in v] for k, v in streams.items()}
+    ptrs_none = all(e.get("ptr") is None for e in streams["card"]
+                    if "ptr" in e)
+    rec = {"counts": dict(counts["card"]), "events": len(streams["card"]),
+           "same_kinds_and_counts": counts["card"] == counts["cpu"],
+           "same_order": kinds["card"] == kinds["cpu"],
+           "card_ptrs_none": ptrs_none,
+           "phase_seconds": time.perf_counter() - t_phase}
+    log({"events": rec})
+    if not (rec["same_kinds_and_counts"] and rec["same_order"]
+            and ptrs_none):
+        raise AssertionError(f"events: {rec}")
+
+
 def _cuobjdump():
     """The toolkit's ``cuobjdump``, else the copy bundled with Triton."""
     import shutil
@@ -4030,7 +4848,7 @@ def main() -> int:
     decode_reuse_phase()
     decode_launch_phase()
     rglru_launch_phase()
-    serve = serve_phase()
+    serve, spill = serve_phase()
     identity_phase()
     dense = dense_serve_phase()
     summary["flash_attention"] = flash_phase(card_line)
@@ -4068,6 +4886,9 @@ def main() -> int:
     summary.update(rpc_async_time_phase(card_line))
     async_run = device_run_async_phase()
     pipeline_posts = host_pipeline_phase()
+    san_enqueues, san_async = sanitizer_phase(card_line)
+    allocators_phase(card_line)
+    events_phase()
     gpu_first = gpu_first_phase()
 
     by_path = {
@@ -4086,11 +4907,15 @@ def main() -> int:
                         "host_pipeline": pipeline_posts,
                         "gpu_first": gpu_first},
         "rpc_queue": {"rpc_queue": queue_launches, "libc_io": libc_launches,
-                      "device_run_hooks": hook_enqueues},
+                      "device_run_hooks": hook_enqueues,
+                      "serve_spill": spill["rpc_enqueue"],
+                      "sanitizer": san_enqueues},
     }
     for name in ENTRY_NAMES["rpc_async"]:
         by_path[name] = {"rpc_queue_async": async_queue[name],
-                         "device_run_async": async_run[name]}
+                         "device_run_async": async_run[name],
+                         "serve_spill": spill[name],
+                         "sanitizer": san_async[name]}
     kernels = []
     # a source with one kernel keys its records by the source's name
     entries = [(name, name if name in by_path else src_name, source,

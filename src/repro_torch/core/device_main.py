@@ -37,20 +37,28 @@ epoch to a host drain that overlaps the device's work) and owns its
 boundary: the flush after the loop only submits the last epoch, so the
 run flushes once more to collect it and joins the queue's drains before
 it returns.  Not ported yet: ``mesh=`` (ROADMAP queue 1, item 5).
+
+Events (:mod:`repro_torch.core.events`), as JAX's: a ``hook_decl`` for
+each hook, the step loop inside ``loop_scope(n_steps)`` and each hook
+inside ``cond_scope(every)``.  JAX emits the loop body's events once, as
+it traces; the eager loop here emits them at each firing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import events
 from repro_torch.core.rpc import (REGISTRY, RpcQueue, ShapeDtype,
                                   effects_barrier, rpc_call, stable_hook_id)
 from repro_torch.tree import leaves
 
 _MESH = "ROADMAP queue 1, item 5 (scale-out)"
+_NO_SCOPE = contextlib.nullcontext()
 _I32 = ShapeDtype((), torch.int32)
 
 
@@ -92,18 +100,27 @@ class HostHook:
     idempotent: bool = False
 
 
+def _hook_key(hook: HostHook) -> Optional[str]:
+    """The hook's durable identity (module, qualname, first line of
+    host_fn, ``every``), or None when host_fn has no code object."""
+    code = getattr(hook.host_fn, "__code__", None)
+    if code is None:
+        return None
+    mod = getattr(hook.host_fn, "__module__", "") or ""
+    qual = getattr(hook.host_fn, "__qualname__",
+                   getattr(hook.host_fn, "__name__", "fn"))
+    return f"{mod}:{qual}:{code.co_firstlineno}:{int(hook.every)}"
+
+
 def _hook_name(hook: HostHook) -> str:
     """``hook.<fn>.<hash31 hex>``, the JAX package's auto-name: stable
     across processes, so reruns bind the same landing pads."""
     if hook.name:
         return hook.name
     fn_name = getattr(hook.host_fn, "__name__", "fn")
-    code = getattr(hook.host_fn, "__code__", None)
-    if code is None:
+    key = _hook_key(hook)
+    if key is None:
         return f"hook.{fn_name}.{id(hook):x}"
-    mod = getattr(hook.host_fn, "__module__", "") or ""
-    qual = getattr(hook.host_fn, "__qualname__", fn_name)
-    key = f"{mod}:{qual}:{code.co_firstlineno}:{int(hook.every)}"
     return f"hook.{fn_name}.{stable_hook_id(key):08x}"
 
 
@@ -220,6 +237,13 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
     named = _name_hooks(hooks)
     for h, hname in named:
         _register_hook(h, hname)
+    tracing = events.active()
+    if tracing:
+        for h, hname in named:
+            events.emit("hook_decl", name=hname, every=int(h.every),
+                        n_steps=int(n_steps), batched=bool(h.batched),
+                        mesh=False,
+                        unstable=h.name is None and _hook_key(h) is None)
     try:
         returning = [hname for h, hname in named if h.returns is not None]
         if queue_async and returning:
@@ -244,18 +268,22 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
                                 timeout=queue_timeout,
                                 mode="async" if queue_async else "sync",
                                 device=_device_of(state))
-        for step in range(n_steps):
-            if thread_queue:
-                state, q = step_fn(step, state, q)
-            else:
-                state = step_fn(step, state)
-            for h, hname in named:
-                if h.returns is not None:
-                    state = _fire_returning(h, hname, step + 1, state, q)
-                elif h.batched:
-                    _fire_batched(h, hname, step + 1, state, q)
+        with (events.loop_scope(int(n_steps)) if tracing else _NO_SCOPE):
+            for step in range(n_steps):
+                if thread_queue:
+                    state, q = step_fn(step, state, q)
                 else:
-                    _fire(h, hname, step + 1, state)
+                    state = step_fn(step, state)
+                for h, hname in named:
+                    with (events.cond_scope(int(h.every)) if tracing
+                          else _NO_SCOPE):
+                        if h.returns is not None:
+                            state = _fire_returning(h, hname, step + 1,
+                                                    state, q)
+                        elif h.batched:
+                            _fire_batched(h, hname, step + 1, state, q)
+                        else:
+                            _fire(h, hname, step + 1, state)
         if q is not None:
             q.flush()
             if queue_async:

@@ -33,12 +33,14 @@ item 3.4.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.allocator import BalancedState, allocator_for, as_i32
+from repro_torch.core.allocator import (BalancedState, ShardedHeap,
+                                        allocator_for, as_i32)
 from repro_torch.core.rpc import (_SHARDED, REGISTRY, RpcQueue, ShapeDtype,
                                   stable_format_id)
 
@@ -538,12 +540,33 @@ _REMOTE_PTRS: Dict[str, List[np.ndarray]] = {}
 
 def _remote_malloc_sink(name_id, dev, sizes):
     """Serve one remote-malloc record: bulk-allocate ``sizes`` from heap
-    ``name_id`` (``malloc_many``) and return the pointers (the reply)."""
-    del dev                      # shard selector of a sharded heap (3.6)
+    ``name_id`` (``malloc_many``) and return the pointers (the reply).  A
+    :class:`ShardedHeap`'s record allocates from shard ``dev`` and returns
+    global pointers; a ``dev`` outside the heap fails only its record
+    (all FAIL, with a warning), as JAX's does."""
     name = _resolve_fmt(name_id)
     state = _REMOTE_HEAPS[name]
-    state, ptrs = allocator_for(state).malloc_many(
-        state, torch.as_tensor(np.asarray(sizes), dtype=torch.int32))
+    sizes = torch.as_tensor(np.asarray(sizes), dtype=torch.int32)
+    if isinstance(state, ShardedHeap):
+        d = int(dev)
+        if not 0 <= d < state.n_devices:
+            warnings.warn(
+                f"remote malloc on heap {name!r}: device {d} out of range "
+                f"for a {state.n_devices}-shard heap; returning FAIL "
+                "pointers for this record", RuntimeWarning, stacklevel=2)
+            out = np.full((sizes.shape[0],), -1, np.int32)
+            _REMOTE_PTRS.setdefault(name, []).append(out)
+            return out
+        # the one shard's bulk path, written back in place of row d
+        shard, local = allocator_for(state.shards).malloc_many(
+            state.local(d), sizes)
+        for f in dataclasses.fields(shard):
+            v = getattr(shard, f.name)
+            if isinstance(v, torch.Tensor):
+                getattr(state.shards, f.name)[d] = v
+        ptrs = ShardedHeap.global_ptr(d, local, state.span)
+    else:
+        state, ptrs = allocator_for(state).malloc_many(state, sizes)
     _REMOTE_HEAPS[name] = state
     out = ptrs.numpy().astype(np.int32)
     _REMOTE_PTRS.setdefault(name, []).append(out)
@@ -557,13 +580,15 @@ REGISTRY.register("libc.remote_malloc", _remote_malloc_sink)
 def remote_heap_register(name: str, state) -> None:
     """Bind a host-side allocator state (its tensors on the CPU: the drain
     runs it on the host) to serve remote mallocs addressed to ``name``.
-    Its allocator must have ``malloc_many`` (the generic heap)."""
+    Its allocator must have ``malloc_many`` (generic, size-class or
+    sharded)."""
     if not hasattr(allocator_for(state), "malloc_many"):
         raise TypeError(
             f"remote heap {name!r}: {type(state).__name__} has no bulk "
-            "malloc_many path; use a GenericAllocator state")
-    for f in dataclasses.fields(state):
-        v = getattr(state, f.name)
+            "malloc_many path; use a Generic/SizeClass/Sharded state")
+    inner = state.shards if isinstance(state, ShardedHeap) else state
+    for f in dataclasses.fields(inner):
+        v = getattr(inner, f.name)
         if isinstance(v, torch.Tensor) and v.device.type != "cpu":
             raise ValueError(
                 f"remote heap {name!r}: {f.name} is on {v.device}; the "

@@ -60,9 +60,23 @@ redrives failed idempotent records in later epochs.  On a card a flush is
 two launches (``kernels/rpc_async``): ``rpc_async_post`` hands the epoch
 to the queue's ingest thread through mapped memory without waiting, and
 ``rpc_async_collect`` waits on the device for the previous epoch's answer
-(or its deadline) and installs it.  Not in this slice:
-``ShardedRpcQueue`` and a sync queue's ``shard_deadline`` (item 3.4),
-``RpcManifest`` (item 3.5), ``sanitize=True`` (item 3.7) and ``events``.
+(or its deadline) and installs it.
+
+**The sanitizer** (``RpcQueue.create(sanitize=True)``): each payload
+reservation is ``[CANARY][words][CANARY]`` (written by the enqueue
+kernel), and before each drain the host checks the canaries and scans the
+payloads for :data:`POISON` (``analysis/sanitize.py::poison_free``
+stamps it over a freed block), on the numpy words the drain already
+holds.  :func:`sanitize_stats` has JAX's counters and per-epoch records.
+``uaf_marshals`` counts ``ArenaRef`` marshals whose object was not found
+(at the host, on any queue), ``stale_ticket_reads`` reads outside the
+window in ``results_host``.  ``failed_ticket_reads`` counts failed reads
+through ``result()`` on CPU queues only: a card queue's ``result()`` reads
+nothing back.  The runtime emits :mod:`repro_torch.core.events` as JAX's
+does (``queue_create``, ``rpc_enqueue``, ``rpc_flush``, ``rpc_result``,
+``rpc_immediate``, ``arena_marshal``), none of them reading the device.
+Not in this slice: ``ShardedRpcQueue`` and a sync queue's
+``shard_deadline`` (item 3.4), ``RpcManifest`` (item 3.5).
 """
 from __future__ import annotations
 
@@ -84,7 +98,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.allocator import I32, as_i32, find_obj
+from repro_torch.core import events
+from repro_torch.core.allocator import I32, _concrete_int, as_i32, find_obj
 from repro_torch.kernels.rpc_async import (AsyncRing, collect_reference,
                                            post_reference, rpc_async_collect,
                                            rpc_async_post)
@@ -95,11 +110,11 @@ from repro_torch.kernels.rpc_channel.kernel import (INLINE_WORDS, TIMEOUT_S,
                                                     Staging)
 from repro_torch.kernels.rpc_queue import (Arg, Lanes, Record,
                                            enqueue_reference, rpc_enqueue)
-from repro_torch.kernels.rpc_queue.ref import DEVICE, IMMEDIATE, PAYLOAD
+from repro_torch.kernels.rpc_queue.ref import (CANARY as _CANARY, DEVICE,
+                                               IMMEDIATE, PAYLOAD)
 from repro_torch.tree import leaves, tree_map
 
 _SHARDED = "ROADMAP queue 1, item 3.4 (ShardedRpcQueue)"
-_SANITIZER = "ROADMAP queue 1, item 3.7 (the transport's sanitizer)"
 
 READ, WRITE, READWRITE = "read", "write", "readwrite"
 
@@ -123,6 +138,54 @@ _DTYPES = {
 }
 _ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2, "int32": 4,
              "int16": 2, "int8": 1, "uint8": 1, "bool": 1}
+
+
+# ---------------------------------------------------------------------------
+# Sanitizer state (the transport side of the GPU First sanitizer)
+# ---------------------------------------------------------------------------
+
+#: Canary word written just before and after every payload reservation of
+#: a ``sanitize=True`` queue; checked at the drain.
+CANARY = np.int32(_CANARY)
+#: Pattern ``analysis/sanitize.py::poison_free`` stamps over a freed heap
+#: block's words; a sanitized drain scans the payloads for it.
+POISON = np.int32(0x5A5A5A5A)
+
+
+def _zero_san() -> Dict[str, Any]:
+    return {"canary_stomps": 0,     # payload reservations with damaged canaries
+            "poison_hits": 0,       # payloads carrying freed-block POISON words
+            "uaf_marshals": 0,      # ArenaRef marshals whose lookup found no
+            #                         live object (found == 0 at the pad)
+            "stale_ticket_reads": 0,  # results_host reads outside the epoch
+            #                           window on a sanitized queue
+            "failed_ticket_reads": 0,  # result() consumed a failed ticket's
+            #                            zeros (CPU queues)
+            "epochs": []}           # one record a sanitized drain
+
+
+_SAN: Dict[str, Any] = _zero_san()
+_SAN_LOCK = threading.Lock()
+
+
+def sanitize_stats() -> Dict[str, Any]:
+    """Snapshot of the sanitizer's counters and its per-epoch records."""
+    with _SAN_LOCK:
+        out = dict(_SAN)
+        out["epochs"] = list(out["epochs"])
+        return out
+
+
+def reset_sanitize_stats() -> None:
+    with _SAN_LOCK:
+        _SAN.clear()
+        _SAN.update(_zero_san())
+
+
+def _san_bump(key: str, n: int = 1) -> None:
+    if n:
+        with _SAN_LOCK:
+            _SAN[key] += n
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
@@ -417,8 +480,17 @@ def _make_pad_wrapper(name: str, pad_id: int, sig: Tuple):
     bytes_in = sum(_entry_bytes(e) + (16 if e[0] == ARENA else 0)
                    for e in sig)
     bytes_refs = sum(_entry_bytes(e) for e in sig if e[0] != VAL)
+    # where each ArenaRef's ``found`` operand sits in the callee's operands
+    found_at, pos = [], 0
+    for e in sig:
+        if e[0] == ARENA:
+            found_at.append(pos + 3)
+        pos += 5 if e[0] == ARENA else 1
 
     def wrapper(flat: Sequence[np.ndarray]):
+        # a freed (or wild) pointer marshalled: the lookup found no live
+        # object.  Counted on every queue, at the host (JAX's pad does too)
+        _san_bump("uaf_marshals", sum(int(flat[i]) == 0 for i in found_at))
         result = REGISTRY.hosts[name](*flat)
         out = sum(np.asarray(x).nbytes for x in leaves(result))
         REGISTRY.bump(name, pad_id, bytes_in, out + bytes_refs)
@@ -492,6 +564,10 @@ def _marshal(args, device: torch.device):
             refs.append((len(ops), a.access, a.array))
             ops.append(t)
         elif isinstance(a, ArenaRef):
+            if events.active():
+                events.emit("arena_marshal", _refs=(a.ptr,),
+                            ptr_id=id(a.ptr), ptr=_concrete_int(a.ptr),
+                            heap=getattr(a.state, "heap_size", None))
             found, base, size = find_obj(a.state, a.ptr)
             ops.append(torch.stack([as_i32(a.ptr, device), base.to(I32),
                                     size.to(I32), found.to(I32)]))
@@ -635,6 +711,10 @@ def rpc_call(name: str, *args, result_shape=None, pure: bool = False,
             "rpc_call(where=...) is only meaningful with batched=True: an "
             "immediate call has no conditional form; route it through a "
             "queue")
+    if events.active():
+        # every immediate call is ordered here, and there is no mesh yet
+        events.emit("rpc_immediate", name=name, ordered=True, pure=pure,
+                    in_mesh=False)
     specs, device, sig, ops, refs, pid = _prepare(name, args, result_shape,
                                                   pure, device)
     if device.type == "cpu":
@@ -1366,6 +1446,48 @@ def _drain_queue_replies(callee, nargs, imask, pmask, ivals, fvals, plens,
     return rwords, roff, rlen, rstat
 
 
+def _san_scan(n: int, pmask, ivals, plens, pbuf) -> Tuple[int, int, int]:
+    """Check the surviving records' payload reservations (the last
+    ``min(n, capacity)`` of ``n`` enqueued): canaries intact on both sides
+    of every payload, no freed-block POISON word inside.  Returns
+    ``(canary_stomps, poison_hits, payloads_checked)``, JAX's
+    ``_san_scan_shard``'s counts, computed for all descriptors at once (a
+    prefix count of POISON words answers each payload's scan)."""
+    cap, w = ivals.shape
+    slots = np.arange(max(0, n - cap), n) % cap
+    bits = (pmask[slots][:, None] >> np.arange(w)) & 1
+    off = ivals[slots][bits == 1].astype(np.int64)
+    ln = plens[slots][bits == 1].astype(np.int64)
+    pc = pbuf.shape[0]
+    shaped = (off >= 1) & (off + ln < pc)
+    off, ln = off[shaped], ln[shaped]
+    # a descriptor outside [1, pc - 1) cannot hold both canaries: a stomp
+    bad = ((pbuf[off - 1] != CANARY)
+           | (np.take(pbuf, off + ln, mode="wrap") != CANARY))
+    hits = np.concatenate([[0], np.cumsum(pbuf == POISON)])
+    poisoned = hits[np.maximum(off + ln, off)] - hits[off] > 0
+    return (int((~shaped).sum() + bad.sum()), int(poisoned.sum()),
+            int(shaped.size))
+
+
+def _san_precheck(v: Dict[str, np.ndarray], rc: int) -> None:
+    """The sanitizer's pass before a sanitized drain, on the queue words
+    ``v`` (the layout's views) the drain holds: counters and one epoch
+    record (JAX's ``_san_precheck`` of one shard)."""
+    n, cap = int(v["head"]), v["callee"].shape[0]
+    stomps, poisons, checked = _san_scan(n, v["pmask"], v["ivals"],
+                                         v["plens"], v["pbuf"])
+    slots = np.arange(max(0, n - cap), n) % cap
+    declared = int((v["rwant"][slots] != 0).sum()) if rc else 0
+    with _SAN_LOCK:
+        _SAN["canary_stomps"] += stomps
+        _SAN["poison_hits"] += poisons
+        _SAN["epochs"].append({
+            "records": min(n, cap), "declared_replies": declared,
+            "canary_stomps": stomps, "poison_hits": poisons,
+            "payloads_checked": checked, "sharded": False})
+
+
 # ---------------------------------------------------------------------------
 # Async transport: double-buffered epochs and the cross-epoch carry
 # ---------------------------------------------------------------------------
@@ -1696,6 +1818,8 @@ def _submit_epoch(slot: _QueueSlot, layout: "_Layout", src: np.ndarray,
                                 "ivals", "fvals", "plens", "pbuf"))
     rc = layout.reply_capacity
     n, adrops, base = int(v["head"]), int(v["adrops"]), int(v["base"])
+    if ctx.sanitize:
+        _san_precheck(v, rc)
     names, _, _ = _registry_snapshot()
     inj = _FAULT_INJECTOR[0] if _FAULT_INJECTOR else None
     occ = _reserve_occurrences(inj, _surviving_names(arrs[0], names, n))
@@ -1790,11 +1914,13 @@ assert (_HEADS + _WINDOW).index("cdepth") == H_CDEPTH
 
 
 class _FlushCtx:
-    """One flush's handlers and fault policy, for its drain."""
-    __slots__ = ("handlers", "retry", "timeout")
+    """One flush's handlers, fault policy and sanitizer flag, for its
+    drain."""
+    __slots__ = ("handlers", "retry", "timeout", "sanitize")
 
-    def __init__(self, handlers, retry, timeout):
+    def __init__(self, handlers, retry, timeout, sanitize=False):
         self.handlers, self.retry, self.timeout = handlers, retry, timeout
+        self.sanitize = sanitize
 
 
 def _serve_flush(layout: _Layout, ctx: _FlushCtx, src: np.ndarray,
@@ -1807,6 +1933,8 @@ def _serve_flush(layout: _Layout, ctx: _FlushCtx, src: np.ndarray,
     lanes = (v["callee"], v["nargs"], v["imask"], v["pmask"], v["ivals"],
              v["fvals"], v["plens"], v["pbuf"])
     head, phead, adrops, base = (int(v[n]) for n in _HEADS)
+    if ctx.sanitize:
+        _san_precheck(v, layout.reply_capacity)
     for name in _WINDOW:
         o[name][...] = v[name]
     if layout.reply_capacity:
@@ -1933,8 +2061,10 @@ class RpcQueue:
                  retry: Optional[RetryPolicy] = None,
                  timeout: Optional[float] = None, mode: str = "sync",
                  carry_budget: int = 0,
-                 shard_deadline: Optional[float] = None):
+                 shard_deadline: Optional[float] = None,
+                 sanitize: bool = False):
         self.layout, self.state = layout, state
+        self.sanitize = bool(sanitize)
         self.retry, self.timeout = retry, timeout
         self.mode, self.carry_budget = mode, int(carry_budget)
         self.shard_deadline = shard_deadline
@@ -1988,7 +2118,12 @@ class RpcQueue:
         queues) gives failed idempotent records that many more rounds,
         one a later drain; ``shard_deadline`` (seconds; async here) bounds
         the collect's wait for the previous drain, past which the window
-        reads ``STATUS_TIMEOUT`` and the late drain carries nothing."""
+        reads ``STATUS_TIMEOUT`` and the late drain carries nothing.
+
+        ``sanitize=True`` turns on the sanitizer (see the module
+        docstring): 2 more arena words a payload; deliveries, replies and
+        statuses are bit-equal to an unsanitized queue's while nothing
+        stomps the arena."""
         if not 0 < width <= 31:
             raise ValueError(
                 f"width must be in [1, 31] to fit the int32 interleave "
@@ -2015,9 +2150,6 @@ class RpcQueue:
             raise NotImplementedError(
                 f"RpcQueue(shard_deadline=) on a sync queue bounds the "
                 f"concurrent drain of a sharded one: {_SHARDED}")
-        if sanitize:
-            raise NotImplementedError(
-                f"RpcQueue(sanitize=True) needs {_SANITIZER}")
         if capacity < 1 or payload_capacity < 0 or reply_capacity < 0:
             raise ValueError(
                 f"capacity {capacity}, payload_capacity {payload_capacity}, "
@@ -2029,9 +2161,15 @@ class RpcQueue:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         state = torch.zeros(layout.words, dtype=torch.int32, device=device)
-        return RpcQueue(layout, state, retry=retry, timeout=timeout,
-                        mode=mode, carry_budget=carry_budget,
-                        shard_deadline=shard_deadline)
+        q = RpcQueue(layout, state, retry=retry, timeout=timeout, mode=mode,
+                     carry_budget=carry_budget, shard_deadline=shard_deadline,
+                     sanitize=sanitize)
+        events.emit("queue_create", _refs=(q,), qid=id(q),
+                    capacity=capacity, width=width,
+                    payload_capacity=payload_capacity,
+                    reply_capacity=reply_capacity, sanitize=bool(sanitize),
+                    retry=retry is not None, mode=mode)
+        return q
 
     def lanes(self) -> Lanes:
         """The views an enqueue reads and writes."""
@@ -2106,7 +2244,8 @@ class RpcQueue:
             arg = self._arg(name, j, a, npay)
             if arg.kind == PAYLOAD:
                 pm |= 1 << j
-                npay += arg.length
+                # a sanitized reservation is [CANARY][words][CANARY]
+                npay += arg.length + (2 if self.sanitize else 0)
             if arg.is_int:
                 mask |= 1 << j
             rargs.append(arg)
@@ -2120,7 +2259,7 @@ class RpcQueue:
             where = where.detach().to(device=dev, dtype=torch.bool)
         elif where is not None:
             where = bool(where)
-        return Record(cid, mask, pm, rw, npay, rargs, where)
+        return Record(cid, mask, pm, rw, npay, rargs, where, self.sanitize)
 
     def _arg(self, name: str, j: int, a, offset: int) -> Arg:
         """Argument ``j`` of a record: a Python number (or a 0-d tensor on
@@ -2151,8 +2290,22 @@ class RpcQueue:
                  ) -> Tuple["RpcQueue", torch.Tensor]:
         rec = self.record(name, args, returns, where)
         if self.device.type == "cpu":
-            return self, enqueue_reference(self.lanes(), rec)
-        return self, rpc_enqueue(self.lanes(), self.arrivals, rec)
+            ticket = enqueue_reference(self.lanes(), rec)
+        else:
+            ticket = rpc_enqueue(self.lanes(), self.arrivals, rec)
+        if events.active():
+            # the queue is updated in place: qid_out is the queue itself
+            events.emit("rpc_enqueue", _refs=(self, ticket), qid=id(self),
+                        qid_out=id(self), name=name, payload_words=rec.npay,
+                        reply_words=abs(rec.rwant),
+                        ticketed=returns is not None, ticket_id=id(ticket),
+                        conditional=where is not None,
+                        capacity=self.capacity,
+                        payload_capacity=self.payload_capacity,
+                        reply_capacity=self.reply_capacity,
+                        retry=self.retry is not None,
+                        idempotent=REGISTRY.idempotent.get(name, False))
+        return self, ticket
 
     def flush(self, handlers: Optional[Dict[str, Callable]] = None
               ) -> "RpcQueue":
@@ -2166,14 +2319,24 @@ class RpcQueue:
         An async queue hands the epoch over instead (see
         :meth:`create`).  Returns the queue."""
         ctx = _FlushCtx(dict(handlers) if handlers else None, self.retry,
-                        self.timeout)
-        L = self.layout
+                        self.timeout, self.sanitize)
         if self.mode == "async":
-            return self._flush_async(ctx)
+            self._flush_async(ctx)
+        else:
+            self._flush_sync(ctx)
+        if events.active():
+            events.emit("rpc_flush", _refs=(self,), qid=id(self),
+                        qid_out=id(self), capacity=self.capacity,
+                        payload_capacity=self.payload_capacity,
+                        reply_capacity=self.reply_capacity, mode=self.mode)
+        return self
+
+    def _flush_sync(self, ctx: _FlushCtx) -> None:
+        L = self.layout
         if self.device.type == "cpu":
             src = self.state[:L.in_end].numpy().copy()
             _serve_flush(L, ctx, src, self.state[L.out_start:].numpy())
-            return self
+            return
         self._check_policy()
         channel = channel_for(self.device)
         pid, staging = _queue_staging(channel, L)
@@ -2182,7 +2345,6 @@ class RpcQueue:
             _FLUSHES[fid] = ctx
         rpc_post(channel, pid, staging, [(0, self.state[:L.in_end])], [fid],
                  [(1, self.state[L.out_start:])])
-        return self
 
     def _flush_async(self, ctx: _FlushCtx) -> "RpcQueue":
         """The double-buffered hand-off: submit this epoch's drain, install
@@ -2230,7 +2392,8 @@ class RpcQueue:
             raise ValueError("flush_reference() is the async flush's plain "
                              "version; this queue is sync")
         return self._flush_async_host(_FlushCtx(
-            dict(handlers) if handlers else None, self.retry, self.timeout))
+            dict(handlers) if handlers else None, self.retry, self.timeout,
+            self.sanitize))
 
     def _ring(self, slot: _QueueSlot) -> AsyncRing:
         """The queue's ring on its card, made at the first flush: each
@@ -2350,7 +2513,12 @@ class RpcQueue:
         (on a card they would read the device)."""
         shape, dtype, nw = self._reply_spec(shape, dtype)
         on_cpu = self.device.type == "cpu"
-        if on_cpu and not bool(self.fonce):
+        never_flushed = not bool(self.fonce) if on_cpu else None
+        if events.active():
+            events.emit("rpc_result", _refs=(self, ticket), qid=id(self),
+                        ticket_id=id(ticket), via_result=_via_result,
+                        never_flushed=never_flushed)
+        if never_flushed:
             warnings.warn(
                 "RpcQueue.result() on a queue that has NEVER flushed: the "
                 "reply table has never been written, so this read returns "
@@ -2372,6 +2540,10 @@ class RpcQueue:
             vals = words.to(dtype)
         vals = torch.where(ok, vals, torch.zeros_like(vals))
         if _via_result and on_cpu and not bool(ok):
+            # a failed ticket's zeros consumed as a reply; on a card this
+            # would read the device, so only CPU queues count it
+            if self.sanitize:
+                _san_bump("failed_ticket_reads")
             if not self._failed_read_warned:
                 self._failed_read_warned = True
                 warnings.warn(
@@ -2391,6 +2563,11 @@ class RpcQueue:
             raise ValueError(
                 "result_status() on a queue with no reply arena; create "
                 "the queue with reply_capacity > 0")
+        if events.active():
+            # a status consult counts as a guard
+            events.emit("rpc_result", _refs=(self, ticket), qid=id(self),
+                        ticket_id=id(ticket), via_result=False,
+                        never_flushed=None)
         t = self._ticket(ticket)
         local, slot = self._slot(t)
         st = self.rstat.index_select(0, slot).view(())
@@ -2478,6 +2655,9 @@ class RpcQueue:
             slot = local % self.capacity if local >= 0 else 0
             ok = (t >= 0 and 0 <= local < rcount and int(rlen[slot]) == nw
                   and int(rstat[slot]) == STATUS_OK)
+            if self.sanitize and t >= 0 and not 0 <= local < rcount:
+                # a live ticket read outside the serviced epoch's window
+                _san_bump("stale_ticket_reads")
             if ok:
                 vals = _decode_words(rbuf[int(roff[slot]):int(roff[slot])
                                           + nw], np_dtype)

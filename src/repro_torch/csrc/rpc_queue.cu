@@ -29,6 +29,13 @@
 // or -1).  A payload of up to 1024 words is one block and needs no
 // counter.  Parameters are `__grid_constant__`, so a thread's lane reads
 // its argument in place.
+//
+// A sanitized queue (`sanitize`, a kernel argument) brackets each payload
+// reservation as [CANARY][words][CANARY], as JAX's enqueue does
+// (src/repro/core/rpc.py:3044-3055): an argument's `offset` is then the
+// reservation's start, its words and its descriptor one word in, and the
+// record's `npay` (which the arena-full test reads) counts the canaries.
+// An unsanitized queue's arena is as before.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -44,6 +51,8 @@ constexpr int kThreads = 256;
 // A block's share of the payload words in one launch, and the most blocks.
 constexpr int kWordsPerBlock = 1024;
 constexpr int kMaxBlocks = 264;
+// JAX's CANARY (kernels/rpc_queue/ref.py).
+constexpr int kCanary = 0x7FC0FFEE;
 
 enum : int { kImmediate = 0, kDevice = 1, kPayload = 2 };
 // Source dtypes (kernel.py::DTYPES).
@@ -71,7 +80,7 @@ struct QueueLanes {
   int capacity;
   int width;
   int payload_capacity;
-  int reserved;
+  int sanitize;  // 1: canary-bracketed payload reservations
 };
 
 struct RecordArg {
@@ -150,10 +159,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < r.nargs; ++j) {
       const RecordArg& a = r.args[j];
       if (a.kind != kPayload) continue;
-      int* dst = q.pbuf + phead + a.offset;
+      int* dst = q.pbuf + phead + a.offset + q.sanitize;
       for (long w = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
            w < a.length; w += stride)
         dst[w] = word_of(a.src, a.dtype, a.is_int, w);
+      if (q.sanitize && blockIdx.x == 0 && threadIdx.x < 2)
+        dst[threadIdx.x == 0 ? -1 : a.length] = kCanary;
     }
   }
   // Every read of the state above precedes every write below (in this
@@ -178,7 +189,7 @@ __global__ void __launch_bounds__(kThreads)
     if (t < r.nargs) {
       const RecordArg& a = r.args[t];
       if (a.kind == kPayload) {
-        iv = phead + a.offset;
+        iv = phead + a.offset + q.sanitize;
         pl = a.length;
       } else {
         const int v = a.kind == kImmediate

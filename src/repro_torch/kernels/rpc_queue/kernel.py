@@ -5,7 +5,8 @@ Replaces no Pallas kernel: the JAX package's ``RpcQueue._enqueue``
 program, and :func:`rpc_enqueue` is their one-launch counterpart on the
 card (its plain version is ``ref.py::enqueue_reference``).  Python numbers
 ride as kernel arguments, 0-d tensors and payloads are read on the device,
-and nothing is read back to the host.  The library builds at first use.
+and nothing is read back to the host; a sanitized queue's flag is a
+kernel argument too.  The library builds at first use.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ class _QueueLanes(ctypes.Structure):
         "callee", "nargs", "imask", "pmask", "ivals", "fvals", "plens",
         "pbuf", "head", "phead", "adrops", "rwant", "base", "arrivals",
         "ticket")] + [(n, _I) for n in (
-            "capacity", "width", "payload_capacity", "reserved")]
+            "capacity", "width", "payload_capacity", "sanitize")]
 
 
 class _RecordArg(ctypes.Structure):
@@ -82,7 +83,8 @@ def rpc_enqueue(q: Lanes, arrivals: torch.Tensor, rec: Record
         *[_ptr(t) for t in (q.callee, q.nargs, q.imask, q.pmask, q.ivals,
                             q.fvals, q.plens, q.pbuf, q.head, q.phead,
                             q.adrops, q.rwant, q.base, arrivals, ticket)],
-        q.callee.shape[0], q.ivals.shape[1], q.pbuf.shape[0], 0)
+        q.callee.shape[0], q.ivals.shape[1], q.pbuf.shape[0],
+        int(rec.sanitize))
     r = _Record(rec.callee, len(rec.args), rec.imask, rec.pmask, rec.rwant,
                 rec.npay)
     if rec.where is None:

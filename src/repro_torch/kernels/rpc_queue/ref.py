@@ -18,6 +18,10 @@ import torch
 
 I32 = torch.int32
 
+#: The word a sanitized queue writes on both sides of each payload
+#: reservation (JAX's ``CANARY``, ``repro/core/rpc.py``).
+CANARY = 0x7FC0FFEE
+
 #: Kinds of a record argument: a lane value known to the host (a Python
 #: number), a 0-d tensor read on the device, an array in the payload arena.
 IMMEDIATE, DEVICE, PAYLOAD = 0, 1, 2
@@ -60,8 +64,11 @@ class Arg:
 class Record:
     """What one enqueue writes: the callee id, ``imask``/``pmask`` bits,
     the declared reply words (``+n`` int32, ``-n`` float32, 0 none), the
-    payload words in all, the arguments and ``where`` (None, a Python bool
-    or a 0-d bool tensor on the queue's device)."""
+    payload words in all, the arguments, ``where`` (None, a Python bool
+    or a 0-d bool tensor on the queue's device) and ``sanitize``: each
+    payload's reservation (at its ``offset``) is then ``[CANARY][words]
+    [CANARY]``, its descriptor points one word in, and ``npay`` counts the
+    canaries."""
     callee: int
     imask: int
     pmask: int
@@ -69,6 +76,7 @@ class Record:
     npay: int
     args: List[Arg]
     where: Union[None, bool, torch.Tensor] = None
+    sanitize: bool = False
 
 
 def payload_words(t: torch.Tensor) -> torch.Tensor:
@@ -95,12 +103,13 @@ def enqueue_reference(q: Lanes, rec: Record) -> torch.Tensor:
     As JAX's ``_enqueue``: ``keep`` is ``where`` and, for a record with
     payloads, whether all of them fit the arena (an atomic drop otherwise,
     counted in ``adrops``); a kept record's payloads go to ``phead`` plus
-    their static offsets and its row to ``head % capacity`` (overwriting
-    the oldest record when the ring is full); a dropped one changes
-    nothing else."""
+    their static offsets (canary-bracketed when ``rec.sanitize``) and its
+    row to ``head % capacity`` (overwriting the oldest record when the
+    ring is full); a dropped one changes nothing else."""
     dev = q.head.device
     cap, width = q.callee.shape[0], q.ivals.shape[1]
     pc = q.pbuf.shape[0]
+    san = int(rec.sanitize)
     head, phead = q.head.clone(), q.phead.clone()
     if rec.where is None:
         keep = torch.ones((), dtype=torch.bool, device=dev)
@@ -125,13 +134,17 @@ def enqueue_reference(q: Lanes, rec: Record) -> torch.Tensor:
         elif a.kind == DEVICE:
             lane[j].copy_(scalar_bits(a.src, a.is_int))
         else:
-            iv[j].copy_(phead + a.offset)
+            iv[j].copy_(phead + a.offset + san)
             pl[j].fill_(a.length)
             words = payload_words(a.src)
+            if san:
+                can = torch.full((1,), CANARY, dtype=I32, device=dev)
+                words = torch.cat([can, words, can])
+            n = words.shape[0]
             # JAX's dynamic_update_slice clamps the start; a dropped record
             # writes the old words back
-            start = (phead + a.offset).clamp(0, pc - a.length).long()
-            idx = start + torch.arange(a.length, device=dev)
+            start = (phead + a.offset).clamp(0, pc - n).long()
+            idx = start + torch.arange(n, device=dev)
             old = q.pbuf.index_select(0, idx)
             q.pbuf.index_copy_(0, idx, torch.where(keep, words, old))
     i = torch.remainder(head, cap).long().view(1)

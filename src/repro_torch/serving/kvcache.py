@@ -142,6 +142,17 @@ def live_pages(kv: PagedKV, slot: int) -> torch.Tensor:
     return kv.page_table[slot, :n]
 
 
+def release_slot(kv: PagedKV, slot: int) -> PagedKV:
+    """Release one slot: reset its allocator chunk (the whole stack's
+    watermark reclaim) and zero its page-table row and length.  The
+    sharded page heap of JAX's version needs a mesh (ROADMAP item 5)."""
+    kv.alloc = BalancedAllocator.reset_chunk(kv.alloc, slot)
+    row = torch.arange(kv.lengths.shape[0], device=kv.lengths.device) == slot
+    kv.page_table = torch.where(row[:, None], 0, kv.page_table)
+    kv.lengths = torch.where(row, 0, kv.lengths)
+    return kv
+
+
 def release_slots(kv: PagedKV, mask: torch.Tensor) -> PagedKV:
     """Release every slot where ``mask`` (B,) is true in one vectorised
     allocator reset, and zero its page-table row and length."""

@@ -213,6 +213,8 @@ def test_allocator_for_dispatches_by_state_type():
     assert (bool(found), int(base), int(size)) == (True, int(p), 5)
     with pytest.raises(TypeError):
         allocator_for(object())
-    from repro.core.allocator import SizeClassAllocator
-    with pytest.raises(NotImplementedError, match="3.6"):
-        allocator_for(SizeClassAllocator.init(32, cap=4))
+    from repro_torch.core.allocator import (
+        ShardedAllocator, SizeClassAllocator, shard_heap)
+    s = SizeClassAllocator.init(32, cap=4, device="cpu")
+    assert allocator_for(s) is SizeClassAllocator     # item 3.6 is ported
+    assert allocator_for(shard_heap(g, 2)) is ShardedAllocator

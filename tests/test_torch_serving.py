@@ -60,12 +60,14 @@ def _same_kv(jkv, tkv):
                                       err_msg=f)
 
 
-def _lockstep(models, traffic, *, batch_slots, max_len=64, page_size=8):
+def _lockstep(models, traffic, *, batch_slots, max_len=64, page_size=8,
+              jax_kw=None, port_kw=None):
     jmodel, jparams, tmodel, tparams = models
     jeng = JaxEngine(jmodel, jparams, batch_slots=batch_slots,
-                     max_len=max_len, page_size=page_size)
+                     max_len=max_len, page_size=page_size, **(jax_kw or {}))
     teng = ServingEngine(tmodel, tparams, batch_slots=batch_slots,
-                         max_len=max_len, page_size=page_size, device="cpu")
+                         max_len=max_len, page_size=page_size, device="cpu",
+                         **(port_kw or {}))
     jr = [jeng.submit(p, max_new=n) for p, n in traffic]
     tr = [teng.submit(p, max_new=n) for p, n in traffic]
     assert jr == tr
@@ -79,6 +81,9 @@ def _lockstep(models, traffic, *, batch_slots, max_len=64, page_size=8):
             [s.request_id for s in teng.slots]
     assert not teng.queue and all(s.request_id < 0 for s in teng.slots)
     assert teng.finished == jeng.finished
+    if jeng.spill_q is not None:
+        assert teng.spill_acks == jeng.spill_acks
+        assert teng.recompute_on_readmit == jeng.recompute_on_readmit
     return teng, tr, ticks
 
 
@@ -192,3 +197,130 @@ def test_serve_cli_tiny_preset_on_cpu(capsys):
     for flag in ("--seed", "--max-len"):
         with pytest.raises(SystemExit):
             serve.main(["--device", "cpu", flag, "1"])
+
+
+# ---------------------------------------------------------------------------
+# Page spill (tests/test_serving.py's spill cases) and release_slot
+# ---------------------------------------------------------------------------
+
+def _spill_pair(models, traffic, make_sink, *, batch_slots, max_len=64,
+                **kw):
+    """Both engines with a sink each (``make_sink(log)``), run in
+    lock-step: the sinks' calls, the acks, ``recompute_on_readmit`` and
+    the streams must be equal.  Returns the port's engine and its log."""
+    import warnings
+    logs = {"jax": [], "port": []}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        teng, rids, _ = _lockstep(
+            models, traffic, batch_slots=batch_slots, max_len=max_len,
+            jax_kw=dict(spill_sink=make_sink(logs["jax"]), **kw),
+            port_kw=dict(spill_sink=make_sink(logs["port"]), **kw))
+    assert logs["port"] == logs["jax"] and logs["port"]
+    return teng, rids, logs["port"]
+
+
+def _recording(log, ret=None):
+    def sink(rid, n_tokens, pages):
+        log.append((int(rid), int(n_tokens), np.asarray(pages).tolist()))
+        return ret(rid, pages) if ret else None
+    return sink
+
+
+def test_spill_sink_receives_page_ids_as_jax_engine(models):
+    """tests/test_serving.py: each retiring request ships its live page
+    ids and token count (prompt + generated - 1) before its slot is
+    released, acked with the page count."""
+    teng, rids, log = _spill_pair(
+        models, [([5, 17, 42, 7], 6), ([9, 3], 13)], _recording,
+        batch_slots=2)
+    by_rid = {rid: (n, pages) for rid, n, pages in log}
+    assert by_rid[rids[0]][0] == 9 and len(by_rid[rids[0]][1]) == 2
+    assert by_rid[rids[1]][0] == 14 and len(by_rid[rids[1]][1]) == 2
+    assert teng.spill_acks == {rid: len(p) for rid, (_, p) in by_rid.items()}
+    assert teng.drain_spill_acks() and teng.spill_acks == {}
+
+
+def test_spill_ack_carries_sink_return_as_jax_engine(models):
+    """The sink's return value is the ack; a non-scalar return is cut to
+    its first word, as JAX's drain coerces it."""
+    teng, rids, _ = _spill_pair(
+        models, [([4, 2], 3)],
+        lambda log: _recording(log, lambda rid, p: 1000 + int(rid)),
+        batch_slots=1, max_len=32)
+    assert teng.spill_acks == {rids[0]: 1000 + rids[0]}
+    teng, rids, log = _spill_pair(
+        models, [([4, 2], 3)],
+        lambda log: _recording(log, lambda rid, p: p), batch_slots=1,
+        max_len=32)
+    assert teng.spill_acks == {rids[0]: log[0][2][0]}
+
+
+def _flaky(fail_first):
+    def make(log):
+        calls = {}
+
+        def sink(rid, n_tokens, pages):
+            rid = int(rid)
+            calls[rid] = calls.get(rid, 0) + 1
+            log.append((rid, calls[rid]))
+            if calls[rid] <= fail_first(rid):
+                raise RuntimeError("spill store hiccup")
+            return rid + 500
+        return sink
+    return make
+
+
+def test_spill_flaky_sink_is_retried_as_jax_engine(models):
+    """A sink that fails its first delivery is redriven by the carry:
+    the ack lands and nothing degrades (spill_retries=2)."""
+    teng, rids, log = _spill_pair(
+        models, [([4, 2], 3), ([6, 1, 3], 2), ([2], 4)],
+        _flaky(lambda rid: 1 if rid % 2 else 0), batch_slots=2,
+        max_len=32, spill_retries=2)
+    assert teng.spill_acks == {r: r + 500 for r in rids}
+    assert teng.recompute_on_readmit == set()
+    assert sorted(c for r, c in log if r == rids[1]) == [1, 2]
+
+
+def test_spill_dead_sink_degrades_to_recompute_as_jax_engine(models):
+    """A sink that always fails exhausts the budget: a None ack and the
+    request in recompute_on_readmit; decoding is unaffected."""
+    teng, rids, _ = _spill_pair(
+        models, [([4, 2], 3)], _flaky(lambda rid: 99), batch_slots=1,
+        max_len=32, spill_retries=1)
+    assert teng.spill_acks == {rids[0]: None}
+    assert teng.recompute_on_readmit == {rids[0]}
+    assert len(teng.finished[rids[0]]) == 3
+
+
+def test_spill_disabled_by_default():
+    cfg = jcfg_to_port(CONFIGS["llama3.2-3b"].reduced())
+    tmodel = build_model(cfg, device="cpu")
+    teng = ServingEngine(tmodel, tmodel.init(seed=0), batch_slots=1,
+                         max_len=32, page_size=8, device="cpu")
+    assert teng.spill_q is None
+    teng.submit([3, 1], max_new=2)
+    assert len(teng.run_until_drained()[0]) == 2
+
+
+def test_release_slot_matches_jax():
+    """release_slot resets one chunk and zeroes its row and length, as
+    the JAX cache's single-device release_slot does."""
+    from repro.serving import kvcache as jkv
+    jcfg = CONFIGS["llama3.2-3b"].reduced()
+    jk = jkv.paged_cache_init(jcfg, 3, 64, page_size=8)
+    tk = kvcache.paged_cache_init(jcfg_to_port(jcfg), 3, 64, page_size=8,
+                                  device="cpu")
+    act = np.array([True, True, False])
+    for _ in range(11):
+        jk = jkv.advance(jkv.ensure_pages(jk, jax.numpy.asarray(act)),
+                         jax.numpy.asarray(act))
+        tk = kvcache.advance(kvcache.ensure_pages(tk, torch.from_numpy(act)),
+                             torch.from_numpy(act))
+    _same_kv(jk, tk)
+    for slot in (1, 2, 0):
+        jk = jkv.release_slot(jk, slot)
+        tk = kvcache.release_slot(tk, slot)
+        _same_kv(jk, tk)
+    assert tk.lengths.tolist() == [0, 0, 0]
