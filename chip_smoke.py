@@ -216,10 +216,40 @@ bit-equal to the CPU with no device read; each operation's host and
 device us) and ``events`` (the card's event kinds and counts equal the
 CPU's, nothing waiting for the device).
 
+After ``dense_serve`` come ``moe_serve``, phi3.5-moe-42b-a6.6b
+at full width (d_model 4096, 32 query heads over 8 KV heads of 128, 16
+experts of d_ff 6400, top 2, vocab 32064, bf16) and 16 of its 32 layers
+(~21.1e9 random parameters, ~42 GB, built on the card after
+``dense_serve``'s model is freed) through the engine with ``serve``'s
+gates (logits against the teacher-forced contiguous decode, exact
+launches: paged 16 a tick, decode 16 a step) and ``moe_profile``; and
+``moe_fp32``, the same width in fp32 at 2 layers: the engine within
+2e-5 of the contiguous decode, ``Model.forward`` within 1e-3 of
+``Model.prefill`` + decode and the experts chosen for every token and
+layer equal on both paths.  After ``events``: ``rpc_sharded``, the
+``rpc_queue`` plans on 4-shard ``ShardedRpcQueue``s, sync and async,
+plain and sanitized (states bit-equal to CPU queues and, sync, to four
+single queues flushed in (device, slot) order; replay logs, tickets,
+sanitizer epochs and ``flush_stats`` equal; every enqueue and flush
+under ``set_sync_debug_mode("error")``; exact launches: one
+``rpc_enqueue`` a record, one ``rpc_post`` a sync flush, one
+``rpc_async_post`` and one ``rpc_async_collect`` an async one), the
+deadline's partial epoch (``shard_deadline`` 0.25 s, a 2 s delay pinned
+to shard 1: shard 1 TIMEOUT, the others OK, warned; sync, and async at
+the collecting flush), async independence,
+the sharded ``LogRing`` in (device, slot) order, the cross-transport
+conformance of ``fprintf``, ``fwrite`` and remote malloc on the card, and
+a 4 x 256-record sharded flush timed beside a 1 x 1024 one; then
+``manifest``: the batched program of JAX's cross-process test here and
+in a fresh ``python3 -c`` process that adopts this one's manifest
+(bit-equal effects, pointers and launches; a tampered pad refused,
+naming its callee).
+
 Every phase raises on failure.  The kernels' launch counts are reset just
 before each counted path (phases 3, 7, 10, 12, 16, 21, 24, 25 and 26,
-``dense_serve``, ``rpc_queue_async``, ``device_run_async``,
-``host_pipeline``, ``serve_spill`` and ``sanitizer``) and read just after it; each path's count must be the exact number its depth
+``dense_serve``, ``moe_serve``, ``moe_fp32``, ``rpc_queue_async``,
+``device_run_async``, ``host_pipeline``, ``serve_spill``, ``sanitizer``,
+``rpc_sharded`` and ``manifest``) and read just after it; each path's count must be the exact number its depth
 and steps give (``rpc_post``: one a firing of a hook, a call or a flush;
 ``rpc_enqueue``: one a record; ``rpc_async_post`` and
 ``rpc_async_collect``: one each an async flush).
@@ -737,17 +767,18 @@ def _teacher_forced(model, params, seqs, prompt_lens, n_out, max_len):
     return [torch.stack(r) for r in rows]
 
 
-def _engine_serve(tag, cfg, n_short, long_len, seed):
-    """``cfg`` at full width and depth (bf16, random weights from seed 0,
-    built on the card) behind ``ServingEngine(batch_slots=4,
-    page_size=16, max_len=512)``: a ``long_len``-token prompt and
-    ``n_short`` short ones, 16 new tokens each.  The counts are reset just
-    before the engine runs and read after the contiguous check: paged
-    attention exactly once a layer a tick, decode once a layer a step of
-    the contiguous decode (``Model.decode_step``) that is teacher-forced on
-    the first four requests and held to the engine's logits (within
-    ``LOGIT_ATOL_BF16``) and argmax.  Returns (launches, model, params,
-    prompts, max_new, max_len, the greedy streams)."""
+def _engine_serve(tag, cfg, n_short, long_len, seed, atol=LOGIT_ATOL_BF16):
+    """``cfg`` at full width (bf16 unless ``cfg`` says otherwise, random
+    weights from seed 0, built on the card) behind
+    ``ServingEngine(batch_slots=4, page_size=16, max_len=512)``: a
+    ``long_len``-token prompt and ``n_short`` short ones, 16 new tokens
+    each.  The counts are reset just before the engine runs and read
+    after the contiguous check: paged attention exactly once a layer a
+    tick, decode once a layer a step of the contiguous decode
+    (``Model.decode_step``) that is teacher-forced on the first four
+    requests and held to the engine's logits (within ``atol``) and
+    argmax.  Returns (launches, model, params, prompts, max_new, max_len,
+    the greedy streams)."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda)
     from repro_torch.kernels.paged_attention.kernel import (
@@ -825,10 +856,10 @@ def _engine_serve(tag, cfg, n_short, long_len, seed):
         log({"contiguous_check": {"path": tag, "request": rid,
                                   "steps": e.shape[0],
                                   "max_abs_logit_diff": diff,
-                                  "tol": LOGIT_ATOL_BF16,
+                                  "tol": atol,
                                   "same_argmax": same,
                                   "argmax_is_stream": tokens}})
-        if diff > LOGIT_ATOL_BF16 or not same or not tokens:
+        if diff > atol or not same or not tokens:
             raise AssertionError(f"{tag} request {rid}: engine and "
                                  "contiguous decode disagree")
     streams = dict(results)
@@ -4272,7 +4303,7 @@ def _san_times(dev):
             words = q.state[:L.in_end].cpu().numpy()
             if san:
                 t0 = time.perf_counter()
-                _san_precheck(L.views(words), 0)
+                _san_precheck([L.views(words)], 0)
                 pre.append((time.perf_counter() - t0) * 1e6)
             q.flush()
             effects_barrier()
@@ -4613,6 +4644,680 @@ def events_phase():
         raise AssertionError(f"events: {rec}")
 
 
+# ---------------------------------------------------------------------------
+# The moe family at full width: phi3.5-moe through the paged engine
+# ---------------------------------------------------------------------------
+
+#: phi3.5-moe's depth on one card: 16 of its 32 layers (~42 GB of bf16
+#: weights; all 32 are ~83.7 GB, more than the card holds).
+MOE_LAYERS = 16
+#: The fp32 phase's depth (~11.5 GB of fp32 weights).
+MOE_FP32_LAYERS = 2
+#: The fp32 engine against the contiguous decode (fp32 logits).
+MOE_ENGINE_ATOL_FP32 = 2e-5
+
+
+def _moe_cfg(**kw):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), **kw)
+    assert (cfg.d_model, cfg.padded_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.num_experts, cfg.experts_per_token,
+            cfg.d_ff, cfg.vocab_size) == (4096, 32, 8, 128, 16, 2, 6400,
+                                          32064)
+    return cfg
+
+
+def moe_serve_phase():
+    """phi3.5-moe-42b-a6.6b at full width (d_model 4096, 32 query heads
+    over 8 KV heads of 128, 16 experts of d_ff 6400, top 2, vocab 32064,
+    bf16) and 16 of its 32 layers, ~21.1e9 random parameters from seed 0
+    built on the card, through the engine as ``dense_serve`` runs
+    qwen2.5-14b (9 prompts, one of 200 tokens, 16 new tokens each): the
+    logits gate against the teacher-forced contiguous decode and exact
+    launches (paged 16 a tick, decode 16 a step), then ``moe_profile``
+    (8 busy ticks under ``torch.profiler``).  Returns the launches."""
+    cfg = _moe_cfg(num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    launches, model, params, prompts, max_new, max_len, _ = _engine_serve(
+        "moe_serve", cfg, 8, 200, 23)
+    profile_window(model, params, prompts, max_new, max_len,
+                   tag="moe_profile")
+    # the expert products read the (E, d, f) weights in place: a decode
+    # step of 4 rows allocates activations only, never a copy of a weight
+    cache = model.init_cache(4, 64)
+    tok = torch.tensor(prompts[1][:4], device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        model.decode_step(params, cache, tok)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    expert = params["layers"][0]["moe"]["wi_gate"]
+    weight_bytes = expert.numel() * expert.element_size()
+    log({"moe_step_temporaries": {"peak_extra_bytes": extra,
+                                  "expert_weight_bytes": weight_bytes}})
+    if extra >= weight_bytes // 8:
+        raise AssertionError(f"moe decode step allocated {extra} bytes "
+                             f"beside an expert weight of {weight_bytes}")
+    del model, params, cache
+    torch.cuda.empty_cache()
+    log({"moe_serve_phase_s": time.perf_counter() - t0})
+    return launches
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Record the experts ``models/moe.py::_route`` picks, one (tokens, k)
+    array a call (it reads the device)."""
+    from repro_torch.models import moe as moe_mod
+    inner, seen = moe_mod._route, []
+
+    def route(x, w, k):
+        out = inner(x, w, k)
+        seen.append(out[1].cpu())
+        return out
+
+    moe_mod._route = route
+    try:
+        yield seen
+    finally:
+        moe_mod._route = inner
+
+
+def moe_fp32_phase():
+    """The same configuration in fp32 at 2 layers, TF32 off: the engine
+    against the contiguous decode within ``MOE_ENGINE_ATOL_FP32`` (4
+    prompts, one of 64 tokens), then ``Model.forward`` over 48 tokens
+    against ``Model.prefill`` of 32 and 16 teacher-forced decode steps
+    (within ``LOGIT_ATOL_FP32``, the same argmax) and the experts chosen
+    for every token and layer equal on both paths: the exact gate for
+    routing.  Returns the launches of the engine's path."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _moe_cfg(num_layers=MOE_FP32_LAYERS, dtype="float32",
+                   param_dtype="float32")
+    launches, model, params, prompts, _, _, _ = _engine_serve(
+        "moe_fp32", cfg, 3, 64, 31, atol=MOE_ENGINE_ATOL_FP32)
+    tokens = torch.tensor([prompts[0][:48]], device="cuda")
+    S0 = 32
+    with torch.no_grad():
+        with _recorded_routes() as fwd_routes:
+            fwd, _ = model.forward(params, {"tokens": tokens})
+        with _recorded_routes() as dec_routes:
+            logits, cache = model.prefill(params, {"tokens": tokens[:, :S0]},
+                                          64)
+            rows = [logits]
+            for j in range(S0, tokens.shape[1] - 1):
+                logits, cache = model.decode_step(params, cache,
+                                                  tokens[:, j])
+                rows.append(logits)
+    dec = torch.stack(rows, dim=1)
+    ref = fwd[:, S0 - 1:tokens.shape[1] - 1]
+    diff = float((dec - ref).abs().max())
+    same = bool(torch.equal(dec.argmax(-1), ref.argmax(-1)))
+    L = cfg.num_layers
+    # per layer: the forward's (48, k) picks against the prefill's (32, k)
+    # and the decode steps' (1, k) each, in token order
+    fwd_ids = [r.numpy()[:tokens.shape[1] - 1] for r in fwd_routes]
+    dec_ids = [np.concatenate(dec_routes[li::L]) for li in range(L)]
+    routing = [np.array_equal(a, b) for a, b in zip(fwd_ids, dec_ids)]
+    flips = [int((a != b).any(-1).sum()) for a, b in zip(fwd_ids, dec_ids)]
+    log({"moe_forward_vs_prefill_decode_fp32": {
+        "layers": L, "tokens": int(tokens.shape[1]), "prefill": S0,
+        "max_abs_logit_diff": diff, "tol": LOGIT_ATOL_FP32,
+        "same_argmax": same, "routing_equal_by_layer": routing,
+        "tokens_with_other_experts_by_layer": flips,
+        "routing_calls": [len(fwd_routes), len(dec_routes)]}})
+    if not (diff <= LOGIT_ATOL_FP32 and same and all(routing)
+            and len(fwd_routes) == L and bool(torch.isfinite(fwd).all())):
+        raise AssertionError("moe fp32: forward and prefill + decode "
+                             "disagree")
+    del model, params, fwd, dec, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The sharded transport and the manifest on the card
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+
+
+def _sharded_run(target, plan, logs, on_card):
+    """Enqueue ``plan`` (``(name, args, returns, where)``) record k on
+    shard k % SHARDS of ``target`` (a sharded queue, or a list of single
+    queues, one a shard), flushing every QUEUE_FLUSH_EVERY records and at
+    the end (single queues in shard order; an async queue once more to
+    collect the tail).  On a card everything runs under
+    ``set_sync_debug_mode("error")``.  Returns the tickets and the
+    (D, words) state after each flush (clones)."""
+    logged = _queue_callees()
+    singles = isinstance(target, list)
+    tickets, states = [], []
+    n = len(plan)
+    ctx = sync_errors() if on_card else contextlib.nullcontext()
+    flushes = [(k + 1) for k in range(n)
+               if (k + 1) % QUEUE_FLUSH_EVERY == 0 or k + 1 == n]
+    if not singles and target.mode == "async":
+        flushes.append(n)
+    with ctx:
+        k = 0
+        for stop in flushes:
+            for name, args, returns, where in plan[k:stop]:
+                q = target[k % SHARDS] if singles else \
+                    target.local(k % SHARDS)
+                _, t = q.enqueue_ticketed(name, *args, returns=returns,
+                                          where=where)
+                tickets.append(t)
+                k += 1
+            for q in (target if singles else [target]):
+                q.flush(logged(logs))
+            states.append(torch.stack([q.state.clone() for q in target])
+                          if singles else target.state.clone())
+    return tickets, states
+
+
+def _sharded_plans_case(dev, geometry, mode, sanitize):
+    """``rpc_queue``'s three seeded plans, each spread over a 4-shard
+    queue on the card and on the CPU (and, sync, over four single CPU
+    queues flushed in shard order): the state bit-equal after every
+    flush, the tickets and the replay logs equal (an async queue's
+    shards drain independently: its log as a multiset), the sanitizer's
+    epoch records and ``flush_stats`` equal; exact launches.  Returns the
+    records and the launches."""
+    from repro_torch.core import (RpcQueue, ShardedRpcQueue, effects_barrier,
+                                  flush_stats, reset_rpc_stats,
+                                  reset_sanitize_stats, sanitize_stats)
+    from repro_torch.kernels.rpc_async import (rpc_async_collect,
+                                               rpc_async_post)
+    from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.kernels.rpc_queue import rpc_enqueue
+
+    geo = dict(geometry, mode=mode, sanitize=sanitize)
+    counts = dict.fromkeys(("rpc_enqueue", "rpc_post", "rpc_async_post",
+                            "rpc_async_collect"), 0)
+    rec = {}
+    labels = ("card", "cpu", "singles") if mode == "sync" else ("card", "cpu")
+    for seed in QUEUE_SEEDS:
+        plan = _queue_plan(dev, seed, QUEUE_RECORDS)
+        runs = {}
+        for label in labels:
+            on_card = label == "card"
+            if label == "singles":
+                target = [RpcQueue.create(**geo, device="cpu")
+                          for _ in range(SHARDS)]
+            else:
+                target = ShardedRpcQueue.create(
+                    SHARDS, **geo, device=dev if on_card else "cpu")
+            sub = [(n, card if on_card else cpu, r, wk if on_card else wc)
+                   for n, card, cpu, r, wk, wc in plan]
+            logs = []
+            effects_barrier()
+            reset_rpc_stats()
+            reset_sanitize_stats()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                if on_card:
+                    # main path: counts from 0 just before, read just after
+                    rpc_enqueue.launches = rpc_post.launches = 0
+                    rpc_async_post.launches = rpc_async_collect.launches = 0
+                tickets, states = _sharded_run(target, sub, logs, on_card)
+                if on_card:
+                    n = {"rpc_enqueue": rpc_enqueue.launches,
+                         "rpc_post": rpc_post.launches,
+                         "rpc_async_post": rpc_async_post.launches,
+                         "rpc_async_collect": rpc_async_collect.launches}
+                if label != "singles":
+                    assert target.join(timeout=60)
+                effects_barrier()
+            runs[label] = {"tickets": [int(t) for t in tickets],
+                           "states": states, "logs": logs,
+                           "san": sanitize_stats(), "stats": flush_stats()}
+            del target
+        card, cpu = runs["card"], runs["cpu"]
+        flushes = len(card["states"])
+        per_flush = {"sync": {"rpc_post": 1},
+                     "async": {"rpc_async_post": 1,
+                               "rpc_async_collect": 1}}[mode]
+        want = {k: per_flush.get(k, 0) * flushes for k in n}
+        want["rpc_enqueue"] = len(plan)
+        order = (card["logs"] == cpu["logs"] if mode == "sync" else
+                 sorted(card["logs"]) == sorted(cpu["logs"]))
+        checks = {
+            "states_vs_cpu": all(_equal_states(a, b) for a, b in
+                                 zip(card["states"], cpu["states"])),
+            "tickets": card["tickets"] == cpu["tickets"],
+            "replay_log": order and bool(cpu["logs"]),
+            "sanitizer_epochs": card["san"] == cpu["san"],
+            "flush_stats": card["stats"] == cpu["stats"],
+            "launches": n == want,
+        }
+        if mode == "sync":
+            one = runs["singles"]
+            checks["states_vs_single_queues"] = all(
+                _equal_states(a, b) for a, b in zip(cpu["states"],
+                                                    one["states"]))
+            checks["log_vs_single_queues_in_device_slot_order"] = \
+                cpu["logs"] == one["logs"]
+            checks["tickets_vs_single_queues"] = \
+                cpu["tickets"] == one["tickets"]
+        rec[f"seed_{seed}"] = {"checks": checks, "flushes": flushes,
+                               "records_replayed": len(cpu["logs"]),
+                               "launches": n}
+        for key in counts:
+            counts[key] += n[key]
+        if not all(checks.values()):
+            raise AssertionError(f"rpc_sharded {mode} sanitize={sanitize} "
+                                 f"seed {seed}: {rec}")
+    return rec, counts
+
+
+def _sharded_deadline(dev, mode="sync"):
+    """``shard_deadline=0.25`` with a 2 s delay pinned to shard 1's record
+    (occurrence 1 in (device, slot) order): the other shards read OK with
+    their replies, shard 1 TIMEOUT, and a sync flush warns partial-epoch.
+    An async queue flushes twice (the second collects, every row waiting
+    up to the deadline) and joins the late drain."""
+    import numpy as np
+    from repro_torch.core import (ShapeDtype, ShardedRpcQueue,
+                                  effects_barrier)
+    from repro_torch.core.rpc import REGISTRY
+    from repro_torch.testing.faults import Fault, FaultPlan
+
+    REGISTRY.register("smoke.sd", lambda x: np.int32(x) * 2)
+    sq = ShardedRpcQueue.create(SHARDS, 8, width=2, reply_capacity=8,
+                                shard_deadline=0.25, mode=mode, device=dev)
+    i32 = ShapeDtype((), torch.int32)
+    tks = [sq.local(d).enqueue_ticketed("smoke.sd", 10 + d, returns=i32)[1]
+           for d in range(SHARDS)]
+    plan = FaultPlan([Fault("delay", "smoke.sd", call_index=1, delay=2.0)])
+    t0 = time.perf_counter()
+    with plan, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sq.flush()
+        if mode == "async":
+            sq.flush()
+        effects_barrier()
+        wall = time.perf_counter() - t0
+        assert sq.join(timeout=60)
+    statuses = [int(sq.result_status(d, t)) for d, t in enumerate(tks)]
+    values = [int(sq.result(d, t)) for d, t in enumerate(tks)]
+    warned = any("partial-epoch" in str(w.message) for w in caught)
+    return {"statuses": statuses, "values": values, "warned": warned,
+            "fired": [list(f) for f in plan.fired], "flush_wall_s": wall}
+
+
+def _sharded_async_independent(dev):
+    """An async 4-shard queue: every shard's ticket reads PENDING after
+    the submitting flush and its reply after the collecting one."""
+    import numpy as np
+    from repro_torch.core import ShapeDtype, ShardedRpcQueue
+    from repro_torch.core.rpc import REGISTRY
+
+    REGISTRY.register("smoke.sh", lambda x: np.int32(x) + 5)
+    sq = ShardedRpcQueue.create(SHARDS, 8, width=2, reply_capacity=8,
+                                mode="async", device=dev)
+    i32 = ShapeDtype((), torch.int32)
+    tks = [int(sq.local(d).enqueue_ticketed("smoke.sh", 100 * (d + 1),
+                                            returns=i32)[1])
+           for d in range(SHARDS)]
+    sq.flush()
+    pending = [sq.local(d).statuses_host([t])[0] for d, t in enumerate(tks)]
+    sq.flush()
+    assert sq.join(timeout=60)
+    done = [(sq.local(d).statuses_host([t])[0], int(sq.result(d, t)))
+            for d, t in enumerate(tks)]
+    return {"pending": pending, "collected": done}
+
+
+def _sharded_logring(dev):
+    """Four ring shards, shard d logging d + 1 records (some with a
+    payload), drained by one flush: the lines in (device, slot) order."""
+    from repro_torch.core import (LogRing, ShardedRpcQueue, drain_log_lines,
+                                  effects_barrier)
+    drain_log_lines()
+    ring = LogRing.create_sharded(SHARDS, 16, payload_capacity=32,
+                                  device=dev)
+    pays = {(d, k): torch.tensor([float(d), float(k)], device=dev)
+            for d in range(SHARDS) for k in range(0, d + 1, 2)}
+    with sync_errors() if dev.type == "cuda" else contextlib.nullcontext():
+        for d in range(SHARDS):
+            for k in range(d + 1):
+                LogRing(ring.q.local(d), ring.name).log(
+                    10 * d + k, 0.5 * k, payload=pays.get((d, k)))
+        LogRing(ShardedRpcQueue.stack([ring.q.local(d)
+                                       for d in range(SHARDS)]),
+                ring.name).flush()
+    effects_barrier()
+    return [(a, b) + tuple(c.tolist() for c in rest)
+            for a, b, *rest in drain_log_lines()]
+
+
+def _conformance(dev, transport, what):
+    """JAX's ``test_cross_transport_conformance`` issuers on the port, on
+    ``dev``: ``fprintf``, ``fwrite`` and remote malloc through immediate
+    calls, a batched queue and a 2-shard sharded queue (one call a
+    shard).  Returns the host effect and the device's results."""
+    import numpy as np
+    from repro_torch.core import (GenericAllocator, RpcQueue, ShapeDtype,
+                                  ShardedRpcQueue, drain_fwrite,
+                                  drain_printf, effects_barrier, fprintf,
+                                  fwrite, remote_heap_register,
+                                  remote_malloc_enqueue,
+                                  remote_malloc_results, rpc_call)
+    from repro_torch.core.libc import _intern_fmt
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    stream = {"immediate": 41, "batched": 42, "sharded": 43}[transport]
+    drain_printf()
+    drain_fwrite(stream)
+    sharded = (ShardedRpcQueue.create(2, 8, width=4, payload_capacity=16,
+                                      reply_capacity=8, device=dev)
+               if transport == "sharded" else None)
+    single = (RpcQueue.create(8, width=4, payload_capacity=16,
+                              reply_capacity=8, device=dev)
+              if transport == "batched" else None)
+    if what == "fprintf":
+        fmt = "conf %d %.1f"
+        calls = [(3, 1.5), (4, -0.5)]
+        for d, (a, b) in enumerate(calls):
+            x = torch.tensor(b, device=dev)
+            if transport == "immediate":
+                rpc_call("libc.fprintf", i32(_intern_fmt(fmt)), i32(a), x,
+                         result_shape=())
+            else:
+                fprintf(sharded.local(d) if sharded else single, fmt,
+                        i32(a), x)
+        if sharded or single:
+            (sharded or single).flush()
+        effects_barrier()
+        return drain_printf(), None
+    if what == "fwrite":
+        for d, c in enumerate([[10, 20, 30], [40]]):
+            if transport == "immediate":
+                rpc_call("libc.fwrite", i32(stream), i32(c), result_shape=())
+            else:
+                fwrite(sharded.local(d) if sharded else single, i32(c),
+                       stream=stream)
+        if sharded or single:
+            (sharded or single).flush()
+        effects_barrier()
+        return drain_fwrite(stream).tolist(), None
+    name = f"heap.smoke_conf.{transport}"
+    remote_heap_register(name, GenericAllocator.init(256, cap=16,
+                                                     device="cpu"))
+    nid = _intern_fmt(name)
+    outs = []
+    for d, sizes in enumerate([[8, 16], [4]]):
+        spec = ShapeDtype((len(sizes),), torch.int32)
+        if transport == "immediate":
+            outs.append(rpc_call("libc.remote_malloc", i32(nid), i32(0),
+                                 i32(sizes), result_shape=spec)[0])
+            continue
+        q = sharded.local(d) if sharded else single
+        _, t = remote_malloc_enqueue(q, name, i32(sizes))
+        outs.append((d, t, spec))
+    if transport != "immediate":
+        (sharded or single).flush()
+        outs = [(sharded.result(d, t, spec) if sharded else
+                 single.result(t, spec)) for d, t, spec in outs]
+    effects_barrier()
+    device_ptrs = [np.asarray(o.cpu()).tolist() for o in outs]
+    state, host_ptrs = remote_malloc_results(name)
+    return ([p.tolist() for p in host_ptrs], int(state.watermark)), \
+        device_ptrs
+
+
+def _flush_times(dev):
+    """A 4 x 256-record sharded flush (one ``rpc_post`` carrying four
+    rows) beside a 1 x 1024-record single-queue flush, in turns: CUDA
+    events around the round trip, the host's time in ``flush`` and the
+    drain's Python (median of 5 after a warm-up each)."""
+    from repro_torch.core import RpcQueue, ShardedRpcQueue, effects_barrier
+    from repro_torch.core.rpc import REGISTRY
+    from repro_torch.kernels.rpc_channel import channel_for
+
+    REGISTRY.register("smoke.q_full", lambda i, x, p: None)
+    payload = torch.arange(4, dtype=torch.int32, device=dev)
+    queues = {"sharded_4x256": ShardedRpcQueue.create(SHARDS, 256, 4, 1024,
+                                                      device=dev),
+              "single_1x1024": RpcQueue.create(1024, 4, 4096, device=dev)}
+    chan = channel_for(dev)
+    times = {k: {"ms": [], "host_us": [], "drain_python_us": []}
+             for k in queues}
+    for _ in range(6):
+        for label, q in queues.items():
+            for i in range(1024):
+                (q.local(i % SHARDS) if label.startswith("sharded")
+                 else q).enqueue("smoke.q_full", i, 0.5, payload)
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            t0 = time.perf_counter()
+            q.flush()
+            host = (time.perf_counter() - t0) * 1e6
+            b.record()
+            effects_barrier()
+            times[label]["ms"].append(a.elapsed_time(b))
+            times[label]["host_us"].append(host)
+            times[label]["drain_python_us"].append(chan.last_serve_ns * 1e-3)
+    out = {}
+    for label, t in times.items():
+        ms = _median(t["ms"][1:])
+        drain_ms = _median(t["drain_python_us"][1:]) * 1e-3
+        out[label] = {"ms": ms, "host_us": _median(t["host_us"][1:]),
+                      "drain_python_ms": drain_ms,
+                      "host_share": drain_ms / ms, "flushes_timed": 5}
+    return out
+
+
+def rpc_sharded_phase(card_line):
+    """The sharded transport on the card (see the module docstring):
+    ``rpc_queue``'s plans on 4-shard queues, sync and async, plain and
+    sanitized; the deadline's partial epoch; async independence; the
+    sharded ``LogRing``; the cross-transport conformance; the flush
+    times.  Returns the launches of each transport kernel on the path and
+    the sharded queues (for the manifest)."""
+    from repro_torch.core import ShardedRpcQueue
+    from repro_torch.core.rpc import STATUS_OK, STATUS_PENDING, STATUS_TIMEOUT
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    launches = dict.fromkeys(("rpc_enqueue", "rpc_post", "rpc_async_post",
+                              "rpc_async_collect"), 0)
+    plans = {}
+    for mode in ("sync", "async"):
+        for sanitize in (False, True):
+            geo = SAN_GEOMETRY if sanitize else QUEUE_GEOMETRY
+            rec, n = _sharded_plans_case(dev, geo, mode, sanitize)
+            plans[f"{mode}{'_sanitized' if sanitize else ''}"] = rec
+            for k in launches:
+                launches[k] += n[k]
+    deadline = {"card": _sharded_deadline(dev),
+                "cpu": _sharded_deadline(torch.device("cpu"))}
+    deadline_async = {"card": _sharded_deadline(dev, "async"),
+                      "cpu": _sharded_deadline(torch.device("cpu"), "async")}
+    independent = {"card": _sharded_async_independent(dev),
+                   "cpu": _sharded_async_independent(torch.device("cpu"))}
+    ring = {"card": _sharded_logring(dev),
+            "cpu": _sharded_logring(torch.device("cpu"))}
+    conformance = {}
+    for what in ("fprintf", "fwrite", "remote_malloc"):
+        conformance[what] = {t: _conformance(dev, t, what)
+                             for t in ("immediate", "batched", "sharded")}
+    times = _flush_times(dev)
+    ok_d = [STATUS_OK, STATUS_TIMEOUT] + [STATUS_OK] * (SHARDS - 2)
+    checks = {
+        "deadline_card_eq_cpu": deadline["card"]["statuses"]
+        == deadline["cpu"]["statuses"] == ok_d,
+        "deadline_replies": [v for d, v in
+                             enumerate(deadline["card"]["values"]) if d != 1]
+        == [2 * (10 + d) for d in range(SHARDS) if d != 1],
+        "deadline_warned": deadline["card"]["warned"]
+        and deadline["cpu"]["warned"],
+        "deadline_async_card_eq_cpu": deadline_async["card"]["statuses"]
+        == deadline_async["cpu"]["statuses"] == ok_d
+        and deadline_async["card"]["values"]
+        == deadline_async["cpu"]["values"],
+        "async_independent": independent["card"] == independent["cpu"] == {
+            "pending": [STATUS_PENDING] * SHARDS,
+            "collected": [(STATUS_OK, 100 * (d + 1) + 5)
+                          for d in range(SHARDS)]},
+        "logring_device_slot_order": ring["card"] == ring["cpu"] and
+        [r[0] for r in ring["card"]] == [10 * d + k for d in range(SHARDS)
+                                         for k in range(d + 1)],
+        "conformance": all(v["immediate"] == v["batched"] == v["sharded"]
+                           for v in conformance.values()),
+    }
+    log({"rpc_sharded": {"card": card_line, "shards": SHARDS,
+                         "plans": plans, "deadline": deadline,
+                         "deadline_async": deadline_async,
+                         "async_independent": independent,
+                         "logring_lines": len(ring["card"]),
+                         "conformance": conformance, "flush_times": times,
+                         "checks": checks, "launches": launches,
+                         "phase_seconds": time.perf_counter() - t_phase}})
+    if not all(checks.values()):
+        raise AssertionError(f"rpc_sharded: {checks}")
+    keep = ShardedRpcQueue.create(SHARDS, **QUEUE_GEOMETRY, device=dev)
+    return launches, [keep]
+
+
+_XP_PROGRAM = r"""
+import json, os
+import torch
+from repro_torch.core import libc
+from repro_torch.core import rpc as rpc_mod
+from repro_torch.core.allocator import GenericAllocator
+from repro_torch.kernels.rpc_channel import rpc_post
+from repro_torch.kernels.rpc_queue import rpc_enqueue
+
+HEAP, FMT = "heap.xproc", "xp %d %.1f"
+dev = torch.device("cuda", 0)
+libc.remote_heap_register(HEAP, GenericAllocator.init(256, cap=16,
+                                                      device="cpu"))
+adopted = {}
+if mode == "adopt":
+    # a fresh process binds the ids before issuing anything; the
+    # exporter's other callees have no host here, so the strict adopt
+    # names one, and the program's own (libc's) are checked to resolve
+    m = rpc_mod.RpcManifest.load(os.path.join(outdir, "manifest.json"))
+    try:
+        rpc_mod.adopt_manifest(m)
+    except ValueError as exc:
+        adopted["strict_refusal"] = str(exc)
+    rpc_mod.adopt_manifest(m, require_hosts=False)
+    adopted["libc_ids"] = {name: cid == rpc_mod.REGISTRY.batch_callee_id(name)
+                           for cid, name in m.callees.items()
+                           if name.startswith("libc.")}
+    adopted["formats"] = {text: libc._intern_fmt(text) == fid
+                          for fid, text in m.formats.items()
+                          if text in (HEAP, FMT)}
+fid = libc._intern_fmt(FMT)
+nid = libc._intern_fmt(HEAP)
+rpc_enqueue.launches = rpc_post.launches = 0
+i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+q = rpc_mod.RpcQueue.create(8, width=4, payload_capacity=32,
+                            reply_capacity=8, device=dev)
+libc.fprintf(q, FMT, i32(3), torch.tensor(1.5, device=dev))
+q, t = libc.remote_malloc_enqueue(q, HEAP, i32([8, 16]))
+libc.fprintf(q, FMT, i32(4), torch.tensor(-0.5, device=dev))
+q.flush()
+ptrs = q.result(t, (2,), torch.int32).tolist()
+rpc_mod.effects_barrier()
+state, host_ptrs = libc.remote_malloc_results(HEAP)
+out = {"printf": libc.drain_printf(),
+       "host_ptrs": [p.tolist() for p in host_ptrs],
+       "watermark": int(state.watermark), "device_ptrs": ptrs,
+       "launches": {"rpc_enqueue": rpc_enqueue.launches,
+                    "rpc_post": rpc_post.launches},
+       "adopted": adopted}
+with open(os.path.join(outdir, mode + ".json"), "w") as f:
+    json.dump(out, f)
+"""
+
+
+def manifest_phase(queues):
+    """JAX's ``test_cross_process_conformance`` on the card.  This process
+    runs the batched program (``fprintf`` and a ticketed remote malloc on
+    a card queue) and exports its manifest with the sharded queues'
+    geometry (``export_manifest(queues=...)``); a fresh ``python3 -c``
+    process that imports only ``repro_torch`` adopts it and issues the
+    same program on the card.  The printf lines, heap pointers,
+    watermark, reply-arena pointers and launches must be equal; a
+    manifest whose pad signature was tampered is refused with the pad's
+    callee named.  Returns the exporter's launches (the path)."""
+    from repro_torch.core import RpcManifest, adopt_manifest, export_manifest
+
+    t_phase = time.perf_counter()
+    outdir = os.path.join(ROOT, "build", "manifest_smoke")
+    os.makedirs(outdir, exist_ok=True)
+    scope = {"outdir": outdir, "mode": "export"}
+    exec(compile(_XP_PROGRAM, "xp_program", "exec"), scope)
+    manifest = export_manifest(queues=queues)
+    manifest.save(os.path.join(outdir, "manifest.json"))
+    doc = json.loads(manifest.to_json())
+    # a pad with an operand (a call without one has an empty signature)
+    pid, entry = next((p, e) for p, e in doc["pads"].items()
+                      if e["signature"])
+    sig = entry["signature"][0]
+    sig[2] = "float32" if sig[2] != "float32" else "int32"
+    try:
+        adopt_manifest(RpcManifest.from_json(json.dumps(doc)))
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    code = f"outdir, mode = {outdir!r}, 'adopt'\n" + _XP_PROGRAM
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"manifest: the adopting process failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    with open(os.path.join(outdir, "export.json")) as f:
+        a = json.load(f)
+    with open(os.path.join(outdir, "adopt.json")) as f:
+        b = json.load(f)
+    adopted = b.pop("adopted")
+    a.pop("adopted")
+    checks = {
+        "adopter_equals_exporter": a == b,
+        "printf": a["printf"] == ["xp 3 1.5", "xp 4 -0.5"],
+        "pointers": a["device_ptrs"] == a["host_ptrs"][0] == [0, 8],
+        "launches": a["launches"] == {"rpc_enqueue": 3, "rpc_post": 1},
+        "libc_ids_resolve": bool(adopted.get("libc_ids"))
+        and all(adopted["libc_ids"].values())
+        and len(adopted["formats"]) == 2 and all(adopted["formats"].values()),
+        "strict_adopt_names_a_missing_host": "not registered" in
+        adopted.get("strict_refusal", "")
+        or "no host function" in adopted.get("strict_refusal", ""),
+        "tampered_refused_naming_callee": refused is not None
+        and repr(entry["callee"]) in refused,
+        "queues_in_manifest": any(g["shards"] == SHARDS
+                                  for g in doc["queues"]),
+    }
+    log({"manifest": {"exporter": a, "adopter": b, "adopted": adopted,
+                      "tampered_pad": int(pid), "refusal": refused,
+                      "pads": len(doc["pads"]),
+                      "callees": len(doc["callees"]),
+                      "formats": len(doc["formats"]),
+                      "queues": len(doc["queues"]),
+                      "subprocess_s": sub_s, "checks": checks,
+                      "phase_seconds": time.perf_counter() - t_phase}})
+    if not all(checks.values()):
+        raise AssertionError(f"manifest: {checks}")
+    return a["launches"]
+
+
 def _cuobjdump():
     """The toolkit's ``cuobjdump``, else the copy bundled with Triton."""
     import shutil
@@ -4824,6 +5529,7 @@ ENTRY_NAMES = {"rpc_channel": ("rpc_post",), "rpc_queue": ("rpc_enqueue",),
                "rpc_async": ("rpc_async_post", "rpc_async_collect")}
 
 
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4851,6 +5557,8 @@ def main() -> int:
     serve, spill = serve_phase()
     identity_phase()
     dense = dense_serve_phase()
+    moe = moe_serve_phase()
+    moe32 = moe_fp32_phase()
     summary["flash_attention"] = flash_phase(card_line)
     prefill_phase()
     train = train_phase()
@@ -4889,14 +5597,20 @@ def main() -> int:
     san_enqueues, san_async = sanitizer_phase(card_line)
     allocators_phase(card_line)
     events_phase()
+    sharded, sharded_queues = rpc_sharded_phase(card_line)
+    manifest = manifest_phase(sharded_queues)
     gpu_first = gpu_first_phase()
 
     by_path = {
         "decode_attention": {"serve": serve["decode_attention"],
                              "dense_serve": dense["decode_attention"],
+                             "moe_serve": moe["decode_attention"],
+                             "moe_fp32": moe32["decode_attention"],
                              "hybrid_serve": hybrid["decode_attention"]},
         "paged_attention": {"serve": serve["paged_attention"],
-                            "dense_serve": dense["paged_attention"]},
+                            "dense_serve": dense["paged_attention"],
+                            "moe_serve": moe["paged_attention"],
+                            "moe_fp32": moe32["paged_attention"]},
         "flash_attention": {"train": train["flash_attention"],
                             "hybrid_serve": hybrid["flash_attention"]},
         "ssd_scan": {"ssm_serve": ssm_serve, "ssm_train": ssm_train},
@@ -4905,17 +5619,22 @@ def main() -> int:
                         "rpc_queue": queue_posts, "libc_io": libc_posts,
                         "device_run_hooks": hooks,
                         "host_pipeline": pipeline_posts,
+                        "rpc_sharded": sharded["rpc_post"],
+                        "manifest": manifest["rpc_post"],
                         "gpu_first": gpu_first},
         "rpc_queue": {"rpc_queue": queue_launches, "libc_io": libc_launches,
                       "device_run_hooks": hook_enqueues,
                       "serve_spill": spill["rpc_enqueue"],
-                      "sanitizer": san_enqueues},
+                      "sanitizer": san_enqueues,
+                      "rpc_sharded": sharded["rpc_enqueue"],
+                      "manifest": manifest["rpc_enqueue"]},
     }
     for name in ENTRY_NAMES["rpc_async"]:
         by_path[name] = {"rpc_queue_async": async_queue[name],
                          "device_run_async": async_run[name],
                          "serve_spill": spill[name],
-                         "sanitizer": san_async[name]}
+                         "sanitizer": san_async[name],
+                         "rpc_sharded": sharded[name]}
     kernels = []
     # a source with one kernel keys its records by the source's name
     entries = [(name, name if name in by_path else src_name, source,

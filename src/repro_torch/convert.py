@@ -5,7 +5,9 @@ The JAX ``values`` tree (nested dicts of numpy arrays, as
 the same layouts as the port's parameters, except that the JAX package
 stacks layers on axis 0 for ``lax.scan``: ``values["layers"]`` (and the
 hybrid family's ``values["rec_layers"]`` and ``values["attn_layers"]``)
-becomes a list of per-layer dicts.  bf16 arrays arrive as
+becomes a list of per-layer dicts (a moe layer's ``moe`` dict with them:
+its fp32 ``router`` and its (E, d, f) and (E, f, d) experts, stacked
+(L, E, ...) in JAX).  bf16 arrays arrive as
 ``ml_dtypes.bfloat16``; they go through float32 to ``torch.bfloat16``,
 which is exact.
 """

@@ -6,8 +6,11 @@
                 pinned host-mapped memory on the card, and the batched
                 RpcQueue (one rpc_enqueue launch a record, one round trip
                 a flush) with its status lane, retries and timeouts,
-                the async queue and the sanitizer (canary-bracketed
-                payloads, poison scans, sanitize_stats)
+                the async queue, the sanitizer (canary-bracketed
+                payloads, poison scans, sanitize_stats), the
+                ShardedRpcQueue (shards stacked on one device, replayed in
+                (device, slot) order, shard_deadline) and the RpcManifest
+                of durable ids (export_manifest, adopt_manifest)
   expand      — single-team parallelism expansion: parallel_for vs
                 serial_for (§3.3)
   allocator   — generic, size-class, balanced and sharded heap
@@ -34,11 +37,12 @@ from repro_torch.core.libc import (
 from repro_torch.core.rpc import (
     CANARY, POISON, READ, READWRITE, STATUS_CALLEE_RAISED, STATUS_DROPPED, STATUS_NAMES,
     STATUS_OK, STATUS_PENDING, STATUS_REPLY_OVERFLOW, STATUS_STALE,
-    STATUS_TIMEOUT, WRITE, ArenaRef, Ref, RetryPolicy, RpcQueue, ShapeDtype,
-    clear_error_log, effects_barrier, error_log, flush_stats, host_rpc,
-    pad_stats, pad_table, queue_drops, reset_rpc_stats, rpc_call,
-    reset_sanitize_stats, rpc_call_reference, rpc_stats, sanitize_stats,
-    set_fault_injector)
+    STATUS_TIMEOUT, WRITE, ArenaRef, Ref, RetryPolicy, RpcManifest, RpcQueue,
+    ShapeDtype, ShardedRpcQueue, adopt_manifest, clear_error_log,
+    effects_barrier, error_log, export_manifest, flush_stats, host_rpc,
+    pad_stats, pad_table, queue_drops, queue_geometry, reset_rpc_stats,
+    rpc_call, reset_sanitize_stats, rpc_call_reference, rpc_stats,
+    sanitize_stats, set_fault_injector)
 
 __all__ = [
     "DEAD", "FAIL", "BalancedAllocator", "BalancedState", "GenericAllocator",
@@ -55,9 +59,11 @@ __all__ = [
     "CANARY", "POISON", "READ", "READWRITE", "STATUS_CALLEE_RAISED", "STATUS_DROPPED",
     "STATUS_NAMES", "STATUS_OK", "STATUS_PENDING", "STATUS_REPLY_OVERFLOW",
     "STATUS_STALE", "STATUS_TIMEOUT", "WRITE", "ArenaRef", "Ref",
-    "RetryPolicy", "RpcQueue", "ShapeDtype", "clear_error_log",
-    "effects_barrier", "error_log", "flush_stats", "host_rpc", "pad_stats",
-    "pad_table", "queue_drops", "reset_rpc_stats", "rpc_call",
+    "RetryPolicy", "RpcManifest", "RpcQueue", "ShapeDtype",
+    "ShardedRpcQueue", "adopt_manifest", "clear_error_log",
+    "effects_barrier", "error_log", "export_manifest", "flush_stats",
+    "host_rpc", "pad_stats", "pad_table", "queue_drops", "queue_geometry",
+    "reset_rpc_stats", "rpc_call",
     "reset_sanitize_stats", "rpc_call_reference", "rpc_stats",
     "sanitize_stats", "set_fault_injector",
 ]

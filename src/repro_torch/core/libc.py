@@ -26,9 +26,10 @@ on the host at flush), ``fwrite`` (an array appended to a host stream),
 remote malloc (a size vector whose reply is the pointers, allocated at the
 flush from a registered host-side heap).  On a card each call is one
 ``rpc_enqueue`` launch and the host sees it at the queue's flush.  The
-format table's ids are JAX's (the same content hash); the table does not
-travel in a manifest yet (item 3.5), and ``LogRing.create_sharded`` is
-item 3.4.
+format table's ids are JAX's (the same content hash), and the table
+travels in the transport's ``RpcManifest``.  ``LogRing.create_sharded``
+rides the sharded queue: a ring shard per device, logged through each
+shard's ``local(d)`` and drained in ``(device, slot)`` order.
 """
 from __future__ import annotations
 
@@ -41,7 +42,8 @@ import torch
 
 from repro_torch.core.allocator import (BalancedState, ShardedHeap,
                                         allocator_for, as_i32)
-from repro_torch.core.rpc import (_SHARDED, REGISTRY, RpcQueue, ShapeDtype,
+from repro_torch.core.rpc import (REGISTRY, RpcQueue, ShapeDtype,
+                                  ShardedRpcQueue, register_format_section,
                                   stable_format_id)
 
 _M32 = 0xFFFFFFFF
@@ -300,8 +302,27 @@ class LogRing:
                                        device=device), name)
 
     @staticmethod
-    def create_sharded(*args, **kwargs) -> "LogRing":
-        raise NotImplementedError(f"LogRing.create_sharded needs {_SHARDED}")
+    def create_sharded(n_devices: int, capacity: int = 1024,
+                       name: str = _LOG_SINK, payload_capacity: int = 1024,
+                       retry=None, timeout: Optional[float] = None, *,
+                       device="cuda") -> "LogRing":
+        """One ring shard a device, on the sharded queue: log through a
+        shard's ring (``LogRing(ring.q.local(d), ring.name)`` or, for one
+        device, :meth:`local_view`); :meth:`flush` drains every shard in
+        ``(device, slot)`` order."""
+        if name not in REGISTRY.hosts:
+            REGISTRY.register(name, _default_sink, idempotent=True)
+        return LogRing(ShardedRpcQueue.create(
+            n_devices, capacity, width=3, payload_capacity=payload_capacity,
+            retry=retry, timeout=timeout, device=device), name)
+
+    def local_view(self) -> "LogRing":
+        """The ring of a single-device sharded ring's one shard."""
+        return LogRing(self.q.local_view(), self.name)
+
+    def with_local(self, local: "LogRing") -> "LogRing":
+        """Inverse of :meth:`local_view`."""
+        return LogRing(self.q.with_local(local.q), self.name)
 
     def log(self, tag, value, payload=None, where=None) -> "LogRing":
         """Append one record (the oldest is overwritten when the ring is
@@ -380,9 +401,39 @@ def _intern_fmt(fmt: str) -> int:
 def _resolve_fmt(fid: int) -> str:
     fmt = _FMT_TABLE.get(int(fid))
     if fmt is None:
-        raise KeyError(f"unknown interned-string id {int(fid)}: this "
-                       "process never interned it")
+        raise KeyError(
+            f"unknown interned-string id {int(fid)}: this process never "
+            "interned it; a program issued elsewhere must ship its "
+            "RpcManifest (carrying the format table) and the server must "
+            "adopt_manifest() it before draining")
     return fmt
+
+
+def _export_fmt_table() -> Dict[int, str]:
+    return dict(_FMT_TABLE)
+
+
+def _adopt_fmt_table(table: Dict[int, str]) -> None:
+    """Restore a manifest's format table: every id must be its string's
+    content hash and agree with what this process interned."""
+    for fid, fmt in table.items():
+        fid = int(fid)
+        want = stable_format_id(fmt)
+        if want != fid:
+            raise ValueError(
+                f"manifest format id {fid} ({fmt!r}) does not match its "
+                f"content hash {want}")
+        other = _FMT_TABLE.get(fid)
+        if other is not None and other != fmt:
+            raise ValueError(
+                f"manifest format id {fid} ({fmt!r}) is already interned "
+                f"as {other!r} in this process")
+    for fid, fmt in table.items():
+        _FMT_TABLE[int(fid)] = fmt
+        _FMT_IDS[fmt] = int(fid)
+
+
+register_format_section(_export_fmt_table, _adopt_fmt_table)
 
 
 def _fprintf_sink(fid, *args):
@@ -546,7 +597,7 @@ def _remote_malloc_sink(name_id, dev, sizes):
     (all FAIL, with a warning), as JAX's does."""
     name = _resolve_fmt(name_id)
     state = _REMOTE_HEAPS[name]
-    sizes = torch.as_tensor(np.asarray(sizes), dtype=torch.int32)
+    sizes = torch.as_tensor(np.array(sizes, np.int32))
     if isinstance(state, ShardedHeap):
         d = int(dev)
         if not 0 <= d < state.n_devices:

@@ -75,8 +75,16 @@ through ``result()`` on CPU queues only: a card queue's ``result()`` reads
 nothing back.  The runtime emits :mod:`repro_torch.core.events` as JAX's
 does (``queue_create``, ``rpc_enqueue``, ``rpc_flush``, ``rpc_result``,
 ``rpc_immediate``, ``arena_marshal``), none of them reading the device.
-Not in this slice: ``ShardedRpcQueue`` and a sync queue's
-``shard_deadline`` (item 3.4), ``RpcManifest`` (item 3.5).
+
+**The sharded transport** (:class:`ShardedRpcQueue`): D queue shards
+stacked on one device, each enqueued through its ``local(d)`` view and
+replayed in ``(device, slot)`` order; ``shard_deadline`` drains a sync
+flush's shards concurrently (a late shard reads ``STATUS_TIMEOUT``).
+
+**Durable identity** (:class:`RpcManifest`): every id is JAX's content
+hash, and :func:`export_manifest` writes the pad, callee, format and
+queue tables as the JAX package's JSON, byte for byte, which another
+process (of either package) adopts with :func:`adopt_manifest`.
 """
 from __future__ import annotations
 
@@ -113,8 +121,6 @@ from repro_torch.kernels.rpc_queue import (Arg, Lanes, Record,
 from repro_torch.kernels.rpc_queue.ref import (CANARY as _CANARY, DEVICE,
                                                IMMEDIATE, PAYLOAD)
 from repro_torch.tree import leaves, tree_map
-
-_SHARDED = "ROADMAP queue 1, item 3.4 (ShardedRpcQueue)"
 
 READ, WRITE, READWRITE = "read", "write", "readwrite"
 
@@ -269,6 +275,95 @@ def stable_hook_id(key: str) -> int:
     return _stable_id("hook", key, 31)
 
 
+def _sig_from_json(obj) -> Tuple:
+    """Inverse of :func:`_sig_to_json` (shapes back to int tuples)."""
+    return tuple((e[0], tuple(int(d) for d in e[1])) + tuple(e[2:])
+                 for e in obj)
+
+
+#: Version of the manifest's JSON (JAX's): a manifest of another version
+#: is refused.
+MANIFEST_VERSION = 1
+
+# libc registers these so that the manifest carries the interned format
+# table without rpc importing libc: ``[export_fn, adopt_fn]`` once set,
+# export returning ``{fid: string}`` and adopt restoring one.
+_FORMAT_SECTION: List[Callable] = []
+
+
+def register_format_section(export_fn: Callable[[], Dict[int, str]],
+                            adopt_fn: Callable[[Dict[int, str]], None]
+                            ) -> None:
+    _FORMAT_SECTION[:] = [export_fn, adopt_fn]
+
+
+def queue_geometry(q) -> Dict[str, int]:
+    """The transport geometry of an :class:`RpcQueue` or a
+    :class:`ShardedRpcQueue` as a plain dict: what another process needs
+    to build a compatible queue."""
+    shards = q.n_devices if isinstance(q, ShardedRpcQueue) else 1
+    return {"capacity": int(q.capacity), "width": int(q.width),
+            "payload_capacity": int(q.payload_capacity),
+            "reply_capacity": int(q.reply_capacity),
+            "shards": int(shards)}
+
+
+@dataclasses.dataclass
+class RpcManifest:
+    """The table of every durable transport id, versioned and written as
+    JSON byte for byte as the JAX package writes it: ``pads`` maps a pad
+    id to ``{"callee": name, "signature": [...]}``, ``callees`` a batch
+    callee id to its name, ``formats`` is the interned string table
+    (fprintf formats and remote-heap names) and ``queues`` the geometries
+    of the queues a program used.  A process that adopts it
+    (:func:`adopt_manifest`) resolves the same ids without having made
+    the calls."""
+    version: int = MANIFEST_VERSION
+    pads: Dict[int, dict] = dataclasses.field(default_factory=dict)
+    callees: Dict[int, str] = dataclasses.field(default_factory=dict)
+    formats: Dict[int, str] = dataclasses.field(default_factory=dict)
+    queues: List[dict] = dataclasses.field(default_factory=list)
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {"version": self.version,
+             "pads": {str(k): {"callee": v["callee"],
+                               "signature": v["signature"]}
+                      for k, v in sorted(self.pads.items())},
+             "callees": {str(k): v
+                         for k, v in sorted(self.callees.items())},
+             "formats": {str(k): v
+                         for k, v in sorted(self.formats.items())},
+             "queues": list(self.queues)},
+            indent=2, sort_keys=True) + "\n"
+
+    @staticmethod
+    def from_json(text: str) -> "RpcManifest":
+        obj = json.loads(text)
+        version = int(obj.get("version", -1))
+        if version != MANIFEST_VERSION:
+            raise ValueError(
+                f"RpcManifest version {version} is not supported "
+                f"(this runtime speaks version {MANIFEST_VERSION})")
+        return RpcManifest(
+            version=version,
+            pads={int(k): {"callee": v["callee"],
+                           "signature": v["signature"]}
+                  for k, v in obj.get("pads", {}).items()},
+            callees={int(k): v for k, v in obj.get("callees", {}).items()},
+            formats={int(k): v for k, v in obj.get("formats", {}).items()},
+            queues=list(obj.get("queues", [])))
+
+    def save(self, path) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    @staticmethod
+    def load(path) -> "RpcManifest":
+        with open(path) as f:
+            return RpcManifest.from_json(f.read())
+
+
 # ---------------------------------------------------------------------------
 # Registry: host functions, landing pads, stats
 # ---------------------------------------------------------------------------
@@ -297,6 +392,7 @@ class _Registry:
         self.batch_ids: Dict[str, int] = {}
         self.batch_names: Dict[int, str] = {}
         self.idempotent: Dict[str, bool] = {}
+        self.queue_geoms: List[Dict[str, int]] = []
         self._zero_counts()
 
     def _zero_counts(self) -> None:
@@ -372,6 +468,98 @@ class _Registry:
                 self.batch_ids[name] = cid
             return cid
 
+    def note_queue_geometry(self, geom: Dict[str, int]) -> None:
+        """Record one transport geometry (once) for the manifest's
+        ``queues``: ``RpcQueue.create`` and ``ShardedRpcQueue.create``
+        call it, so the manifest holds the queues that runtime layers
+        (``device_run``'s hook queue, the engine's spill queue) made."""
+        with self.lock:
+            if geom not in self.queue_geoms:
+                self.queue_geoms.append(dict(geom))
+
+    def export_manifest(self, queues=()) -> RpcManifest:
+        """The durable identity of everything registered so far: every
+        landing pad (id, callee, signature), every batch callee id, the
+        interned format table and the geometries of the queues noted here
+        and of ``queues``."""
+        with self.lock:
+            pads = {pid: {"callee": key[0],
+                          "signature": _sig_to_json(key[1:])}
+                    for pid, key in self.pad_info.items()}
+            callees = dict(self.batch_names)
+            geoms = [dict(g) for g in self.queue_geoms]
+        formats = _FORMAT_SECTION[0]() if _FORMAT_SECTION else {}
+        for q in queues:
+            g = queue_geometry(q)
+            if g not in geoms:
+                geoms.append(g)
+        return RpcManifest(version=MANIFEST_VERSION, pads=pads,
+                           callees=callees, formats=dict(formats),
+                           queues=geoms)
+
+    def adopt_manifest(self, manifest: RpcManifest,
+                       require_hosts: bool = True) -> None:
+        """Restore another process's id tables from ``manifest``.  Every
+        entry is re-hashed first and must give its recorded id (a
+        mismatched signature names its pad); ids bound here already must
+        agree; with ``require_hosts`` every callee needs a host function
+        registered before adoption.  Nothing changes unless all of it
+        holds."""
+        if manifest.version != MANIFEST_VERSION:
+            raise ValueError(
+                f"cannot adopt RpcManifest version {manifest.version}: this "
+                f"runtime speaks version {MANIFEST_VERSION}")
+        for pid, entry in sorted(manifest.pads.items()):
+            name = entry["callee"]
+            want = stable_pad_id(name, _sig_from_json(entry["signature"]))
+            if want != pid:
+                raise ValueError(
+                    f"manifest pad {pid} ({name!r}) does not match its "
+                    f"recorded signature: re-registration hashes to {want} "
+                    "(mismatched signature for this pad)")
+            if require_hosts and name not in self.hosts:
+                raise ValueError(
+                    f"manifest pad {pid} needs host function {name!r}, "
+                    "which is not registered in this process; register "
+                    "it (or import the module that does) before "
+                    "adopt_manifest()")
+        for cid, name in sorted(manifest.callees.items()):
+            want = stable_callee_id(name)
+            if want != cid:
+                raise ValueError(
+                    f"manifest callee id {cid} ({name!r}) does not match "
+                    f"its content hash {want} (mismatched re-registration "
+                    "for this pad)")
+            if require_hosts and name not in self.hosts:
+                raise ValueError(
+                    f"manifest callee {name!r} (id {cid}) has no host "
+                    "function registered in this process; register it "
+                    "before adopt_manifest()")
+        with self.lock:
+            for cid, name in manifest.callees.items():
+                local = self.batch_names.get(cid)
+                if local is not None and local != name:
+                    raise ValueError(
+                        f"manifest callee id {cid} names {name!r} but is "
+                        f"already bound to {local!r} in this process")
+        if manifest.formats and not _FORMAT_SECTION:
+            raise RuntimeError(
+                "manifest carries interned format strings but no format "
+                "section is registered (import repro_torch.core.libc "
+                "before adopt_manifest())")
+        with self.lock:
+            for cid, name in manifest.callees.items():
+                self.batch_names[cid] = name
+                self.batch_ids[name] = cid
+        for entry in manifest.pads.values():
+            if entry["callee"] in self.hosts:
+                self.landing_pad(entry["callee"],
+                                 _sig_from_json(entry["signature"]))
+        if manifest.formats:
+            _FORMAT_SECTION[1](dict(manifest.formats))
+        for g in manifest.queues:
+            self.note_queue_geometry(dict(g))
+
     def bump(self, name: str, pad_id: Optional[int], bytes_in: int,
              bytes_out: int, calls: int = 1):
         with self.lock:
@@ -401,6 +589,17 @@ class _Registry:
 
 
 REGISTRY = _Registry()
+
+
+def export_manifest(queues=()) -> RpcManifest:
+    """:meth:`_Registry.export_manifest` of the process's registry."""
+    return REGISTRY.export_manifest(queues=queues)
+
+
+def adopt_manifest(manifest: RpcManifest, require_hosts: bool = True
+                   ) -> None:
+    """:meth:`_Registry.adopt_manifest` of the process's registry."""
+    REGISTRY.adopt_manifest(manifest, require_hosts=require_hosts)
 
 
 def rpc_stats(name: Optional[str] = None):
@@ -1379,71 +1578,10 @@ def _finish_flush(drops: int, arena_drops: int, per_name_calls,
         REGISTRY.bump(name, None, per_name_bytes[name], 0, calls=calls)
 
 
-def _bind_drain(fn, handlers, retry=None, timeout=None):
-    """Close a flush's ``handlers`` and the queue's retry and timeout over
-    a drain callable (``fn`` itself when there is nothing to bind).  The
-    fault injector is looked up at dispatch time, not bound."""
-    if not handlers and retry is None and timeout is None:
-        return fn
-    bound = dict(handlers) if handlers else None
-
-    def drain(*flat):
-        return fn(*flat, overrides=bound, retry=retry, timeout=timeout)
-
-    return drain
-
-
 def _registry_snapshot():
     with REGISTRY.lock:                    # one snapshot, not per record
         return (dict(REGISTRY.batch_names), dict(REGISTRY.hosts),
                 dict(REGISTRY.idempotent))
-
-
-def _drain_queue(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
-                 head, phead, adrops, base, overrides=None, retry=None,
-                 timeout=None):
-    """Host side of a reply-less :meth:`RpcQueue.flush`: replay the queued
-    records in enqueue order, each to its registered callee (resolved at
-    drain time) unless ``overrides`` maps its name to this flush's
-    handler.  Returns the number of records enqueued."""
-    n = int(head)
-    per_name_calls: Dict[str, int] = {}
-    per_name_bytes: Dict[str, int] = {}
-    names, hosts, idem = _registry_snapshot()
-    drops, _, cerrs, nretries = _replay_shard(
-        callee, nargs, imask, pmask, ivals, fvals, plens, pbuf, None, n,
-        overrides, names, hosts, per_name_calls, per_name_bytes,
-        base=int(base), idem=idem, retry=retry, timeout=timeout)
-    _finish_flush(drops, int(adrops), per_name_calls, per_name_bytes,
-                  callee_errors=cerrs, retries=nretries)
-    return np.int32(n)
-
-
-def _drain_queue_replies(callee, nargs, imask, pmask, ivals, fvals, plens,
-                         pbuf, rwant, head, phead, adrops, base, rc,
-                         overrides=None, retry=None, timeout=None):
-    """Host side of the two-phase flush (``reply_capacity > 0``): the
-    replay of :func:`_drain_queue`, then the reply quadruple ``(rbuf,
-    roff, rlen, rstat)``: the flat int32 reply buffer and each ring slot's
-    offset, length and status."""
-    n = int(head)
-    rc = int(rc)
-    cap = callee.shape[0]
-    rwords = np.zeros((rc,), np.int32)
-    roff = np.zeros((cap,), np.int32)
-    rlen = np.zeros((cap,), np.int32)
-    rstat = np.zeros((cap,), np.int32)
-    per_name_calls: Dict[str, int] = {}
-    per_name_bytes: Dict[str, int] = {}
-    names, hosts, idem = _registry_snapshot()
-    drops, rdrops, cerrs, nretries = _replay_shard(
-        callee, nargs, imask, pmask, ivals, fvals, plens, pbuf, rwant, n,
-        overrides, names, hosts, per_name_calls, per_name_bytes,
-        reply=(rwords, roff, rlen, rstat), base=int(base), idem=idem,
-        retry=retry, timeout=timeout)
-    _finish_flush(drops, int(adrops), per_name_calls, per_name_bytes,
-                  reply_drops=rdrops, callee_errors=cerrs, retries=nretries)
-    return rwords, roff, rlen, rstat
 
 
 def _san_scan(n: int, pmask, ivals, plens, pbuf) -> Tuple[int, int, int]:
@@ -1470,22 +1608,189 @@ def _san_scan(n: int, pmask, ivals, plens, pbuf) -> Tuple[int, int, int]:
             int(shaped.size))
 
 
-def _san_precheck(v: Dict[str, np.ndarray], rc: int) -> None:
+def _san_precheck(vs: Sequence[Dict[str, np.ndarray]], rc: int,
+                  sharded: bool = False) -> None:
     """The sanitizer's pass before a sanitized drain, on the queue words
-    ``v`` (the layout's views) the drain holds: counters and one epoch
-    record (JAX's ``_san_precheck`` of one shard)."""
-    n, cap = int(v["head"]), v["callee"].shape[0]
-    stomps, poisons, checked = _san_scan(n, v["pmask"], v["ivals"],
-                                         v["plens"], v["pbuf"])
-    slots = np.arange(max(0, n - cap), n) % cap
-    declared = int((v["rwant"][slots] != 0).sum()) if rc else 0
+    the drain holds (``vs``: the layout's views of each shard): counters
+    and one epoch record for all of them (JAX's ``_san_precheck``)."""
+    stomps = poisons = checked = records = declared = 0
+    for v in vs:
+        n, cap = int(v["head"]), v["callee"].shape[0]
+        s, p, c = _san_scan(n, v["pmask"], v["ivals"], v["plens"],
+                            v["pbuf"])
+        stomps, poisons, checked = stomps + s, poisons + p, checked + c
+        records += min(n, cap)
+        if rc:
+            slots = np.arange(max(0, n - cap), n) % cap
+            declared += int((v["rwant"][slots] != 0).sum())
     with _SAN_LOCK:
         _SAN["canary_stomps"] += stomps
         _SAN["poison_hits"] += poisons
         _SAN["epochs"].append({
-            "records": min(n, cap), "declared_replies": declared,
+            "records": records, "declared_replies": declared,
             "canary_stomps": stomps, "poison_hits": poisons,
-            "payloads_checked": checked, "sharded": False})
+            "payloads_checked": checked, "sharded": sharded})
+
+
+# ---------------------------------------------------------------------------
+# The sync drains: records replay in (device, slot) order
+# ---------------------------------------------------------------------------
+
+#: The record lanes a drain replays, in ``_replay_shard``'s order.
+_LANE_NAMES = ("callee", "nargs", "imask", "pmask", "ivals", "fvals",
+               "plens", "pbuf")
+
+
+def _drain(lanes, heads, overrides=None, retry=None, timeout=None) -> int:
+    """Host side of a reply-less sync flush: each shard's records
+    (``lanes[d]``, ``heads[d]`` = (head, phead, adrops, base); a single
+    queue is one shard) replay in ``(device, slot)`` order, device 0's
+    oldest surviving first, each to its registered callee (resolved at
+    drain time) unless ``overrides`` maps its name to this flush's
+    handler, each payload read from its own shard's arena; one flush in
+    ``flush_stats``.  Returns the records enqueued."""
+    pnc: Dict[str, int] = {}
+    pnb: Dict[str, int] = {}
+    names, hosts, idem = _registry_snapshot()
+    drops = cerrs = nretries = 0
+    for ln, (n, _, _, base) in zip(lanes, heads):
+        sd, _, sc, sr = _replay_shard(
+            *ln, None, n, overrides, names, hosts, pnc, pnb, base=base,
+            idem=idem, retry=retry, timeout=timeout)
+        drops, cerrs, nretries = drops + sd, cerrs + sc, nretries + sr
+    _finish_flush(drops, sum(h[2] for h in heads), pnc, pnb,
+                  callee_errors=cerrs, retries=nretries)
+    return sum(h[0] for h in heads)
+
+
+def _zero_quad(rc: int, cap: int) -> Tuple[np.ndarray, ...]:
+    return (np.zeros((rc,), np.int32), np.zeros((cap,), np.int32),
+            np.zeros((cap,), np.int32), np.zeros((cap,), np.int32))
+
+
+def _drain_replies(lanes, rwants, heads, rc: int, overrides=None,
+                   retry=None, timeout=None, shard_deadline=None
+                   ) -> List[Tuple[np.ndarray, ...]]:
+    """The two-phase flush (``reply_capacity > 0``): the replay of
+    :func:`_drain` and each shard's reply quadruple ``(rbuf, roff, rlen,
+    rstat)``: the flat int32 reply buffer, packed in replay order, and
+    each ring slot's offset, length and status.  ``shard_deadline``
+    drains the shards concurrently instead
+    (:func:`_drain_replies_deadline`)."""
+    if shard_deadline is not None:
+        return _drain_replies_deadline(
+            lanes, rwants, heads, rc, shard_deadline, overrides, retry,
+            timeout)
+    cap = lanes[0][0].shape[0]
+    quads = [_zero_quad(rc, cap) for _ in lanes]
+    pnc: Dict[str, int] = {}
+    pnb: Dict[str, int] = {}
+    names, hosts, idem = _registry_snapshot()
+    drops = rdrops = cerrs = nretries = 0
+    for ln, rw, (n, _, _, base), quad in zip(lanes, rwants, heads, quads):
+        sd, srd, sc, sr = _replay_shard(
+            *ln, rw, n, overrides, names, hosts, pnc, pnb, reply=quad,
+            base=base, idem=idem, retry=retry, timeout=timeout)
+        drops, rdrops = drops + sd, rdrops + srd
+        cerrs, nretries = cerrs + sc, nretries + sr
+    _finish_flush(drops, sum(h[2] for h in heads), pnc, pnb,
+                  reply_drops=rdrops, callee_errors=cerrs, retries=nretries)
+    return quads
+
+
+def _split_occurrences(inj, per_dev_names) -> List[Optional[List[int]]]:
+    """Occurrence indices reserved for every shard's surviving records in
+    one sweep of canonical ``(device, slot)`` order, split by shard (None
+    each without a reserving injector)."""
+    flat = _reserve_occurrences(inj, [nm for row in per_dev_names
+                                      for nm in row])
+    occs: List[Optional[List[int]]] = [None] * len(per_dev_names)
+    if flat is not None:
+        pos = 0
+        for d, row in enumerate(per_dev_names):
+            occs[d] = flat[pos:pos + len(row)]
+            pos += len(row)
+    return occs
+
+
+def _drain_replies_deadline(lanes, rwants, heads, rc: int,
+                            shard_deadline: float, overrides, retry, timeout
+                            ) -> List[Tuple[np.ndarray, ...]]:
+    """The ``shard_deadline`` branch of a sharded two-phase flush: one
+    thread a shard, all started together, sharing one wall-clock budget
+    from the drain's start.  A shard done in time merges its private
+    replies and counters; a late one is abandoned: its row reads
+    ``STATUS_TIMEOUT``, its thread stops at its next record, and what its
+    callees did stands.  Fault occurrences are reserved before any thread
+    starts, in the serial drain's ``(device, slot)`` order.  The threads
+    read copies of the records (a card's staging memory is reused by the
+    next flush while a late thread may still run)."""
+    D = len(lanes)
+    lanes = [tuple(np.array(a) for a in ln) for ln in lanes]
+    rwants = [np.array(r) for r in rwants]
+    cap = lanes[0][0].shape[0]
+    names, hosts, idem = _registry_snapshot()
+    inj = _FAULT_INJECTOR[0] if _FAULT_INJECTOR else None
+    occs = _split_occurrences(inj, [
+        _surviving_names(lanes[d][0], names, heads[d][0]) for d in range(D)])
+    shard_out = [_zero_quad(rc, cap) for _ in range(D)]
+    quads = [_zero_quad(rc, cap) for _ in range(D)]
+    results: List[Any] = [None] * D
+    done = [threading.Event() for _ in range(D)]
+    timed_out = [False] * D
+
+    def run(d: int) -> None:
+        pnc: Dict[str, int] = {}
+        pnb: Dict[str, int] = {}
+        try:
+            counters = _replay_shard(
+                *lanes[d], rwants[d], heads[d][0], overrides, names, hosts,
+                pnc, pnb, reply=shard_out[d], base=heads[d][3], idem=idem,
+                retry=retry, timeout=timeout, occ=occs[d],
+                abandoned=(lambda: timed_out[d]))
+            results[d] = (counters, pnc, pnb)
+        except BaseException as exc:  # noqa: BLE001 (relayed below)
+            results[d] = exc
+        finally:
+            done[d].set()
+
+    for d in range(D):
+        threading.Thread(target=run, args=(d,), daemon=True,
+                         name=f"rpc-shard-drain-{d}").start()
+    t0 = time.monotonic()
+    drops = rdrops = cerrs = nretries = stalled = 0
+    pnc_all: Dict[str, int] = {}
+    pnb_all: Dict[str, int] = {}
+    for d in range(D):
+        remaining = shard_deadline - (time.monotonic() - t0)
+        if done[d].wait(max(0.0, remaining)):
+            res = results[d]
+            if isinstance(res, BaseException):
+                raise res
+            (sd, srd, sc, sr), pnc, pnb = res
+            quads[d] = shard_out[d]
+            drops, rdrops = drops + sd, rdrops + srd
+            cerrs, nretries = cerrs + sc, nretries + sr
+            for nm, c in pnc.items():
+                pnc_all[nm] = pnc_all.get(nm, 0) + c
+                pnb_all[nm] = pnb_all.get(nm, 0) + pnb[nm]
+        else:
+            # partial-epoch completion: only this shard's records fail;
+            # its private arrays are never merged (the late thread may
+            # still write them) and its whole row reads TIMEOUT
+            timed_out[d] = True
+            stalled += 1
+            quads[d][3][:] = STATUS_TIMEOUT
+            cerrs += min(heads[d][0], cap)
+    if stalled:
+        warnings.warn(
+            f"RpcQueue sharded flush abandoned {stalled} shard(s) past the "
+            f"{shard_deadline}s per-shard drain deadline: their records "
+            "read STATUS_TIMEOUT while sibling shards completed "
+            "(partial-epoch completion).", RuntimeWarning, stacklevel=2)
+    _finish_flush(drops, sum(h[2] for h in heads), pnc_all, pnb_all,
+                  reply_drops=rdrops, callee_errors=cerrs, retries=nretries)
+    return quads
 
 
 # ---------------------------------------------------------------------------
@@ -1591,7 +1896,8 @@ class _QueueSlot:
     (the FIFO epoch sequence that makes drains replayable), the epochs
     in flight, the carry list, the finalized carry outcomes and, on a
     card, the queue's :class:`~repro_torch.kernels.rpc_async.AsyncRing`
-    (whose live carried-depth word mirrors the carry list)."""
+    and the queue's row in it (whose live carried-depth word mirrors the
+    carry list)."""
 
     def __init__(self, sid: int):
         self.id = sid
@@ -1600,7 +1906,7 @@ class _QueueSlot:
         self.pending: deque = deque()
         self.carry: List[_CarryRec] = []
         self.outcomes: Dict[int, Tuple[int, Optional[np.ndarray]]] = {}
-        self.ring = None
+        self.ring, self.row = None, 0
         self.ctxs: Dict[int, "_FlushCtx"] = {}   # a card's flushes, by epoch
 
     def submit(self, job: _EpochJob, runner: Callable
@@ -1684,7 +1990,7 @@ class _QueueSlot:
 
     def _mirror_depth(self) -> None:
         if self.ring is not None:
-            self.ring.live[0] = len(self.carry)
+            self.ring.live[self.row] = len(self.carry)
 
     def finalize(self, ticket: int, status: int,
                  words: Optional[np.ndarray]) -> None:
@@ -1807,27 +2113,75 @@ def _run_async_epoch(slot: _QueueSlot, job: _EpochJob, arrs, rwant, n: int,
         job.done.set()
 
 
+def _reserve_epochs(layout: "_Layout", srcs: Sequence[np.ndarray]
+                    ) -> List[Optional[List[int]]]:
+    """The fault occurrences of the epochs whose queue words are
+    ``srcs`` (one a shard), reserved at their flush in one sweep of
+    ``(device, slot)`` order."""
+    names, _, _ = _registry_snapshot()
+    inj = _FAULT_INJECTOR[0] if _FAULT_INJECTOR else None
+    views = [layout.views(src) for src in srcs]
+    return _split_occurrences(inj, [
+        _surviving_names(v["callee"], names, int(v["head"]))
+        for v in views])
+
+
 def _submit_epoch(slot: _QueueSlot, layout: "_Layout", src: np.ndarray,
-                  ctx: _FlushCtx, carry_budget: int, probe=None,
+                  ctx: _FlushCtx, carry_budget: int, occ, probe=None,
                   on_done=None) -> Optional[_EpochJob]:
     """Submit the epoch whose queue words ``[0, in_end)`` are ``src`` (a
-    copy the drain owns), with its fault occurrences reserved here, in
-    flush order.  Returns the job it runs behind."""
+    copy the drain owns), with its fault occurrences ``occ`` reserved at
+    its flush (:func:`_reserve_epochs`).  Returns the job it runs
+    behind."""
     v = layout.views(src)
-    arrs = tuple(v[k] for k in ("callee", "nargs", "imask", "pmask",
-                                "ivals", "fvals", "plens", "pbuf"))
+    arrs = tuple(v[k] for k in _LANE_NAMES)
     rc = layout.reply_capacity
     n, adrops, base = int(v["head"]), int(v["adrops"]), int(v["base"])
     if ctx.sanitize:
-        _san_precheck(v, rc)
-    names, _, _ = _registry_snapshot()
-    inj = _FAULT_INJECTOR[0] if _FAULT_INJECTOR else None
-    occ = _reserve_occurrences(inj, _surviving_names(arrs[0], names, n))
+        _san_precheck([v], rc)
     job = _EpochJob(base, probe)
     runner = (lambda: _run_async_epoch(
         slot, job, arrs, v["rwant"] if rc else None, n, adrops, base, rc,
         layout.capacity, carry_budget if rc else 0, occ, ctx, on_done))
     return slot.submit(job, runner)
+
+
+def _async_ring(device: torch.device, layout: "_Layout", sids: Sequence[int],
+                carry_budget: int) -> AsyncRing:
+    """The mapped ring of an async queue on a card, a row for each shard
+    whose slot is in ``sids`` (one for a single queue), made at the first
+    flush.  Each posted epoch is handed over from the ring's ingest
+    thread, in flush order: the fault occurrences of all its rows
+    reserved in one ``(device, slot)`` sweep, then each row's drain
+    submitted to its shard's slot, answering into its row.  It holds the
+    slots, not the queue, so the thread keeps no queue alive; the flush
+    puts its context in the first slot's ``ctxs``."""
+    L, rc = layout, layout.reply_capacity
+    slots = [_slot(sid) for sid in sids]
+
+    def on_posted(epoch: int, words: np.ndarray) -> None:
+        ring = slots[0].ring
+        with slots[0].lock:
+            ctx = slots[0].ctxs.pop(epoch)
+        occs = _reserve_epochs(L, list(words))
+        for d, slot in enumerate(slots):
+            def on_done(job: _EpochJob, d=d) -> None:
+                quad = job.out if job.out is not None else (
+                    np.zeros((rc,), np.int32),
+                    *(np.zeros((L.rslots,), np.int32) for _ in range(3)))
+                ring.complete(epoch, _reply_words(quad, job.cdepth, rc), d)
+
+            _submit_epoch(slot, L, words[d], ctx, carry_budget, occs[d],
+                          probe=lambda d=d: ring.abandoned(epoch, d),
+                          on_done=on_done)
+
+    ring = AsyncRing(device, L.in_end, L.words - L.out_start - H_CDEPTH,
+                     on_posted, rows=len(slots))
+    for d, slot in enumerate(slots):
+        with slot.lock:
+            slot.ring, slot.row = ring, d
+            slot._mirror_depth()
+    return ring
 
 
 # ---------------------------------------------------------------------------
@@ -1914,50 +2268,55 @@ assert (_HEADS + _WINDOW).index("cdepth") == H_CDEPTH
 
 
 class _FlushCtx:
-    """One flush's handlers, fault policy and sanitizer flag, for its
-    drain."""
-    __slots__ = ("handlers", "retry", "timeout", "sanitize")
+    """One flush's handlers, fault policy, sanitizer flag and (a sharded
+    sync flush) shard deadline, for its drain."""
+    __slots__ = ("handlers", "retry", "timeout", "sanitize",
+                 "shard_deadline")
 
-    def __init__(self, handlers, retry, timeout, sanitize=False):
+    def __init__(self, handlers, retry, timeout, sanitize=False,
+                 shard_deadline=None):
         self.handlers, self.retry, self.timeout = handlers, retry, timeout
         self.sanitize = sanitize
+        self.shard_deadline = shard_deadline
 
 
-def _serve_flush(layout: _Layout, ctx: _FlushCtx, src: np.ndarray,
-                 dst: np.ndarray) -> None:
-    """The landing pad of a queue's flush: drain the records of ``src``
-    (the layout's ``[0, in_end)``) and write the reset heads, the reply
-    window and the replies into ``dst`` (``[out_start, words)``)."""
-    v = layout.views(src)
-    o = layout.views(dst, layout.out_start)
-    lanes = (v["callee"], v["nargs"], v["imask"], v["pmask"], v["ivals"],
-             v["fvals"], v["plens"], v["pbuf"])
-    head, phead, adrops, base = (int(v[n]) for n in _HEADS)
+def _serve_flush(layout: _Layout, ctx: _FlushCtx,
+                 srcs: Sequence[np.ndarray], dsts: Sequence[np.ndarray],
+                 sharded: bool = False) -> None:
+    """The landing pad of a sync flush: drain the records of each shard's
+    ``srcs[d]`` (the layout's ``[0, in_end)``; a single queue is one
+    shard) in ``(device, slot)`` order, and write each shard's reset
+    heads, reply window and replies into its ``dsts[d]`` (``[out_start,
+    words)``)."""
+    vs = [layout.views(src) for src in srcs]
+    os_ = [layout.views(dst, layout.out_start) for dst in dsts]
+    rc = layout.reply_capacity
     if ctx.sanitize:
-        _san_precheck(v, layout.reply_capacity)
-    for name in _WINDOW:
-        o[name][...] = v[name]
-    if layout.reply_capacity:
-        drain = _bind_drain(_drain_queue_replies, ctx.handlers, ctx.retry,
-                            ctx.timeout)
-        rbuf, roff, rlen, rstat = drain(
-            *lanes, v["rwant"], head, phead, adrops, base,
-            layout.reply_capacity)
-        o["rbuf"][...] = rbuf
-        o["roff"][...] = roff
-        o["rlen"][...] = rlen
-        o["rstat"][...] = rstat
-        o["rbase"][...] = base
-        o["rcount"][...] = head
+        _san_precheck(vs, rc, sharded)
+    lanes = [tuple(v[k] for k in _LANE_NAMES) for v in vs]
+    heads = [tuple(int(v[n]) for n in _HEADS) for v in vs]
+    for v, o in zip(vs, os_):
+        for name in _WINDOW:
+            o[name][...] = v[name]
+    if rc:
+        quads = _drain_replies(
+            lanes, [v["rwant"] for v in vs], heads, rc,
+            overrides=ctx.handlers, retry=ctx.retry, timeout=ctx.timeout,
+            shard_deadline=ctx.shard_deadline)
+        for o, quad, (head, _, _, base) in zip(os_, quads, heads):
+            for name, arr in zip(("rbuf", "roff", "rlen", "rstat"), quad):
+                o[name][...] = arr
+            o["rbase"][...] = base
+            o["rcount"][...] = head
     else:
-        drain = _bind_drain(_drain_queue, ctx.handlers, ctx.retry,
-                            ctx.timeout)
-        drain(*lanes, head, phead, adrops, base)
-    o["head"][...] = 0
-    o["phead"][...] = 0
-    o["adrops"][...] = 0
-    o["base"][...] = _wrap_i32(base + head)
-    o["fonce"][...] = 1
+        _drain(lanes, heads, overrides=ctx.handlers, retry=ctx.retry,
+               timeout=ctx.timeout)
+    for o, (head, _, _, base) in zip(os_, heads):
+        o["head"][...] = 0
+        o["phead"][...] = 0
+        o["adrops"][...] = 0
+        o["base"][...] = _wrap_i32(base + head)
+        o["fonce"][...] = 1
 
 
 #: Flush contexts posted on a channel, by the id their record carries.
@@ -1983,9 +2342,34 @@ def _queue_staging(channel, layout: _Layout) -> Tuple[int, Staging]:
             fid = int(staging.word(0).view(np.uint32)[0])
             with _FLUSH_LOCK:
                 ctx = _FLUSHES.pop(fid)
-            _serve_flush(layout, ctx, src, dst)
+            _serve_flush(layout, ctx, [src], [dst])
 
         entry = channel.pads[pid] = (staging, serve, layout)
+    return pid, entry[0]
+
+
+def _sharded_staging(channel, layout: _Layout, D: int
+                     ) -> Tuple[int, Staging]:
+    """:func:`_queue_staging` for ``D`` stacked shards of ``layout``: a
+    slot for each shard's ``[0, in_end)`` and one for each shard's words
+    from ``out_start`` on; its ``serve`` drains the sharded flush whose id
+    the record carries."""
+    pid = _stable_id("queue", json.dumps(dataclasses.astuple(layout)
+                                         + (D,)), 63)
+    entry = channel.pads.get(pid)
+    if entry is None:
+        staging = Staging([4 * layout.in_end] * D
+                          + [4 * (layout.words - layout.out_start)] * D)
+        srcs = [staging.slot(d).view(np.int32) for d in range(D)]
+        dsts = [staging.slot(D + d).view(np.int32) for d in range(D)]
+
+        def serve():
+            fid = int(staging.word(0).view(np.uint32)[0])
+            with _FLUSH_LOCK:
+                ctx = _FLUSHES.pop(fid)
+            _serve_flush(layout, ctx, srcs, dsts, sharded=True)
+
+        entry = channel.pads[pid] = (staging, serve, (layout, D))
     return pid, entry[0]
 
 
@@ -2074,6 +2458,9 @@ class RpcQueue:
         for name, view in layout.views(state).items():
             setattr(self, name, view)
         self._failed_read_warned = False
+        # on a ShardedRpcQueue's shard: (a weak reference to that queue,
+        # the row, the number of rows)
+        self._owner: Optional[Tuple[Any, int, int]] = None
 
     @property
     def device(self) -> torch.device:
@@ -2146,10 +2533,6 @@ class RpcQueue:
                 "shard_deadline requires reply_capacity > 0: a stalled "
                 "drain's records are stamped STATUS_TIMEOUT in the status "
                 "lane")
-        if shard_deadline is not None and mode == "sync":
-            raise NotImplementedError(
-                f"RpcQueue(shard_deadline=) on a sync queue bounds the "
-                f"concurrent drain of a sharded one: {_SHARDED}")
         if capacity < 1 or payload_capacity < 0 or reply_capacity < 0:
             raise ValueError(
                 f"capacity {capacity}, payload_capacity {payload_capacity}, "
@@ -2169,6 +2552,10 @@ class RpcQueue:
                     payload_capacity=payload_capacity,
                     reply_capacity=reply_capacity, sanitize=bool(sanitize),
                     retry=retry is not None, mode=mode)
+        REGISTRY.note_queue_geometry(
+            {"capacity": int(capacity), "width": int(width),
+             "payload_capacity": int(payload_capacity),
+             "reply_capacity": int(reply_capacity), "shards": 1})
         return q
 
     def lanes(self) -> Lanes:
@@ -2321,6 +2708,7 @@ class RpcQueue:
         ctx = _FlushCtx(dict(handlers) if handlers else None, self.retry,
                         self.timeout, self.sanitize)
         if self.mode == "async":
+            self._check_own_epochs()
             self._flush_async(ctx)
         else:
             self._flush_sync(ctx)
@@ -2331,11 +2719,22 @@ class RpcQueue:
                         reply_capacity=self.reply_capacity, mode=self.mode)
         return self
 
+    def _check_own_epochs(self) -> None:
+        """Refuse an async flush of one shard of a sharded queue of
+        several: its epochs are the sharded queue's, handed over for all
+        rows at once (on a card through one ring), so the row alone has
+        none to flush."""
+        if self._owner is not None and self._owner[2] > 1:
+            raise ValueError(
+                f"async flush of shard {self._owner[1]} of a "
+                f"{self._owner[2]}-shard ShardedRpcQueue: its epochs are "
+                "the sharded queue's; flush the ShardedRpcQueue")
+
     def _flush_sync(self, ctx: _FlushCtx) -> None:
         L = self.layout
         if self.device.type == "cpu":
             src = self.state[:L.in_end].numpy().copy()
-            _serve_flush(L, ctx, src, self.state[L.out_start:].numpy())
+            _serve_flush(L, ctx, [src], [self.state[L.out_start:].numpy()])
             return
         self._check_policy()
         channel = channel_for(self.device)
@@ -2373,7 +2772,8 @@ class RpcQueue:
         rc = L.reply_capacity
         h = self.state[L.out_start:]
         src = self.state[:L.in_end].cpu().numpy().copy()
-        prev = _submit_epoch(slot, L, src, ctx, self.carry_budget)
+        prev = _submit_epoch(slot, L, src, ctx, self.carry_budget,
+                             _reserve_epochs(L, [src])[0])
         quad, cd = slot.collect(prev, self.shard_deadline, L.capacity, rc)
         post_reference(h, bool(rc))
         collect_reference(h, torch.from_numpy(
@@ -2391,50 +2791,29 @@ class RpcQueue:
         if self.mode != "async":
             raise ValueError("flush_reference() is the async flush's plain "
                              "version; this queue is sync")
+        self._check_own_epochs()
         return self._flush_async_host(_FlushCtx(
             dict(handlers) if handlers else None, self.retry, self.timeout,
             self.sanitize))
 
     def _ring(self, slot: _QueueSlot) -> AsyncRing:
-        """The queue's ring on its card, made at the first flush: each
-        posted epoch is submitted from the ring's ingest thread, in flush
-        order, and its drain answers into the ring."""
-        if slot.ring is not None:
-            return slot.ring
-        L, budget = self.layout, self.carry_budget
-        rc = L.reply_capacity
+        """The queue's ring on its card (:func:`_async_ring`, one row),
+        made at the first flush."""
+        if slot.ring is None:
+            ring = _async_ring(self.device, self.layout, [self.qslot],
+                               self.carry_budget)
+            # the ring's thread ends with the queue, once it has handed
+            # every flushed epoch to the drain
+            weakref.finalize(self, ring.close)
+        return slot.ring
 
-        def on_posted(epoch: int, words: np.ndarray) -> None:
-            ring = slot.ring
-            with slot.lock:
-                ctx = slot.ctxs.pop(epoch)
-
-            def on_done(job: _EpochJob) -> None:
-                quad = job.out if job.out is not None else (
-                    np.zeros((rc,), np.int32),
-                    *(np.zeros((L.rslots,), np.int32) for _ in range(3)))
-                ring.complete(epoch, _reply_words(quad, job.cdepth, rc))
-
-            _submit_epoch(slot, L, words, ctx, budget,
-                          probe=lambda: ring.abandoned(epoch),
-                          on_done=on_done)
-
-        ring = AsyncRing(self.device, L.in_end, L.words - L.out_start -
-                         H_CDEPTH, on_posted)
-        with slot.lock:
-            slot.ring = ring
-            slot._mirror_depth()
-        # the ring's thread ends with the queue, once it has handed every
-        # flushed epoch to the drain
-        weakref.finalize(self, ring.close)
-        return ring
-
-    def _check_policy(self) -> None:
+    def _check_policy(self, records: Optional[int] = None) -> None:
         """Refuse a policy whose worst case outlasts the channel's wait on
         a card (the posted kernel would trap): a sync flush's retries and
-        timeouts over a full ring; an async collect's wait for a drain
-        that also redrives up to ``carry_budget`` carried rounds of a
-        ring, unless a deadline shorter than the wait bounds it."""
+        timeouts over a full ring (or ``records`` of them); an async
+        collect's wait for a drain that also redrives up to
+        ``carry_budget`` carried rounds of a ring, unless a deadline
+        shorter than the wait bounds it."""
         if self.mode == "async" and self.shard_deadline is not None:
             if self.shard_deadline >= TIMEOUT_S:
                 raise ValueError(
@@ -2444,14 +2823,15 @@ class RpcQueue:
             return
         if self.timeout is None:
             return
+        records = self.capacity if records is None else records
         tries = self.retry.max_attempts if self.retry is not None else 1
         backoff = (self.retry.backoff * (2.0 ** (tries - 1) - 1.0)
                    if self.retry is not None else 0.0)
-        worst = self.capacity * (tries * self.timeout + backoff
-                                 + self.carry_budget * self.timeout)
+        worst = records * (tries * self.timeout + backoff
+                           + self.carry_budget * self.timeout)
         if worst > TIMEOUT_S:
             raise ValueError(
-                f"RpcQueue flush on a card: {self.capacity} records x "
+                f"RpcQueue flush on a card: {records} records x "
                 f"({tries} attempts x {self.timeout}s timeout + {backoff}s "
                 f"backoff + {self.carry_budget} carried rounds x "
                 f"{self.timeout}s) = {worst:.1f}s may outlast the channel's "
@@ -2700,6 +3080,278 @@ class RpcQueue:
                 continue
             out.append(int(rstat[local % self.capacity]))
         return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded batched transport: one queue shard per device
+# ---------------------------------------------------------------------------
+
+class ShardedRpcQueue:
+    """Per-device RPC queues (one shard a device or team), the port of
+    JAX's ``ShardedRpcQueue``.
+
+    The shards are stacked along a leading axis of one int32 state
+    ``(D, words)`` on one device (placing them across devices is ROADMAP
+    item 5).  Deliberately unlike JAX's functional shards, :meth:`local`
+    returns an :class:`RpcQueue` that is a view of row ``d``: an enqueue
+    through it lands in the stacked state (on a card it is one
+    ``rpc_enqueue`` on the row's storage), and the same view is returned
+    every time.  :meth:`stack` restacks a list of them.  An async flush
+    is the sharded queue's alone: a shard of several refuses one.
+
+    A sync flush replays every shard's records in ``(device, slot)``
+    order and writes each shard's replies and statuses to its own row: on
+    a card one ``rpc_post`` round trip carries all D rows.  With
+    ``shard_deadline`` the shards drain concurrently and a shard past the
+    deadline reads ``STATUS_TIMEOUT`` (partial-epoch completion).  An
+    async flush drains each shard's epochs independently, on the shard's
+    own slot; on a card one mapped ring, with a row a shard, carries them
+    all, so a flush is one ``rpc_async_post`` and one
+    ``rpc_async_collect`` (a block a shard) whatever D (a deliberate
+    difference from JAX's one callback a device)."""
+
+    def __init__(self, layout: _Layout, state: torch.Tensor, *,
+                 retry: Optional[RetryPolicy] = None,
+                 timeout: Optional[float] = None, mode: str = "sync",
+                 carry_budget: int = 0,
+                 shard_deadline: Optional[float] = None,
+                 sanitize: bool = False):
+        self.layout, self.state = layout, state
+        self.shards = [RpcQueue(layout, state[d], retry=retry,
+                                timeout=timeout, mode=mode,
+                                carry_budget=carry_budget,
+                                shard_deadline=shard_deadline,
+                                sanitize=sanitize)
+                       for d in range(state.shape[0])]
+        for d, q in enumerate(self.shards):
+            q._owner = (weakref.ref(self), d, len(self.shards))
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.shards)
+
+    @property
+    def device(self) -> torch.device:
+        return self.state.device
+
+    @property
+    def capacity(self) -> int:
+        return self.layout.capacity
+
+    @property
+    def width(self) -> int:
+        return self.layout.width
+
+    @property
+    def payload_capacity(self) -> int:
+        return self.layout.payload_capacity
+
+    @property
+    def reply_capacity(self) -> int:
+        return self.layout.reply_capacity
+
+    @property
+    def mode(self) -> str:
+        return self.shards[0].mode
+
+    @staticmethod
+    def create(n_devices: int, capacity: int = 1024, width: int = 4,
+               payload_capacity: int = 1024, reply_capacity: int = 0,
+               sanitize: bool = False,
+               retry: Optional[RetryPolicy] = None,
+               timeout: Optional[float] = None, mode: str = "sync",
+               carry_budget: int = 0,
+               shard_deadline: Optional[float] = None, *,
+               device="cuda") -> "ShardedRpcQueue":
+        """``n_devices`` shards of ``RpcQueue.create``'s queue (every
+        option of it) on ``device`` (the card unless the caller asks for
+        the CPU).  ``shard_deadline`` (seconds, reply-carrying queues)
+        bounds a sync flush's concurrent drain of the shards, or an async
+        flush's collect of each shard's previous epoch."""
+        proto = RpcQueue.create(capacity, width, payload_capacity,
+                                reply_capacity, sanitize=sanitize,
+                                retry=retry, timeout=timeout, mode=mode,
+                                carry_budget=carry_budget,
+                                shard_deadline=shard_deadline,
+                                device=device)
+        state = proto.state.unsqueeze(0).repeat(int(n_devices), 1)
+        sq = ShardedRpcQueue(proto.layout, state, retry=retry,
+                             timeout=timeout, mode=mode,
+                             carry_budget=carry_budget,
+                             shard_deadline=shard_deadline,
+                             sanitize=sanitize)
+        REGISTRY.note_queue_geometry(queue_geometry(sq))
+        return sq
+
+    @staticmethod
+    def stack(locals_: Sequence[RpcQueue]) -> "ShardedRpcQueue":
+        """The sharded queue whose shard ``d`` is ``locals_[d]`` (JAX's
+        ``ShardedRpcQueue(jax.tree.map(stack, *locals_))``): since the
+        locals are views, the queue they are the shards of, in order.
+        Anything else raises."""
+        owner = locals_[0]._owner[0]() if locals_ and \
+            locals_[0]._owner else None
+        if owner is None or len(locals_) != owner.n_devices or any(
+                q is not owner.local(d) for d, q in enumerate(locals_)):
+            raise ValueError(
+                "ShardedRpcQueue.stack() takes the locals of one sharded "
+                "queue, every shard in order (local(0), ..., local(D-1))")
+        return owner
+
+    def local(self, dev: int) -> RpcQueue:
+        """Device ``dev``'s shard: a view of its row (see the class
+        docstring)."""
+        return self.shards[int(dev)]
+
+    def local_view(self) -> RpcQueue:
+        """The one shard of a single-device sharded queue (the team
+        protocol of an expanded region)."""
+        assert self.n_devices == 1, \
+            "local_view() is only meaningful on a single-device shard " \
+            "(inside shard_map); use local(dev) outside"
+        view = self.local(0)
+        if events.active():
+            events.emit("queue_view", _refs=(view,), qid=id(view),
+                        capacity=view.capacity, width=view.width,
+                        payload_capacity=view.payload_capacity,
+                        reply_capacity=view.reply_capacity,
+                        sanitize=view.sanitize, mode=view.mode)
+        return view
+
+    def with_local(self, local: RpcQueue) -> "ShardedRpcQueue":
+        """Inverse of :meth:`local_view`."""
+        return ShardedRpcQueue.stack([local])
+
+    def flush(self, handlers: Optional[Dict[str, Callable]] = None
+              ) -> "ShardedRpcQueue":
+        """Drain every shard to the host, records replayed in ``(device,
+        slot)`` order (see the class docstring); each shard's replies land
+        in its row, read with :meth:`result` or ``local(d).result``.
+        Returns the queue."""
+        q0 = self.shards[0]
+        ctx = _FlushCtx(dict(handlers) if handlers else None, q0.retry,
+                        q0.timeout, q0.sanitize, q0.shard_deadline)
+        if self.mode == "async":
+            self._flush_async(ctx)
+        else:
+            self._flush_sync(ctx)
+        if events.active():
+            events.emit("rpc_flush", _refs=(self,), qid=id(self),
+                        qid_out=id(self), capacity=self.capacity,
+                        payload_capacity=self.payload_capacity,
+                        reply_capacity=self.reply_capacity, sharded=True,
+                        mode=self.mode)
+        return self
+
+    def _flush_sync(self, ctx: _FlushCtx) -> None:
+        L, D = self.layout, self.n_devices
+        if self.device.type == "cpu":
+            words = self.state.numpy()
+            _serve_flush(L, ctx, [words[d, :L.in_end].copy()
+                                  for d in range(D)],
+                         [words[d, L.out_start:] for d in range(D)],
+                         sharded=True)
+            return
+        self._check_policy()
+        channel = channel_for(self.device)
+        pid, staging = _sharded_staging(channel, L, D)
+        with _FLUSH_LOCK:
+            fid = next(_FLUSH_IDS) % (1 << 32)
+            _FLUSHES[fid] = ctx
+        rpc_post(channel, pid, staging,
+                 [(d, self.state[d, :L.in_end]) for d in range(D)], [fid],
+                 [(D + d, self.state[d, L.out_start:]) for d in range(D)])
+
+    def _check_policy(self) -> None:
+        """A card flush's worst case must stay within the channel's wait:
+        the deadline when there is one; else a sync flush's records of
+        every shard, an async collect's of one shard."""
+        q0 = self.shards[0]
+        dl = q0.shard_deadline
+        if dl is not None:
+            if dl >= TIMEOUT_S:
+                raise ValueError(
+                    f"ShardedRpcQueue flush on a card: shard_deadline {dl}s "
+                    f"is not below the channel's {TIMEOUT_S}s wait")
+            return
+        q0._check_policy(None if self.mode == "async"
+                         else self.capacity * self.n_devices)
+
+    def _flush_async(self, ctx: _FlushCtx) -> None:
+        """Each shard's epoch submitted to its own slot, the occurrences
+        of all of them reserved first in ``(device, slot)`` order, then
+        each shard's previous epoch collected, the deadline's budget
+        shared from the first collect (JAX's).  On a card: one
+        ``rpc_async_post`` hands every row over through the queue's ring
+        (:func:`_async_ring`), one ``rpc_async_collect`` installs every
+        row's previous epoch, the rows waiting side by side up to the
+        deadline."""
+        L, rc = self.layout, self.reply_capacity
+        if self.device.type == "cpu":
+            self._flush_async_host(ctx)
+            return
+        self._check_policy()
+        slot = _slot(self.shards[0].qslot)
+        if slot.ring is None:
+            ring = _async_ring(self.device, L,
+                               [q.qslot for q in self.shards],
+                               self.shards[0].carry_budget)
+            weakref.finalize(self, ring.close)
+        ring = slot.ring
+        epoch = ring.issue()
+        with slot.lock:
+            slot.ctxs[epoch] = ctx
+        rpc_async_post(ring, epoch, self.state, L.out_start, bool(rc))
+        rpc_async_collect(ring, epoch, self.state, L.out_start, L.rslots, rc,
+                          self.shards[0].shard_deadline)
+
+    def _flush_async_host(self, ctx: _FlushCtx) -> None:
+        L, rc = self.layout, self.reply_capacity
+        srcs = [q.state[:L.in_end].cpu().numpy().copy()
+                for q in self.shards]
+        prevs = [_submit_epoch(_slot(q.qslot), L, w, ctx, q.carry_budget,
+                               occ)
+                 for q, w, occ in zip(self.shards, srcs,
+                                      _reserve_epochs(L, srcs))]
+        deadline = self.shards[0].shard_deadline
+        t0 = time.monotonic()
+        for q, prev in zip(self.shards, prevs):
+            left = (None if deadline is None
+                    else max(0.0, deadline - (time.monotonic() - t0)))
+            quad, cd = _slot(q.qslot).collect(prev, left, L.capacity, rc)
+            h = q.state[L.out_start:]
+            post_reference(h, bool(rc))
+            collect_reference(h, torch.from_numpy(
+                _reply_words(quad, cd, rc)).to(h.device))
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Async queues: wait until every shard's submitted drains have
+        finished; True, or False on ``timeout``.  Sync queues: True at
+        once."""
+        if self.mode != "async":
+            return True
+        t0 = time.monotonic()
+        return all(_slot(q.qslot).join(
+            None if timeout is None
+            else max(0.0, timeout - (time.monotonic() - t0)))
+            for q in self.shards)
+
+    def carry_outcomes(self, dev: int = 0) -> Dict[int, Tuple[int, Any]]:
+        """Device ``dev``'s finalized cross-epoch carry outcomes (see
+        :meth:`RpcQueue.carry_outcomes`)."""
+        return self.shards[int(dev)].carry_outcomes()
+
+    def result(self, dev, ticket, shape=(), dtype=None) -> torch.Tensor:
+        """Device ``dev``'s reply for ``ticket`` from the last flush."""
+        return self.local(dev).result(ticket, shape, dtype)
+
+    def result_status(self, dev, ticket) -> torch.Tensor:
+        """Device ``dev``'s status for ``ticket``."""
+        return self.local(dev).result_status(ticket)
+
+    def pressure(self) -> torch.Tensor:
+        """Each shard's :meth:`RpcQueue.pressure`, a (D,) float32 tensor."""
+        return torch.stack([q.pressure() for q in self.shards])
 
 
 # ---------------------------------------------------------------------------

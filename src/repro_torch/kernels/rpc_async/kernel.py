@@ -2,13 +2,15 @@
 
 Replaces no Pallas kernel: the JAX package's async flush is an ordered
 ``io_callback`` (``repro/core/rpc.py::RpcQueue.flush``, ``mode="async"``).
-An :class:`AsyncRing` belongs to one async queue on a card: its two
-records and its staging regions in pinned, host-mapped memory (one
-``in`` and one ``out`` region per epoch parity), and an ingest thread that
-waits in C for each posted epoch (Python's lock released), copies its
-records out of ``in`` at once, acknowledges them (``consumed``) and hands
-them to ``on_posted``.  The drain answers through :meth:`AsyncRing.complete`
-(``out`` written, then ``done`` released).  :func:`rpc_async_post` and
+An :class:`AsyncRing` belongs to one async queue on a card, with a row
+for each of its shards (one for a single queue): its records and its
+staging regions in pinned, host-mapped memory (per epoch parity, an
+``in`` region holding every row and an ``out`` region a row), and an
+ingest thread that waits in C for each posted epoch (Python's lock
+released), copies every row's records out of ``in`` at once, acknowledges
+them (``consumed``) and hands them to ``on_posted``.  Each row's drain
+answers through :meth:`AsyncRing.complete` (its ``out`` written, then its
+``done`` released).  :func:`rpc_async_post` and
 :func:`rpc_async_collect` are the two launches of a flush; the plain
 versions of their device work are ``ref.py``.  The library builds at the
 first ring.
@@ -39,10 +41,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rpc_async")
     if not getattr(lib, "typed", False):
         lib.rpc_async_record_bytes.restype = _I
-        lib.rpc_async_post_launch.argtypes = [_P, _U, _P, _P, _SZ, _P, _I, _P]
+        lib.rpc_async_post_launch.argtypes = [_P, _U, _P, _P, _SZ, _LL, _I,
+                                              _P, _I, _P]
         lib.rpc_async_post_launch.restype = _I
         lib.rpc_async_collect_launch.argtypes = [_P, _U, _I, _ULL, _ULL, _P,
-                                                 _P, _I, _I, _P, _P]
+                                                 _LL, _P, _LL, _I, _I, _I,
+                                                 _P, _P]
         lib.rpc_async_collect_launch.restype = _I
         lib.rpc_async_wait.argtypes = [_P, _U, _LL, _LL]
         lib.rpc_async_wait.restype = _I
@@ -56,36 +60,42 @@ def _lib() -> ctypes.CDLL:
 
 class AsyncRing:
     """The mapped memory and ingest thread of one async queue on a card
-    (see the module docstring).  ``in_words`` is the queue's
-    ``[0, in_end)``, ``out_words`` its words from ``cdepth`` on.
-    ``on_posted(epoch, words)`` runs on the ingest thread with a copy of
-    the epoch's records and must hand the drain off (it must not run
-    callees: the next epoch's records wait behind it).  If it raises, the
-    epoch is answered with zeros and the exception kept in ``error``."""
+    (see the module docstring), ``rows`` rows (one a shard).  ``in_words``
+    is a row's ``[0, in_end)``, ``out_words`` its words from ``cdepth``
+    on.  ``on_posted(epoch, words)`` runs on the ingest thread with a
+    ``(rows, in_words)`` copy of the epoch's records and must hand the
+    drains off (it must not run callees: the next epoch's records wait
+    behind it).  If it raises, the epoch is answered with zeros and the
+    exception kept in ``error``."""
 
     def __init__(self, device: torch.device, in_words: int, out_words: int,
-                 on_posted: Callable[[int, np.ndarray], None]):
+                 on_posted: Callable[[int, np.ndarray], None],
+                 rows: int = 1):
         lib = _lib()
         rec = lib.rpc_async_record_bytes()
-        self.device = device
+        self.device, self.rows = device, rows
         self.in_words, self.out_words = in_words, out_words
-        # records 0 and 1, the live carried depth, then the regions
-        sizes = [4 * in_words, 4 * in_words, 4 * out_words, 4 * out_words]
-        offsets, end = [], ALIGN
+        # a record a row for each parity, a live carried depth a row, then
+        # the regions (in, in, out, out)
+        sizes = [4 * rows * in_words] * 2 + [4 * rows * out_words] * 2
+        offsets = []
+        end = -(-(2 * rows * rec + 4 * rows) // ALIGN) * ALIGN
         for n in sizes:
             offsets.append(end)
             end += -(-max(n, 4) // ALIGN) * ALIGN
         self.host, self.dev = _host_alloc(end)
         buf = np.ctypeslib.as_array((ctypes.c_uint8 * end).from_address(
             self.host))
-        self._rec = [self.host, self.host + rec]
-        self._rec_dev = [self.dev, self.dev + rec]
-        self._live_off = 2 * rec
-        self.live = buf[self._live_off:self._live_off + 4].view(np.int32)
-        self._in = [buf[o:o + 4 * in_words].view(np.int32)
-                    for o in offsets[:2]]
-        self._out = [buf[o:o + 4 * out_words].view(np.int32)
-                     for o in offsets[2:]]
+        self._rec_bytes = rec
+        self._rec = [self.host, self.host + rows * rec]
+        self._rec_dev = [self.dev, self.dev + rows * rec]
+        self._live_off = 2 * rows * rec
+        self.live = buf[self._live_off:self._live_off + 4 * rows].view(
+            np.int32)
+        self._in = [buf[o:o + 4 * rows * in_words].view(np.int32).reshape(
+            rows, in_words) for o in offsets[:2]]
+        self._out = [buf[o:o + 4 * rows * out_words].view(np.int32).reshape(
+            rows, out_words) for o in offsets[2:]]
         self._in_host = [self.host + o for o in offsets[:2]]
         self._out_dev = [self.dev + o for o in offsets[2:]]
         self.on_posted = on_posted
@@ -114,7 +124,9 @@ class AsyncRing:
             except BaseException as exc:  # noqa: BLE001 (kept, answered)
                 if self.error is None:
                     self.error = exc
-                self.complete(epoch, np.zeros(self.out_words, np.int32))
+                for row in range(self.rows):
+                    self.complete(epoch, np.zeros(self.out_words, np.int32),
+                                  row)
             with self._cond:
                 self.ingested = epoch
                 self._cond.notify_all()
@@ -126,15 +138,19 @@ class AsyncRing:
             self.issued += 1
             return self.issued
 
-    def complete(self, epoch: int, words: np.ndarray) -> None:
-        """Answer ``epoch``: its reply words into ``out``, then ``done``."""
-        p = epoch & 1
-        self._out[p][...] = words
-        _lib().rpc_async_store(self._rec[p], DONE, epoch)
+    def _row_rec(self, epoch: int, row: int) -> int:
+        return self._rec[epoch & 1] + row * self._rec_bytes
 
-    def abandoned(self, epoch: int) -> bool:
-        """True once the device gave up waiting for ``epoch``'s drain."""
-        return _lib().rpc_async_load(self._rec[epoch & 1],
+    def complete(self, epoch: int, words: np.ndarray, row: int = 0) -> None:
+        """Answer ``epoch``'s row ``row``: its reply words into the row's
+        ``out``, then the row's ``done``."""
+        self._out[epoch & 1][row] = words
+        _lib().rpc_async_store(self._row_rec(epoch, row), DONE, epoch)
+
+    def abandoned(self, epoch: int, row: int = 0) -> bool:
+        """True once the device gave up waiting for ``epoch``'s drain of
+        row ``row``."""
+        return _lib().rpc_async_load(self._row_rec(epoch, row),
                                      ABANDONED) == (epoch & 0xFFFFFFFF)
 
     def wait_ingested(self, timeout: Optional[float] = None) -> bool:
@@ -149,24 +165,33 @@ class AsyncRing:
         self._closing.set()
 
 
-def _check(state: torch.Tensor, ring: AsyncRing) -> None:
+def _pitch(state: torch.Tensor, ring: AsyncRing) -> int:
+    """The words between two rows of ``state``: a 1-D state is one row,
+    a 2-D one ``ring.rows`` rows."""
+    rows = 1 if state.dim() == 1 else state.shape[0]
     if state.device != ring.device or not state.is_contiguous() or \
-            state.dtype != torch.int32:
-        raise ValueError(f"rpc_async: a {state.device} {state.dtype} state; "
-                         f"the ring takes contiguous int32 on {ring.device}")
+            state.dtype != torch.int32 or state.dim() > 2 or \
+            rows != ring.rows:
+        raise ValueError(f"rpc_async: a {state.device} {state.dtype} state "
+                         f"of shape {tuple(state.shape)}; the ring takes "
+                         f"contiguous int32 on {ring.device}, {ring.rows} "
+                         "rows")
+    return state.shape[-1] if state.dim() == 2 else 0
 
 
 def rpc_async_post(ring: AsyncRing, epoch: int, state: torch.Tensor,
                    out_start: int, has_reply: bool) -> None:
-    """Hand epoch ``epoch`` to the host on the current stream: copy the
-    queue's words ``[0, in_words)`` into the ring, then launch
-    ``rpc_async_post`` (the window moves on the device; nothing waits)."""
-    _check(state, ring)
+    """Hand epoch ``epoch`` to the host on the current stream: copy each
+    row's words ``[0, in_words)`` into the ring, then launch
+    ``rpc_async_post`` (the windows move on the device; nothing waits).
+    ``state`` is the queue's words, ``(words,)`` or ``(rows, words)``."""
+    pitch = _pitch(state, ring)
     stream = torch.cuda.current_stream(ring.device)
     p = epoch & 1
     err = _lib().rpc_async_post_launch(
         ring._rec_dev[p], epoch, ring._in_host[p], state.data_ptr(),
-        4 * ring.in_words, state.data_ptr() + 4 * out_start, int(has_reply),
+        4 * ring.in_words, pitch, ring.rows,
+        state.data_ptr() + 4 * out_start, int(has_reply),
         ctypes.c_void_p(stream.cuda_stream))
     if err:
         raise RuntimeError(f"rpc_async_post: launch failed with CUDA error "
@@ -177,20 +202,23 @@ def rpc_async_post(ring: AsyncRing, epoch: int, state: torch.Tensor,
 def rpc_async_collect(ring: AsyncRing, epoch: int, state: torch.Tensor,
                       out_start: int, rslots: int, rc: int,
                       deadline: Optional[float]) -> None:
-    """Install epoch ``epoch - 1``'s replies into ``state`` (the queue's
-    words from ``cdepth`` on) once its drain answered, or the stamped
-    window past ``deadline`` seconds; zeros at the first flush.  One
-    launch of ``rpc_async_collect`` on the current stream."""
-    _check(state, ring)
+    """Install epoch ``epoch - 1``'s replies into each row of ``state``
+    (the queue's words from ``cdepth`` on) once the row's drain answered,
+    or the row's stamped window past ``deadline`` seconds (one budget for
+    every row: they wait side by side); zeros at the first flush.  One
+    launch of ``rpc_async_collect`` (a block a row) on the current
+    stream."""
+    pitch = _pitch(state, ring)
     stream = torch.cuda.current_stream(ring.device)
     prev = epoch - 1
     p = prev & 1
     err = _lib().rpc_async_collect_launch(
         ring._rec_dev[p], prev & 0xFFFFFFFF, int(prev > 0),
         int(deadline * 1e9) if deadline else 0, int(TIMEOUT_S * 1e9),
-        ring._out_dev[p],
-        state.data_ptr() + 4 * (out_start + H_CDEPTH), rslots, rc,
-        ring.dev + ring._live_off, ctypes.c_void_p(stream.cuda_stream))
+        ring._out_dev[p], ring.out_words,
+        state.data_ptr() + 4 * (out_start + H_CDEPTH), pitch, ring.rows,
+        rslots, rc, ring.dev + ring._live_off,
+        ctypes.c_void_p(stream.cuda_stream))
     if err:
         raise RuntimeError(f"rpc_async_collect: launch failed with CUDA "
                            f"error {err}")

@@ -4,14 +4,18 @@
       --requests 8 --max-new 12
 
 ``--preset full`` (the default) serves the architecture at its published
-width and depth with random weights from seed 0; ``--preset tiny``
-serves the small preset of ``launch/train.py``.  ``--device cuda`` (the
-default) needs a card; ``--device cpu`` runs the plain PyTorch versions of
-the kernels.
+width and depth with random weights from seed 0; an architecture whose
+weights exceed the device's memory is refused (phi3.5-moe-42b-a6.6b: 32
+layers of bf16 weights, 83.7 GB by its config's parameter count, more
+than an 80 GB card holds; it needs ROADMAP item 5's meshes).  ``--preset
+tiny`` serves the small preset of ``launch/train.py``, for either of the
+engine's families (dense and moe).  ``--device cuda`` (the default) needs
+a card; ``--device cpu`` runs the plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -42,6 +46,30 @@ def _serve_traffic(engine: ServingEngine, cfg, requests: int, max_new: int,
           f"in {dt:.1f}s ({total_tokens / dt:.1f} tok/s) on {engine.device}")
 
 
+def weight_bytes(cfg) -> int:
+    """The bytes of ``cfg``'s weights in its parameter dtype."""
+    return cfg.num_params() * torch.empty(
+        (), dtype=getattr(torch, cfg.param_dtype)).element_size()
+
+
+def check_fits(cfg, device) -> None:
+    """Refuse a model whose weights exceed the memory of ``device`` (the
+    card's, or the host's for the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        have = torch.cuda.get_device_properties(dev).total_memory
+    else:
+        have = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    need = weight_bytes(cfg)
+    if need > have:
+        raise SystemExit(
+            f"{cfg.name} at {cfg.num_layers} layers holds {need / 1e9:.1f} "
+            f"GB of {cfg.param_dtype} weights, more than the "
+            f"{have / 1e9:.1f} GB of one {dev.type} device: it does not fit "
+            "one card; serving it sharded over a mesh is ROADMAP queue 1, "
+            "item 5 (use --preset tiny)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="llama3.2-3b")
@@ -57,6 +85,7 @@ def main(argv=None):
     if args.preset == "tiny":
         cfg = tiny_preset(cfg)
     model = build_model(cfg, device=args.device)
+    check_fits(cfg, args.device)
     params = model.init(0)
     engine = ServingEngine(model, params, batch_slots=args.batch_slots,
                            max_len=256, page_size=args.page_size,

@@ -1,5 +1,7 @@
-"""Model facade over the ported families: dense (llama3.2-3b), ssm
-(mamba2-130m) and hybrid (recurrentgemma-9b).  The ssm family keeps
+"""Model facade over the ported families: dense (llama3.2-3b), moe
+(phi3.5-moe, qwen3-moe: the dense family's attention with a
+mixture-of-experts feed-forward), ssm (mamba2-130m) and hybrid
+(recurrentgemma-9b).  The ssm family keeps
 recurrent caches (conv history and SSD state per layer), the hybrid family
 recurrent caches for its RG-LRU layers and ring-buffer K/V of the local
 window for its attention layers; as in the JAX package, both are served
@@ -59,7 +61,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    """The facade for ``cfg`` on ``device`` (dense, ssm or hybrid); a family
-    that is not ported yet (moe, encdec, vlm) raises."""
+    """The facade for ``cfg`` on ``device`` (dense, moe, ssm or hybrid); a
+    family that is not ported yet (encdec, vlm: item 4) raises."""
     transformer.check_family(cfg)
     return Model(cfg, resolve_device(device))

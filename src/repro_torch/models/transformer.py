@@ -1,5 +1,7 @@
-"""Decoder-only LM, dense, ssm and hybrid families: init, full-sequence
-forward and loss (training), prefill, decode caches, one-token decode.
+"""Decoder-only LM, dense, moe, ssm and hybrid families: init,
+full-sequence forward and loss (training), prefill, decode caches,
+one-token decode.  A moe layer holds ``moe`` (router and experts) in place
+of ``mlp``; its forward sums the layers' load-balance aux.
 
 Parameters are a nested dict in the JAX package's layout, except that
 ``params["layers"]`` (and the hybrid family's ``params["rec_layers"]`` and
@@ -20,20 +22,21 @@ from repro_torch.models import common
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init
 from repro_torch.models.common import ones, rmsnorm, torch_dtype
 from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rglru import (
     rglru_apply, rglru_decode, rglru_init, rglru_init_cache)
 from repro_torch.models.ssd import (
     ssd_apply, ssd_decode, ssd_init, ssd_init_cache)
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port runs "
-            f"{', '.join(PORTED_FAMILIES)} (moe, encdec and vlm are still "
-            "to come)")
+            f"{', '.join(PORTED_FAMILIES)} (encdec and vlm are ROADMAP "
+            "queue 1, item 4)")
 
 
 def _attn_layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -42,8 +45,17 @@ def _attn_layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "ln1": ones((cfg.d_model,), pd, gen.device),
         "attn": attn_init(gen, cfg),
         "ln2": ones((cfg.d_model,), pd, gen.device),
-        "mlp": mlp_init(gen, cfg),
+        **({"moe": moe_init(gen, cfg)} if cfg.is_moe
+           else {"mlp": mlp_init(gen, cfg)}),
     }
+
+
+def _ffn(layer, h: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's feed-forward: ``(y, aux)``, aux None for a dense MLP."""
+    if "moe" in layer:
+        return moe_apply(layer["moe"], h, cfg)
+    return mlp_apply(layer["mlp"], h), None
 
 
 def _ssm_layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -145,14 +157,18 @@ def _angles_for(cfg: ModelConfig, batch, B: int, S: int,
                               cfg.rope_theta)
 
 
-def _layer(layer, x: torch.Tensor, angles: torch.Tensor, *,
-           cfg: ModelConfig, causal: bool,
-           window: Optional[int] = None) -> torch.Tensor:
+def _attn_layer(layer, x: torch.Tensor, angles: torch.Tensor, *,
+                cfg: ModelConfig, causal: bool,
+                window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """An attention layer, and its feed-forward's aux (None for a dense
+    MLP)."""
     h = rmsnorm(x, layer["ln1"], cfg.norm_eps)
     x = x + attn_apply(layer["attn"], h, cfg, angles=angles, causal=causal,
                        window=window)
     h = rmsnorm(x, layer["ln2"], cfg.norm_eps)
-    return x + mlp_apply(layer["mlp"], h)
+    y, aux = _ffn(layer, h, cfg)
+    return x + y, aux
 
 
 def _rec_layer(layer, x: torch.Tensor, *, cfg: ModelConfig) -> torch.Tensor:
@@ -174,6 +190,7 @@ def lm_forward(params, batch, cfg: ModelConfig, *, causal: bool = True
     tokens = batch["tokens"]
     x = common.embed_tokens(params["embed"], tokens, cfg)
     B, S = tokens.shape
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         body = _remat(functools.partial(_ssm_layer, cfg=cfg), cfg)
         for layer in params["layers"]:
@@ -183,12 +200,15 @@ def lm_forward(params, batch, cfg: ModelConfig, *, causal: bool = True
         x = _hybrid_forward(params, x, angles, cfg, causal)
     else:
         angles = _angles_for(cfg, batch, B, S, x.device)
-        body = _remat(functools.partial(_layer, cfg=cfg, causal=causal), cfg)
+        body = _remat(functools.partial(_attn_layer, cfg=cfg, causal=causal),
+                      cfg)
         for layer in params["layers"]:
-            x = body(layer, x, angles)
+            x, aux = body(layer, x, angles)
+            if aux is not None:
+                aux_total = aux_total + aux
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = common.lm_logits(x, _lm_head(params, cfg), cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 def _hybrid_forward(params, x: torch.Tensor, angles: torch.Tensor,
@@ -197,10 +217,10 @@ def _hybrid_forward(params, x: torch.Tensor, angles: torch.Tensor,
     see the local window.  (The JAX package scans whole pattern groups and
     unrolls the remainder layers; here every layer is one loop step.)"""
     rec = _remat(functools.partial(_rec_layer, cfg=cfg), cfg)
-    att = _remat(functools.partial(_layer, cfg=cfg, causal=causal,
+    att = _remat(functools.partial(_attn_layer, cfg=cfg, causal=causal,
                                    window=cfg.local_window), cfg)
     for kind, _, layer in _hybrid_layers(params, cfg):
-        x = rec(layer, x) if kind == "rec" else att(layer, x, angles)
+        x = rec(layer, x) if kind == "rec" else att(layer, x, angles)[0]
     return x
 
 
@@ -332,7 +352,7 @@ def _dense_prefill(params, batch, x: torch.Tensor, cache, cfg: ModelConfig,
                                return_kv=True)
         x = x + a
         h = rmsnorm(x, layer["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(layer["mlp"], h)
+        x = x + _ffn(layer, h, cfg)[0]        # the aux is not needed here
         cache["k"][li, :, :S] = k.to(cache["k"].dtype)
         cache["v"][li, :, :S] = v.to(cache["v"].dtype)
     return x
@@ -415,7 +435,7 @@ def _dense_decode(params, x: torch.Tensor, cache, cfg: ModelConfig
                               angles=angles)
         x = x + a
         h = rmsnorm(x, layer["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(layer["mlp"], h)
+        x = x + _ffn(layer, h, cfg)[0]
     return x
 
 

@@ -1,7 +1,8 @@
-"""Continuous-batching serving engine with paged KV (dense decoder LMs).
+"""Continuous-batching serving engine with paged KV (dense and moe
+decoder LMs).
 
 The port of ``repro/serving/engine.py`` without its mesh and artifact
-export (ROADMAP item 5) and its moe and vlm families (item 4).  A fixed
+export (ROADMAP item 5) and its vlm family (item 4).  A fixed
 grid of request slots decodes in lock-step, one batched decode step per
 tick; finished slots are released through the balanced allocator's chunk
 reset and refilled from the request queue.  The engine has no prefill:
@@ -27,9 +28,8 @@ from repro_torch.core.rpc import REGISTRY, RpcQueue, ShapeDtype
 from repro_torch.models import common
 from repro_torch.models.attention import _project_qkv, attn_out
 from repro_torch.models.common import rmsnorm
-from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.model_zoo import Model, resolve_device
-from repro_torch.models.transformer import _lm_head
+from repro_torch.models.transformer import _ffn, _lm_head
 from repro_torch.serving import kvcache
 from repro_torch.serving.kvcache import PagedKV
 
@@ -66,7 +66,7 @@ def paged_decode_step(params, kv: PagedKV, tokens: torch.Tensor,
         a = kvcache.paged_attend(kv, li, q[:, 0].contiguous())
         x = x + attn_out(layer["attn"], a, cfg)[:, None]
         h = rmsnorm(x, layer["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(layer["mlp"], h)
+        x = x + _ffn(layer, h, cfg)[0]        # the aux is not needed here
     kv = kvcache.advance(kv, active)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = common.lm_logits(x, _lm_head(params, cfg), cfg)[:, 0]
@@ -108,10 +108,12 @@ class ServingEngine:
                              f"{self.device}")
         self.model = model
         self.cfg = model.cfg
-        if self.cfg.family != "dense":
+        if self.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"the engine serves the dense family; {self.cfg.family!r} is "
-                "not ported yet")
+                f"the engine serves the dense and moe families; "
+                f"{self.cfg.family!r} is not ported yet (vlm: ROADMAP queue "
+                "1, item 4; the ssm and hybrid families are served through "
+                "Model.prefill and Model.decode_step, as in JAX)")
         self.params = params
         self.B = batch_slots
         self.kv = kvcache.paged_cache_init(

@@ -23,9 +23,10 @@ generated from a seed via :meth:`FaultPlan.generate`; a plan holds
 mutable occurrence counters, so call :meth:`FaultPlan.reset` (or build a
 fresh plan from the same seed) before replaying it.
 
-The port's async queue reserves occurrences at each flush through
-:meth:`FaultPlan.reserve` and passes them back with ``index=``; the
-sharded transport (ROADMAP queue 1, item 3.4) is not ported yet.
+The port's async queues and its sharded queue with ``shard_deadline``
+reserve occurrences at each flush through :meth:`FaultPlan.reserve`, a
+sharded flush for every shard in one ``(device, slot)`` sweep, and pass
+them back with ``index=``.
 
 **Concurrent drains (async / sharded-async transports).**  When drains
 run on background threads, arrival order at ``on_call`` is scheduler

@@ -54,8 +54,9 @@ def test_logring_records_equal_jax():
         assert a[:2] == b[:2]
         if len(a) == 3:
             assert a[2].dtype == b[2].dtype and a[2].tolist() == b[2].tolist()
-    with pytest.raises(NotImplementedError, match="item 3.4"):
-        tlibc.LogRing.create_sharded(2)
+    # item 3.4 is ported: a sharded ring is one ring shard a device
+    sharded = tlibc.LogRing.create_sharded(2, 4, device="cpu")
+    assert sharded.q.n_devices == 2 and sharded.q.capacity == 4
 
 
 def test_logring_sinks_per_flush_and_per_name():

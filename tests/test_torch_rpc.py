@@ -269,27 +269,42 @@ def test_rpc_empty_and_tuple_result_shapes_match_jax():
 
 
 def _issue_conformance(pkg, call):
-    """tests/test_rpc_transport.py's immediate and batched conformance
-    issuers of ``libc.fprintf``/``libc.fwrite`` (``result_shape=()``),
-    through one package: returns the host effect."""
+    """tests/test_rpc_transport.py's conformance issuers of
+    ``libc.fprintf``/``libc.fwrite`` (``result_shape=()``) and remote
+    malloc, through one package and one transport (immediate, batched or
+    a 2-shard sharded queue, one call a shard): returns the host effect
+    and the device's results (the reply arena's pointers)."""
     if pkg == "jax":
         from repro.core import libc
-        from repro.core.rpc import RpcQueue, rpc_call
+        from repro.core.allocator import GenericAllocator as GA
+        from repro.core.rpc import RpcQueue, ShardedRpcQueue, rpc_call
         i32 = lambda v: jnp.int32(v)       # noqa: E731
         f32 = lambda v: jnp.float32(v)     # noqa: E731
         arr = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
-        run = lambda f: (jax.jit(f)(), jax.effects_barrier())  # noqa: E731
+        run = lambda f: (jax.jit(f)(), jax.effects_barrier())[0]  # noqa
         queue = lambda **kw: RpcQueue.create(8, **kw)  # noqa: E731
+        sharded = lambda **kw: ShardedRpcQueue.create(2, 8, **kw)  # noqa
+        spec = lambda k: jax.ShapeDtypeStruct((k,), jnp.int32)  # noqa
+        restack = lambda ls: ShardedRpcQueue(jax.tree.map(  # noqa: E731
+            lambda *xs: jnp.stack(xs), *ls))
+        heap = GA.init(256, cap=16)
     else:
         from repro_torch.core import libc
-        from repro_torch.core.rpc import RpcQueue, rpc_call
+        from repro_torch.core.allocator import GenericAllocator as GA
+        from repro_torch.core.rpc import (RpcQueue, ShardedRpcQueue,
+                                          rpc_call)
         i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
         f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
         arr = i32
-        run = lambda f: (f(), trpc.effects_barrier())  # noqa: E731
+        run = lambda f: (f(), trpc.effects_barrier())[0]  # noqa: E731
         queue = lambda **kw: RpcQueue.create(8, device="cpu", **kw)  # noqa
+        sharded = lambda **kw: ShardedRpcQueue.create(  # noqa: E731
+            2, 8, device="cpu", **kw)
+        spec = lambda k: trpc.ShapeDtype((k,), torch.int32)  # noqa: E731
+        restack = ShardedRpcQueue.stack
+        heap = GA.init(256, cap=16, device="cpu")
     transport, what = call
-    stream = {"immediate": 31, "batched": 32}[transport]
+    stream = {"immediate": 31, "batched": 32, "sharded": 33}[transport]
     libc.drain_printf()                  # what earlier tests left
     libc.drain_fwrite(stream)
     if what == "fprintf":
@@ -302,39 +317,99 @@ def _issue_conformance(pkg, call):
                     rpc_call("libc.fprintf", i32(fid), i32(a), f32(b),
                              result_shape=())
                 return i32(0)
-        else:
+            run(prog)
+        elif transport == "batched":
             def prog():
                 q = queue(width=4, payload_capacity=16)
                 for a, b in calls:
                     q = libc.fprintf(q, fmt, i32(a), f32(b))
                 return q.flush().head
-        run(prog)
-        return libc.drain_printf()
-    chunks = [[10, 20, 30], [40]]
+            run(prog)
+        else:
+            q = sharded(width=4, payload_capacity=16)
+            locals_ = [q.local(d) for d in range(2)]
+            for d, (a, b) in enumerate(calls):      # one call per device
+                locals_[d] = libc.fprintf(locals_[d], fmt, i32(a), f32(b))
+            run(lambda: restack(locals_).flush())
+        return libc.drain_printf(), None
+    if what == "fwrite":
+        chunks = [[10, 20, 30], [40]]
+        if transport == "immediate":
+            def prog():
+                for c in chunks:
+                    rpc_call("libc.fwrite", i32(stream), arr(c),
+                             result_shape=())
+                return i32(0)
+            run(prog)
+        elif transport == "batched":
+            def prog():
+                q = queue(width=2, payload_capacity=16)
+                for c in chunks:
+                    q = libc.fwrite(q, arr(c), stream=stream)
+                return q.flush().head
+            run(prog)
+        else:
+            q = sharded(width=2, payload_capacity=16)
+            locals_ = [q.local(d) for d in range(2)]
+            for d, c in enumerate(chunks):
+                locals_[d] = libc.fwrite(locals_[d], arr(c), stream=stream)
+            run(lambda: restack(locals_).flush())
+        return libc.drain_fwrite(stream).tolist(), None
+    name = f"heap.conf.{transport}"
+    libc.remote_heap_register(name, heap)
+    batches = [[8, 16], [4]]
+    nid = libc._intern_fmt(name)
     if transport == "immediate":
         def prog():
-            for c in chunks:
-                rpc_call("libc.fwrite", i32(stream), arr(c),
-                         result_shape=())
-            return i32(0)
+            return [rpc_call("libc.remote_malloc", i32(nid), i32(0),
+                             arr(sizes), result_shape=spec(len(sizes)))[0]
+                    for sizes in batches]
+    elif transport == "batched":
+        def prog():
+            q = queue(width=3, payload_capacity=16, reply_capacity=8)
+            tks = []
+            for sizes in batches:
+                q, t = libc.remote_malloc_enqueue(q, name, arr(sizes))
+                tks.append((t, len(sizes)))
+            q = q.flush()
+            return [q.result(t, (k,), spec(k).dtype) for t, k in tks]
     else:
         def prog():
-            q = queue(width=2, payload_capacity=16)
-            for c in chunks:
-                q = libc.fwrite(q, arr(c), stream=stream)
-            return q.flush().head
-    run(prog)
-    return libc.drain_fwrite(stream).tolist()
+            q = sharded(width=3, payload_capacity=16, reply_capacity=8)
+            locals_ = [q.local(d) for d in range(2)]
+            tks = []
+            for d, sizes in enumerate(batches):
+                locals_[d], t = libc.remote_malloc_enqueue(
+                    locals_[d], name, arr(sizes))
+                tks.append((d, t, len(sizes)))
+            sq = restack(locals_).flush()
+            return [sq.result(d, t, (k,), spec(k).dtype)
+                    for d, t, k in tks]
+    device_ptrs = [np.asarray(o).tolist() for o in run(prog)]
+    state, host_ptrs = libc.remote_malloc_results(name)
+    return ([p.tolist() for p in host_ptrs], int(state.watermark)), \
+        device_ptrs
 
 
-@pytest.mark.parametrize("transport", ["immediate", "batched"])
-@pytest.mark.parametrize("what", ["fprintf", "fwrite"])
+@pytest.mark.parametrize("transport", ["immediate", "batched", "sharded"])
+@pytest.mark.parametrize("what", ["fprintf", "fwrite", "remote_malloc"])
 def test_cross_transport_conformance_matches_jax(transport, what):
-    """The immediate and batched branches of JAX's
-    ``test_cross_transport_conformance``: the same host effect from both
-    packages, and the same from both transports."""
+    """JAX's ``test_cross_transport_conformance``, each transport of it:
+    the same host effect and device results from both packages, and (for
+    the output calls) the same from every transport."""
     got = {pkg: _issue_conformance(pkg, (transport, what))
            for pkg in ("jax", "port")}
-    want = (["conf 3 1.5", "conf 4 -0.5"] if what == "fprintf"
-            else [10, 20, 30, 40])
-    assert got["port"] == got["jax"] == want
+    assert got["port"] == got["jax"]
+    if what != "remote_malloc":
+        want = (["conf 3 1.5", "conf 4 -0.5"] if what == "fprintf"
+                else [10, 20, 30, 40])
+        assert got["port"][0] == want
+
+
+def test_remote_malloc_conformance_across_transports():
+    """The three transports give the port identical host effects and
+    device results (JAX's sweep, on the port alone)."""
+    runs = [_issue_conformance("port", (t, "remote_malloc"))
+            for t in ("immediate", "batched", "sharded")]
+    assert runs[0] == runs[1] == runs[2]
+    assert runs[0][1] == [[0, 8], [24]]

@@ -671,10 +671,12 @@ def test_reply_rejected_without_reply_arena():
 
 
 def test_later_items_are_refused_by_name():
-    for kw, item in (({"shard_deadline": 1.0, "reply_capacity": 4}, "3.4"),):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            _q(4, **kw)
-    assert _q(4, sanitize=True).sanitize       # item 3.7 is ported
+    # items 3.4 and 3.7 are ported: a sync queue takes shard_deadline (it
+    # bounds a sharded flush's drain; JAX's single sync queue ignores it)
+    assert _q(4, shard_deadline=1.0, reply_capacity=4).shard_deadline == 1.0
+    with pytest.raises(ValueError, match="shard_deadline requires reply"):
+        _q(4, shard_deadline=1.0)
+    assert _q(4, sanitize=True).sanitize
     with pytest.raises(ValueError, match="carry_budget requires mode"):
         _q(4, carry_budget=1)
     with pytest.raises(ValueError, match="mode"):
