@@ -13,7 +13,11 @@ source, all started together) and runs, in order:
    and bf16, at the serving engine's full-width shapes, at the long shape
    (8 rows up to 4096 tokens), at ``long_b32`` (32 slots of 512..8192
    tokens, ~1.1 GB of bf16 K/V), at qwen2.5-14b's grouping (48 padded
-   heads over 8, G=6, D=128: rows 0..5 of the 16-row mma tile) and at
+   heads over 8, G=6, D=128: rows 0..5 of the 16-row mma tile), at
+   seamless's cross attention (16 heads over 16, D 64, over 1024 encoder
+   frames with ragged lengths, G=1: one row of the tile; and a row of
+   length 0), at qwen2-vl's grouping (16 padded heads over 2, G=8, D=128,
+   decode and paged) and at
    edge cases (page size 8, G=2/D=16, G=16/D=256 paged, a window, FAIL
    page ids), with kernel,
    plain and library (SDPA on pre-gathered KV, timed only) times beside
@@ -41,15 +45,19 @@ source, all started together) and runs, in order:
 5. ``flash``: the flash kernel against its plain version, fp32 and bf16, at
    the training shape (B 2, S 1024, 32 heads over 8 KV heads, D 128,
    causal), a ragged shape (Sq = Sk = 1000), a window of 128, a q_offset
-   with Sq < Sk, G = 1 with D = 16 (bf16: the mma.sync variant) and
-   seamless's width (16 heads over 16, D 64); bf16 rows that see no key
+   with Sq < Sk, G = 1 with D = 16 (bf16: the mma.sync variant),
+   seamless's width (16 heads over 16, D 64), its encoder (B 4 x 1024
+   and 1000 frames, not causal), its decoder's cross attention (48
+   queries over 1024 frames, not causal) and qwen2-vl's prefill (B 2 x
+   1024, 16 padded heads over 2, D 128, causal); bf16 rows that see no key
    (``blind_rows_d*``, the wgmma variant at D 64, 128 and 256 against
    its tiled plain twin), and fp32 ones (the CUDA-core variant at D 64,
    128 and 256 against its twin at its own tiles); the q/k/v gradients
    through the op against autograd through the plain version at the
    training shape; kernel (also ``kernel_ms_clean_l2``), plain and SDPA
    (timed only) times beside the flops bound at the training and D 64
-   shapes, where the fp32 kernel must beat SDPA;
+   shapes, where the fp32 kernel must beat SDPA, at seamless's encoder
+   and at qwen2-vl's prefill;
 6. ``prefill``: fp32, full width, 4 layers, TF32 off: the logits of
    ``Model.forward`` against the contiguous ``decode_step`` teacher-forced
    over the same prompt (every position within 1e-3, the same argmax),
@@ -226,7 +234,30 @@ launches: paged 16 a tick, decode 16 a step) and ``moe_profile``; and
 ``moe_fp32``, the same width in fp32 at 2 layers: the engine within
 2e-5 of the contiguous decode, ``Model.forward`` within 1e-3 of
 ``Model.prefill`` + decode and the experts chosen for every token and
-layer equal on both paths.  After ``events``: ``rpc_sharded``, the
+layer equal on both paths.  Then the last two model families, each at
+full width and depth on the card from random weights (seed 0):
+``encdec_serve``, seamless-m4t-large-v2 (24 encoder and 24 decoder
+layers, 16 heads over 16 of 64, bf16, ~2.04e9 parameters):
+``Model.prefill`` of 4 requests x 1024 frame embeddings and 32 greedy
+decode steps (prefill ms, decode ms/step and tok/s, peak memory; exact
+launches: flash 24 a prefill, decode 48 a step, self and cross), its
+steps' logits and ``Model.forward``'s teacher-forced on the stream
+(flash at Sq 32 over 1024 frames; 72 launches) both held against the
+fp32 forward of the same weights, the steps within twice the forward's
+distance (bf16 rounding alone puts the two bf16 paths ~0.1 apart), and
+``encdec_profile``; ``encdec_fp32``, the same width in
+fp32 at 2 + 2 layers with ragged ``enc_lens``: the card's decode logits
+against the same parameters on the CPU's plain versions within 1e-3;
+``vlm_serve``, qwen2-vl-2b (28 layers, 12 heads padded to 16 over 2 of
+128, M-RoPE, bf16, ~1.78e9 parameters): ``Model.prefill`` of 2 x 1024
+patch-and-text embeddings at Qwen2-VL's (t, h, w) positions and 32
+greedy steps, the last 4 fed as embeddings (exact launches; the logits
+and ``Model.forward``'s over the same embeddings and positions held
+against fp32 as seamless's; ``vlm_profile``), then the paged engine on
+token prompts with ``serve``'s gates and ``vlm_engine_profile``; and
+``vlm_fp32``, the same width in fp32 at 2 layers: prefill + 8 steps
+against the forward within 1e-3, the same argmax.  After ``events``:
+``rpc_sharded``, the
 ``rpc_queue`` plans on 4-shard ``ShardedRpcQueue``s, sync and async,
 plain and sanitized (states bit-equal to CPU queues and, sync, to four
 single queues flushed in (device, slot) order; replay logs, tickets,
@@ -247,7 +278,8 @@ naming its callee).
 
 Every phase raises on failure.  The kernels' launch counts are reset just
 before each counted path (phases 3, 7, 10, 12, 16, 21, 24, 25 and 26,
-``dense_serve``, ``moe_serve``, ``moe_fp32``, ``rpc_queue_async``,
+``dense_serve``, ``moe_serve``, ``moe_fp32``, ``encdec_serve``,
+``encdec_fp32``, ``vlm_serve``, ``vlm_fp32``, ``rpc_queue_async``,
 ``device_run_async``, ``host_pipeline``, ``serve_spill``, ``sanitizer``,
 ``rpc_sharded`` and ``manifest``) and read just after it; each path's count must be the exact number its depth
 and steps give (``rpc_post``: one a firing of a hook, a call or a flush;
@@ -263,8 +295,10 @@ kernels' registers, spills and shared memory at D 128; and under
 ``rglru_stream`` at the chunk lengths the timed shapes take (none may
 spill).  The last lines
 are the ``kernels`` line (with the launches of each path, for flash and
-decode their numbers at the hybrid shapes and for the SSD scan at the
-training shape),
+decode their numbers at the hybrid shapes, decode and paged at
+qwen2.5-14b's, seamless's cross attention's (decode) and qwen2-vl's
+(``at_*_shape``), flash at seamless's encoder and qwen2-vl's prefill,
+and for the SSD scan at the training shape),
 the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits with code 1 and prints no result.
 """
@@ -292,6 +326,13 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SEQ_TOL = 2e-6
 LOGIT_ATOL_BF16 = 0.05           # engine vs contiguous decode, bf16 logits
 LOGIT_ATOL_FP32 = 1e-3           # forward vs contiguous decode, fp32 logits
+# bf16 decode steps against a bf16 forward at full depth differ by bf16
+# rounding alone by more than LOGIT_ATOL_BF16 (on an H100: seamless
+# 0.103, qwen2-vl 0.174; llama's ungated difference 0.103), so those
+# gates hold each bf16 path against the same weights run in fp32: the
+# decode steps' distance from it within LOGIT_ATOL_BF16 or, where the
+# forward's own distance is larger, within this multiple of it.
+BF16_ERR_MULT = 2.0
 SERVE_LAYERS = 28
 DENSE_LAYERS = 48                # qwen2.5-14b, the dense_serve phase
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 1024
@@ -307,6 +348,24 @@ HYBRID_RUNS = (("batch2_3072", 2, 3072, 32), ("single_1000", 1, 1000, 16))
 # of dt * A among it), whose size depends on the order of the sums, not on
 # the kernel's correctness; 4x leaves room for another order.
 SSD_FP64_MULT = 4.0
+# seamless-m4t-large-v2 (encdec_serve, encdec_fp32) and qwen2-vl-2b
+# (vlm_serve)
+ENCDEC_LAYERS = 24               # seamless-m4t-large-v2, each stack
+ENCDEC_FRAMES = 1024             # frame embeddings a request
+ENCDEC_STEPS = 32                # greedy decode steps a request
+ENCDEC_BOS = 2                   # the decoder's first token
+#: The fp32 gate: its depth (each stack), ragged encoder lengths, steps.
+ENCDEC_FP32_LAYERS, ENCDEC_FP32_STEPS = 2, 8
+ENC_LENS_RAGGED = (1024, 700, 333, 97)
+VLM_LAYERS = 28                  # qwen2-vl-2b
+#: Qwen2-VL's prompt: 16 text tokens, an image of 24 x 32 patches, 240
+#: text tokens (1024 positions).
+VLM_LAYOUT = (16, (24, 32), 240)
+#: Greedy steps after the embeddings' prefill; the last few are fed as
+#: embeddings (``decode_step(..., embeds=)``).
+VLM_STEPS, VLM_EMBED_STEPS = 32, 4
+#: The fp32 gate's depth and greedy steps.
+VLM_FP32_LAYERS, VLM_FP32_STEPS = 2, 8
 
 
 def log(obj) -> None:
@@ -409,6 +468,12 @@ def _close(out, ref, dtn):
         and torch.isfinite(out).all())
 
 
+#: The bf16 decode and paged cases that the kernels line reports, and the
+#: suffix of their summary keys.
+SUMMARY_CASES = {"serve": "", "g6_d128": "@g6", "g1_d64_enc": "@g1_enc",
+                 "g8_d128": "@g8"}
+
+
 def _long_b32_lengths():
     """32 slot lengths in 512..8192, drawn from a seed."""
     gen = torch.Generator().manual_seed(3232)
@@ -485,6 +550,15 @@ def kernel_phase(card):
             "g2_d16": (3, 256, 4, 2, 16, [256, 85, 7], None, False),
             # qwen2.5-14b's grouping: 48 padded heads over 8 (G 6)
             "g6_d128": (4, 512, 48, 8, 128, serve_lengths, None, True),
+            # seamless's cross attention: 16 heads over 16 (G 1) over 1024
+            # encoder frames, ragged enc_lens (whole splits idle); a row
+            # of enc_lens 0 returns 0
+            "g1_d64_enc": (4, 1024, 16, 16, 64, list(ENC_LENS_RAGGED), None,
+                           True),
+            "g1_d64_enc_zero": (4, 1024, 16, 16, 64, [1024, 0, 333, 1],
+                                None, False),
+            # qwen2-vl's grouping: 12 heads padded to 16 over 2 (G 8)
+            "g8_d128": (4, 512, 16, 2, 128, serve_lengths, None, True),
         }.items():
             q, k, v = rnd((B, Hq, D), dt), rnd((B, T, Hkv, D), dt), \
                 rnd((B, T, Hkv, D), dt)
@@ -512,9 +586,8 @@ def kernel_phase(card):
                 del kt, vt
             rec = check("decode_attention", case, dt, out, ref, twin, plan,
                         times, bound)
-            if dtn == "bfloat16" and case in ("serve", "g6_d128"):
-                summary["decode_attention" + (
-                    "" if case == "serve" else "@g6")] = rec
+            if dtn == "bfloat16" and case in SUMMARY_CASES:
+                summary["decode_attention" + SUMMARY_CASES[case]] = rec
             del q, k, v, out, ref, twin
         # -- paged decode ------------------------------------------------
         for case, (B, page, maxp, Hq, Hkv, D, lens, window, timed) in {
@@ -528,6 +601,8 @@ def kernel_phase(card):
             "g16_d256": (2, 16, 128, 16, 1, 256, [2048, 700], None, False),
             # qwen2.5-14b's grouping: 48 padded heads over 8 (G 6)
             "g6_d128": (4, 16, 32, 48, 8, 128, serve_lengths, None, True),
+            # qwen2-vl's engine: 16 padded heads over 2 (G 8)
+            "g8_d128": (4, 16, 32, 16, 2, 128, serve_lengths, None, True),
         }.items():
             NP = B * maxp
             q = rnd((B, Hq, D), dt)
@@ -572,9 +647,8 @@ def kernel_phase(card):
                 del kg, vg
             rec = check("paged_attention", case, dt, out, ref, twin, plan,
                         times, bound)
-            if dtn == "bfloat16" and case in ("serve", "g6_d128"):
-                summary["paged_attention" + (
-                    "" if case == "serve" else "@g6")] = rec
+            if dtn == "bfloat16" and case in SUMMARY_CASES:
+                summary["paged_attention" + SUMMARY_CASES[case]] = rec
             del q, kp, vp, out, ref, twin
         torch.cuda.empty_cache()
     del timer, clean
@@ -1137,6 +1211,14 @@ def flash_phase(card_line):
             "q_offset": (2, 200, 712, 32, 8, 128, True, None, 512, False),
             "g1_d16": (2, 333, 333, 4, 4, 16, False, None, 0, False),
             "d64": (2, 1024, 1024, 16, 16, 64, True, None, 0, True),
+            # seamless's encoder (bidirectional) and its decoder's cross
+            # attention (48 queries over 1024 frames): the wgmma variant
+            # without the causal mask, Sk a multiple of the key tile and
+            # not; qwen2-vl's prefill (16 padded heads over 2)
+            "enc_d64": (4, 1024, 1024, 16, 16, 64, False, None, 0, True),
+            "enc_ragged": (4, 1000, 1000, 16, 16, 64, False, None, 0, False),
+            "cross_d64": (4, 48, 1024, 16, 16, 64, False, None, 0, False),
+            "vlm_prefill": (2, 1024, 1024, 16, 2, 128, True, None, 0, True),
         }.items():
             q, k, v = rnd((B, Sq, Hq, D), dt), rnd((B, Sk, Hkv, D), dt), \
                 rnd((B, Sk, Hkv, D), dt)
@@ -1164,7 +1246,7 @@ def flash_phase(card_line):
                     plain_ms=timer(lambda: plain_attention(
                         q, k, v, causal, window, q_offset, None)),
                     library_ms=timer(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True)))
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)))
                 bound = _flash_bound(dtn, es, B, Sq, Sk, Hq, Hkv, D, causal,
                                      window, q_offset)
                 rec.update(bound_ms=bound[0], bound_by=bound[1],
@@ -1172,15 +1254,17 @@ def flash_phase(card_line):
                 if dt == torch.float32:
                     rec["faster_than_library"] = \
                         rec["kernel_ms"] < rec["library_ms"]
-                    ok = ok and rec["faster_than_library"]
+                    if case in ("train", "d64"):
+                        ok = ok and rec["faster_than_library"]
                     rec["ok"] = ok
             log(rec)
             if not ok:
                 raise AssertionError(f"flash_attention {case} {dtn} disagrees "
                                      f"with its plain version or is not "
                                      f"faster than SDPA: {rec}")
-            if case == "train" and dtn == "bfloat16":
-                summary = rec
+            if dtn == "bfloat16" and case in ("train", "enc_d64",
+                                              "vlm_prefill"):
+                summary[case] = rec
         _blind_rows_cases(rnd, dt)
         # gradients through the op against autograd through the plain version
         B, S, Hq, Hkv, D = 2, 1024, 32, 8, 128
@@ -1728,6 +1812,34 @@ def ssm_serve_phase():
 
 
 @torch.no_grad()
+def _decode_profile(model, params, cache, tok, tag, steps=8, warm=4,
+                    **extra):
+    """``warm`` greedy decode steps on ``cache``, ``steps`` timed, then
+    ``steps`` more under ``torch.profiler``: the ``tag`` line (busy share,
+    kernels, top kernels and host operators a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def decode(cache, tok, n):
+        for _ in range(n):
+            logits, cache = model.decode_step(params, cache, tok)
+            tok = logits.argmax(-1)
+        return cache, tok
+
+    cache, tok = decode(cache, tok, warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, tok = decode(cache, tok, steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode(cache, tok, steps)
+        torch.cuda.synchronize()
+    log({tag: {"what": "decode_step", **extra,
+               **_profile_summary(prof, steps, wall)}})
+
+
+@torch.no_grad()
 def ssm_serve_profile(model, params, batch, single, steps=8,
                       tag="ssm_profile"):
     """Where a recurrent model's serving time goes, outside the counted
@@ -1737,26 +1849,10 @@ def ssm_serve_profile(model, params, batch, single, steps=8,
     ``tag`` lines."""
     from torch.profiler import ProfilerActivity, profile
 
-    def decode(cache, tok, n):
-        for _ in range(n):
-            logits, cache = model.decode_step(params, cache, tok)
-            tok = logits.argmax(-1)
-        return cache, tok
-
     logits, cache = model.prefill(params, {"tokens": batch},
                                   batch.shape[1] + 4 + 2 * steps + 1)
-    cache, tok = decode(cache, logits.argmax(-1), 4)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cache, tok = decode(cache, tok, steps)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        cache, tok = decode(cache, tok, steps)
-        torch.cuda.synchronize()
-    log({tag: {"what": "decode_step", "batch": batch.shape[0],
-               **_profile_summary(prof, steps, wall)}})
+    _decode_profile(model, params, cache, logits.argmax(-1), tag, steps,
+                    batch=batch.shape[0])
     del cache
     prompt = {"tokens": single}
     torch.cuda.synchronize()
@@ -4781,6 +4877,482 @@ def moe_fp32_phase():
 
 
 # ---------------------------------------------------------------------------
+# The encdec and vlm families at full width and depth
+# ---------------------------------------------------------------------------
+
+def _seamless_cfg(**kw):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"), **kw)
+    assert (cfg.d_model, cfg.padded_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.qkv_bias) == (1024, 16, 16, 64, 8192, 256206, True)
+    return cfg
+
+
+@torch.no_grad()
+def _encdec_greedy(model, params, batch, steps, max_len):
+    """``Model.prefill`` of ``batch``'s frames (no tokens), then ``steps``
+    greedy ``decode_step``s from ``ENCDEC_BOS``.  Returns (stream (B,
+    steps), logits (B, steps, V), prefill s, decode s, cache); both times
+    end in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = model.prefill(params, batch, max_len)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = torch.full((batch["embeds"].shape[0],), ENCDEC_BOS,
+                     device=batch["embeds"].device)
+    toks, rows = [], []
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, cache, tok)
+        tok = logits.argmax(-1)
+        rows.append(logits)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (torch.stack(toks, dim=1), torch.stack(rows, dim=1), t1 - t0,
+            t2 - t1, cache)
+
+
+@torch.no_grad()
+def _bf16_gate(tag, model, params, batch, dec, fwd, rows=slice(None)):
+    """Hold bf16 decode logits ``dec`` and the bf16 forward's ``fwd`` (the
+    same positions) against ``Model.forward`` of ``batch`` with the same
+    weights in fp32 (TF32 off; its ``rows`` positions): the decode
+    steps' largest distance from it within ``LOGIT_ATOL_BF16`` or
+    ``BF16_ERR_MULT`` times the forward's, whichever is larger.  Logs
+    ``tag`` with both distances, the decode-to-forward difference beside
+    ``LOGIT_ATOL_BF16`` and the argmax agreements."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32",
+                                param_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    ref, _ = build_model(cfg32, device="cuda").forward(params32, batch)
+    ref = ref[:, rows]
+    del params32
+    real = slice(0, model.cfg.vocab_size)
+    e_dec = float((dec[..., real] - ref[..., real]).abs().max())
+    e_fwd = float((fwd[..., real] - ref[..., real]).abs().max())
+    rec = {"positions": dec.shape[1],
+           "max_abs_logit_diff": float((dec[..., real] - fwd[..., real])
+                                       .abs().max()),
+           "atol_bf16": LOGIT_ATOL_BF16,
+           "decode_vs_fp32": e_dec, "forward_vs_fp32": e_fwd,
+           "mult": BF16_ERR_MULT,
+           "same_argmax_share": float((dec.argmax(-1) == fwd.argmax(-1))
+                                      .float().mean()),
+           "decode_argmax_is_fp32_share": float(
+               (dec.argmax(-1) == ref.argmax(-1)).float().mean())}
+    rec["ok"] = bool(e_dec <= max(LOGIT_ATOL_BF16, BF16_ERR_MULT * e_fwd)
+                     and torch.isfinite(fwd[..., real]).all()
+                     and torch.isfinite(ref[..., real]).all())
+    log({tag: rec})
+    if not rec["ok"]:
+        raise AssertionError(f"{tag}: the bf16 decode steps are further "
+                             f"from fp32 than the gate allows: {rec}")
+
+
+def encdec_serve_phase():
+    """seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+    decoder layers, d_model 1024, 16 heads over 16 of 64, QKV bias, vocab
+    256206, bf16, ~2.04e9 random parameters from seed 0 built on the
+    card), served as the JAX package serves the encdec family: one
+    ``Model.prefill`` of 4 requests x 1024 frame embeddings (the encoder,
+    bidirectional: flash non-causal at G 1, D 64; the cross K/V of every
+    decoder layer) and 32 greedy ``decode_step``s (self attention over the
+    decoder's cache and cross attention over the 1024 frames: decode at
+    G 1, D 64).  The counts are reset just before and read just after:
+    flash 24 (all of the wgmma variant), decode 48 a step.  The logits
+    gate: ``Model.forward`` teacher-forced on the generated stream (its
+    decoder's cross attention is flash at Sq 32 over Sk 1024; 72 flash
+    launches, counted too) and the decode steps, both held against the
+    fp32 forward of the same weights (``_bf16_gate``).  Then
+    ``encdec_profile`` (8 decode steps under ``torch.profiler``).  Returns
+    the launches."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models import build_model
+
+    cfg = _seamless_cfg()
+    L = ENCDEC_LAYERS
+    assert cfg.encoder_layers == cfg.decoder_layers == L
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[encdec_serve] {cfg.name}: {L} + {L} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{n_params} parameters ({cfg.param_dtype}), init {init_s:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    B, S = 4, ENCDEC_FRAMES
+    embeds = torch.randn((B, S, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    max_len = 64                     # 32 steps, then the profile's 20
+    # the warm-up at the served shapes: the GEMMs' first calls at a shape
+    # load their kernels
+    _encdec_greedy(model, params, {"embeds": embeds}, 2, max_len)
+
+    # main path: counts from 0 just before, read just after
+    reset_launches(flash_attention_cuda, decode_attention_cuda)
+    torch.cuda.reset_peak_memory_stats()
+    stream, dec, t_pre, t_dec, cache = _encdec_greedy(
+        model, params, {"embeds": embeds}, ENCDEC_STEPS, max_len)
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "decode_attention": decode_attention_cuda.launches}
+    by_variant = dict(flash_attention_cuda.launches_by_variant)
+    expected = {"flash_attention": L,
+                "decode_attention": ENCDEC_STEPS * 2 * L}
+    log({"encdec_serve": {
+        "model": cfg.name, "layers": [L, L], "batch": B, "frames": S,
+        "steps": ENCDEC_STEPS, "parameters": n_params, "init_s": init_s,
+        "prefill_ms": t_pre * 1e3, "prefill_frames_per_s": B * S / t_pre,
+        "decode_ms_per_step": t_dec / ENCDEC_STEPS * 1e3,
+        "decode_tok_per_s": B * ENCDEC_STEPS / t_dec,
+        "launches": launches, "expected": expected,
+        "flash_launches_by_variant": by_variant,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "stream_head": stream[0, :8].tolist()}})
+    if launches != expected or by_variant["wgmma"] != L:
+        raise AssertionError(f"encdec serve launches {launches} "
+                             f"({by_variant}), expected {expected}, all "
+                             "flash of the wgmma variant")
+    real = slice(0, cfg.vocab_size)
+    if not (torch.isfinite(dec[..., real]).all()
+            and bool((stream < cfg.vocab_size).all())):
+        raise AssertionError("encdec serve: non-finite logits or a pad "
+                             "token")
+
+    # the gate: the teacher-forced forward over the same stream
+    reset_launches(flash_attention_cuda, decode_attention_cuda)
+    tokens = torch.cat([torch.full((B, 1), ENCDEC_BOS, device="cuda"),
+                        stream[:, :-1]], dim=1)
+    with torch.no_grad():
+        fwd, _ = model.forward(params, {"embeds": embeds, "tokens": tokens})
+    torch.cuda.synchronize()
+    fwd_launches = {"flash_attention": flash_attention_cuda.launches,
+                    "decode_attention": decode_attention_cuda.launches}
+    log({"encdec_forward_launches": fwd_launches})
+    if fwd_launches != {"flash_attention": 3 * L, "decode_attention": 0}:
+        raise AssertionError(f"encdec forward launches {fwd_launches}, "
+                             f"expected {3 * L} flash and no decode")
+    _bf16_gate("encdec_forward_vs_decode_bf16", model, params,
+               {"embeds": embeds, "tokens": tokens}, dec, fwd)
+    _decode_profile(model, params, cache, stream[:, -1], "encdec_profile",
+                    batch=B, frames=S)
+    del model, params, cache, fwd, dec, embeds
+    torch.cuda.empty_cache()
+    log({"encdec_serve_phase_s": time.perf_counter() - t_phase})
+    return {k: launches[k] + fwd_launches[k] for k in launches}
+
+
+def encdec_fp32_phase():
+    """seamless at full width, fp32, 2 + 2 layers, TF32 off, with ragged
+    ``enc_lens`` (1024, 700, 333, 97) over 1024 frames: the card's
+    ``Model.prefill`` and 8 greedy decode steps against the same
+    parameters moved to the CPU, which runs the plain versions,
+    teacher-forced on the card's stream: every step's logits within
+    ``LOGIT_ATOL_FP32``; whether the CPU's argmax follows the card's
+    stream is printed.  Returns the card's launches (flash 2, decode 4 a
+    step)."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    L, n = ENCDEC_FP32_LAYERS, ENCDEC_FP32_STEPS
+    cfg = _seamless_cfg(encoder_layers=L, decoder_layers=L,
+                        dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    embeds = torch.randn((4, ENCDEC_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda")
+    enc_lens = torch.tensor(ENC_LENS_RAGGED, dtype=torch.int32)
+    reset_launches(flash_attention_cuda, decode_attention_cuda)
+    stream, dec, *_ = _encdec_greedy(
+        model, params, {"embeds": embeds, "enc_lens": enc_lens.cuda()}, n,
+        n + 1)
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "decode_attention": decode_attention_cuda.launches}
+    expected = {"flash_attention": L, "decode_attention": n * 2 * L}
+
+    cpu = build_model(cfg, device="cpu")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    with torch.no_grad():
+        _, cache = cpu.prefill(cpu_params, {"embeds": embeds.cpu(),
+                                            "enc_lens": enc_lens}, n + 1)
+        tok, rows = torch.full((4,), ENCDEC_BOS), []
+        for j in range(n):
+            logits, cache = cpu.decode_step(cpu_params, cache, tok)
+            rows.append(logits)
+            tok = stream[:, j].cpu()
+    ref = torch.stack(rows, dim=1)
+    real = slice(0, cfg.vocab_size)
+    diff = float((dec.cpu()[..., real] - ref[..., real]).abs().max())
+    follows = bool(torch.equal(ref.argmax(-1), stream.cpu()))
+    log({"encdec_fp32": {"layers": [L, L], "frames": ENCDEC_FRAMES,
+                         "enc_lens": list(ENC_LENS_RAGGED), "steps": n,
+                         "max_abs_logit_diff_vs_cpu": diff,
+                         "tol": LOGIT_ATOL_FP32,
+                         "cpu_greedy_follows_card_stream": follows,
+                         "launches": launches, "expected": expected}})
+    if launches != expected:
+        raise AssertionError(f"encdec fp32 launches {launches}, expected "
+                             f"{expected}")
+    if not (diff <= LOGIT_ATOL_FP32 and torch.isfinite(ref).all()):
+        raise AssertionError("encdec fp32: the card's decode logits and "
+                             "the CPU's plain versions disagree")
+    del model, params, cpu_params, cache, dec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vlm_positions(batch, device):
+    """Qwen2-VL's M-RoPE positions (3, B, S) of ``VLM_LAYOUT``: text has
+    one position in all three streams; the image's t is constant at the
+    next position and its h and w follow the patch grid from there; the
+    text after it continues from the largest position + 1."""
+    n_text, (gh, gw), n_after = VLM_LAYOUT
+    text = torch.arange(n_text)
+    t = torch.full((gh * gw,), n_text)
+    h = n_text + torch.arange(gh).repeat_interleave(gw)
+    w = n_text + torch.arange(gw).repeat(gh)
+    after = int(max(t.max(), h.max(), w.max())) + 1 + torch.arange(n_after)
+    pos = torch.stack([torch.cat([text, s, after]) for s in (t, h, w)])
+    return pos[:, None].expand(3, batch, -1).to(
+        device=device, dtype=torch.int32).contiguous()
+
+
+def _vlm_cfg(**kw):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b"), **kw)
+    assert (cfg.d_model, cfg.padded_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.mrope_sections, cfg.qkv_bias) == \
+        (1536, 16, 2, 128, (16, 24, 24), True)
+    return cfg
+
+
+@torch.no_grad()
+def _vlm_run(model, params, embeds, pos, steps, max_len):
+    """``Model.prefill`` of ``embeds`` (B, S, d) at M-RoPE positions
+    ``pos`` (3, B, S), then ``steps`` greedy ``decode_step``s, the last
+    ``VLM_EMBED_STEPS`` of them fed the chosen tokens' embeddings through
+    ``embeds=``.  Returns (logits (B, 1 + steps, V): the prefill's, then
+    each step's; the fed embeddings (B, steps, d); the cache; prefill s;
+    decode s), the times ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"embeds": embeds,
+                                           "positions": pos}, max_len)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rows, fed = [logits], []
+    for j in range(steps):
+        tok = rows[-1].argmax(-1)
+        fed.append(params["embed"][tok][:, None])
+        via_embeds = j >= steps - VLM_EMBED_STEPS
+        logits, cache = model.decode_step(
+            params, cache, tok, embeds=fed[-1] if via_embeds else None)
+        rows.append(logits)
+    torch.cuda.synchronize()
+    return (torch.stack(rows, dim=1), torch.cat(fed, dim=1), cache, t1 - t0,
+            time.perf_counter() - t1)
+
+
+def _vlm_forward_batch(embeds, pos, fed):
+    """The forward's batch over the prompt's and the fed embeddings: each
+    decode step sits at its position (its cache length) in all three
+    M-RoPE streams, as ``decode_step`` puts it."""
+    B, S = embeds.shape[:2]
+    n = fed.shape[1]
+    steps_pos = torch.arange(S, S + n, dtype=torch.int32,
+                             device=pos.device).expand(3, B, n)
+    return {"embeds": torch.cat([embeds, fed], dim=1),
+            "positions": torch.cat([pos, steps_pos], dim=-1)}
+
+
+def vlm_serve_phase():
+    """qwen2-vl-2b at full width and depth (28 layers, d_model 1536, 12
+    heads padded to 16 over 2 KV heads of 128, QKV bias, M-RoPE sections
+    (16, 24, 24), bf16, random weights from seed 0 built on the card):
+
+    (a) ``Model.prefill`` on 2 prompts of 1024 patch-and-text embeddings
+    at Qwen2-VL's positions (``vlm_positions``: flash causal at G 8, D
+    128), then 32 greedy ``decode_step``s (decode at G 8), the last 4 fed
+    as the chosen tokens' embeddings through ``embeds=`` (``_vlm_run``);
+    counts reset just before and read just after (flash 28, decode 28 a
+    step); the prefill's and steps' logits and ``Model.forward``'s over
+    the prompt's and the fed embeddings at their positions
+    (``_vlm_forward_batch``) both held against the fp32 forward of the
+    same weights (``_bf16_gate``); then ``vlm_profile`` (8 decode steps
+    under ``torch.profiler``);
+
+    (b) the paged engine on token prompts, as JAX's engine serves vlm
+    (``_engine_serve``: paged exactly once a layer a tick at G 8, the
+    contiguous decode's logits gate), and ``vlm_engine_profile`` (8 busy
+    ticks).  Returns the launches of both."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models import build_model
+
+    cfg = _vlm_cfg()
+    L = VLM_LAYERS
+    assert cfg.num_layers == L
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[vlm_serve] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+        f"{cfg.padded_heads} padded heads ({cfg.num_heads} real) over "
+        f"{cfg.num_kv_heads} of {cfg.resolved_head_dim}, M-RoPE "
+        f"{cfg.mrope_sections}, {n_params} parameters ({cfg.param_dtype}), "
+        f"init {time.perf_counter() - t_phase:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    B = 2
+    pos = vlm_positions(B, "cuda")
+    S = pos.shape[-1]
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    embeds = torch.randn((B, S, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    max_len = S + VLM_STEPS + 20     # the main path, then the profile's 20
+    # the warm-up at the served shapes (a 64-token one left the 2048-row
+    # GEMMs' first calls in the timed prefill: 445 ms against ~30 on an
+    # H100)
+    _vlm_run(model, params, embeds, pos, 2, max_len)
+
+    # main path: counts from 0 just before, read just after
+    reset_launches(flash_attention_cuda, decode_attention_cuda)
+    torch.cuda.reset_peak_memory_stats()
+    dec, fed, cache, t_pre, t_dec = _vlm_run(model, params, embeds, pos,
+                                             VLM_STEPS, max_len)
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "decode_attention": decode_attention_cuda.launches}
+    by_variant = dict(flash_attention_cuda.launches_by_variant)
+    expected = {"flash_attention": L, "decode_attention": VLM_STEPS * L}
+    stream = dec.argmax(-1)
+    log({"vlm_embeds_serve": {
+        "model": cfg.name, "layers": L, "batch": B, "prompt": S,
+        "layout": [VLM_LAYOUT[0], list(VLM_LAYOUT[1]), VLM_LAYOUT[2]],
+        "steps": VLM_STEPS, "steps_via_embeds": VLM_EMBED_STEPS,
+        "parameters": n_params, "prefill_ms": t_pre * 1e3,
+        "prefill_tok_per_s": B * S / t_pre,
+        "decode_ms_per_step": t_dec / VLM_STEPS * 1e3,
+        "decode_tok_per_s": B * VLM_STEPS / t_dec,
+        "launches": launches, "expected": expected,
+        "flash_launches_by_variant": by_variant,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "stream_head": stream[0, :8].tolist()}})
+    if launches != expected or by_variant["wgmma"] != L:
+        raise AssertionError(f"vlm serve launches {launches} "
+                             f"({by_variant}), expected {expected}, all "
+                             "flash of the wgmma variant")
+    real = slice(0, cfg.vocab_size)
+    if not (torch.isfinite(dec[..., real]).all()
+            and bool((stream < cfg.vocab_size).all())):
+        raise AssertionError("vlm serve: non-finite logits or a pad token")
+
+    # the gate: one forward over the prompt and the fed embeddings
+    reset_launches(flash_attention_cuda, decode_attention_cuda)
+    batch = _vlm_forward_batch(embeds, pos, fed)
+    with torch.no_grad():
+        fwd, _ = model.forward(params, batch)
+    torch.cuda.synchronize()
+    fwd_launches = flash_attention_cuda.launches
+    log({"vlm_forward_launches": {
+        "flash_attention": fwd_launches,
+        "decode_attention": decode_attention_cuda.launches}})
+    if fwd_launches != L or decode_attention_cuda.launches:
+        raise AssertionError(f"vlm forward launched flash {fwd_launches} "
+                             f"times and decode "
+                             f"{decode_attention_cuda.launches}")
+    _bf16_gate("vlm_forward_vs_decode_bf16", model, params, batch, dec,
+               fwd[:, S - 1:], rows=slice(S - 1, None))
+    _decode_profile(model, params, cache, stream[:, -1], "vlm_profile",
+                    batch=B, prompt=S)
+    del model, params, cache, fwd, dec, embeds, fed, batch
+    torch.cuda.empty_cache()
+
+    # (b) the engine on token prompts
+    eng, model, params, prompts, max_new, eng_len, _ = _engine_serve(
+        "vlm_serve", cfg, 8, 200, 29)
+    profile_window(model, params, prompts, max_new, eng_len,
+                   tag="vlm_engine_profile")
+    del model, params
+    torch.cuda.empty_cache()
+    log({"vlm_serve_phase_s": time.perf_counter() - t_phase})
+    return {"flash_attention": launches["flash_attention"] + fwd_launches,
+            "decode_attention": launches["decode_attention"]
+            + eng["decode_attention"],
+            "paged_attention": eng["paged_attention"]}
+
+
+def vlm_fp32_phase():
+    """qwen2-vl-2b at full width in fp32, 2 layers, TF32 off: ``_vlm_run``
+    over the 2 x 1024 embeddings at Qwen2-VL's positions and 8 greedy
+    steps (the last 4 through ``embeds=``) against ``Model.forward`` over
+    the same embeddings and positions (every position within
+    ``LOGIT_ATOL_FP32``, the same argmax): the exact gate for M-RoPE and
+    the embeddings' path on the card.  Returns the launches (flash 2,
+    decode 2 a step)."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    L, n = VLM_FP32_LAYERS, VLM_FP32_STEPS
+    cfg = _vlm_cfg(num_layers=L, dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=1)
+    pos = vlm_positions(2, "cuda")
+    S = pos.shape[-1]
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    embeds = torch.randn((2, S, cfg.d_model), generator=gen, device="cuda")
+    reset_launches(flash_attention_cuda, decode_attention_cuda)
+    dec, fed, *_ = _vlm_run(model, params, embeds, pos, n, S + n)
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "decode_attention": decode_attention_cuda.launches}
+    expected = {"flash_attention": L, "decode_attention": n * L}
+    with torch.no_grad():
+        fwd, _ = model.forward(params, _vlm_forward_batch(embeds, pos, fed))
+    ref = fwd[:, S - 1:]
+    diff = float((dec - ref).abs().max())
+    same = bool(torch.equal(dec.argmax(-1), ref.argmax(-1)))
+    log({"vlm_fp32": {"layers": L, "prompt": S, "steps": n,
+                      "steps_via_embeds": VLM_EMBED_STEPS,
+                      "max_abs_logit_diff": diff, "tol": LOGIT_ATOL_FP32,
+                      "same_argmax": same, "launches": launches,
+                      "expected": expected}})
+    if launches != expected:
+        raise AssertionError(f"vlm fp32 launches {launches}, expected "
+                             f"{expected}")
+    if not (diff <= LOGIT_ATOL_FP32 and same
+            and bool(torch.isfinite(fwd).all())):
+        raise AssertionError("vlm fp32: prefill + decode and the forward "
+                             "over the same embeddings disagree")
+    del model, params, fwd, dec
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The sharded transport and the manifest on the card
 # ---------------------------------------------------------------------------
 
@@ -5559,7 +6131,12 @@ def main() -> int:
     dense = dense_serve_phase()
     moe = moe_serve_phase()
     moe32 = moe_fp32_phase()
-    summary["flash_attention"] = flash_phase(card_line)
+    encdec = encdec_serve_phase()
+    encdec32 = encdec_fp32_phase()
+    vlm = vlm_serve_phase()
+    vlm32 = vlm_fp32_phase()
+    at_flash = flash_phase(card_line)
+    summary["flash_attention"] = at_flash["train"]
     prefill_phase()
     train = train_phase()
     train_profile()
@@ -5606,12 +6183,21 @@ def main() -> int:
                              "dense_serve": dense["decode_attention"],
                              "moe_serve": moe["decode_attention"],
                              "moe_fp32": moe32["decode_attention"],
+                             "encdec_serve": encdec["decode_attention"],
+                             "encdec_fp32": encdec32["decode_attention"],
+                             "vlm_serve": vlm["decode_attention"],
+                             "vlm_fp32": vlm32["decode_attention"],
                              "hybrid_serve": hybrid["decode_attention"]},
         "paged_attention": {"serve": serve["paged_attention"],
                             "dense_serve": dense["paged_attention"],
                             "moe_serve": moe["paged_attention"],
-                            "moe_fp32": moe32["paged_attention"]},
+                            "moe_fp32": moe32["paged_attention"],
+                            "vlm_serve": vlm["paged_attention"]},
         "flash_attention": {"train": train["flash_attention"],
+                            "encdec_serve": encdec["flash_attention"],
+                            "encdec_fp32": encdec32["flash_attention"],
+                            "vlm_serve": vlm["flash_attention"],
+                            "vlm_fp32": vlm32["flash_attention"],
                             "hybrid_serve": hybrid["flash_attention"]},
         "ssd_scan": {"ssm_serve": ssm_serve, "ssm_train": ssm_train},
         "rglru_scan": {"hybrid_serve": hybrid["rglru_scan"]},
@@ -5656,9 +6242,17 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         if len(paths) > 1:
             kernels[-1]["launches_by_path"] = paths
+        is_flash = name == "flash_attention"
         for key, other in (("at_hybrid_shape", at_hybrid.get(name)),
                            ("at_dense_serve_shape",
                             summary.get(name + "@g6")),
+                           ("at_encdec_cross_shape",
+                            summary.get(name + "@g1_enc")),
+                           ("at_vlm_shape", summary.get(name + "@g8")),
+                           ("at_encoder_shape",
+                            is_flash and at_flash["enc_d64"]),
+                           ("at_vlm_prefill_shape",
+                            is_flash and at_flash["vlm_prefill"]),
                            ("at_train_shape", name == "ssd_scan"
                             and at_ssd["train"]),
                            ("at_s1000_shape", name == "rglru_scan"

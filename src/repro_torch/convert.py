@@ -4,10 +4,11 @@ The JAX ``values`` tree (nested dicts of numpy arrays, as
 ``repro.models.common.split_params`` yields them after ``np.asarray``) has
 the same layouts as the port's parameters, except that the JAX package
 stacks layers on axis 0 for ``lax.scan``: ``values["layers"]`` (and the
-hybrid family's ``values["rec_layers"]`` and ``values["attn_layers"]``)
+hybrid family's ``values["rec_layers"]`` and ``values["attn_layers"]``,
+the encdec family's ``values["enc_layers"]`` and ``values["dec_layers"]``)
 becomes a list of per-layer dicts (a moe layer's ``moe`` dict with them:
 its fp32 ``router`` and its (E, d, f) and (E, f, d) experts, stacked
-(L, E, ...) in JAX).  bf16 arrays arrive as
+(L, E, ...) in JAX).  A vlm tree is the dense layout.  bf16 arrays arrive as
 ``ml_dtypes.bfloat16``; they go through float32 to ``torch.bfloat16``,
 which is exact.
 """
@@ -34,7 +35,8 @@ def _map(tree, fn):
     return fn(tree)
 
 
-_STACKED = ("layers", "rec_layers", "attn_layers")
+_STACKED = ("layers", "rec_layers", "attn_layers", "enc_layers",
+            "dec_layers")
 
 
 def params_from_jax(values: Dict[str, Any], *, device) -> Dict[str, Any]:

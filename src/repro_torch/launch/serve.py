@@ -8,9 +8,12 @@ width and depth with random weights from seed 0; an architecture whose
 weights exceed the device's memory is refused (phi3.5-moe-42b-a6.6b: 32
 layers of bf16 weights, 83.7 GB by its config's parameter count, more
 than an 80 GB card holds; it needs ROADMAP item 5's meshes).  ``--preset
-tiny`` serves the small preset of ``launch/train.py``, for either of the
-engine's families (dense and moe).  ``--device cuda`` (the default) needs
-a card; ``--device cpu`` runs the plain PyTorch versions of the kernels.
+tiny`` serves the small preset of ``launch/train.py``, for any of the
+engine's families (dense, moe and vlm: qwen2-vl-2b is served on token
+prompts, as JAX's engine serves it).  A family the engine does not serve
+(ssm, hybrid, encdec) is refused before its weights are built.
+``--device cuda`` (the default) needs a card; ``--device cpu`` runs the
+plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.launch.train import tiny_preset
 from repro_torch.models.model_zoo import build_model
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.engine import ServingEngine, check_servable
 
 
 def _serve_traffic(engine: ServingEngine, cfg, requests: int, max_new: int,
@@ -84,6 +87,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.preset == "tiny":
         cfg = tiny_preset(cfg)
+    check_servable(cfg)
     model = build_model(cfg, device=args.device)
     check_fits(cfg, args.device)
     params = model.init(0)

@@ -1,5 +1,7 @@
 """GQA multi-head attention: the full-sequence path (training, prefill) on
-the flash kernel, and the one-token decode path over a contiguous cache.
+the flash kernel, the one-token decode path over a contiguous cache, and
+the encoder-decoder family's cross attention (no rotary) on the same two
+kernels.
 
 Query heads are zero-padded to ``cfg.padded_heads`` exactly as in the JAX
 package, so query head h reads KV head ``h // (padded_heads // Hkv)``.  At
@@ -105,6 +107,48 @@ def attn_out(p, a: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     hq, hd, d = p["wo"].shape
     return a.reshape(*a.shape[:-2], hq * hd) @ p["wo"].to(a.dtype).reshape(
         hq * hd, d)
+
+
+def cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encoder output (B, S_enc, d) -> cross-attention K/V (B, S_enc, Hkv,
+    hd), no rotary (cached for decode)."""
+    dt = enc_out.dtype
+    k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return k, v
+
+
+def _cross_q(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    q = _proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    return q
+
+
+def cross_attn_apply(p, xq: torch.Tensor,
+                     kv: Tuple[torch.Tensor, torch.Tensor],
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention (no rotary, non-causal) of xq (B, Sq, d) over every
+    encoder position of ``kv``: the flash kernel at Sq != Sk."""
+    k, v = kv
+    return attn_out(p, flash_attention(_cross_q(p, xq, cfg), k, v,
+                                       causal=False), cfg)
+
+
+def cross_attn_decode(p, x: torch.Tensor,
+                      kv: Tuple[torch.Tensor, torch.Tensor],
+                      enc_lens: torch.Tensor, cfg: ModelConfig
+                      ) -> torch.Tensor:
+    """One-token cross attention, x (B, 1, d), over the first ``enc_lens``
+    (B,) int32 positions of the cached encoder K/V (B, S_enc, Hkv, hd):
+    the decode kernel with the encoder length as its cap."""
+    k, v = kv
+    q = _cross_q(p, x, cfg)
+    out = decode_attention(q[:, 0].contiguous(), k, v, enc_lens)
+    return attn_out(p, out, cfg)[:, None]
 
 
 def attn_decode(

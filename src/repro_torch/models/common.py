@@ -1,4 +1,5 @@
-"""Shared model substrate: initialisers, norms, embeddings, RoPE.
+"""Shared model substrate: initialisers, norms, embeddings, RoPE and
+M-RoPE.
 
 Parameters are plain nested dicts of tensors in the JAX package's layouts,
 so :mod:`repro_torch.convert` copies JAX parameters in without reshaping.
@@ -139,7 +140,7 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (standard; M-RoPE belongs to the vlm family)
+# Rotary embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 def _rope_freqs(head_dim: int, theta: float,
@@ -149,10 +150,27 @@ def _rope_freqs(head_dim: int, theta: float,
                                          device=device) / half))
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int,
-                theta: float) -> torch.Tensor:
-    """positions (B, S) int -> (B, S, head_dim // 2) fp32 angles."""
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Sequence[int] = ()) -> torch.Tensor:
+    """positions (B, S) int, or (3, B, S) for M-RoPE, -> (B, S,
+    head_dim // 2) fp32 angles.
+
+    M-RoPE (Qwen2-VL) splits the half-dim frequencies into consecutive
+    sections, each turned by its own position stream (t, h, w).  A section
+    past the end of the frequencies is clamped as JAX's slice clamps it:
+    ``reduced()``'s (4, 6, 6) at head_dim 16 (8 frequencies) gets 4, 4 and
+    0 of them."""
     freqs = _rope_freqs(head_dim, theta, positions.device)
+    if mrope_sections:
+        if positions.ndim != 3 or positions.shape[0] != len(mrope_sections):
+            raise ValueError(f"M-RoPE takes ({len(mrope_sections)}, B, S) "
+                             f"positions, not {tuple(positions.shape)}")
+        parts, start = [], 0
+        for stream, sec in zip(positions, mrope_sections):
+            parts.append(stream[..., None].float()
+                         * freqs[start:start + sec])
+            start += sec
+        return torch.cat(parts, dim=-1)
     return positions[..., None].float() * freqs
 
 
@@ -168,10 +186,10 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 def default_positions(batch: int, seq: int, cfg: ModelConfig,
                       device) -> torch.Tensor:
-    """(B, S) int32 positions 0..S-1 (M-RoPE's (3, B, S) streams come with
-    the vlm family)."""
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE positions are not ported yet (ROADMAP queue 1, item 1)")
+    """(B, S) int32 positions 0..S-1; (3, B, S), the same in each stream,
+    for a config with M-RoPE sections."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)
-    return pos[None, :].expand(batch, seq)
+    pos = pos[None, :].expand(batch, seq)
+    if cfg.mrope_sections:
+        return pos[None].expand(len(cfg.mrope_sections), batch, seq)
+    return pos

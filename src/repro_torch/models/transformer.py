@@ -1,7 +1,10 @@
-"""Decoder-only LM, dense, moe, ssm and hybrid families: init,
+"""Decoder-only LM, dense, moe, vlm, ssm and hybrid families: init,
 full-sequence forward and loss (training), prefill, decode caches,
 one-token decode.  A moe layer holds ``moe`` (router and experts) in place
-of ``mlp``; its forward sums the layers' load-balance aux.
+of ``mlp``; its forward sums the layers' load-balance aux.  The vlm family
+is the dense layout fed with precomputed patch embeddings
+(``batch["embeds"]``) and M-RoPE positions (``batch["positions"]``, (3, B,
+S)); its decode takes a token or an embedding.
 
 Parameters are a nested dict in the JAX package's layout, except that
 ``params["layers"]`` (and the hybrid family's ``params["rec_layers"]`` and
@@ -28,15 +31,16 @@ from repro_torch.models.rglru import (
 from repro_torch.models.ssd import (
     ssd_apply, ssd_decode, ssd_init, ssd_init_cache)
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+LM_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port runs "
-            f"{', '.join(PORTED_FAMILIES)} (encdec and vlm are ROADMAP "
-            "queue 1, item 4)")
+    """Raise unless ``cfg`` is a decoder-only LM (the encdec family runs
+    through ``models/encdec.py``)."""
+    if cfg.family not in LM_FAMILIES:
+        raise ValueError(
+            f"family {cfg.family!r} is not a decoder-only LM; this module "
+            f"runs {', '.join(LM_FAMILIES)} (encdec: models/encdec.py)")
 
 
 def _attn_layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -148,13 +152,34 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
 # Forward (training / prefill)
 # ---------------------------------------------------------------------------
 
+def _embed_or_take(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, d) inputs in the compute dtype: ``batch["embeds"]`` for a
+    config that takes embeddings and has them, else the token
+    embeddings."""
+    if cfg.embeds_input and "embeds" in batch:
+        return batch["embeds"].to(torch_dtype(cfg.dtype))
+    return common.embed_tokens(params["embed"], batch["tokens"], cfg)
+
+
 def _angles_for(cfg: ModelConfig, batch, B: int, S: int,
                 device) -> torch.Tensor:
+    """Rotary angles of ``batch["positions"]`` ((3, B, S) with M-RoPE
+    sections), or of the default positions."""
     positions = batch.get("positions")
     if positions is None:
         positions = common.default_positions(B, S, cfg, device)
     return common.rope_angles(positions, cfg.resolved_head_dim,
-                              cfg.rope_theta)
+                              cfg.rope_theta, cfg.mrope_sections)
+
+
+def _decode_angles(cfg: ModelConfig, lengths: torch.Tensor) -> torch.Tensor:
+    """Angles of one token at position ``lengths`` (B,), broadcast to every
+    M-RoPE stream."""
+    pos = lengths[:, None]
+    if cfg.mrope_sections:
+        pos = pos[None].expand(len(cfg.mrope_sections), *pos.shape)
+    return common.rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta,
+                              cfg.mrope_sections)
 
 
 def _attn_layer(layer, x: torch.Tensor, angles: torch.Tensor, *,
@@ -187,9 +212,8 @@ def lm_forward(params, batch, cfg: ModelConfig, *, causal: bool = True
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits (B,S,V) fp32, aux_loss)."""
     check_family(cfg)
-    tokens = batch["tokens"]
-    x = common.embed_tokens(params["embed"], tokens, cfg)
-    B, S = tokens.shape
+    x = _embed_or_take(params, batch, cfg)
+    B, S = x.shape[:2]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         body = _remat(functools.partial(_ssm_layer, cfg=cfg), cfg)
@@ -313,9 +337,8 @@ def lm_prefill(params, batch, cfg: ModelConfig, max_len: int
     or every recurrent layer's state after position S-1, and ``lengths`` =
     S)."""
     check_family(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = common.embed_tokens(params["embed"], tokens, cfg)
+    x = _embed_or_take(params, batch, cfg)
+    B, S = x.shape[:2]
     cache = lm_init_cache(cfg, B, max_len, x.device)
     if cfg.family == "ssm":
         x = _ssm_prefill(params, x, cache["layers"], cfg)
@@ -391,14 +414,19 @@ def _hybrid_prefill(params, batch, x: torch.Tensor, cache,
     return x
 
 
-def lm_decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig
+def lm_decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
+                   embeds: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """tokens: (B,) int -> (logits (B, V) fp32, cache).  The cache's K/V
-    (or recurrent states) are written in place; ``lengths`` advances by
-    one."""
+    """tokens: (B,) int, or ``embeds`` (B, 1, d) in their place -> (logits
+    (B, V) fp32, cache).  The token sits at position ``lengths`` (in every
+    M-RoPE stream).  The cache's K/V (or recurrent states) are written in
+    place; ``lengths`` advances by one."""
     check_family(cfg)
     lengths = cache["lengths"]
-    x = common.embed_tokens(params["embed"], tokens[:, None], cfg)
+    if embeds is not None:
+        x = embeds.to(torch_dtype(cfg.dtype))
+    else:
+        x = common.embed_tokens(params["embed"], tokens[:, None], cfg)
     if cfg.family == "ssm":
         x = _ssm_decode(params, x, cache["layers"], cfg)
     elif cfg.family == "hybrid":
@@ -426,8 +454,7 @@ def _ssm_decode(params, x: torch.Tensor, states: Dict[str, torch.Tensor],
 def _dense_decode(params, x: torch.Tensor, cache, cfg: ModelConfig
                   ) -> torch.Tensor:
     lengths = cache["lengths"]
-    angles = common.rope_angles(lengths[:, None], cfg.resolved_head_dim,
-                                cfg.rope_theta)
+    angles = _decode_angles(cfg, lengths)
     for li, layer in enumerate(params["layers"]):
         h = rmsnorm(x, layer["ln1"], cfg.norm_eps)
         a, _, _ = attn_decode(layer["attn"], h, cfg, k_cache=cache["k"][li],
@@ -448,8 +475,7 @@ def _hybrid_decode(params, x: torch.Tensor, cache, cfg: ModelConfig
     w = cache["k"].shape[2]
     ring = lengths % w
     eff_len = torch.clamp(lengths + 1, max=w)
-    angles = common.rope_angles(lengths[:, None], cfg.resolved_head_dim,
-                                cfg.rope_theta)
+    angles = _decode_angles(cfg, lengths)
     states = cache["rec"]
     for kind, i, layer in _hybrid_layers(params, cfg):
         h = rmsnorm(x, layer["ln1"], cfg.norm_eps)

@@ -1,8 +1,8 @@
-"""Continuous-batching serving engine with paged KV (dense and moe
-decoder LMs).
+"""Continuous-batching serving engine with paged KV (the dense, moe and
+vlm decoder LMs; a vlm request is a token prompt).
 
 The port of ``repro/serving/engine.py`` without its mesh and artifact
-export (ROADMAP item 5) and its vlm family (item 4).  A fixed
+export (ROADMAP item 5).  A fixed
 grid of request slots decodes in lock-step, one batched decode step per
 tick; finished slots are released through the balanced allocator's chunk
 reset and refilled from the request queue.  The engine has no prefill:
@@ -29,7 +29,7 @@ from repro_torch.models import common
 from repro_torch.models.attention import _project_qkv, attn_out
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.model_zoo import Model, resolve_device
-from repro_torch.models.transformer import _ffn, _lm_head
+from repro_torch.models.transformer import _decode_angles, _ffn, _lm_head
 from repro_torch.serving import kvcache
 from repro_torch.serving.kvcache import PagedKV
 
@@ -44,6 +44,18 @@ REGISTRY.register(_SPILL_RPC, lambda rid, n_tokens, pages: None,
 #: ``_deliver_spills`` flushes before enqueueing more records.
 _SPILL_PRESSURE = 0.75
 _I32 = ShapeDtype((), torch.int32)
+#: The families the engine serves: decoder-only attention LMs.
+ENGINE_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise unless the engine serves ``cfg``'s family (JAX's engine
+    asserts the same families)."""
+    if cfg.family not in ENGINE_FAMILIES:
+        raise NotImplementedError(
+            f"the engine serves the dense, moe and vlm families, not "
+            f"{cfg.family!r}: the ssm, hybrid and encdec families are served "
+            "through Model.prefill and Model.decode_step, as in JAX")
 
 
 def paged_decode_step(params, kv: PagedKV, tokens: torch.Tensor,
@@ -57,8 +69,7 @@ def paged_decode_step(params, kv: PagedKV, tokens: torch.Tensor,
     kv = kvcache.ensure_pages(kv, active)
     slots = kvcache.token_slots(kv, active)
     x = common.embed_tokens(params["embed"], tokens[:, None], cfg)
-    angles = common.rope_angles(kv.lengths[:, None], cfg.resolved_head_dim,
-                                cfg.rope_theta)
+    angles = _decode_angles(cfg, kv.lengths)
     for li, layer in enumerate(params["layers"]):
         h = rmsnorm(x, layer["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(layer["attn"], h, cfg, angles)
@@ -108,12 +119,7 @@ class ServingEngine:
                              f"{self.device}")
         self.model = model
         self.cfg = model.cfg
-        if self.cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"the engine serves the dense and moe families; "
-                f"{self.cfg.family!r} is not ported yet (vlm: ROADMAP queue "
-                "1, item 4; the ssm and hybrid families are served through "
-                "Model.prefill and Model.decode_step, as in JAX)")
+        check_servable(self.cfg)
         self.params = params
         self.B = batch_slots
         self.kv = kvcache.paged_cache_init(

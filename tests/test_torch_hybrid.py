@@ -340,11 +340,13 @@ def test_plain_flash_d256_with_window_matches_jax():
 
 
 def test_build_model_admits_hybrid_and_refuses_the_rest():
+    """build_model admits the hybrid family and, now that encdec and vlm
+    are ported, refuses no family: each builds and initialises."""
     model = build_model(get_config(ARCH).reduced(), device="cpu")
     assert model.cfg.family == "hybrid"
-    # the moe family is ported; encdec and vlm are item 4
-    assert build_model(get_config("qwen3-moe-235b-a22b").reduced(),
-                       device="cpu").cfg.family == "moe"
-    for arch in ("seamless-m4t-large-v2", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            build_model(get_config(arch).reduced(), device="cpu")
+    for arch, family in (("qwen3-moe-235b-a22b", "moe"),
+                         ("seamless-m4t-large-v2", "encdec"),
+                         ("qwen2-vl-2b", "vlm")):
+        m = build_model(get_config(arch).reduced(), device="cpu")
+        assert m.cfg.family == family
+        assert "lm_head" in m.init(0)

@@ -266,12 +266,20 @@ def test_moe_engine_streams_match_jax_engine(model_pair):
 
 
 def test_engine_admits_moe_and_refuses_vlm():
-    _, tcfg = _cfgs("qwen3-moe-235b-a22b")
-    model = build_model(tcfg, device="cpu")
-    ServingEngine(model, model.init(0), batch_slots=2, max_len=32,
-                  page_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_model(get_config("qwen2-vl-2b").reduced(), device="cpu")
+    """The engine admits the moe family and, now that vlm is ported, the
+    vlm family too, as JAX's engine does; it refuses the ssm, hybrid and
+    encdec families with a message naming the families it serves."""
+    for arch in ("qwen3-moe-235b-a22b", "qwen2-vl-2b"):
+        model = build_model(get_config(arch).reduced(), device="cpu")
+        ServingEngine(model, model.init(0), batch_slots=2, max_len=32,
+                      page_size=8, device="cpu")
+    for arch in ("mamba2-130m", "recurrentgemma-9b",
+                 "seamless-m4t-large-v2"):
+        model = build_model(get_config(arch).reduced(), device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match="serves the dense, moe and vlm families"):
+            ServingEngine(model, {}, batch_slots=2, max_len=32,
+                          page_size=8, device="cpu")
 
 
 def test_serve_cli_serves_moe_tiny_and_refuses_full(capsys):

@@ -248,9 +248,9 @@ def test_train_cli_on_the_cpu(capsys):
 
 
 def test_families_still_to_port_are_refused():
-    # qwen3-moe is ported (the moe family); seamless (encdec) is item 4
-    assert build_model(get_config("qwen3-moe-235b-a22b").reduced(),
-                       device="cpu").cfg.is_moe
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(get_config("seamless-m4t-large-v2").reduced(),
-                    device="cpu")
+    """No family is left to port: build_model admits all ten configs."""
+    from repro_torch.configs import CONFIGS as T_CONFIGS
+    assert len(T_CONFIGS) == 10
+    families = {build_model(cfg.reduced(), device="cpu").cfg.family
+                for cfg in T_CONFIGS.values()}
+    assert families == {"dense", "moe", "vlm", "ssm", "hybrid", "encdec"}
