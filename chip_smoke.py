@@ -276,10 +276,35 @@ in a fresh ``python3 -c`` process that adopts this one's manifest
 (bit-equal effects, pointers and launches; a tampered pad refused,
 naming its callee).
 
+After ``hybrid_prefill`` come the training paths beyond llama and
+mamba2, each at full width from random weights (seed 0): ``ckpt_train``,
+``examples/train_100m_torch.py --preset full`` (llama-100m: 12 layers, d
+768, 12 heads over 4 of 64, vocab 32000, fp32; batch 8 x 1024, 2 x 20
+steps around a simulated failure, a save every 10 steps through the
+checkpoint hook into a temporary directory, the resume from the newest
+manifest; gates: manifest 40 newest and ``final_step`` 40, losses finite
+and phase 2's below phase 1's + 0.5, one ``rpc_post`` a hook firing,
+flash 24 a step, the live state bit-equal to the states restored from
+the hook's and the last save, and one more step from each within
+``CKPT_STEP_TOL``; ms/step, bytes a save, the hook's host seconds, the
+device loop's stall at a save, the writer's and the restore's seconds);
+``hybrid_train``, recurrentgemma-9b cut to 9 of its 38 layers (three
+(rec, rec, attn) blocks) through ``launch/train.run``, 4 steps of 1 x
+4096 tokens in bf16 (rglru_scan 12 and flash 6 a step, ms/step,
+``train_mfu``, peak memory); ``encdec_train``, seamless-m4t-large-v2 at
+full depth, and ``vlm_train``, qwen2-vl-2b at full depth in 2
+microbatches, each 4 steps of 2 x 1024 from ``make_synthetic_batch``
+through ``make_train_step`` inside ``device_run`` with a loss hook
+(flash 144 and 112 a step).  The kernel phases hold flash at those
+training shapes too (fp32 at 8 x 1024 over 12 heads of 64 and 4 KV
+heads; bf16 at 1 x 4096, D 256, window 2048), and the RG-LRU scan at 1
+x 4096 x 4096.
+
 Every phase raises on failure.  The kernels' launch counts are reset just
 before each counted path (phases 3, 7, 10, 12, 16, 21, 24, 25 and 26,
 ``dense_serve``, ``moe_serve``, ``moe_fp32``, ``encdec_serve``,
-``encdec_fp32``, ``vlm_serve``, ``vlm_fp32``, ``rpc_queue_async``,
+``encdec_fp32``, ``vlm_serve``, ``vlm_fp32``, ``ckpt_train``,
+``hybrid_train``, ``encdec_train``, ``vlm_train``, ``rpc_queue_async``,
 ``device_run_async``, ``host_pipeline``, ``serve_spill``, ``sanitizer``,
 ``rpc_sharded`` and ``manifest``) and read just after it; each path's count must be the exact number its depth
 and steps give (``rpc_post``: one a firing of a hook, a call or a flush;
@@ -298,7 +323,8 @@ are the ``kernels`` line (with the launches of each path, for flash and
 decode their numbers at the hybrid shapes, decode and paged at
 qwen2.5-14b's, seamless's cross attention's (decode) and qwen2-vl's
 (``at_*_shape``), flash at seamless's encoder and qwen2-vl's prefill,
-and for the SSD scan at the training shape),
+flash and the RG-LRU scan at the training shapes of the new training
+paths, and for the SSD scan at the training shape),
 the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits with code 1 and prints no result.
 """
@@ -366,6 +392,24 @@ VLM_LAYOUT = (16, (24, 32), 240)
 VLM_STEPS, VLM_EMBED_STEPS = 32, 4
 #: The fp32 gate's depth and greedy steps.
 VLM_FP32_LAYERS, VLM_FP32_STEPS = 2, 8
+# The training phases of the checkpoint, hybrid, encdec and vlm paths:
+# llama-100m (examples/train_100m_torch.py) in 2 x 20 steps around a
+# restart, a save every 10; recurrentgemma-9b cut to three (rec, rec,
+# attn) blocks; seamless and qwen2-vl at full depth
+CKPT_STEPS, CKPT_BATCH, CKPT_SEQ = 40, 8, 1024
+# One step from the restored state against one from the live state: the
+# restored state is bit-equal to the live one, and so is the step's loss
+# (the forward is deterministic), but the embedding's backward
+# (``index_add_``: atomic fp32 adds over repeated tokens) sums in an
+# order that varies between runs: the embedding's leaves (values, master,
+# mu, nu) differ by up to 3.7e-9 on an H100 (fp32 values ~0.02-1), the
+# others not at all, so the step is held within 1e-6.
+CKPT_STEP_TOL = 1e-6
+HYBRID_TRAIN_LAYERS = 9
+HYBRID_TRAIN_STEPS, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ = 4, 1, 4096
+ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 4, 2, 1024
+VLM_TRAIN_STEPS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 4, 2, 1024
+VLM_TRAIN_MICROBATCHES = 2
 
 
 def log(obj) -> None:
@@ -1219,6 +1263,8 @@ def flash_phase(card_line):
             "enc_ragged": (4, 1000, 1000, 16, 16, 64, False, None, 0, False),
             "cross_d64": (4, 48, 1024, 16, 16, 64, False, None, 0, False),
             "vlm_prefill": (2, 1024, 1024, 16, 2, 128, True, None, 0, True),
+            # llama-100m's training (ckpt_train: fp32, 12 heads over 4)
+            "ckpt_d64": (8, 1024, 1024, 12, 4, 64, True, None, 0, True),
         }.items():
             q, k, v = rnd((B, Sq, Hq, D), dt), rnd((B, Sk, Hkv, D), dt), \
                 rnd((B, Sk, Hkv, D), dt)
@@ -1263,7 +1309,9 @@ def flash_phase(card_line):
                                      f"with its plain version or is not "
                                      f"faster than SDPA: {rec}")
             if dtn == "bfloat16" and case in ("train", "enc_d64",
-                                              "vlm_prefill"):
+                                              "vlm_prefill", "d64"):
+                summary[case] = rec
+            if dtn == "float32" and case == "ckpt_d64":
                 summary[case] = rec
         _blind_rows_cases(rnd, dt)
         # gradients through the op against autograd through the plain version
@@ -2016,6 +2064,7 @@ def rglru_kernel_phase(card_line):
         for case, (B, S, W, timed) in {
             "serve": (2, 3072, 4096, True),
             "s1000": (1, 1000, 4096, True),
+            "train": (1, 4096, 4096, True),   # hybrid_train's shape
             "tk_128": (2, 128, 64, False),
             "tk_64": (1, 64, 16, False),
             "tk_96": (3, 96, 32, False),
@@ -2186,6 +2235,8 @@ def hybrid_attn_kernel_phase(card_line):
         es = torch.tensor([], dtype=dt).element_size()
         for case, (B, Sq, Sk, q_offset, timed) in {
             "serve": (2, 3072, 3072, 0, True),
+            # hybrid_train's shape: one row of 4096, past the window
+            "train": (1, 4096, 4096, 0, True),
             "s1000": (1, 1000, 1000, 0, False),
             # a continued prefill: ragged Sq and Sk, the window's lower
             # edge inside the cache
@@ -2226,7 +2277,8 @@ def hybrid_attn_kernel_phase(card_line):
                     rec["faster_than_library_and_plain"] = \
                         rec["kernel_ms"] < min(rec["library_ms"],
                                                rec["plain_ms"])
-                    ok = ok and rec["faster_than_library_and_plain"]
+                    if case == "serve":
+                        ok = ok and rec["faster_than_library_and_plain"]
                     rec["ok"] = ok
                 del qt, kt, vt, mask
             log(rec)
@@ -2236,6 +2288,8 @@ def hybrid_attn_kernel_phase(card_line):
                                      f"is not faster than SDPA and it: {rec}")
             if case == "serve" and dtn == "bfloat16":
                 summary["flash_attention"] = rec
+            if case == "train" and dtn == "bfloat16":
+                summary["flash_attention@train"] = rec
             del q, k, v, out, ref
         for case, (B, T, lens, timed) in {
             "serve": (2, 2048, [2048, 2048], True),
@@ -2464,6 +2518,397 @@ GPU_FIRST_SIZES = {
     "xsbench_small": dict(n_lookups=1 << 20, n_grid=11303, n_nuclides=68,
                           serial_lookups=2048),
 }
+
+
+# ---------------------------------------------------------------------------
+# Training beyond llama and mamba2, and checkpoints with kill-and-resume
+# ---------------------------------------------------------------------------
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _same(a, b) -> bool:
+    """Bit-equal tensors, or equal Python numbers (``OptState.step``)."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def _windows(times, every, save_every):
+    """Per-step seconds of the windows between consecutive loss logs
+    (``times`` at steps every, 2 every, ...), split by whether a save
+    fired inside the window: (save windows, plain windows)."""
+    saves, plain = [], []
+    for j in range(1, len(times)):
+        lo, hi = j * every, (j + 1) * every
+        per_step = (times[j] - times[j - 1]) / every
+        has_save = any(s % save_every == 0 for s in range(lo + 1, hi + 1))
+        (saves if has_save else plain).append(per_step)
+    return saves, plain
+
+
+def ckpt_train_phase():
+    """``examples/train_100m_torch.py --preset full`` on the card: llama-100m
+    (12 layers, d 768, 12 heads over 4 of 64, vocab 32000, fp32), batch 8 x
+    1024, 2 x 20 steps around a simulated failure, a save every 10 steps
+    through the checkpoint hook (one ``rpc_post`` a firing, as the loss
+    hook's), the resume from the newest manifest.  Gates: manifest 40 is
+    the newest and ``final_step`` 40; the losses finite and phase 2's
+    below phase 1's + 0.5; ``rpc_post`` launches equal to the hooks'
+    firings; flash 2 x 12 a step (forward and remat); a bitwise restart:
+    the live state after step 40 against the states restored from the
+    hook's save (``manifest-20``: a resumed run labels its periodic saves
+    with its own step count, as JAX's does) and from the last save
+    (``manifest-40``), leaf for leaf, then one more step from each,
+    leaf for leaf."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import latest_step, restore_checkpoint
+    from repro_torch.core.libc import rand_init
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import flatten_with_paths, leaves
+
+    ex = _example("train_100m_torch")
+    cfg = ex.full_100m()
+    tmp = tempfile.mkdtemp(prefix="ckpt_train_")
+    disk = shutil.disk_usage(tmp)
+    half = CKPT_STEPS // 2
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # main path: counts from 0 just before, read just after
+        reset_launches(flash_attention_cuda, rpc_post)
+        out1, out2 = ex.main(["--preset", "full", "--steps", str(CKPT_STEPS),
+                              "--batch", str(CKPT_BATCH), "--seq-len",
+                              str(CKPT_SEQ), "--device", "cuda",
+                              "--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+        flash, posts = flash_attention_cuda.launches, rpc_post.launches
+        peak = torch.cuda.max_memory_allocated()
+        newest = latest_step(tmp)
+        every, log_every = max(half // 2, 1), max(half // 4, 1)
+        firings = sum(half // every + len(o["losses"]) for o in (out1, out2))
+
+        # the bitwise restart
+        live = out2.pop("state")
+        like = {"values": live["values"], "opt": live["opt"]}
+        t0 = time.perf_counter()
+        _, hooked = restore_checkpoint(tmp, like, step=half)
+        _, last = restore_checkpoint(tmp, like, step=CKPT_STEPS)
+        torch.cuda.synchronize()
+        restore_s = (time.perf_counter() - t0) / 2
+        restored_equal = all(
+            _same(a, b) and _same(a, c)
+            for a, b, c in zip(leaves(like), leaves(hooked), leaves(last)))
+        model = build_model(cfg, device="cuda")
+        step_fn = make_train_step(model, OptConfig(
+            lr=3e-3, warmup_steps=max(half // 10, 1), total_steps=half))
+        _, batch = SyntheticLM(cfg.vocab_size, CKPT_SEQ, CKPT_BATCH).batch_at(
+            rand_init(1234, device="cuda"), CKPT_STEPS)
+        va, oa, ma = step_fn(like["values"], like["opt"], batch)
+        vb, ob, mb = step_fn(hooked["values"], hooked["opt"], batch)
+        after = [flatten_with_paths({"values": v, "opt": o})
+                 for v, o in ((va, oa), (vb, ob))]
+        diff = {p: float((a.float() - after[1][p].float()).abs().max())
+                if isinstance(a, torch.Tensor) else float(a != after[1][p])
+                for p, a in after[0].items()}
+        differing = [p for p, d in diff.items() if d]
+        loss_equal = torch.equal(ma["loss"], mb["loss"])
+        # the named nondeterministic op: the embedding's backward
+        # (index_add_, atomics) twice on this step's rows
+        tokens = batch["tokens"].reshape(-1)
+        dy = torch.randn((tokens.numel(), cfg.d_model), device="cuda")
+        adds = [torch.zeros((cfg.vocab_size, cfg.d_model), device="cuda")
+                .index_add_(0, tokens, dy) for _ in range(2)]
+        index_add_equal = torch.equal(*adds)
+        del adds, dy
+
+        losses = {f"phase{i}": [l for _, l in o["losses"]]
+                  for i, o in ((1, out1), (2, out2))}
+        saves, plain = [], []
+        for o in (out1, out2):
+            s, p = _windows(o["log_times"], log_every, every)
+            saves += s
+            plain += p
+        step_s = sum(plain) / len(plain)
+        writes = out1["ckpt_writes"] + out2["ckpt_writes"]
+        rec = {
+            "arch": cfg.name, "params": cfg.num_params(),
+            "layers": cfg.num_layers, "batch": CKPT_BATCH,
+            "seq_len": CKPT_SEQ, "steps": CKPT_STEPS, "ckpt_every": every,
+            "losses": losses, "final_step": out2["final_step"],
+            "latest_step": newest, "ms_per_step": step_s * 1e3,
+            "tokens_per_s": CKPT_BATCH * CKPT_SEQ / step_s,
+            # a save window holds one save in log_every steps
+            "save_stall_ms": [(x - step_s) * log_every * 1e3
+                              for x in saves],
+            "save_windows_ms_per_step": [x * 1e3 for x in saves],
+            "plain_windows_ms_per_step": [x * 1e3 for x in plain],
+            "hook_host_s": [h[1] for o in (out1, out2)
+                            for h in o["ckpt_hook_s"]],
+            "bytes_per_save": writes[0][2],
+            "writer_s": [w[1] for w in writes],
+            "saves": [w[0] for w in writes],
+            "resume_restore_s": out2["restore_s"],
+            "restore_s": restore_s,
+            "restored_equal_live": restored_equal,
+            "next_step_loss_equal": loss_equal,
+            "next_step_max_abs_diff": max(diff.values()),
+            "next_step_tol": CKPT_STEP_TOL,
+            "next_step_differing_leaves": len(differing),
+            "next_step_first_differing": differing[:6],
+            "index_add_twice_equal": index_add_equal,
+            "flash_launches": flash,
+            "expected_flash": 2 * cfg.num_layers * CKPT_STEPS,
+            "rpc_post_launches": posts, "hook_firings": firings,
+            "peak_mem_gb": peak / 1e9, "disk_free_gb": disk.free / 1e9,
+            "seconds": [out1["seconds"], out2["seconds"]]}
+        log({"ckpt_train": rec})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    all_losses = losses["phase1"] + losses["phase2"]
+    if not all(math.isfinite(x) for x in all_losses):
+        raise AssertionError(f"ckpt_train losses not finite: {losses}")
+    if not out2["final_loss"] < out1["final_loss"] + 0.5:
+        raise AssertionError(f"ckpt_train: phase 2's loss rose: {losses}")
+    if newest != CKPT_STEPS or out2["final_step"] != CKPT_STEPS:
+        raise AssertionError(f"ckpt_train: newest manifest {newest}, final "
+                             f"step {out2['final_step']}, want {CKPT_STEPS}")
+    if posts != firings:
+        raise AssertionError(f"ckpt_train: the hooks fired {firings} times "
+                             f"and rpc_post launched {posts} times")
+    if flash != 2 * cfg.num_layers * CKPT_STEPS:
+        raise AssertionError(f"ckpt_train: flash launched {flash} times")
+    if not (restored_equal and loss_equal
+            and max(diff.values()) <= CKPT_STEP_TOL):
+        raise AssertionError(f"ckpt_train: the restart is not bitwise: "
+                             f"restored {restored_equal}, next loss "
+                             f"{loss_equal}, next step's max abs diff "
+                             f"{max(diff.values())} (tolerance "
+                             f"{CKPT_STEP_TOL})")
+    del live, like, hooked, last, va, oa, vb, ob, model
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash, "rpc_post": posts}
+
+
+def _hybrid_train_cfg():
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import hybrid_layer_kinds
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              name=f"recurrentgemma-9b-l{HYBRID_TRAIN_LAYERS}",
+                              num_layers=HYBRID_TRAIN_LAYERS)
+    kinds = hybrid_layer_kinds(cfg)
+    assert (cfg.d_model, cfg.lru_width, cfg.padded_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.local_window) == (4096, 4096, 16, 1, 256, 12288, 256000, 2048)
+    return cfg, kinds.count("rec"), kinds.count("attn")
+
+
+def _steady(times):
+    """Mean seconds a step over steps 2..n of per-step log times."""
+    steady = [b - a for a, b in zip(times, times[1:])]
+    return sum(steady) / len(steady)
+
+
+def hybrid_train_phase():
+    """Item 1.2: recurrentgemma-9b at full width (d_model 4096, lru_width
+    4096, 16 heads of 256 over 1, d_ff 12288, vocab 256000, window 2048),
+    its depth cut from 38 to ``HYBRID_TRAIN_LAYERS`` (three (rec, rec,
+    attn) blocks: full depth with AdamW state is ~153 GB), registered at
+    run time and trained through ``launch/train.run`` for 4 steps of 1 x
+    4096 tokens (past the window) in bf16.  Gates: finite losses, exact
+    launches: rglru_scan 2 a recurrent layer a step and flash 2 an
+    attention layer a step (forward and remat recompute), ``rpc_post`` one
+    a loss log."""
+    import math
+    from repro_torch import configs as registry
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rglru_scan.kernel import linear_scan_cuda
+    from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.launch.train import run
+
+    cfg, n_rec, n_attn = _hybrid_train_cfg()
+    registry.CONFIGS[cfg.name] = cfg
+    B, S, steps = HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, HYBRID_TRAIN_STEPS
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # main path: counts from 0 just before, read just after
+        reset_launches(flash_attention_cuda, linear_scan_cuda, rpc_post)
+        out = run(cfg.name, preset="full", steps=steps, batch=B, seq_len=S,
+                  log_every=1, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        del registry.CONFIGS[cfg.name]
+    flash, scans, posts = (flash_attention_cuda.launches,
+                           linear_scan_cuda.launches, rpc_post.launches)
+    by_variant = dict(flash_attention_cuda.launches_by_variant)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in out["losses"]]
+    step_s = _steady(out["log_times"])
+    D, H = cfg.resolved_head_dim, cfg.num_heads
+    n_matmul = cfg.num_params() - cfg.vocab_size * cfg.d_model
+    attn = 3 * 4 * D * H * B * n_attn * _visible_pairs(
+        S, S, True, cfg.local_window, 0)
+    flops = 6 * n_matmul * B * S + attn
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "rec_layers": n_rec,
+           "attn_layers": n_attn, "params": cfg.num_params(),
+           "cut": "depth 38 -> %d" % cfg.num_layers, "steps": steps,
+           "batch": B, "seq_len": S, "losses": losses,
+           "first_step_s": out["log_times"][0], "ms_per_step": step_s * 1e3,
+           "tokens_per_s": B * S / step_s, "model_flops_per_step": flops,
+           "train_mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+           "rglru_scan_launches": scans,
+           "expected_rglru": 2 * n_rec * steps, "flash_launches": flash,
+           "expected_flash": 2 * n_attn * steps,
+           "flash_launches_by_variant": by_variant,
+           "rpc_post_launches": posts, "peak_mem_gb": peak / 1e9,
+           "seconds": out["seconds"]}
+    log({"hybrid_train": rec})
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"hybrid training losses not finite: {losses}")
+    if scans != 2 * n_rec * steps or flash != 2 * n_attn * steps:
+        raise AssertionError(f"hybrid_train launches: rglru_scan {scans}, "
+                             f"flash {flash}; want {2 * n_rec * steps}, "
+                             f"{2 * n_attn * steps}")
+    if posts != steps:
+        raise AssertionError(f"hybrid_train: {posts} rpc_post, {steps} logs")
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash, "rglru_scan": scans, "rpc_post": posts}
+
+
+def _family_train(cfg, steps, batch, microbatches=1):
+    """``make_train_step`` on one ``make_synthetic_batch`` batch inside
+    ``device_run`` with an immediate loss hook every step, from the random
+    weights of ``Model.init(0)``.  Returns (losses, ms a step over steps
+    2..n, peak GB)."""
+    from repro_torch.core.device_main import HostHook, device_run
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+
+    model = build_model(cfg, device="cuda")
+    values = model.init(0)
+    opt = adamw_init(values)
+    step_fn = make_train_step(model, OptConfig(lr=1e-3, warmup_steps=1,
+                                               total_steps=steps),
+                              microbatches=microbatches)
+    losses, times = [], []
+
+    def log_loss(step, loss):
+        times.append(time.perf_counter())
+        losses.append(float(loss))
+
+    def step(i, state):
+        v, o, m = step_fn(state["values"], state["opt"], batch)
+        return {"values": v, "opt": o, "loss": m["loss"]}
+
+    state = device_run(step, {"values": values, "opt": opt,
+                              "loss": torch.zeros((), device="cuda")},
+                       steps, hooks=[HostHook(
+                           every=1, extract=lambda i, s: {"loss": s["loss"]},
+                           host_fn=log_loss)])
+    float(state["loss"])
+    return losses, _steady(times) * 1e3
+
+
+def encdec_train_phase():
+    """seamless-m4t-large-v2 at full width and depth (24 + 24 layers, 16
+    heads over 16 of 64, vocab 256206, bf16), 4 steps of 2 x 1024 frame
+    embeddings and 1024 decoder tokens from ``make_synthetic_batch``.
+    Gates: finite losses; flash 2 x (24 encoder + 24 decoder-self + 24
+    cross) a step (forward and remat), ``rpc_post`` one a loss log."""
+    import math
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_synthetic_batch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rpc_channel import rpc_post
+
+    cfg = _seamless_cfg()
+    steps, B, S = ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ
+    batch = make_synthetic_batch(cfg, ShapeConfig("encdec_train", S, B,
+                                                  "train"), device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # main path: counts from 0 just before, read just after
+    reset_launches(flash_attention_cuda, rpc_post)
+    losses, ms = _family_train(cfg, steps, batch)
+    torch.cuda.synchronize()
+    flash, posts = flash_attention_cuda.launches, rpc_post.launches
+    per_step = 2 * (cfg.encoder_layers + 2 * cfg.decoder_layers)
+    rec = {"arch": cfg.name, "encoder_layers": cfg.encoder_layers,
+           "decoder_layers": cfg.decoder_layers, "params": cfg.num_params(),
+           "steps": steps, "batch": B, "frames": S, "tokens": S,
+           "batch_keys": sorted(batch), "losses": losses, "ms_per_step": ms,
+           "tokens_per_s": B * S / ms * 1e3, "flash_launches": flash,
+           "expected_flash": per_step * steps, "rpc_post_launches": posts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log({"encdec_train": rec})
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"encdec training losses not finite: {losses}")
+    if flash != per_step * steps or posts != steps:
+        raise AssertionError(f"encdec_train: flash {flash} (want "
+                             f"{per_step * steps}), rpc_post {posts}")
+    del batch
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash, "rpc_post": posts}
+
+
+def vlm_train_phase():
+    """qwen2-vl-2b at full width and depth (28 layers, 12 heads padded to 16
+    over 2 of 128, M-RoPE (16, 24, 24), bf16), 4 steps of 2 x 1024
+    embeddings with ``labels`` and ``positions`` (3, 2, 1024) from
+    ``make_synthetic_batch``, at ``microbatches=2`` (the positions split on
+    their row axis).  Gates: finite losses; flash 2 a layer a microbatch a
+    step (forward and remat), ``rpc_post`` one a loss log."""
+    import math
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_synthetic_batch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rpc_channel import rpc_post
+
+    cfg = _vlm_cfg()
+    steps, B, S, k = (VLM_TRAIN_STEPS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ,
+                      VLM_TRAIN_MICROBATCHES)
+    batch = make_synthetic_batch(cfg, ShapeConfig("vlm_train", S, B,
+                                                  "train"), device="cuda")
+    assert tuple(batch["positions"].shape) == (3, B, S)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # main path: counts from 0 just before, read just after
+    reset_launches(flash_attention_cuda, rpc_post)
+    losses, ms = _family_train(cfg, steps, batch, microbatches=k)
+    torch.cuda.synchronize()
+    flash, posts = flash_attention_cuda.launches, rpc_post.launches
+    want = 2 * cfg.num_layers * k * steps
+    rec = {"arch": cfg.name, "layers": cfg.num_layers,
+           "params": cfg.num_params(), "steps": steps, "batch": B,
+           "seq_len": S, "microbatches": k, "batch_keys": sorted(batch),
+           "losses": losses, "ms_per_step": ms,
+           "tokens_per_s": B * S / ms * 1e3, "flash_launches": flash,
+           "expected_flash": want, "rpc_post_launches": posts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log({"vlm_train": rec})
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"vlm training losses not finite: {losses}")
+    if flash != want or posts != steps:
+        raise AssertionError(f"vlm_train: flash {flash} (want {want}), "
+                             f"rpc_post {posts}")
+    del batch
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash, "rpc_post": posts}
 
 
 def pcie_link() -> dict:
@@ -6151,6 +6596,10 @@ def main() -> int:
     at_hybrid = hybrid_attn_kernel_phase(card_line)
     hybrid = hybrid_serve_phase()
     hybrid_prefill_phase()
+    ckpt = ckpt_train_phase()
+    hybrid_train = hybrid_train_phase()
+    encdec_train = encdec_train_phase()
+    vlm_train = vlm_train_phase()
     rpc_err = rpc_phase()
     rpc_gil_phase()
     empty = rpc_time_phase(card_line)
@@ -6198,10 +6647,19 @@ def main() -> int:
                             "encdec_fp32": encdec32["flash_attention"],
                             "vlm_serve": vlm["flash_attention"],
                             "vlm_fp32": vlm32["flash_attention"],
-                            "hybrid_serve": hybrid["flash_attention"]},
+                            "hybrid_serve": hybrid["flash_attention"],
+                            "ckpt_train": ckpt["flash_attention"],
+                            "hybrid_train": hybrid_train["flash_attention"],
+                            "encdec_train": encdec_train["flash_attention"],
+                            "vlm_train": vlm_train["flash_attention"]},
         "ssd_scan": {"ssm_serve": ssm_serve, "ssm_train": ssm_train},
-        "rglru_scan": {"hybrid_serve": hybrid["rglru_scan"]},
+        "rglru_scan": {"hybrid_serve": hybrid["rglru_scan"],
+                       "hybrid_train": hybrid_train["rglru_scan"]},
         "rpc_channel": {"train": train["rpc_post"], "ssm_train": ssm_hooks,
+                        "ckpt_train": ckpt["rpc_post"],
+                        "hybrid_train": hybrid_train["rpc_post"],
+                        "encdec_train": encdec_train["rpc_post"],
+                        "vlm_train": vlm_train["rpc_post"],
                         "rpc_queue": queue_posts, "libc_io": libc_posts,
                         "device_run_hooks": hooks,
                         "host_pipeline": pipeline_posts,
@@ -6256,7 +6714,14 @@ def main() -> int:
                            ("at_train_shape", name == "ssd_scan"
                             and at_ssd["train"]),
                            ("at_s1000_shape", name == "rglru_scan"
-                            and at_rglru["s1000"])):
+                            and at_rglru["s1000"]),
+                           ("at_hybrid_train_shape",
+                            (is_flash and at_hybrid["flash_attention@train"])
+                            or (name == "rglru_scan" and at_rglru["train"])),
+                           ("at_ckpt_train_shape",
+                            is_flash and at_flash["ckpt_d64"]),
+                           ("at_encdec_train_shape",
+                            is_flash and at_flash["d64"])):
             if other:
                 kernels[-1][key] = {
                     "shape": other.get("shape", other.get("case")),

@@ -1,4 +1,5 @@
-"""Convert the JAX package's parameters into the port's.
+"""Convert the JAX package's parameters into the port's, and the port's
+trees into the JAX package's stacked layout and back.
 
 The JAX ``values`` tree (nested dicts of numpy arrays, as
 ``repro.models.common.split_params`` yields them after ``np.asarray``) has
@@ -11,6 +12,13 @@ its fp32 ``router`` and its (E, d, f) and (E, f, d) experts, stacked
 (L, E, ...) in JAX).  A vlm tree is the dense layout.  bf16 arrays arrive as
 ``ml_dtypes.bfloat16``; they go through float32 to ``torch.bfloat16``,
 which is exact.
+
+:func:`to_jax_layout` and :func:`from_jax_layout` move a whole tree (a
+``values`` dict, an ``OptState`` of them, or a dict holding both, as a
+training checkpoint does) between the two layouts, in tensors or in
+:class:`~repro_torch.core.rpc.ShapeDtype` stand-ins; a checkpoint written
+by the JAX package's trainer restores in the port through them, and one
+the port writes in JAX's layout restores in the JAX package.
 """
 from __future__ import annotations
 
@@ -18,6 +26,10 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.core.rpc import ShapeDtype
+from repro_torch.train.optimizer import OptState
+from repro_torch.tree import leaves
 
 
 def to_tensor(a, *, device) -> torch.Tensor:
@@ -52,3 +64,58 @@ def params_from_jax(values: Dict[str, Any], *, device) -> Dict[str, Any]:
                                                           device=device))
                     for i in range(n_layers)]
     return out
+
+
+def _stack(layer_list):
+    """A list of per-layer trees -> one tree of leaves stacked on axis 0."""
+    first = layer_list[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layer_list]) for k in first}
+    if isinstance(first, ShapeDtype):
+        return ShapeDtype((len(layer_list),) + first.shape, first.dtype)
+    return torch.stack(layer_list)
+
+
+def _unstack(tree, n):
+    """One tree stacked on axis 0 -> a list of ``n`` per-layer trees
+    (views of the stacked tensors)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, ShapeDtype):
+        return [ShapeDtype(tree.shape[1:], tree.dtype)] * n
+    return list(torch.unbind(tree, 0))
+
+
+def _is_values(tree) -> bool:
+    return isinstance(tree, dict) and any(k in tree for k in _STACKED)
+
+
+def to_jax_layout(tree: Any) -> Any:
+    """The port's layout -> the JAX package's: every per-layer list of a
+    ``values`` dict (wherever it sits in ``tree``) stacked on axis 0."""
+    if isinstance(tree, OptState):
+        return OptState(*(to_jax_layout(t) for t in tree))
+    if _is_values(tree):
+        return {k: _stack(v) if k in _STACKED else v
+                for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: to_jax_layout(v) for k, v in tree.items()}
+    return tree
+
+
+def from_jax_layout(tree: Any) -> Any:
+    """The inverse of :func:`to_jax_layout`."""
+    if isinstance(tree, OptState):
+        return OptState(*(from_jax_layout(t) for t in tree))
+    if _is_values(tree):
+        out = {}
+        for k, v in tree.items():
+            if k in _STACKED:
+                n = leaves(v)[0].shape[0]
+                v = _unstack(v, n)
+            out[k] = v
+        return out
+    if isinstance(tree, dict):
+        return {k: from_jax_layout(v) for k, v in tree.items()}
+    return tree

@@ -122,15 +122,98 @@ def rand_uniform(state: torch.Tensor, shape: Sequence[int] = ()
     return _advance(state), f - 1.0
 
 
+def _key(seed: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.random.PRNGKey(seed)``'s words: the seed's high and low
+    halves."""
+    return (torch.tensor((seed >> 32) & _M32, dtype=torch.int64,
+                         device=device),
+            torch.tensor(seed & _M32, dtype=torch.int64, device=device))
+
+
 def key_uniform(seed: int, shape: Sequence[int], *, device) -> torch.Tensor:
     """``jax.random.uniform(jax.random.PRNGKey(seed), shape)``: float32 in
-    [0, 1), bit-exact (the key's words are the seed's high and low
-    halves)."""
-    k1 = torch.tensor((seed >> 32) & _M32, dtype=torch.int64, device=device)
-    k2 = torch.tensor(seed & _M32, dtype=torch.int64, device=device)
-    bits = random_bits(k1, k2, shape)
+    [0, 1), bit-exact."""
+    bits = random_bits(*_key(seed, device), shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def key_randint(seed: int, shape: Sequence[int], minval: int, maxval: int,
+                *, device) -> torch.Tensor:
+    """``jax.random.randint(jax.random.PRNGKey(seed), shape, minval,
+    maxval)`` (int32), bit-exact: the key splits in two (the partitionable
+    split: the key hashed with the counts (0, 0) and (0, 1)), each half
+    draws 32 bits an element, and the pair folds into [minval, maxval)
+    through JAX's uint32 remainders."""
+    k1, k2 = _key(seed, device)
+    zero = torch.zeros(2, dtype=torch.int64, device=device)
+    s1, s2 = threefry2x32(k1, k2, zero, torch.arange(2, device=device))
+    higher = random_bits(s1[0], s2[0], shape)
+    lower = random_bits(s1[1], s2[1], shape)
+    span = max(int(maxval) - int(minval), 1) & _M32
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _M32) % span
+    offset = (((higher % span) * mult) & _M32) + lower % span
+    offset = (offset & _M32) % span
+    return (offset + int(minval)).to(torch.int32)
+
+
+#: XLA's float32 erfinv (M. Giles, "Approximating the erfinv function"):
+#: polynomial coefficients in w = -log1p(-x^2), for w < 5 and w >= 5.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.scipy.special.erfinv`` in float32 as XLA computes it (its
+    polynomial, within 2 ulps of XLA's result: log1p and the order of
+    rounding differ), not torch's more exact ``erfinv``."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = coef(i) + p * w
+    return torch.where(x.abs() == 1, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def key_normal(seed: int, shape: Sequence[int], dtype=torch.float32, *,
+               device) -> torch.Tensor:
+    """``jax.random.normal(jax.random.PRNGKey(seed), shape, dtype)`` for
+    float32 and bfloat16: JAX's uniform draw in (-1, 1) bit for bit, then
+    ``sqrt(2) * erfinv(u)`` through XLA's polynomial (float32 within a few
+    ulps of JAX's; bf16 draws 8 bits an element, as JAX's does, and rounds
+    to bf16 after each operation)."""
+    bits = random_bits(*_key(seed, device), shape)
+    f32, bf = torch.float32, torch.bfloat16
+    sqrt2 = torch.tensor(2.0 ** 0.5, dtype=f32, device=device)
+    if dtype == f32:
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(f32)
+        lo = torch.tensor(-1.0, device=device).nextafter(
+            torch.tensor(0.0, device=device))
+        u = torch.maximum((f - 1.0) * (1.0 - lo) + lo, lo)
+        return _erfinv_f32(u) * sqrt2
+    if dtype != bf:
+        raise TypeError(f"key_normal: {dtype} (float32 or bfloat16)")
+
+    def r(x):                         # round to bf16, go on in fp32
+        return x.to(bf).to(f32)
+
+    f = (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(bf).to(f32)
+    lo = r(torch.tensor(-1.0, dtype=bf, device=device).nextafter(
+        torch.tensor(0.0, dtype=bf, device=device)).to(f32))
+    u = torch.maximum(r(r(r(f - 1.0) * r(1.0 - lo)) + lo), lo)
+    return (r(_erfinv_f32(u)) * r(sqrt2)).to(bf)
 
 
 # ---------------------------------------------------------------------------

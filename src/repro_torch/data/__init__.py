@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, make_synthetic_batch
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "make_synthetic_batch"]

@@ -1,12 +1,15 @@
-"""Data pipeline: the on-device synthetic token stream and the host feed.
+"""Data pipeline: the on-device synthetic token stream, synthetic batches
+of every family's inputs, and the host feed.
 
 :class:`SyntheticLM` draws every batch on the device from the counter-based
 RNG of :mod:`repro_torch.core.libc`, with no host contact; its batches equal
-the JAX package's bit for bit.  :func:`make_host_pipeline` is the paper's
-``fscanf``-by-RPC for batches: device code fetches each batch from a host
-iterator with one immediate ordered RPC whose result is a tuple of arrays
-(on a card through the RPC channel, with no host wait), and a prefetch
-thread keeps batches staged so the callee returns at once.
+the JAX package's bit for bit.  :func:`make_synthetic_batch` draws one
+batch of :func:`~repro_torch.models.model_zoo.input_specs`' leaves from
+``jax.random``'s streams, on the device.  :func:`make_host_pipeline` is
+the paper's ``fscanf``-by-RPC for batches: device code fetches each batch
+from a host iterator with one immediate ordered RPC whose result is a
+tuple of arrays (on a card through the RPC channel, with no host wait),
+and a prefetch thread keeps batches staged so the callee returns at once.
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ from typing import Callable, Dict, Iterator, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.libc import rand_uniform
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.libc import key_normal, key_randint, rand_uniform
 from repro_torch.core.rpc import REGISTRY, ShapeDtype, _torch_dtype, rpc_call
+from repro_torch.models.common import torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +51,39 @@ class SyntheticLM:
         noise = (u * 7).to(torch.int32)
         tokens = (base[None, :] + noise) % self.vocab_size
         return state, {"tokens": tokens.to(torch.int32)}
+
+
+def make_synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                         device="cuda") -> Dict[str, torch.Tensor]:
+    """A concrete batch of ``input_specs(cfg, shape)``'s leaves on
+    ``device`` (the card unless the caller asks for the CPU), drawn as the
+    JAX package draws it from ``PRNGKey(seed)`` (one key for every leaf):
+    ``embeds`` ``normal * 0.2`` in the config's dtype (bf16 bit for bit,
+    float32 within a few ulps: see :func:`~repro_torch.core.libc.
+    key_normal`), ``tokens`` and ``labels`` uniform in the vocabulary (bit
+    for bit), M-RoPE ``positions`` the text positions in every stream."""
+    B, S = shape.global_batch, shape.seq_len
+    out: Dict[str, torch.Tensor] = {}
+
+    def ids():
+        return key_randint(seed, (B, S), 0, cfg.vocab_size, device=device)
+
+    if cfg.embeds_input:
+        dt = torch_dtype(cfg.dtype)
+        out["embeds"] = key_normal(seed, (B, S, cfg.d_model), dt,
+                                   device=device) * torch.tensor(
+                                       0.2, dtype=dt, device=device)
+        if cfg.family == "encdec":
+            out["tokens"] = ids()
+        else:
+            out["labels"] = ids()
+            if cfg.mrope_sections:
+                pos = torch.arange(S, dtype=torch.int32, device=device)
+                out["positions"] = pos.expand(len(cfg.mrope_sections), B,
+                                              S).contiguous()
+    else:
+        out["tokens"] = ids()
+    return out
 
 
 # ---------------------------------------------------------------------------

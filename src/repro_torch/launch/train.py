@@ -3,16 +3,24 @@
 The host builds the model and its optimizer state on the card and hands
 control to the device loop (``core/device_main.py::device_run``): data
 comes from the on-device synthetic stream, the step runs on the card, and
-the host sees only the loss, through one immediate hook every
-``log_every`` steps.
+the host sees the loss through one immediate hook every ``log_every``
+steps and the checkpoints through another every ``ckpt_every`` steps
+(``ckpt/checkpoint.py``: the save is an RPC from inside the loop).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
-      --preset tiny --device cpu
+      --preset tiny --device cpu --steps 30 --ckpt-dir /tmp/ckpt \
+      --ckpt-every 10
 
-``--preset full`` trains the architecture at its published width and depth
-from random weights (seed 0); ``--device cuda`` (the default) needs a card,
-``--device cpu`` runs the plain PyTorch versions of the kernels.
-Checkpoints (``--ckpt-dir``) come with ``ckpt/``, not ported yet.
+Resume after a failure (from the newest manifest): the same with
+``--resume``.  ``--preset full`` trains the architecture at its published
+width and depth from random weights (seed 0); ``--device cuda`` (the
+default) needs a card, ``--device cpu`` runs the plain PyTorch versions of
+the kernels.
+
+As in the JAX package, a resumed run labels its periodic saves with its
+own step count (a run resumed at step 12 writes the state after step 18
+as ``manifest-6`` when ``ckpt_every`` is 6) and its last save with the
+global step; its data continue at the global step.
 """
 from __future__ import annotations
 
@@ -23,14 +31,19 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.ckpt.checkpoint import (CheckpointManager, latest_step,
+                                        read_manifest, restore_checkpoint)
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import from_jax_layout, to_jax_layout
 from repro_torch.core.device_main import HostHook, device_run
 from repro_torch.core.libc import rand_init
+from repro_torch.core.rpc import ShapeDtype
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models.model_zoo import build_model
-from repro_torch.train.optimizer import OptConfig, adamw_init
+from repro_torch.train.optimizer import OptConfig, OptState, adamw_init
 from repro_torch.train.step import make_train_step
+from repro_torch.tree import flatten_with_paths, tree_map
 
 
 def tiny_preset(cfg: ModelConfig) -> ModelConfig:
@@ -39,18 +52,43 @@ def tiny_preset(cfg: ModelConfig) -> ModelConfig:
         d_ff=256, vocab_size=512)
 
 
+def _restore(ckpt_dir: str, values, opt: OptState, device):
+    """``(step, values, opt)`` from the newest manifest in ``ckpt_dir``,
+    written in the port's layout or in the JAX package's (its trainer's
+    checkpoints)."""
+    def spec(t):
+        return ShapeDtype(t.shape, t.dtype) if isinstance(t, torch.Tensor) \
+            else t
+
+    like = {"values": tree_map(spec, values), "opt": tree_map(spec, opt)}
+    _, manifest = read_manifest(ckpt_dir)
+    jax_layout = not set(flatten_with_paths(like)) <= set(manifest["entries"])
+    if jax_layout:
+        like = to_jax_layout(like)
+    step, restored = restore_checkpoint(ckpt_dir, like, device=device)
+    if jax_layout:
+        restored = from_jax_layout(restored)
+    return step, restored["values"], restored["opt"]
+
+
 def run(arch: str, *, preset: str = "tiny", steps: int = 50, batch: int = 8,
         seq_len: int = 64, lr: float = 1e-3, ckpt_dir: Optional[str] = None,
         ckpt_every: int = 0, log_every: int = 10, resume: bool = False,
-        mesh=None, rules=None, device="cuda") -> Dict[str, Any]:
+        mesh=None, rules=None, device="cuda", keep_state: bool = False
+        ) -> Dict[str, Any]:
     """Train ``arch`` for ``steps`` steps on ``device``, from the random
-    weights of ``Model.init(0)``.  Returns the final loss, the logged
-    ``(step, loss)`` pairs, the host clock at each log (``log_times``, after
-    the device finished the step: the hook waits for it) and the run's
-    seconds."""
-    if ckpt_dir or ckpt_every or resume:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
-                                  "queue 1, item 5: ckpt/checkpoint.py)")
+    weights of ``Model.init(0)`` or, with ``resume``, from the newest
+    checkpoint in ``ckpt_dir``; with ``ckpt_every`` it saves
+    ``{"values", "opt"}`` there every ``ckpt_every`` steps from inside the
+    device loop, and after the loop at ``final_step``.  Returns the final
+    loss, the logged ``(step, loss)`` pairs, the host clock at each log
+    (``log_times``, after the device finished the step: the hook waits for
+    it), the run's seconds, ``start_step`` and ``final_step``, the
+    restore's seconds (``restore_s``), the saves' ``(step, writer
+    seconds, bytes)`` (``ckpt_writes``), the checkpoint hook's ``(step,
+    host seconds)`` (``ckpt_hook_s``) and, with ``keep_state``, the final
+    ``{"values", "opt", "rng", "loss"}`` (``state``; by default the run
+    lets go of it, which at full width is most of the card)."""
     if mesh is not None or rules is not None:
         raise NotImplementedError("mesh runs are not ported yet (ROADMAP "
                                   "queue 1, item 5: scale-out)")
@@ -65,6 +103,20 @@ def run(arch: str, *, preset: str = "tiny", steps: int = 50, batch: int = 8,
     opt = adamw_init(values)
     step_fn = make_train_step(model, opt_cfg)
 
+    start_step, restore_s = 0, 0.0
+    if resume and ckpt_dir and latest_step(ckpt_dir) is not None:
+        t0 = time.perf_counter()
+        start_step, values, opt = _restore(ckpt_dir, values, opt,
+                                           model.device)
+        restore_s = time.perf_counter() - t0
+        print(f"[train] resumed from step {start_step}")
+
+    mgr = CheckpointManager(ckpt_dir) if (ckpt_dir and ckpt_every) else None
+    hooks = []
+    if mgr is not None:
+        hooks.append(mgr.host_hook(
+            ckpt_every, lambda step, s: {"values": s["values"],
+                                         "opt": s["opt"]}))
     losses: list = []
     log_times: list = []
 
@@ -73,14 +125,13 @@ def run(arch: str, *, preset: str = "tiny", steps: int = 50, batch: int = 8,
         losses.append((step, float(loss)))
         print(f"[train] step {step} loss {float(loss):.4f}", flush=True)
 
-    hooks = []
     if log_every:
         hooks.append(HostHook(every=log_every,
                               extract=lambda step, s: {"loss": s["loss"]},
                               host_fn=log_loss))
 
     def step(i, state):
-        rng, batch_d = data.batch_at(state["rng"], i)
+        rng, batch_d = data.batch_at(state["rng"], i + start_step)
         v, o, metrics = step_fn(state["values"], state["opt"], batch_d)
         return {"values": v, "opt": o, "rng": rng, "loss": metrics["loss"]}
 
@@ -93,9 +144,23 @@ def run(arch: str, *, preset: str = "tiny", steps: int = 50, batch: int = 8,
         steps, hooks=hooks)
     final_loss = float(state["loss"])          # waits for the device
     dt = time.perf_counter() - t0
-    return {"final_loss": final_loss, "losses": losses,
-            "log_times": [t - t0 for t in log_times], "seconds": dt,
-            "steps": steps, "final_step": steps}
+    if mgr is not None:
+        mgr.submit(start_step + steps,
+                   {"values": state["values"], "opt": state["opt"]})
+        mgr.wait()
+        mgr.close()
+        if mgr.errors:
+            raise RuntimeError(f"a checkpoint save failed: "
+                               f"{mgr.errors[0]!r}") from mgr.errors[0]
+    out = {"final_loss": final_loss, "losses": losses,
+           "log_times": [t - t0 for t in log_times], "seconds": dt,
+           "steps": steps, "start_step": start_step,
+           "final_step": start_step + steps, "restore_s": restore_s,
+           "ckpt_writes": list(mgr.writes) if mgr is not None else [],
+           "ckpt_hook_s": list(mgr.hook_s) if mgr is not None else []}
+    if keep_state:
+        out["state"] = state
+    return out
 
 
 def main(argv=None):

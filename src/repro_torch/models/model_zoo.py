@@ -16,8 +16,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.rpc import ShapeDtype
 from repro_torch.models import encdec, transformer
+from repro_torch.models.common import torch_dtype
 
 
 def resolve_device(device) -> torch.device:
@@ -116,3 +118,30 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """The facade for ``cfg`` (any of the ten configs' families) on
     ``device``."""
     return Model(cfg, resolve_device(device))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ShapeDtype]:
+    """The ``batch`` of a train or prefill cell as
+    :class:`~repro_torch.core.rpc.ShapeDtype` stand-ins (no allocation), or
+    a decode step's ``tokens`` (B,) for decode kinds (caches come from
+    ``init_cache``).  Families fed with embeddings take ``embeds`` (B, S,
+    d) and the decoder's ``tokens`` (encdec) or next-token ``labels`` and,
+    with M-RoPE, ``positions`` (3, B, S) (vlm); the others ``tokens``."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind not in ("train", "prefill"):
+        return {"tokens": ShapeDtype((B,), i32)}
+    batch: Dict[str, ShapeDtype] = {}
+    if cfg.embeds_input:
+        batch["embeds"] = ShapeDtype((B, S, cfg.d_model),
+                                     torch_dtype(cfg.dtype))
+        if cfg.family == "encdec":
+            batch["tokens"] = ShapeDtype((B, S), i32)
+        else:
+            batch["labels"] = ShapeDtype((B, S), i32)
+            if cfg.mrope_sections:
+                batch["positions"] = ShapeDtype(
+                    (len(cfg.mrope_sections), B, S), i32)
+    else:
+        batch["tokens"] = ShapeDtype((B, S), i32)
+    return batch

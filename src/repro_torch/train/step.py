@@ -18,12 +18,20 @@ from repro_torch.tree import leaves, tree_map
 
 
 def _split_mb(batch: Dict[str, torch.Tensor], k: int):
-    """The batch as k microbatches along axis 0."""
+    """The batch as k microbatches: M-RoPE ``positions`` (3, B, S) along
+    axis 1, every other leaf along axis 0.
+
+    The JAX package splits any 3-D leaf whose first dim is 3 (and whose
+    second divides) on axis 1, which would also cut an ``embeds`` batch of
+    three rows along its sequence; the port keys on the name instead."""
+    def axis(key):
+        return 1 if key == "positions" else 0
+
     for key, v in batch.items():
-        if v.shape[0] % k:
-            raise ValueError(f"batch[{key!r}] of {v.shape[0]} rows does not "
-                             f"split into {k} microbatches")
-    parts = {key: torch.chunk(v, k, dim=0) for key, v in batch.items()}
+        if v.shape[axis(key)] % k:
+            raise ValueError(f"batch[{key!r}] of {v.shape[axis(key)]} rows "
+                             f"does not split into {k} microbatches")
+    parts = {key: torch.chunk(v, k, dim=axis(key)) for key, v in batch.items()}
     return [{key: parts[key][i] for key in batch} for i in range(k)]
 
 
@@ -50,9 +58,13 @@ def make_train_step(model: Model, opt_cfg: OptConfig, *,
     def grads_of(values, batch):
         vals = tree_map(lambda t: t.detach().requires_grad_(), values)
         loss, metrics = model.loss(vals, batch)
-        grads = torch.autograd.grad(loss, leaves(vals))
+        # a parameter the batch does not reach (the vlm family's token
+        # table under an embeddings batch) gets a zero gradient, as JAX's
+        grads = torch.autograd.grad(loss, leaves(vals), allow_unused=True)
+        grads = [torch.zeros_like(v) if g is None else g
+                 for g, v in zip(grads, leaves(vals))]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            list(grads)
+            grads
 
     def train_step(values, opt_state: OptState, batch):
         if microbatches == 1:

@@ -1,7 +1,7 @@
 """Nested containers of tensors (the port's parameter and state trees).
 
 The port keeps parameters as nested dicts with ``params["layers"]`` a list
-of per-layer dicts; these two functions take the place of ``jax.tree`` for
+of per-layer dicts; these functions take the place of ``jax.tree`` for
 them.  They flatten as ``jax.tree`` does: dict keys in sorted order, so
 leaves line up with the JAX package's; ``None`` is an empty subtree (no
 leaf, kept as ``None`` by :func:`tree_map`); a NamedTuple is rebuilt by
@@ -9,7 +9,7 @@ its fields.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, Dict, Iterable, List
 
 
 def leaves(tree: Any) -> List[Any]:
@@ -40,3 +40,63 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return type(tree)(*out) if hasattr(tree, "_fields") \
             else type(tree)(out)
     return fn(tree, *rest)
+
+
+_END = object()
+
+
+def _children(tree: Any):
+    """``(key, child)`` pairs in flattening order, or None for a leaf."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), t) for i, t in enumerate(tree)]
+    return None
+
+
+def flatten_with_paths(tree: Any) -> Dict[str, Any]:
+    """The leaves keyed by their paths, in :func:`leaves` order: the keys
+    joined by ``/`` as the JAX package's checkpoints build them from
+    ``tree_flatten_with_path`` (a dict key, a NamedTuple field's name, a
+    list or tuple index), e.g. ``opt/master/layers/0/wq`` and
+    ``opt/step``."""
+    flat: Dict[str, Any] = {}
+
+    def walk(t, prefix):
+        if t is None:
+            return
+        kids = _children(t)
+        if kids is None:
+            flat["/".join(prefix)] = t
+            return
+        for k, child in kids:
+            walk(child, prefix + [k])
+
+    walk(tree, [])
+    return flat
+
+
+def unflatten(structure: Any, values: Iterable[Any]) -> Any:
+    """``structure``'s tree with its leaves replaced, in :func:`leaves`
+    order, by ``values`` (the inverse of :func:`leaves`)."""
+    it = iter(values)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            new = {k: build(t[k]) for k in sorted(t)}
+            return {k: new[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            out = [build(x) for x in t]
+            if not isinstance(t, tuple):
+                return out
+            return type(t)(*out) if hasattr(t, "_fields") else type(t)(out)
+        return next(it)
+
+    out = build(structure)
+    if next(it, _END) is not _END:
+        raise ValueError("unflatten: more values than the structure's leaves")
+    return out

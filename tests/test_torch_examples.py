@@ -78,10 +78,11 @@ def test_gpu_first_port_torch_matches_the_jax_example(tmp_path):
         - before == 1
 
 
-def _run_example(script):
+def _run_example(script, *args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
-        [sys.executable, str(ROOT / "examples" / script), "--device", "cpu"],
+        [sys.executable, str(ROOT / "examples" / script), "--device", "cpu",
+         *args],
         capture_output=True, text=True, timeout=240, env=env, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     return res.stdout
@@ -136,3 +137,22 @@ def test_serve_demo_torch_streams_match_the_jax_example():
     params = params_from_jax(jax.tree.map(np.asarray, values), device="cpu")
     rids, got, _ = _load("serve_demo_torch.py").serve(model, params, "cpu")
     assert {r: got[r] for r in rids} == want
+
+
+def test_train_100m_torch_resumes_on_the_cpu(tmp_path):
+    """Both phases at the CPU preset, the resume from the newest manifest
+    and the example's asserts; its full preset is JAX's ``full_100m``."""
+    from repro_torch.ckpt import latest_step
+    out = _run_example("train_100m_torch.py", "--steps", "12", "--batch",
+                       "4", "--seq-len", "32", "--ckpt-dir", str(tmp_path))
+    assert "[train] resumed from step 6" in out
+    assert "phase 2 (after restart)" in out and "at step 12" in out
+    assert "[100m] OK: loss descended" in out
+    assert latest_step(str(tmp_path)) == 12
+    assert sorted(n for n in os.listdir(tmp_path)
+                  if n.startswith("manifest-")) == [
+        "manifest-12.json", "manifest-3.json", "manifest-6.json"]
+    cfg = _load("train_100m_torch.py").full_100m()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        _load("train_100m.py").full_100m())
+    assert 1.2e8 < cfg.num_params() < 1.3e8

@@ -86,7 +86,8 @@ def test_train_entry_point_needs_a_card_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("script", ["quickstart_torch.py",
-                                    "serve_demo_torch.py"])
+                                    "serve_demo_torch.py",
+                                    "train_100m_torch.py"])
 def test_examples_need_a_card_unless_told_cpu(monkeypatch, script):
     import importlib.util
     spec = importlib.util.spec_from_file_location(

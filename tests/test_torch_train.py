@@ -327,5 +327,19 @@ def test_train_cli_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "[train] step 2 loss" in out and "final_loss" in out
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        run("llama3.2-3b", device="cpu", steps=1, ckpt_dir="x",
-            ckpt_every=1)
+        run("llama3.2-3b", device="cpu", steps=1, mesh=object())
+
+
+def test_train_cli_checkpoints_and_resumes_on_the_cpu(capsys, tmp_path):
+    from repro_torch.ckpt import latest_step
+    from repro_torch.launch.train import main
+    argv = ["--arch", "llama3.2-3b", "--preset", "tiny", "--device", "cpu",
+            "--steps", "4", "--batch", "2", "--seq-len", "16",
+            "--log-every", "2", "--ckpt-dir", str(tmp_path),
+            "--ckpt-every", "2"]
+    main(argv)
+    assert latest_step(str(tmp_path)) == 4
+    main(argv + ["--resume"])
+    out = capsys.readouterr().out
+    assert "[train] resumed from step 4" in out
+    assert latest_step(str(tmp_path)) == 8
