@@ -179,7 +179,28 @@ source, all started together) and runs, in order:
     ``serial_for``, ``parallel_for`` (vmap's fallback warning an error)
     and the manual port within rtol 1e-5, ``write_results`` through the
     channel, times and verdict; then the allocator ops under
-    ``set_sync_debug_mode("error")``, bit-equal to the CPU's.
+    ``set_sync_debug_mode("error")``, bit-equal to the CPU's;
+27. ``host_driven``: ``device_run`` against ``host_driven_run`` (a wait
+    for the card after every step) over 1000 steps of XSBench's history
+    step at "small" (2**15 particles): ms/step of each, the final states
+    bit-equal, ``device_run`` under ``set_sync_debug_mode("error")``;
+28. ``paper_eval``: the paper's evaluation (``repro_torch.evaluation``),
+    one line a figure.  Figs. 8-10 at ``evaluation/run.py::CARD_SIZES``:
+    each region's serial (on a prefix, scaled), gpu_first and manual ms,
+    JAX's two ratios, ATen ops a serial iteration and of the expanded loop
+    (device launches by ``torch.profiler`` beside them), and its gates:
+    the columns under ``set_sync_debug_mode("error")`` with vmap's
+    fallback an error, gpu_first against serial on the prefix and manual
+    against gpu_first where JAX's columns agree (rtol 1e-5 against the
+    value plus the column's largest; hypterm against its plane's absolute
+    terms; integers equal; on each region's ``gate_region()``: the
+    history chains at depth 1 and botsspar in float64, where rounding
+    differences grow, their timed columns only finite), and every column
+    against the CPU at the JAX modules' sizes (1e-4 chained, stencil and
+    inverse, 1e-5 the others); smithwa's scores at L 32..2048 equal to
+    the CPU's.  Then Figs. 6 and 7 on the card and on the CPU: pointers,
+    records and replies bit-equal, and the transport kernels' launches
+    exactly those the sections' loops make.
 
 Between ``identity`` and ``flash`` runs
 ``dense_serve``: qwen2.5-14b at full width and depth (48 layers, 40
@@ -306,7 +327,8 @@ before each counted path (phases 3, 7, 10, 12, 16, 21, 24, 25 and 26,
 ``encdec_fp32``, ``vlm_serve``, ``vlm_fp32``, ``ckpt_train``,
 ``hybrid_train``, ``encdec_train``, ``vlm_train``, ``rpc_queue_async``,
 ``device_run_async``, ``host_pipeline``, ``serve_spill``, ``sanitizer``,
-``rpc_sharded`` and ``manifest``) and read just after it; each path's count must be the exact number its depth
+``rpc_sharded``, ``manifest`` and ``paper_eval``'s Figs. 6 and 7) and
+read just after it; each path's count must be the exact number its depth
 and steps give (``rpc_post``: one a firing of a hook, a call or a flush;
 ``rpc_enqueue``: one a record; ``rpc_async_post`` and
 ``rpc_async_collect``: one each an async flush).
@@ -3391,6 +3413,361 @@ def gpu_first_phase():
     log({"gpu_first": rec})
     if not rec["allocator_ops_bit_equal_to_cpu"]:
         raise AssertionError("allocator ops on the card differ from the CPU")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The paper's evaluation (Figs. 6-10) and the offload baseline
+# ---------------------------------------------------------------------------
+
+#: The card the paper_eval and host_driven phases run on.
+CARD = torch.device("cuda", 0)
+#: host_driven: XSBench's history step at "small" (68 nuclides x 11,303
+#: points), one lookup a particle a step.
+HOST_DRIVEN_STEPS, HOST_DRIVEN_PARTICLES = 1000, 1 << 15
+#: The timed runs follow a gate pass over the same shapes (which warms
+#: them up), so they take no warm-up of their own.
+PAPER_WARMUP, PAPER_ITERS = 0, 3
+#: A region's columns against each other on the card, by body kind
+#: (relative, with a floor of the tolerance times the largest value, since
+#: the bodies' sums cancel; hypterm's against its plane's absolute terms).
+EVAL_TOL = {"elementwise": 1e-5, "chained": 1e-5, "stencil": 1e-5,
+            "inverse": 1e-5, "integer": 0}
+#: The card's columns against the CPU's at the JAX modules' sizes.
+EVAL_CPU_TOL = {"elementwise": 1e-5, "chained": 1e-4, "stencil": 1e-4,
+                "inverse": 1e-4, "integer": 0}
+#: The serial prefix the CPU comparison runs.
+EVAL_CPU_PREFIX = 32
+#: Fig. 7's counts on the card and the CPU (JAX's: up to 3 rounds of 9
+#: iterations after 2 warm-ups), cut to keep the phase near 90 s.
+FIG7_TIMING = dict(warmup=1, iters=3, rounds=1)
+
+
+@contextlib.contextmanager
+def _columns_guard():
+    """A block that must not wait for the device nor fall back to a loop
+    inside ``torch.vmap``: ``set_sync_debug_mode("error")``, and vmap's
+    fallback warning (C++'s "There is a performance drop because we have
+    not yet implemented the batching rule", which reaches Python's
+    warnings only from some call paths) caught on the process's stderr."""
+    import tempfile
+    with tempfile.TemporaryFile() as cap:
+        sys.stderr.flush()
+        saved = os.dup(2)
+        os.dup2(cap.fileno(), 2)
+        torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+        try:
+            with sync_errors(), warnings.catch_warnings():
+                warnings.filterwarnings("error",
+                                        message="There is a performance")
+                yield
+        finally:
+            torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            cap.seek(0)
+            text = cap.read().decode(errors="replace")
+            sys.stderr.write(text)
+    if "There is a performance drop" in text:
+        raise AssertionError(f"vmap fell back to a loop: {text[:300]}")
+
+
+def _device_launches(fn) -> int:
+    """Device activities (kernels, copies, fills) one call of ``fn`` puts
+    on the card, counted by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _eval_err(got, ref, kind, magnitude=None) -> float:
+    """The largest difference of ``got`` from ``ref`` over its scale: the
+    value plus the largest value (or ``magnitude``, hypterm's absolute
+    terms); an integer body's largest difference."""
+    got, ref = got.cpu().double(), ref.cpu().double()
+    if got.shape != ref.shape:
+        raise AssertionError(f"shapes {tuple(got.shape)} != "
+                             f"{tuple(ref.shape)}")
+    diff = (got - ref).abs()
+    if kind == "integer":
+        return float(diff.max())
+    if magnitude is not None:
+        scale = magnitude.cpu().double()
+    else:
+        scale = ref.abs() + ref.abs().max()
+    return float((diff / scale.clamp(min=1e-30)).max())
+
+
+def _columns(reg, m):
+    """The three columns of ``reg`` (serial on the first ``m``) and the
+    serial prefix's magnitude, on the card under :func:`_columns_guard`."""
+    with _columns_guard():
+        out = (reg.serial(m), reg.gpu_first(), reg.manual(),
+               reg.magnitude(m) if reg.magnitude else None)
+    torch.cuda.synchronize()
+    return out
+
+
+def _gate_columns(reg, m, tol) -> dict:
+    """gpu_first against serial on the first ``m`` iterations, and manual
+    against gpu_first where JAX's columns agree; raises beyond ``tol``."""
+    s, g, man, mag = _columns(reg, m)
+    for t in (s, g, man):
+        if not bool(torch.isfinite(t.double()).all()):
+            raise AssertionError(f"{reg.name}: a column is not finite")
+    out = {"serial_vs_gpu_first": _eval_err(s, g[:m], reg.kind, mag)}
+    if reg.manual_agrees:
+        out["manual_vs_gpu_first"] = _eval_err(man, g, reg.kind)
+    if max(out.values()) > tol:
+        raise AssertionError(f"{reg.name}: columns differ: {out} > {tol}")
+    return out
+
+
+def host_driven_phase(card_line, dev=CARD):
+    """``device_run`` against ``host_driven_run`` (JAX's offload baseline:
+    a wait for the device after every step) over 1000 steps of XSBench's
+    history step at "small" (2**15 particles, the state their energies),
+    in turns (device, host, host, device): wall ms/step of each run, the
+    final states bit-equal, ``device_run`` under
+    ``set_sync_debug_mode("error")``."""
+    from repro_torch.core import device_run, host_driven_run
+    from repro_torch.evaluation import xsbench
+
+    gen = torch.Generator().manual_seed(0)
+    egrid, xs, conc = xsbench.make_data(68, 11303, generator=gen, device=dev)
+    e0 = xsbench.energies(HOST_DRIVEN_PARTICLES, generator=gen, device=dev)
+
+    def step(i, e):
+        return xsbench.history_step(i, e, egrid, xs, conc)
+
+    device_run(step, e0, 3)                        # warm up
+    runs, finals = {"device_run": [], "host_driven_run": []}, {}
+    for name in ("device_run", "host_driven_run", "host_driven_run",
+                 "device_run"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "device_run":
+            with _columns_guard():
+                out = device_run(step, e0, HOST_DRIVEN_STEPS)
+        else:
+            out = host_driven_run(step, e0, HOST_DRIVEN_STEPS)
+        torch.cuda.synchronize()
+        runs[name].append((time.perf_counter() - t0)
+                          / HOST_DRIVEN_STEPS * 1e3)
+        finals.setdefault(name, []).append(out)
+    a = finals["device_run"][0]
+    dev_ms, host_ms = (sum(runs[k]) / 2 for k in runs)
+    rec = {"card": card_line, "steps": HOST_DRIVEN_STEPS,
+           "particles": HOST_DRIVEN_PARTICLES,
+           "device_run_ms_per_step": runs["device_run"],
+           "host_driven_ms_per_step": runs["host_driven_run"],
+           "host_driven_over_device_run": host_ms / dev_ms,
+           "bit_equal": all(torch.equal(a, x) for x in
+                            finals["device_run"] + finals["host_driven_run"]),
+           "finite": bool(torch.isfinite(a).all())}
+    log({"host_driven": rec})
+    if not (rec["bit_equal"] and rec["finite"]):
+        raise AssertionError(f"host_driven: {rec}")
+
+
+def _paper_regions(card_line, dev=CARD):
+    """Figs. 8-10 at the card's sizes: each region's gates, times, ATen
+    ops a serial iteration and of the expanded loop, and the device
+    launches ``torch.profiler`` counts over a window of up to 8 serial
+    iterations and over the expanded loop; then every column against the
+    CPU at the JAX modules' sizes."""
+    from repro_torch.evaluation import spec
+    from repro_torch.evaluation.common import aten_ops
+    from repro_torch.evaluation.run import CARD_SIZES, REGION_SUITES, smithwa
+
+    cpu = torch.device("cpu")
+    for suite, build in REGION_SUITES.items():
+        t_suite = time.perf_counter()
+        sizes = dict(CARD_SIZES[suite])
+        lengths = sizes.pop("smithwa", None)
+        recs = []
+        for reg in build(dev, **sizes):
+            torch.cuda.empty_cache()
+            tol = EVAL_TOL[reg.kind]
+            gate = reg.gate_region()
+            rec = {"gates": _gate_columns(gate, gate.n_serial, tol),
+                   "tol": tol}
+            if gate is not reg:
+                rec["gated_at"] = reg.gate_note
+                s, g, man, _ = _columns(reg, reg.n_serial)
+                if not all(bool(torch.isfinite(t).all())
+                           for t in (s, g, man)):
+                    raise AssertionError(f"{reg.name}: not finite")
+                rec["timed_serial_vs_gpu_first_rel"] = float(
+                    ((s.double() - g[:reg.n_serial].double()).abs()
+                     / g[:reg.n_serial].double().abs()).max())
+            timed = reg.measure(warmup=PAPER_WARMUP, iters=PAPER_ITERS,
+                                device=dev)
+            rec.update({(key[:-2] + "_ms" if key.endswith("_s") else key):
+                        (v * 1e3 if key.endswith("_s") else v)
+                        for key, v in timed.items()})
+            # one iteration's ATen ops: two iterations' less one's (the
+            # stack after the loop cancels); botsspar's one is the whole
+            one = aten_ops(lambda: reg.serial(1))
+            rec["serial_ops_per_iteration"] = one if reg.n == 1 else \
+                aten_ops(lambda: reg.serial(2)) - one
+            rec["gpu_first_ops"] = aten_ops(reg.gpu_first)
+            w = min(8, reg.n_serial)
+            rec["serial_window_device_launches"] = {
+                "iterations": w,
+                "launches": _device_launches(lambda: reg.serial(w))}
+            rec["gpu_first_device_launches"] = _device_launches(
+                reg.gpu_first)
+            recs.append(rec)
+        line = {"figure": suite, "card": card_line, "regions": recs}
+        if lengths:
+            pairs = spec.smithwa_pairs(lengths, device=dev)
+            cpu_pairs = spec.smithwa_pairs(lengths, device=cpu)
+            with _columns_guard():
+                scores = {L: spec.sw_score(*ab) for L, ab in pairs.items()}
+            line["smithwa"] = smithwa(dev, lengths,
+                                      warmup=PAPER_WARMUP, iters=PAPER_ITERS)
+            a, b = pairs[32]
+            line["smithwa"]["ops_per_diagonal"] = aten_ops(
+                lambda: spec.sw_score(a, b)) / (2 * 32 - 1)
+            line["smithwa"]["device_launches_L32"] = _device_launches(
+                lambda: spec.sw_score(a, b))
+            for L, score in scores.items():
+                want = int(spec.sw_score(*cpu_pairs[L]))
+                line["smithwa"][f"L{L}"]["score"] = int(score)
+                if int(score) != want:
+                    raise AssertionError(f"smithwa L{L}: {int(score)} on "
+                                         f"the card, {want} on the CPU")
+        line["cpu_parity"] = _cpu_parity(build, dev, cpu)
+        line["suite_s"] = time.perf_counter() - t_suite
+        log({"paper_eval": line})
+
+
+def _cpu_parity(build, dev, cpu) -> dict:
+    """Each column on the card against the same code on the CPU at the JAX
+    module's sizes, on the gates' regions (``Region.gate_region``: the
+    histories at depth 1, botsspar in float64): the largest difference of
+    each over its scale (hypterm's: its absolute terms)."""
+    card = [r.gate_region() for r in build(dev)]
+    host = [r.gate_region() for r in build(cpu)]
+    out = {}
+    for c, h in zip(card, host):
+        m = min(c.n, EVAL_CPU_PREFIX)
+        cc, hc = _columns(c, m), (h.serial(m), h.gpu_first(), h.manual())
+        scales = (h.magnitude(m) if h.magnitude else None,
+                  h.magnitude(h.n) if h.magnitude else None,
+                  h.manual_magnitude() if h.manual_magnitude else None)
+        errs = [_eval_err(x, y, c.kind, sc)
+                for x, y, sc in zip(cc[:3], hc, scales)]
+        out[c.name] = dict(zip(("serial", "gpu_first", "manual"), errs))
+        if max(errs) > EVAL_CPU_TOL[c.kind]:
+            raise AssertionError(f"{c.name}: the card differs from the CPU: "
+                                 f"{out[c.name]}")
+    return out
+
+
+def _same_evidence(a, b) -> bool:
+    """Deep equality of two sections' evidence: tensors bit for bit,
+    numbers exactly."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and \
+            torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_evidence(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            _same_evidence(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _fig6_fig7_launches() -> dict:
+    """The transport launches ``allocator.run`` and ``rpc.run`` make at
+    the phase's counts: ``rpc_post`` one a call and a flush,
+    ``rpc_enqueue`` one a record (a ``LogRing.log`` too),
+    ``rpc_async_post`` and ``rpc_async_collect`` one each an async flush.
+    A timed loop runs ``warmup + iters`` times (``rounds`` times that in
+    a contrast) and once more for its evidence."""
+    from repro_torch.evaluation import allocator as fig6, rpc as fig7
+
+    loops = []                  # (runs, posts a run, records a run)
+    # Fig. 6: find_obj's ArenaRef round trip a cap; the queue contrast's
+    # funneled and sharded loops (an untimed run for the records first)
+    loops.append((len(fig6.FIND_OBJ_CAPS) * (PAPER_WARMUP + PAPER_ITERS + 1),
+                  1, 0))
+    loops.append((2 * (1 + PAPER_WARMUP + fig6.QUEUE_ITERS), 1,
+                  fig6.SHARD_DEVICES * fig6.QUEUE_PER_SHARD))
+    # Fig. 7
+    timed = FIG7_TIMING["warmup"] + FIG7_TIMING["iters"]
+    t, c = timed + 1, FIG7_TIMING["rounds"] * timed + 1
+    K = fig7.N_QUEUED
+    loops += [(t, fig7.N_CALLS, 0), (t, 1, fig7.N_CALLS)]  # calls, LogRing
+    for _ in range(1 + len(fig7.PAYLOAD_ELEMS)):           # scalars, arrays
+        loops += [(t, K, 0), (t, 1, K)]
+    for _ in fig7.REPLY_ELEMS:                             # a contrast
+        loops += [(c, K, 0), (c, 1, K)]
+    loops.append((2 * t, 1, fig7.N_SHARDS * K))            # queue contrast
+    loops.append((2 * c + t, 1, K))          # fast, guarded; timeout
+    n_async = 1 + FIG7_TIMING["iters"]       # a leg: warm-up and iters
+    loops.append((2 * n_async, 0, K))
+    loops.append((n_async, 1, 0))            # the sync leg's flushes
+    return {"rpc_post": sum(n * p for n, p, _ in loops),
+            "rpc_enqueue": sum(n * r for n, _, r in loops),
+            "rpc_async_post": n_async, "rpc_async_collect": n_async}
+
+
+def _paper_transport(card_line, dev=CARD) -> dict:
+    """Figs. 6 and 7 on the card (JAX's grids, caps and counts and the
+    (128, 132) grid) and on the CPU: pointers, records and replies
+    bit-equal.  Returns the transport kernels' launches on the card."""
+    from repro_torch.evaluation import allocator, rpc
+    from repro_torch.evaluation.run import CARD_SIZES
+    from repro_torch.kernels.rpc_async import (rpc_async_collect,
+                                               rpc_async_post)
+    from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.kernels.rpc_queue import rpc_enqueue
+
+    fns = (rpc_post, rpc_enqueue, rpc_async_post, rpc_async_collect)
+    # main path: counts from 0 just before, read just after
+    reset_launches(*fns)
+    t0 = time.perf_counter()
+    a_rec, a_ev = allocator.run(dev, warmup=PAPER_WARMUP, iters=PAPER_ITERS,
+                                **CARD_SIZES["fig6_allocator"])
+    r_rec, r_ev = rpc.run(dev, **FIG7_TIMING)
+    launches = {f.__name__: f.launches for f in fns}
+    card_s = time.perf_counter() - t0
+    a_cpu = allocator.run("cpu", warmup=0, iters=1,
+                          **CARD_SIZES["fig6_allocator"])[1]
+    r_cpu = rpc.run("cpu", **FIG7_TIMING)[1]
+    want = _fig6_fig7_launches()
+    rec = {"card": card_line, "fig6": a_rec, "fig7": r_rec,
+           "launches": launches, "expected_launches": want, "card_s": card_s,
+           "fig6_bit_equal_to_cpu": {k: _same_evidence(a_ev[k], a_cpu[k])
+                                     for k in a_ev},
+           "fig7_bit_equal_to_cpu": {k: _same_evidence(r_ev[k], r_cpu[k])
+                                     for k in r_ev}}
+    log({"paper_eval": {"figure": "fig6_fig7", **rec}})
+    if not (all(rec["fig6_bit_equal_to_cpu"].values())
+            and all(rec["fig7_bit_equal_to_cpu"].values())
+            and launches == want):
+        raise AssertionError(f"paper_eval fig6/fig7: {rec}")
+    return launches
+
+
+def paper_eval_phase(card_line, dev=CARD) -> dict:
+    """The paper's evaluation through ``repro_torch.evaluation``: Figs.
+    8-10 (:func:`_paper_regions`), then Figs. 6 and 7
+    (:func:`_paper_transport`).  Returns the transport kernels'
+    launches."""
+    t0 = time.perf_counter()
+    _paper_regions(card_line, dev)
+    launches = _paper_transport(card_line, dev)
+    log({"paper_eval_s": time.perf_counter() - t0})
     return launches
 
 
@@ -6626,6 +7003,8 @@ def main() -> int:
     sharded, sharded_queues = rpc_sharded_phase(card_line)
     manifest = manifest_phase(sharded_queues)
     gpu_first = gpu_first_phase()
+    host_driven_phase(card_line)
+    paper_eval = paper_eval_phase(card_line)
 
     by_path = {
         "decode_attention": {"serve": serve["decode_attention"],
@@ -6665,20 +7044,23 @@ def main() -> int:
                         "host_pipeline": pipeline_posts,
                         "rpc_sharded": sharded["rpc_post"],
                         "manifest": manifest["rpc_post"],
-                        "gpu_first": gpu_first},
+                        "gpu_first": gpu_first,
+                        "paper_eval": paper_eval["rpc_post"]},
         "rpc_queue": {"rpc_queue": queue_launches, "libc_io": libc_launches,
                       "device_run_hooks": hook_enqueues,
                       "serve_spill": spill["rpc_enqueue"],
                       "sanitizer": san_enqueues,
                       "rpc_sharded": sharded["rpc_enqueue"],
-                      "manifest": manifest["rpc_enqueue"]},
+                      "manifest": manifest["rpc_enqueue"],
+                      "paper_eval": paper_eval["rpc_enqueue"]},
     }
     for name in ENTRY_NAMES["rpc_async"]:
         by_path[name] = {"rpc_queue_async": async_queue[name],
                          "device_run_async": async_run[name],
                          "serve_spill": spill[name],
                          "sanitizer": san_async[name],
-                         "rpc_sharded": sharded[name]}
+                         "rpc_sharded": sharded[name],
+                         "paper_eval": paper_eval[name]}
     kernels = []
     # a source with one kernel keys its records by the source's name
     entries = [(name, name if name in by_path else src_name, source,

@@ -1,7 +1,8 @@
 """GPU First core on PyTorch/CUDA: the paper's contributions, ported so far.
 
   device_main — whole-program device execution, immediate, batched and
-                returning hooks (§3.1)
+                returning hooks (§3.1), and host_driven_run, the offload
+                baseline it is measured against
   rpc         — generated host RPC (§3.2): immediate calls on a channel of
                 pinned host-mapped memory on the card, and the batched
                 RpcQueue (one rpc_enqueue launch a record, one round trip
@@ -25,7 +26,8 @@ from repro_torch.core.allocator import (
     DEAD, FAIL, BalancedAllocator, BalancedState, GenericAllocator,
     GenericState, ShardedAllocator, ShardedHeap, SizeClassAllocator,
     SizeClassState, allocator_for, find_obj, find_obj_linear, shard_heap)
-from repro_torch.core.device_main import HostHook, device_run
+from repro_torch.core.device_main import (HostHook, device_run,
+                                          host_driven_run)
 from repro_torch.core.expand import (
     barrier, expand, num_teams, num_threads, parallel_for, serial_for,
     team_id, thread_id, ws_range)
@@ -49,7 +51,7 @@ __all__ = [
     "GenericState", "ShardedAllocator", "ShardedHeap", "SizeClassAllocator",
     "SizeClassState", "allocator_for", "events", "find_obj",
     "find_obj_linear", "shard_heap",
-    "HostHook", "device_run",
+    "HostHook", "device_run", "host_driven_run",
     "barrier", "expand", "num_teams", "num_threads", "parallel_for",
     "serial_for", "team_id", "thread_id", "ws_range",
     "LogRing", "atoi", "drain_fwrite", "drain_log_lines", "drain_printf",

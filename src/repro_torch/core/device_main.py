@@ -298,3 +298,20 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
             effects_barrier()
             for hname in auto:
                 REGISTRY.unregister(hname)
+
+
+def host_driven_run(step_fn: Callable[[int, Any], Any], state: Any,
+                    n_steps: int) -> Any:
+    """The classical offload baseline (JAX's ``host_driven_run``,
+    ``repro/core/device_main.py``): ``state = step_fn(step, state)`` for
+    ``step`` in 0..n_steps-1, with the step argument :func:`device_run`
+    passes (a Python int), and after each step a wait for the state's
+    device (``torch.cuda.synchronize`` on a card, nothing on the CPU).
+    What whole-program execution saves is the difference to
+    :func:`device_run` over the same steps."""
+    for step in range(n_steps):
+        state = step_fn(step, state)
+        device = _device_of(state)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    return state

@@ -76,18 +76,27 @@ def _empty_like_loop(body: Callable, arrays) -> torch.Tensor:
     return out.new_empty((0,) + tuple(out.shape))
 
 
-def parallel_for(body: Callable, n: int, *arrays, mesh=None
+def parallel_for(body: Callable, n: int, *arrays, mesh=None, device=None
                  ) -> torch.Tensor:
     """Expanded execution of ``for i in range(n): out[i] = body(i,
     *arrays)``: every iteration a lane of one ``torch.vmap`` over
     ``arange(n)`` (int32, as JAX's).  ``body`` must be pure; an op without
     a batching rule falls back to a loop inside vmap (PyTorch warns when
-    its fallback warning is on)."""
+    its fallback warning is on).
+
+    The lane index lies on ``device``; without it, on the first tensor
+    argument's device, and without one, on torch's default device
+    (``arange``'s own default; JAX's ``jnp.arange`` lands on JAX's).
+    A body that only closes over card tensors therefore passes
+    ``device=``; left out, the index lies on the default device and the
+    body's first mixed-device op raises."""
     if mesh is not None:
         raise NotImplementedError(f"parallel_for(mesh=) needs {_MESH}")
     if n == 0:
         return _empty_like_loop(body, arrays)
-    idx = torch.arange(n, dtype=torch.int32, device=_device(arrays))
+    if device is None:
+        device = _device(arrays)
+    idx = torch.arange(n, dtype=torch.int32, device=device)
     return torch.vmap(lambda i: body(i, *arrays))(idx)
 
 

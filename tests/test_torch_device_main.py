@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import device_main as jdm  # noqa: E402
 from repro_torch.core import device_main as tdm  # noqa: E402
+from repro_torch import core as trpc_core  # noqa: E402
 from repro_torch.core import rpc as trpc  # noqa: E402
 from repro_torch.core.rpc import (REGISTRY, effects_barrier,  # noqa: E402
                                   reset_rpc_stats, rpc_stats)
@@ -36,6 +37,21 @@ def test_hooks_fire_on_schedule_like_jax():
     assert float(tfinal) == float(jfinal)
     assert [i for i, _ in tseen] == [3, 6, 9]
     assert tseen == jseen
+
+
+def test_device_run_matches_host_driven():
+    """tests/test_core.py's check, across the packages: the port's
+    ``device_run`` and ``host_driven_run`` against JAX's
+    ``host_driven_run`` on the same step (exact in fp32)."""
+    step = lambda i, s: s * 1.5 + i
+    jb = jdm.host_driven_run(step, jnp.float32(1.0), 7)
+    a = tdm.device_run(step, torch.tensor(1.0), 7)
+    b = tdm.host_driven_run(step, torch.tensor(1.0), 7)
+    assert tdm.host_driven_run is trpc_core.host_driven_run
+    assert float(a) == float(b) == float(jb)
+    seen = []
+    tdm.host_driven_run(lambda i, s: seen.append(i) or s, None, 3)
+    assert seen == [0, 1, 2]
 
 
 def test_nonfiring_steps_are_host_free():

@@ -57,3 +57,33 @@ def test_single_team_vocabulary():
             fn()
     with pytest.raises(NotImplementedError, match="item 5"):
         texpand.parallel_for(lambda i: i, 4, mesh=object())
+
+
+def _closure_blk(NB=4, BS=3, k=1):
+    """A botsspar block update (``benchmarks/spec_bench.py:97-104``) that
+    reaches its data only through the closure: no loop argument is a
+    tensor."""
+    A = torch.empty((NB, NB, BS, BS), device="meta")
+    piv_inv = torch.empty((BS, BS), device="meta")
+
+    def blk(i):
+        r, c = i // NB, i % NB
+        upd = A[r, k] @ piv_inv @ A[k, c]
+        return torch.where((r > k) & (c > k), A[r, c] - upd, A[r, c])
+
+    return blk, NB * NB, (BS, BS)
+
+
+def test_parallel_for_lane_index_on_the_named_device():
+    blk, n, shape = _closure_blk()
+    out = texpand.parallel_for(blk, n, device="meta")
+    assert out.device.type == "meta" and out.shape == (n,) + shape
+    with torch.device("meta"):            # the default device
+        assert texpand.parallel_for(blk, n).device.type == "meta"
+    # no device named and none to infer: the index lies on the (CPU)
+    # default device, and the body's mixed-device op raises
+    with pytest.raises(RuntimeError, match="device"):
+        texpand.parallel_for(blk, n)
+    a = torch.arange(6.0)
+    assert texpand.parallel_for(lambda i, a: a[i] * 2, 6, a).device == \
+        a.device

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor chip_smoke.py,
-nor the port's examples) imports ``jax`` or the JAX package, and its entry
+nor the port's examples) imports ``jax``, the JAX package or its
+evaluation (``benchmarks``), and its entry
 points refuse to run on a card that is absent unless the caller asks for
 the CPU."""
 import ast
@@ -56,7 +57,8 @@ def _imports(path):
 def test_no_jax_or_repro_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks"), \
+            (path, name)
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
