@@ -39,7 +39,13 @@ source, all started together) and runs, in order:
    held to the engine's logits and argmax; then the same traffic again on
    a fresh engine, with ``torch.profiler`` over a window of ticks in which
    all four slots are busy (device busy share, kernels per tick, the top
-   device kernels and host operators);
+   device kernels and host operators); inside it ``serve_spill`` and
+   ``artifact_serve``: the engine exported (``export_artifact``:
+   ``torch.export`` of the decode step, the manifest, a step-0
+   checkpoint, ``engine.json``) and cold-started in a fresh process
+   (``from_artifact``), which serves the same traffic with the live
+   engine's streams, spill calls and acks and 28 ``paged_attention``
+   launches a tick;
 4. ``identity``: fp32, full width, 4 layers; the engine's greedy streams
    must equal the contiguous decode's token for token;
 5. ``flash``: the flash kernel against its plain version, fp32 and bf16, at
@@ -136,7 +142,9 @@ source, all started together) and runs, in order:
 18. ``rpc``: the host RPC channel (``csrc/rpc_channel.cu``, the
     ``rpc_post`` kernel) on the four cases of tests/test_core.py and a
     bf16 ref, each call bit-equal to the host-synchronous version
-    (``rpc_call_reference``) on the same inputs, one launch a call;
+    (``rpc_call_reference``) on the same inputs, one launch a call; and
+    ``one_callee_sizes``: one callee returning 1, 64 and 1024 elements on
+    one channel (one landing pad, a staging region a result shape);
 19. ``rpc_gil``: a posted call whose callee sleeps, followed at once by
     ``.item()``, ``.cpu()``, ``torch.cuda.synchronize()``,
     ``Event.synchronize()`` and 4096 launches, each under a 60 s
@@ -203,12 +211,13 @@ source, all started together) and runs, in order:
     exactly those the sections' loops make.
 
 Between ``identity`` and ``flash`` runs
-``dense_serve``: qwen2.5-14b at full width and depth (48 layers, 40
-heads padded to 48 over 8 KV heads of 128, QKV bias, bf16, ~15.3e9
-random parameters from seed 0 built on the card) through the engine as
+``dense_serve``: qwen2.5-14b at full width, cut from 48 to 24 layers
+(40 heads padded to 48 over 8 KV heads of 128, QKV bias, bf16, ~8.3e9
+random parameters from seed 0 built on the card; the cut keeps the
+script near 10 minutes beside ``artifact_serve``) through the engine as
 ``serve`` runs llama: ms/tick, tok/s, init time, peak memory, the
 logits gate against the teacher-forced contiguous decode and exact
-launches (paged 48 a tick, decode 48 a step), and ``dense_profile`` (8
+launches (paged 24 a tick, decode 24 a step), and ``dense_profile`` (8
 busy ticks under ``torch.profiler``).  Between
 ``device_run_hooks`` and ``gpu_first`` run:
 ``rpc_queue_async``: ``rpc_queue``'s three plans on async queues
@@ -247,11 +256,11 @@ CPU's, nothing waiting for the device).
 
 After ``dense_serve`` come ``moe_serve``, phi3.5-moe-42b-a6.6b
 at full width (d_model 4096, 32 query heads over 8 KV heads of 128, 16
-experts of d_ff 6400, top 2, vocab 32064, bf16) and 16 of its 32 layers
-(~21.1e9 random parameters, ~42 GB, built on the card after
-``dense_serve``'s model is freed) through the engine with ``serve``'s
-gates (logits against the teacher-forced contiguous decode, exact
-launches: paged 16 a tick, decode 16 a step) and ``moe_profile``; and
+experts of d_ff 6400, top 2, vocab 32064, bf16) and 8 of its 32 layers
+(16 until ``artifact_serve`` joined the script; ~21 GB, built on the card
+after ``dense_serve``'s model is freed) through the engine with
+``serve``'s gates (logits against the teacher-forced contiguous decode,
+exact launches: paged 8 a tick, decode 8 a step) and ``moe_profile``; and
 ``moe_fp32``, the same width in fp32 at 2 layers: the engine within
 2e-5 of the contiguous decode, ``Model.forward`` within 1e-3 of
 ``Model.prefill`` + decode and the experts chosen for every token and
@@ -269,10 +278,11 @@ distance (bf16 rounding alone puts the two bf16 paths ~0.1 apart), and
 ``encdec_profile``; ``encdec_fp32``, the same width in
 fp32 at 2 + 2 layers with ragged ``enc_lens``: the card's decode logits
 against the same parameters on the CPU's plain versions within 1e-3;
-``vlm_serve``, qwen2-vl-2b (28 layers, 12 heads padded to 16 over 2 of
-128, M-RoPE, bf16, ~1.78e9 parameters): ``Model.prefill`` of 2 x 1024
-patch-and-text embeddings at Qwen2-VL's (t, h, w) positions and 32
-greedy steps, the last 4 fed as embeddings (exact launches; the logits
+``vlm_serve``, qwen2-vl-2b (14 of its 28 layers since ``artifact_serve``
+joined the script, 12 heads padded to 16 over 2 of 128, M-RoPE, bf16):
+``Model.prefill`` of 2 x 1024 patch-and-text embeddings at Qwen2-VL's
+(t, h, w) positions and 32 greedy steps, the last 4 fed as embeddings
+(exact launches; the logits
 and ``Model.forward``'s over the same embeddings and positions held
 against fp32 as seamless's; ``vlm_profile``), then the paged engine on
 token prompts with ``serve``'s gates and ``vlm_engine_profile``; and
@@ -323,11 +333,12 @@ x 4096 x 4096.
 
 Every phase raises on failure.  The kernels' launch counts are reset just
 before each counted path (phases 3, 7, 10, 12, 16, 21, 24, 25 and 26,
-``dense_serve``, ``moe_serve``, ``moe_fp32``, ``encdec_serve``,
-``encdec_fp32``, ``vlm_serve``, ``vlm_fp32``, ``ckpt_train``,
-``hybrid_train``, ``encdec_train``, ``vlm_train``, ``rpc_queue_async``,
-``device_run_async``, ``host_pipeline``, ``serve_spill``, ``sanitizer``,
-``rpc_sharded``, ``manifest`` and ``paper_eval``'s Figs. 6 and 7) and
+``artifact_serve`` (in its fresh process), ``dense_serve``, ``moe_serve``,
+``moe_fp32``, ``encdec_serve``, ``encdec_fp32``, ``vlm_serve``,
+``vlm_fp32``, ``ckpt_train``, ``hybrid_train``, ``encdec_train``,
+``vlm_train``, ``rpc_queue_async``, ``device_run_async``, ``host_pipeline``,
+``serve_spill``, ``sanitizer``, ``rpc_sharded``, ``manifest`` and
+``paper_eval``'s Figs. 6 and 7) and
 read just after it; each path's count must be the exact number its depth
 and steps give (``rpc_post``: one a firing of a hook, a call or a flush;
 ``rpc_enqueue``: one a record; ``rpc_async_post`` and
@@ -382,7 +393,7 @@ LOGIT_ATOL_FP32 = 1e-3           # forward vs contiguous decode, fp32 logits
 # forward's own distance is larger, within this multiple of it.
 BF16_ERR_MULT = 2.0
 SERVE_LAYERS = 28
-DENSE_LAYERS = 48                # qwen2.5-14b, the dense_serve phase
+DENSE_LAYERS = 24                # qwen2.5-14b (48 layers), dense_serve's cut
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 1024
 SSM_LAYERS = 24
 SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 8, 2048
@@ -405,7 +416,7 @@ ENCDEC_BOS = 2                   # the decoder's first token
 #: The fp32 gate: its depth (each stack), ragged encoder lengths, steps.
 ENCDEC_FP32_LAYERS, ENCDEC_FP32_STEPS = 2, 8
 ENC_LENS_RAGGED = (1024, 700, 333, 97)
-VLM_LAYERS = 28                  # qwen2-vl-2b
+VLM_SERVE_LAYERS = 14            # vlm_serve's cut, for the script's length
 #: Qwen2-VL's prompt: 16 text tokens, an image of 24 x 32 patches, 240
 #: text tokens (1024 positions).
 VLM_LAYOUT = (16, (24, 32), 240)
@@ -813,12 +824,36 @@ def decode_reuse_phase():
     torch.cuda.empty_cache()
 
 
+#: Profiler windows a launch gate takes at most: a window in which
+#: torch.profiler recorded no device kernel at all (CUPTI lost its buffer,
+#: seen on the chip machine) shows nothing either way and is taken again.
+PROFILE_WINDOWS = 3
+
+
+def _device_kernels(fn, calls):
+    """{device kernel name (60 chars): count} that ``torch.profiler`` sees
+    over ``calls`` calls of ``fn`` (synchronised); a window that recorded
+    no device kernel is taken again, up to :data:`PROFILE_WINDOWS`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels_ = {e.key[:60]: e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA}
+        if kernels_:
+            return kernels_
+    return {}
+
+
 def decode_launch_phase():
     """torch.profiler over 5 calls of each one-launch path (decode and paged
     at llama's serve shape in bf16 and fp32, fp32 decode at 16 heads over 1
     and D 256): exactly one device kernel a call, decode_fused (fp32) or
     decode_fused_mma (bf16)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda)
     from repro_torch.kernels.paged_attention.kernel import (
@@ -846,13 +881,7 @@ def decode_launch_phase():
         for name, fn in paths.items():
             fn()                       # the counters exist before the window
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-            dev = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-            kernels_ = {e.key[:60]: e.count for e in dev}
+            kernels_ = _device_kernels(fn, calls)
             key = f"{name}_{str(dt).split('.')[-1]}"
             seen[key] = kernels_
             if sum(kernels_.values()) != calls or not all(
@@ -1015,8 +1044,11 @@ def serve_phase():
     assert cfg.num_layers == SERVE_LAYERS and cfg.padded_heads == 32
     launches, model, params, prompts, max_new, max_len, streams = \
         _engine_serve("serve", cfg, 8, 200, 7)
-    spill = serve_spill_phase(model, params, prompts, max_new, max_len,
-                              streams)
+    spill, spill_engine, spill_calls, spill_ms = serve_spill_phase(
+        model, params, prompts, max_new, max_len, streams)
+    artifact = artifact_serve_phase(spill_engine, spill_calls, spill_ms,
+                                    prompts, max_new)
+    del spill_engine
     profile_window(model, params, prompts, max_new, max_len)
     tokens = torch.tensor([prompts[0][:64]], device="cuda")
     fwd, dec = _forward_vs_decode(model, params, tokens)
@@ -1029,13 +1061,151 @@ def serve_phase():
                                    .float().mean())}})
     del params, model, fwd, dec
     torch.cuda.empty_cache()
-    return launches, spill
+    return launches, spill, artifact
+
+
+# A fresh process: cold-start the artifact on the card and serve the
+# ``serve`` phase's traffic with a recording spill sink.  Arguments: the
+# artifact's directory, the output file, the prompts (JSON), max_new.
+_ARTIFACT_CHILD = r"""
+import time
+t_start = time.time()
+import collections, json, sys
+import torch
+from repro_torch.configs import get_config
+from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+from repro_torch.serving.engine import ServingEngine
+
+directory, out_path, prompts, max_new = (sys.argv[1], sys.argv[2],
+                                         json.loads(sys.argv[3]),
+                                         int(sys.argv[4]))
+t_import = time.time()
+calls = []
+sink = lambda rid, n, pages: calls.append(
+    [int(rid), int(n), [int(p) for p in pages]])
+engine = ServingEngine.from_artifact(directory, get_config("llama3.2-3b"),
+                                     spill_sink=sink, device="cuda")
+torch.cuda.synchronize()
+t_loaded = time.time()
+ops = collections.Counter(str(n.target) for n in engine._step.graph.nodes
+                          if n.op == "call_function")
+rids = [engine.submit(p, max_new=max_new) for p in prompts]
+paged_attention_cuda.launches = 0        # counts from 0 just before
+ticks, t_first = 0, None
+t0 = time.perf_counter()
+while engine.queue or any(s.request_id >= 0 for s in engine.slots):
+    engine.step()
+    ticks += 1
+    if t_first is None and (engine.finished or any(
+            s.out for s in engine.slots)):
+        t_first = time.time()
+torch.cuda.synchronize()
+run_s = time.perf_counter() - t0
+out = {"streams": [engine.finished[r] for r in rids], "ticks": ticks,
+       "paged_attention": paged_attention_cuda.launches,
+       "model_is_none": engine.model is None,
+       "step_source": engine._step_source, "calls": calls,
+       "acks": {str(k): v for k, v in engine.spill_acks.items()},
+       "t_start": t_start, "import_s": t_import - t_start,
+       "load_s": t_loaded - t_import, "t_first_token": t_first,
+       "run_s": run_s, "ms_per_tick": run_s / ticks * 1e3,
+       "graph_ops": sum(ops.values()), "top_graph_ops": ops.most_common(4)}
+with open(out_path, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def artifact_serve_phase(engine, calls, live_ms, prompts, max_new):
+    """The engine's durable artifact at llama3.2-3b's full width and depth
+    (28 layers, bf16).  ``engine`` is ``serve_spill``'s engine after its
+    run (``serve``'s model, weights and traffic, a recording spill sink;
+    its streams were held to ``serve``'s there), ``calls`` its sink's
+    ``(request, n_tokens, pages)`` and ``live_ms`` its ms/tick. This process
+    exports it (``export_artifact``: ``torch.export`` of the decode step,
+    the manifest with the spill queue, a step-0 checkpoint of the weights in
+    JAX's stacked layout, ``engine.json``) under the ignored ``build/``,
+    and a fresh process of this interpreter cold-starts it on the card
+    (``from_artifact``: no model built, nothing traced) and serves the same
+    traffic.  Gates: the child's streams equal the live engine's, its
+    sink calls and acks equal the live engine's, it launched
+    ``paged_attention`` exactly 28 times a tick, its engine has no model
+    and an ``artifact`` step.  Reports the artifact's bytes, the export,
+    save and checkpoint seconds, the cold start (the child's process start
+    to its first token, on the wall clock), both ms/tick and the exported
+    graph's ops.  Returns the child's launches (the path)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    directory = os.path.join(ROOT, "build", "artifact_serve")
+    shutil.rmtree(directory, ignore_errors=True)
+    rids = sorted(engine.finished)
+    live = [engine.finished[r] for r in rids]
+    acks = {str(k): v for k, v in engine.spill_acks.items()}
+    calls = [[rid, n, pages] for rid, n, pages in calls]
+    t0 = time.perf_counter()
+    engine.export_artifact(directory, extra_meta={"arch": "llama3.2-3b",
+                                                  "tiny_preset": False})
+    export_s = time.perf_counter() - t0
+    seconds = dict(engine.export_seconds)
+    files = {n: os.path.getsize(os.path.join(directory, n))
+             for n in os.listdir(directory)}
+    torch.cuda.empty_cache()
+
+    out_path = os.path.join(directory, "child.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t_spawn = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", _ARTIFACT_CHILD, directory, out_path,
+         json.dumps(prompts), str(max_new)],
+        env=env, capture_output=True, text=True, timeout=600)
+    child_s = time.time() - t_spawn
+    if proc.returncode != 0:
+        raise AssertionError(f"artifact_serve: the cold-start process "
+                             f"failed:\n{proc.stderr[-4000:]}")
+    with open(out_path) as f:
+        child = json.load(f)
+    shutil.rmtree(directory, ignore_errors=True)
+    per_tick = child["paged_attention"] / child["ticks"]
+    checks = {
+        "streams_bit_equal": child["streams"] == live,
+        "spill_calls_equal": child["calls"] == calls
+        and len(calls) == len(prompts),
+        "spill_acks_equal": child["acks"] == acks,
+        "paged_attention_28_a_tick":
+        child["paged_attention"] == SERVE_LAYERS * child["ticks"],
+        "no_model_artifact_step": child["model_is_none"]
+        and child["step_source"] == "artifact",
+    }
+    rec = {"layers": SERVE_LAYERS, "requests": len(prompts),
+           "ticks": child["ticks"],
+           "paged_attention_launches": child["paged_attention"],
+           "paged_attention_per_tick": per_tick,
+           "artifact_bytes": sum(files.values()),
+           "serve_step_pt2_bytes": files["serve_step.pt2"],
+           "files": len(files), "export_artifact_s": export_s,
+           "export_s": seconds["export"], "save_s": seconds["save"],
+           "checkpoint_s": seconds["checkpoint"],
+           "cold_start_s": child["t_first_token"] - t_spawn,
+           "child_import_s": child["import_s"],
+           "child_from_artifact_s": child["load_s"],
+           "child_process_s": child_s,
+           "live_ms_per_tick": live_ms,
+           "artifact_ms_per_tick": child["ms_per_tick"],
+           "graph_ops": child["graph_ops"],
+           "top_graph_ops": child["top_graph_ops"],
+           "nvidia_smi": nvidia_smi(), "checks": checks,
+           "phase_seconds": time.perf_counter() - t_phase}
+    log({"artifact_serve": rec})
+    if not all(checks.values()):
+        raise AssertionError(f"artifact_serve: {checks}")
+    return {"paged_attention": child["paged_attention"]}
 
 
 def dense_serve_phase():
-    """qwen2.5-14b at full width and depth on one card: 48 layers, d_model
-    5120, 40 query heads padded to 48 over 8 KV heads of 128 (G 6), QKV
-    bias, bf16, random weights from seed 0 built on the card, through the
+    """qwen2.5-14b at full width on one card, cut from 48 to
+    :data:`DENSE_LAYERS` layers: d_model 5120, 40 query heads padded to 48
+    over 8 KV heads of 128 (G 6), QKV bias, bf16, random weights from seed
+    0 built on the card, through the
     engine as ``serve`` runs llama (9 prompts, one of 200 tokens, 16 new
     tokens each) with the same logits gate and exact launch counts, then
     ``torch.profiler`` over 8 ticks (``dense_profile``).  Returns the
@@ -1045,7 +1215,8 @@ def dense_serve_phase():
     cfg = get_config("qwen2.5-14b")
     assert (cfg.num_layers, cfg.d_model, cfg.padded_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, cfg.qkv_bias) == \
-        (DENSE_LAYERS, 5120, 48, 8, 128, True)
+        (48, 5120, 48, 8, 128, True)
+    cfg = dataclasses.replace(cfg, num_layers=DENSE_LAYERS)
     launches, model, params, prompts, max_new, max_len, _ = _engine_serve(
         "dense_serve", cfg, 8, 200, 14)
     profile_window(model, params, prompts, max_new, max_len,
@@ -2196,7 +2367,6 @@ def rglru_reuse_phase():
 def rglru_launch_phase():
     """torch.profiler over 5 calls at the serve shape in fp32 and bf16:
     exactly one device kernel a call, ``rglru_stream``."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.rglru_scan.kernel import linear_scan_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(77)
@@ -2206,13 +2376,7 @@ def rglru_launch_phase():
         b = torch.randn((2, 3072, 4096), generator=gen, device="cuda").to(dt)
         linear_scan_cuda(a, b)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                linear_scan_cuda(a, b)
-            torch.cuda.synchronize()
-        dev = {e.key[:60]: e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
+        dev = _device_kernels(lambda: linear_scan_cuda(a, b), calls)
         key = str(dt).split(".")[-1]
         seen[key] = dev
         if sum(dev.values()) != calls or not all("rglru_stream" in k
@@ -3058,10 +3222,52 @@ def rpc_phase():
                      for n in ("scanf_like", "summer", "vararg_like",
                                "host_fill", "third")),
     }
-    log({"rpc": {"cases": rec, "checks": checks}})
+    sizes = _one_callee_sizes(dev)
+    checks["one_callee_sizes"] = all(
+        r["bit_equal"] and r["launches"] == 1 for r in sizes["calls"]) \
+        and sizes["pads"] == 1 and len(set(sizes["staging_ids"])) == 3
+    log({"rpc": {"cases": rec, "checks": checks,
+                 "one_callee_sizes": sizes}})
     if not all(checks.values()):
         raise AssertionError(f"rpc checks failed: {checks}")
     return 0.0
+
+
+def _one_callee_sizes(dev):
+    """One callee returning 1, 64 and 1024 int32 elements on one channel,
+    then 1 again (``benchmarks/rpc_bench.py``'s ``bench.reply``): one
+    landing pad, a staging region a result shape on the channel.  Each call
+    against the host-synchronous version, bit-equal, one rpc_post a call;
+    the values are ``arange(P) + i``."""
+    import numpy as np
+    from repro_torch.core import (ShapeDtype, effects_barrier, pad_stats,
+                                  rpc_call, rpc_call_reference, rpc_stats)
+    from repro_torch.core.rpc import REGISTRY, staging_key
+    from repro_torch.kernels.rpc_channel import channel_for, rpc_post
+
+    REGISTRY.register("smoke.reply", lambda i, p: np.arange(
+        int(p), dtype=np.int32) + int(i))
+    calls = []
+    for i, P in enumerate((1, 64, 1024, 1)):
+        spec = ShapeDtype((P,), torch.int32)
+        arg = torch.full((), i, dtype=torch.int32, device=dev)
+        rpc_post.launches = 0
+        chan, _ = rpc_call("smoke.reply", arg, P, result_shape=spec)
+        launches = rpc_post.launches
+        plain, _ = rpc_call_reference("smoke.reply", arg, P,
+                                      result_shape=spec)
+        effects_barrier()
+        want = torch.arange(P, dtype=torch.int32) + i
+        calls.append({"elements": P, "launches": launches,
+                      "bit_equal": _same_tensor(chan, plain)
+                      and _same_tensor(chan, want)})
+    (pid,) = [k for k, v in pad_stats().items()
+              if REGISTRY.pad_info[k][0] == "smoke.reply"]
+    stagings = channel_for(dev).stagings.ids
+    return {"calls": calls, "pads": rpc_stats("smoke.reply")["pads"],
+            "pad_calls": pad_stats(pid)["calls"],
+            "staging_ids": [stagings[staging_key(pid, ShapeDtype(
+                (P,), torch.int32))] for P in (1, 64, 1024)]}
 
 
 def rpc_gil_phase():
@@ -4835,7 +5041,9 @@ def serve_spill_phase(model, params, prompts, max_new, max_len, streams):
     leaves every request in ``recompute_on_readmit`` with a None ack (both
     on five short requests).  ms/tick and tok/s beside an engine without
     a sink on the same traffic, run just before it.  Returns the main
-    path's launches."""
+    path's launches, its engine after the run, its sink's ``(request,
+    n_tokens, pages)`` calls and its ms/tick (``artifact_serve`` exports
+    that engine)."""
     from repro_torch.core import clear_error_log, error_log
     from repro_torch.kernels import rpc_async, rpc_channel, rpc_queue
     from repro_torch.serving.engine import ServingEngine
@@ -4910,6 +5118,7 @@ def serve_spill_phase(model, params, prompts, max_new, max_len, streams):
 
     short = prompts[1:6]
     frel, drel, attempts = [], [], []
+    spill_engine = engine
 
     def flaky(rid, n_tokens, pages):
         rid = int(rid)
@@ -4960,7 +5169,8 @@ def serve_spill_phase(model, params, prompts, max_new, max_len, streams):
     log({"serve_spill": rec})
     if not all(checks.values()):
         raise AssertionError(f"serve_spill: {rec}")
-    return launches
+    return (launches, spill_engine, [c[1:] for c in calls],
+            rec["spill"]["ms_per_tick"])
 
 
 #: The sanitizer's plans: rpc_queue's, on an arena large enough that
@@ -5566,9 +5776,10 @@ def events_phase():
 # The moe family at full width: phi3.5-moe through the paged engine
 # ---------------------------------------------------------------------------
 
-#: phi3.5-moe's depth on one card: 16 of its 32 layers (~42 GB of bf16
-#: weights; all 32 are ~83.7 GB, more than the card holds).
-MOE_LAYERS = 16
+#: phi3.5-moe's depth in ``moe_serve``: 8 of its 32 layers (~21 GB of bf16
+#: weights; all 32 are ~83.7 GB, more than the card holds; 16 fit, and ran
+#: until the script's length with ``artifact_serve`` asked for a cut).
+MOE_LAYERS = 8
 #: The fp32 phase's depth (~11.5 GB of fp32 weights).
 MOE_FP32_LAYERS = 2
 #: The fp32 engine against the contiguous decode (fp32 logits).
@@ -5588,12 +5799,13 @@ def _moe_cfg(**kw):
 def moe_serve_phase():
     """phi3.5-moe-42b-a6.6b at full width (d_model 4096, 32 query heads
     over 8 KV heads of 128, 16 experts of d_ff 6400, top 2, vocab 32064,
-    bf16) and 16 of its 32 layers, ~21.1e9 random parameters from seed 0
+    bf16) and :data:`MOE_LAYERS` of its 32 layers, random weights from seed 0
     built on the card, through the engine as ``dense_serve`` runs
     qwen2.5-14b (9 prompts, one of 200 tokens, 16 new tokens each): the
     logits gate against the teacher-forced contiguous decode and exact
-    launches (paged 16 a tick, decode 16 a step), then ``moe_profile``
-    (8 busy ticks under ``torch.profiler``).  Returns the launches."""
+    launches (paged and decode once a layer a tick or step), then
+    ``moe_profile`` (8 busy ticks under ``torch.profiler``).  Returns the
+    launches."""
     cfg = _moe_cfg(num_layers=MOE_LAYERS)
     t0 = time.perf_counter()
     launches, model, params, prompts, max_new, max_len, _ = _engine_serve(
@@ -6007,9 +6219,10 @@ def _vlm_forward_batch(embeds, pos, fed):
 
 
 def vlm_serve_phase():
-    """qwen2-vl-2b at full width and depth (28 layers, d_model 1536, 12
-    heads padded to 16 over 2 KV heads of 128, QKV bias, M-RoPE sections
-    (16, 24, 24), bf16, random weights from seed 0 built on the card):
+    """qwen2-vl-2b at full width, :data:`VLM_SERVE_LAYERS` of its 28 layers
+    (d_model 1536, 12 heads padded to 16 over 2 KV heads of 128, QKV bias,
+    M-RoPE sections (16, 24, 24), bf16, random weights from seed 0 built on
+    the card):
 
     (a) ``Model.prefill`` on 2 prompts of 1024 patch-and-text embeddings
     at Qwen2-VL's positions (``vlm_positions``: flash causal at G 8, D
@@ -6031,9 +6244,8 @@ def vlm_serve_phase():
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.models import build_model
 
-    cfg = _vlm_cfg()
-    L = VLM_LAYERS
-    assert cfg.num_layers == L
+    L = VLM_SERVE_LAYERS
+    cfg = _vlm_cfg(num_layers=L)
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     model = build_model(cfg, device="cuda")
@@ -6924,6 +7136,22 @@ ENTRY_NAMES = {"rpc_channel": ("rpc_post",), "rpc_queue": ("rpc_enqueue",),
 
 
 
+#: Wall seconds of each phase that ``main`` ran (a phase run twice, the
+#: sum), logged before the ``kernels`` line.
+PHASE_SECONDS: dict = {}
+
+
+def timed(fn, *args):
+    """``fn(*args)``, its wall seconds added to :data:`PHASE_SECONDS`."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        key = fn.__name__
+        PHASE_SECONDS[key] = PHASE_SECONDS.get(key, 0.0) \
+            + time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6944,67 +7172,67 @@ def main() -> int:
                  "cuda_cores": _cuda_core_report(build_logs)}})
     card = torch.cuda.get_device_name(0)
 
-    summary = kernel_phase(card)
-    decode_reuse_phase()
-    decode_launch_phase()
-    rglru_launch_phase()
-    serve, spill = serve_phase()
-    identity_phase()
-    dense = dense_serve_phase()
-    moe = moe_serve_phase()
-    moe32 = moe_fp32_phase()
-    encdec = encdec_serve_phase()
-    encdec32 = encdec_fp32_phase()
-    vlm = vlm_serve_phase()
-    vlm32 = vlm_fp32_phase()
-    at_flash = flash_phase(card_line)
+    summary = timed(kernel_phase, card)
+    timed(decode_reuse_phase)
+    timed(decode_launch_phase)
+    timed(rglru_launch_phase)
+    serve, spill, artifact = timed(serve_phase)
+    timed(identity_phase)
+    dense = timed(dense_serve_phase)
+    moe = timed(moe_serve_phase)
+    moe32 = timed(moe_fp32_phase)
+    encdec = timed(encdec_serve_phase)
+    encdec32 = timed(encdec_fp32_phase)
+    vlm = timed(vlm_serve_phase)
+    vlm32 = timed(vlm_fp32_phase)
+    at_flash = timed(flash_phase, card_line)
     summary["flash_attention"] = at_flash["train"]
-    prefill_phase()
-    train = train_phase()
-    train_profile()
-    at_ssd = ssd_kernel_phase(card_line)
+    timed(prefill_phase)
+    train = timed(train_phase)
+    timed(train_profile)
+    at_ssd = timed(ssd_kernel_phase, card_line)
     summary["ssd_scan"] = at_ssd["prefill"]
-    ssm_serve = ssm_serve_phase()
-    ssm_prefill_phase()
-    ssm_train, ssm_hooks = ssm_train_phase()
-    train_profile("mamba2-130m", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
-    at_rglru = rglru_kernel_phase(card_line)
+    ssm_serve = timed(ssm_serve_phase)
+    timed(ssm_prefill_phase)
+    ssm_train, ssm_hooks = timed(ssm_train_phase)
+    timed(train_profile, "mamba2-130m", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
+    at_rglru = timed(rglru_kernel_phase, card_line)
     summary["rglru_scan"] = at_rglru["serve"]
-    at_hybrid = hybrid_attn_kernel_phase(card_line)
-    hybrid = hybrid_serve_phase()
-    hybrid_prefill_phase()
-    ckpt = ckpt_train_phase()
-    hybrid_train = hybrid_train_phase()
-    encdec_train = encdec_train_phase()
-    vlm_train = vlm_train_phase()
-    rpc_err = rpc_phase()
-    rpc_gil_phase()
-    empty = rpc_time_phase(card_line)
+    at_hybrid = timed(hybrid_attn_kernel_phase, card_line)
+    hybrid = timed(hybrid_serve_phase)
+    timed(hybrid_prefill_phase)
+    ckpt = timed(ckpt_train_phase)
+    hybrid_train = timed(hybrid_train_phase)
+    encdec_train = timed(encdec_train_phase)
+    vlm_train = timed(vlm_train_phase)
+    rpc_err = timed(rpc_phase)
+    timed(rpc_gil_phase)
+    empty = timed(rpc_time_phase, card_line)
     summary["rpc_channel"] = {
         "max_abs_err": rpc_err, "kernel_ms": empty["ms"],
         "plain_ms": empty["plain_ms"], "bound_ms": empty["bound_ms"],
         "bound_by": "bytes", "library_ms": None}
-    queue_launches, queue_posts = rpc_queue_phase()
-    rpc_queue_faults_phase()
-    scalar = rpc_queue_time_phase(card_line)
+    queue_launches, queue_posts = timed(rpc_queue_phase)
+    timed(rpc_queue_faults_phase)
+    scalar = timed(rpc_queue_time_phase, card_line)
     summary["rpc_queue"] = {
         "max_abs_err": 0.0, "kernel_ms": scalar["ms"],
         "plain_ms": scalar["plain_ms"], "bound_ms": scalar["bound_ms"],
         "bound_by": "bytes", "library_ms": None}
-    libc_launches, libc_posts = libc_io_phase()
-    hooks, hook_enqueues = device_run_hooks_phase()
-    async_queue = rpc_queue_async_phase()
-    summary.update(rpc_async_time_phase(card_line))
-    async_run = device_run_async_phase()
-    pipeline_posts = host_pipeline_phase()
-    san_enqueues, san_async = sanitizer_phase(card_line)
-    allocators_phase(card_line)
-    events_phase()
-    sharded, sharded_queues = rpc_sharded_phase(card_line)
-    manifest = manifest_phase(sharded_queues)
-    gpu_first = gpu_first_phase()
-    host_driven_phase(card_line)
-    paper_eval = paper_eval_phase(card_line)
+    libc_launches, libc_posts = timed(libc_io_phase)
+    hooks, hook_enqueues = timed(device_run_hooks_phase)
+    async_queue = timed(rpc_queue_async_phase)
+    summary.update(timed(rpc_async_time_phase, card_line))
+    async_run = timed(device_run_async_phase)
+    pipeline_posts = timed(host_pipeline_phase)
+    san_enqueues, san_async = timed(sanitizer_phase, card_line)
+    timed(allocators_phase, card_line)
+    timed(events_phase)
+    sharded, sharded_queues = timed(rpc_sharded_phase, card_line)
+    manifest = timed(manifest_phase, sharded_queues)
+    gpu_first = timed(gpu_first_phase)
+    timed(host_driven_phase, card_line)
+    paper_eval = timed(paper_eval_phase, card_line)
 
     by_path = {
         "decode_attention": {"serve": serve["decode_attention"],
@@ -7017,6 +7245,7 @@ def main() -> int:
                              "vlm_fp32": vlm32["decode_attention"],
                              "hybrid_serve": hybrid["decode_attention"]},
         "paged_attention": {"serve": serve["paged_attention"],
+                            "artifact_serve": artifact["paged_attention"],
                             "dense_serve": dense["paged_attention"],
                             "moe_serve": moe["paged_attention"],
                             "moe_fp32": moe32["paged_attention"],
@@ -7112,6 +7341,7 @@ def main() -> int:
                     "bound_ms": other["bound_ms"],
                     "bound_by": other["bound_by"],
                     "library_ms": other["library_ms"]}
+    log({"phase_seconds": PHASE_SECONDS})
     log({"kernels": kernels})
     log(card_line)
     log({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -43,6 +43,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.core import events
+from repro_torch.tree import register_export_node
 
 I32 = torch.int32
 I64 = torch.int64
@@ -1274,3 +1275,17 @@ def find_obj_linear(state, ptr
                                               + state.sizes)
     idx = _first_true(inside)
     return inside.any(), _at(state.offsets, idx), _at(state.sizes, idx)
+
+
+# ---------------------------------------------------------------------------
+# torch.export: allocator states ride an exported serve step (the page heap
+# of serving/kvcache.py), so each is a pytree node whose static ints are
+# its context (JAX: register_pytree_node_serialization)
+# ---------------------------------------------------------------------------
+
+for _cls, _static in ((GenericState, ("heap_size",)),
+                      (SizeClassState, ("heap_size",)),
+                      (BalancedState, ("n_slots", "m_slots")),
+                      (ShardedHeap, ("n_devices", "span"))):
+    register_export_node(_cls, _static)
+

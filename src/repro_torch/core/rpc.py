@@ -960,49 +960,55 @@ def _call_host(name, pid, sig, ops, refs, specs, device):
     return _rebuild(specs, results), updated
 
 
-def _pad_staging(channel, name, pid, sig, ops, specs):
-    """The pad's staging region on ``channel`` and its ``serve`` callable,
-    made at the pad's first call there.  Tensor operands get a slot each,
-    Python numbers a scalar word, each result leaf a slot after them."""
-    entry = channel.pads.get(pid)
-    if entry is not None:
-        if entry[2] != specs:
-            raise ValueError(f"RPC {name!r}: result_shape {specs} differs "
-                             f"from {entry[2]}, this landing pad's first")
-        return entry[0]
-    tensors = [op for op in ops if isinstance(op, torch.Tensor)]
-    spec_leaves = leaves(specs)
-    res_bytes = [int(np.prod(s.shape, dtype=np.int64))
-                 * torch.empty((), dtype=_DTYPES[s.dtype][1]).element_size()
-                 for s in spec_leaves]
-    staging = Staging([t.numel() * t.element_size() for t in tensors]
-                      + res_bytes)
-    views, slot, word = [], 0, 0
-    for op in ops:
-        if isinstance(op, torch.Tensor):
-            raw = staging.slot(slot)
-            views.append(raw.view(_np_dtype(op.dtype)).reshape(op.shape))
-            slot += 1
-        else:
-            views.append(staging.word(word)[:op.dtype.itemsize]
-                         .view(op.dtype).reshape(()))
-            word += 1
-    res_views = [staging.slot(slot + i)
-                 .view(_np_dtype(_DTYPES[s.dtype][1])).reshape(s.shape)
-                 for i, s in enumerate(spec_leaves)]
+def staging_key(pid: int, specs) -> Tuple:
+    """The key of an immediate call's staging region on a channel: its
+    landing pad and its result shapes.  The pad fixes the operands' slots,
+    the result shapes the result's (JAX's ``io_callback`` takes a result
+    shape at each call site, so one callee may return 1, 64 or 1024
+    elements); pad statistics stay keyed by the pad id."""
+    return ("pad", pid, repr(specs))
 
-    def serve():
-        out = REGISTRY.pad_wrappers[pid](_flat(sig, views))
-        for view, o in zip(res_views, _result_leaves(specs, out, name)):
-            _store(view, o, name)
 
-    channel.pads[pid] = (staging, serve, specs)
-    return staging
+def _pad_staging(channel, name, pid, sig, ops, specs) -> Tuple[int, Staging]:
+    """``(staging id, region)`` of the pad at these result shapes on
+    ``channel``, made at its first call there.  Tensor operands get a slot
+    each, Python numbers a scalar word, each result leaf a slot after
+    them."""
+    def make():
+        tensors = [op for op in ops if isinstance(op, torch.Tensor)]
+        spec_leaves = leaves(specs)
+        res_bytes = [int(np.prod(s.shape, dtype=np.int64))
+                     * torch.empty((), dtype=_DTYPES[s.dtype][1])
+                     .element_size() for s in spec_leaves]
+        staging = Staging([t.numel() * t.element_size() for t in tensors]
+                          + res_bytes)
+        views, slot, word = [], 0, 0
+        for op in ops:
+            if isinstance(op, torch.Tensor):
+                raw = staging.slot(slot)
+                views.append(raw.view(_np_dtype(op.dtype)).reshape(op.shape))
+                slot += 1
+            else:
+                views.append(staging.word(word)[:op.dtype.itemsize]
+                             .view(op.dtype).reshape(()))
+                word += 1
+        res_views = [staging.slot(slot + i)
+                     .view(_np_dtype(_DTYPES[s.dtype][1])).reshape(s.shape)
+                     for i, s in enumerate(spec_leaves)]
+
+        def serve():
+            out = REGISTRY.pad_wrappers[pid](_flat(sig, views))
+            for view, o in zip(res_views, _result_leaves(specs, out, name)):
+                _store(view, o, name)
+
+        return staging, serve
+
+    return channel.stagings.get(staging_key(pid, specs), make)
 
 
 def _call_channel(name, pid, sig, ops, refs, specs, device):
     channel = channel_for(device)
-    staging = _pad_staging(channel, name, pid, sig, ops, specs)
+    sid, staging = _pad_staging(channel, name, pid, sig, ops, specs)
     slots, inputs, words = {}, [], []
     for i, op in enumerate(ops):
         if isinstance(op, torch.Tensor):
@@ -1023,7 +1029,7 @@ def _call_channel(name, pid, sig, ops, refs, specs, device):
         if acc != READ:
             backs[i] = torch.empty_like(ops[i])
             outputs.append((slots[i], backs[i]))
-    rpc_post(channel, pid, staging, inputs, words, outputs)
+    rpc_post(channel, sid, staging, inputs, words, outputs)
     updated = [orig if acc == READ else backs[i].to(orig.dtype)
                for i, acc, orig in refs]
     return _rebuild(specs, [r.to(s.dtype) for r, s in
@@ -2326,13 +2332,11 @@ _FLUSH_LOCK = threading.Lock()
 
 
 def _queue_staging(channel, layout: _Layout) -> Tuple[int, Staging]:
-    """The staging region of ``channel`` for queues of ``layout``'s
+    """``(staging id, region)`` of ``channel`` for queues of ``layout``'s
     geometry (one for all of them: a channel's round trips are serial),
     made at the first flush; its ``serve`` drains the flush whose id the
     record's first scalar word carries."""
-    pid = _stable_id("queue", json.dumps(dataclasses.astuple(layout)), 63)
-    entry = channel.pads.get(pid)
-    if entry is None:
+    def make():
         staging = Staging([4 * layout.in_end,
                            4 * (layout.words - layout.out_start)])
         src = staging.slot(0).view(np.int32)
@@ -2344,8 +2348,9 @@ def _queue_staging(channel, layout: _Layout) -> Tuple[int, Staging]:
                 ctx = _FLUSHES.pop(fid)
             _serve_flush(layout, ctx, [src], [dst])
 
-        entry = channel.pads[pid] = (staging, serve, layout)
-    return pid, entry[0]
+        return staging, serve
+
+    return channel.stagings.get(("queue", layout), make)
 
 
 def _sharded_staging(channel, layout: _Layout, D: int
@@ -2354,10 +2359,7 @@ def _sharded_staging(channel, layout: _Layout, D: int
     slot for each shard's ``[0, in_end)`` and one for each shard's words
     from ``out_start`` on; its ``serve`` drains the sharded flush whose id
     the record carries."""
-    pid = _stable_id("queue", json.dumps(dataclasses.astuple(layout)
-                                         + (D,)), 63)
-    entry = channel.pads.get(pid)
-    if entry is None:
+    def make():
         staging = Staging([4 * layout.in_end] * D
                           + [4 * (layout.words - layout.out_start)] * D)
         srcs = [staging.slot(d).view(np.int32) for d in range(D)]
@@ -2369,8 +2371,9 @@ def _sharded_staging(channel, layout: _Layout, D: int
                 ctx = _FLUSHES.pop(fid)
             _serve_flush(layout, ctx, srcs, dsts, sharded=True)
 
-        entry = channel.pads[pid] = (staging, serve, (layout, D))
-    return pid, entry[0]
+        return staging, serve
+
+    return channel.stagings.get(("sharded", layout, D), make)
 
 
 def _reply_words(quad, cdepth: int, rc: int) -> np.ndarray:
@@ -2738,11 +2741,11 @@ class RpcQueue:
             return
         self._check_policy()
         channel = channel_for(self.device)
-        pid, staging = _queue_staging(channel, L)
+        sid, staging = _queue_staging(channel, L)
         with _FLUSH_LOCK:
             fid = next(_FLUSH_IDS) % (1 << 32)
             _FLUSHES[fid] = ctx
-        rpc_post(channel, pid, staging, [(0, self.state[:L.in_end])], [fid],
+        rpc_post(channel, sid, staging, [(0, self.state[:L.in_end])], [fid],
                  [(1, self.state[L.out_start:])])
 
     def _flush_async(self, ctx: _FlushCtx) -> "RpcQueue":
@@ -3254,11 +3257,11 @@ class ShardedRpcQueue:
             return
         self._check_policy()
         channel = channel_for(self.device)
-        pid, staging = _sharded_staging(channel, L, D)
+        sid, staging = _sharded_staging(channel, L, D)
         with _FLUSH_LOCK:
             fid = next(_FLUSH_IDS) % (1 << 32)
             _FLUSHES[fid] = ctx
-        rpc_post(channel, pid, staging,
+        rpc_post(channel, sid, staging,
                  [(d, self.state[d, :L.in_end]) for d in range(D)], [fid],
                  [(D + d, self.state[d, L.out_start:]) for d in range(D)])
 

@@ -17,8 +17,9 @@
 //
 // Design, per call, all on the caller's stream (rpc_roundtrip):
 //  1. cudaMemcpyAsync device -> pinned of each tensor operand into the
-//     landing pad's staging region (one region per pad and channel, sized
-//     from the pad's signature when the pad is first used);
+//     call's staging region (one region per landing pad and result shape,
+//     or per queue geometry, on a channel, sized at its first use; the
+//     record carries the region's channel-local id);
 //  2. rpc_post: one warp writes the call's scalar operands (passed as
 //     kernel arguments, so a Python number never needs a host-to-device
 //     copy) into the staging region, takes a sequence number from the
@@ -55,7 +56,7 @@ constexpr int kInlineWords = 16;
 struct Record {
   unsigned state;                // kEmpty / kPosted / kDone
   unsigned seq;                  // from the channel's device counter
-  unsigned long long pad;        // landing-pad id
+  unsigned long long staging;    // the staging region's channel-local id
   unsigned long long waited_ns;  // device clock: post to DONE seen
   unsigned status;               // host: 0 served, 1 the callee raised
   unsigned reserved[9];
@@ -83,7 +84,7 @@ __device__ __forceinline__ unsigned load_acquire_sys(const unsigned* p) {
 }
 
 __global__ void rpc_post(Record* rec, unsigned* counter,
-                         unsigned long long pad,
+                         unsigned long long staging,
                          unsigned long long timeout_ns, Inline words,
                          int n_inline, unsigned* inline_dst) {
   const int lane = threadIdx.x;
@@ -93,7 +94,7 @@ __global__ void rpc_post(Record* rec, unsigned* counter,
   if (lane != 0) return;
   const unsigned seq = atomicAdd(counter, 1u) + 1u;
   rec->seq = seq;
-  rec->pad = pad;
+  rec->staging = staging;
   rec->status = 0;
   __threadfence_system();
   store_release_sys(&rec->state, kPosted);
@@ -101,7 +102,7 @@ __global__ void rpc_post(Record* rec, unsigned* counter,
   unsigned sleep_ns = 32;
   while (load_acquire_sys(&rec->state) != kDone) {
     if (global_ns() - t0 > timeout_ns) {
-      printf("rpc_post: no reply to pad %llu (seq %u) within %llu ns\n", pad,
+      printf("rpc_post: no reply to staging %llu (seq %u) within %llu ns\n", staging,
              seq, timeout_ns);
       __trap();
     }
@@ -136,7 +137,7 @@ int rpc_record_bytes() { return sizeof(Record); }
 
 // One call in stream order: n_in copies device -> staging, rpc_post,
 // n_out copies staging -> device.  Returns the first CUDA error, or 0.
-int rpc_roundtrip(void* rec, unsigned* counter, unsigned long long pad,
+int rpc_roundtrip(void* rec, unsigned* counter, unsigned long long staging,
                   unsigned long long timeout_ns, int n_in,
                   void* const* in_dst, const void* const* in_src,
                   const size_t* in_bytes, const unsigned* inline_words,
@@ -152,7 +153,7 @@ int rpc_roundtrip(void* rec, unsigned* counter, unsigned long long pad,
   }
   Inline words{};
   for (int i = 0; i < n_inline; ++i) words.w[i] = inline_words[i];
-  rpc_post<<<1, 32, 0, st>>>(static_cast<Record*>(rec), counter, pad,
+  rpc_post<<<1, 32, 0, st>>>(static_cast<Record*>(rec), counter, staging,
                              timeout_ns, words, n_inline,
                              static_cast<unsigned*>(inline_dst));
   cudaError_t e = cudaGetLastError();
@@ -168,16 +169,16 @@ int rpc_roundtrip(void* rec, unsigned* counter, unsigned long long pad,
 // Host side: wait up to timeout_us for a posted record.  Spins for the
 // first spin_us (a burst of calls finds the thread awake), then naps 20 us
 // between polls up to 10x spin_us, then 500 us (an idle channel costs its
-// process ~2000 wake-ups a second).  Returns 1 with the record's pad id
-// written, 0 on timeout.
+// process ~2000 wake-ups a second).  Returns 1 with the record's staging
+// id written, 0 on timeout.
 int rpc_wait(void* rec_host, long long timeout_us, long long spin_us,
-             unsigned long long* pad) {
+             unsigned long long* staging) {
   Record* r = static_cast<Record*>(rec_host);
   const double t0 = now_us();
   long nap_ns = 0;
   for (unsigned i = 1;; ++i) {
     if (__atomic_load_n(&r->state, __ATOMIC_ACQUIRE) == kPosted) {
-      *pad = r->pad;
+      *staging = r->staging;
       return 1;
     }
     if (nap_ns || (i & 255) == 0) {

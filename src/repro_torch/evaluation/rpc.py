@@ -238,17 +238,17 @@ def reply_section(device, *, rounds: int = 3, warmup: int = 2,
     device: a round trip each against ticketed records, one flush and the
     reply arena's reads.  The per-call RPC names the device: its operands
     are Python numbers, and a call without a tensor operand otherwise
-    runs on the host.  A callee a reply size: on a card a landing pad
-    keeps its first call's result shape (JAX's io_callback takes a new
-    one at each call site)."""
+    runs on the host.  One callee, ``bench.reply``, answers every size, as
+    in ``benchmarks/rpc_bench.py``: one landing pad, whose result shape is
+    given at each call (on a card, a staging region a shape)."""
     def reply_host(i, p):
         return np.arange(int(p), dtype=np.int32) + int(i)
 
+    name = "bench.reply"
+    REGISTRY.register(name, reply_host)
     recs, evidence = {}, {}
     for P in REPLY_ELEMS:
         shape = ShapeDtype((P,), torch.int32)
-        name = f"bench.reply{P}"
-        REGISTRY.register(name, reply_host)
 
         def percall_loop(s):
             for i in range(N_QUEUED):

@@ -3,12 +3,17 @@
 Each kernel subpackage follows the JAX package's layout:
 
   kernels/<name>/kernel.py  — ctypes wrapper around ``csrc/<name>.cu``
-  kernels/<name>/ops.py     — public op, dispatched on the tensor's device
+  kernels/<name>/ops.py     — public op: a ``torch.library`` custom op
+                              (``torch.ops.repro_torch.<name>``) with a fake
+                              kernel, so ``torch.export`` traces a step
+                              that launches it
   kernels/<name>/ref.py     — plain PyTorch version of the same function
 
-Dispatch is by device and nothing else: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel (or raises).  There is no
-environment override and no fallback from a kernel to the plain version.
+Dispatch is by device and nothing else: each op registers the plain
+version as its CPU kernel and the ctypes launch as its CUDA kernel, so a
+CPU tensor takes the plain version and a CUDA tensor launches the kernel
+(or raises).  There is no environment override and no fallback from a
+kernel to the plain version.
 """
 from __future__ import annotations
 
@@ -31,14 +36,19 @@ _PARTIAL_SHARE = 8
 _MIN_SPLIT, _MAX_SPLIT = 64, 256
 
 
-def is_cpu(t: torch.Tensor) -> bool:
-    """True for a CPU tensor (plain version); False for a CUDA tensor
-    (kernel).  Any other device raises."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
-        return False
-    raise ValueError(f"unsupported device {t.device}")
+#: The namespace of the port's custom ops: ``torch.ops.repro_torch.*``.
+OPS_NAMESPACE = "repro_torch"
+
+
+def owned(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    """``out``, or a copy of it where it shares memory with one of
+    ``inputs``: a custom op's output may alias neither its inputs nor its
+    other outputs, and a plain version may return a view (an fp32
+    ``.to(torch.float32)`` is the tensor itself)."""
+    ptr = out.untyped_storage().data_ptr()
+    if any(t.untyped_storage().data_ptr() == ptr for t in inputs):
+        return out.clone()
+    return out
 
 
 def check_cuda(name: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:

@@ -1,8 +1,12 @@
-"""Public linear-scan ops: device dispatch forward, recompute backward.
+"""Public linear-scan ops: ``torch.ops.repro_torch.rglru_scan`` forward,
+recompute backward.
 
-Forward: the CUDA kernel for CUDA tensors, the plain version for CPU
-tensors.  Backward: recompute through the plain version from the saved a
-and b and take its gradients (the JAX package's ``_lscan_bwd``).
+Forward: the op's CUDA kernel is the ctypes launch (``kernel.py``), its
+CPU kernel the plain version, its fake kernel the outputs' shapes and
+dtypes (h in b's, h_last fp32).  Backward (``register_autograd``):
+recompute through the plain version from the saved a and b and take its
+gradients (the JAX package's ``_lscan_bwd``); a gradient that is not
+needed stays undefined (``None``).
 """
 from __future__ import annotations
 
@@ -10,33 +14,50 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import is_cpu
+from repro_torch.kernels import OPS_NAMESPACE, owned
 from repro_torch.kernels.rglru_scan.kernel import linear_scan_cuda
 from repro_torch.kernels.rglru_scan.ref import (
     linear_scan_decode_reference, linear_scan_reference)
 
 
-class _LScan(torch.autograd.Function):
+@torch.library.custom_op(f"{OPS_NAMESPACE}::rglru_scan", mutates_args=(),
+                         device_types="cpu")
+def _scan_op(a: torch.Tensor, b: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    h, h_last = linear_scan_reference(a, b)
+    h = owned(h, a, b)
+    return h, owned(h_last, h)
 
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        ctx.set_materialize_grads(False)
-        if is_cpu(b):
-            return linear_scan_reference(a, b)
-        return linear_scan_cuda(a.contiguous(), b.contiguous())
 
-    @staticmethod
-    def backward(ctx, gh, ghl):
-        inputs = ctx.saved_tensors
-        with torch.enable_grad():
-            args = [t.detach().requires_grad_() for t in inputs]
-            outs = linear_scan_reference(*args)
-            pairs = [(o, g) for o, g in zip(outs, (gh, ghl)) if g is not None]
-            grads = torch.autograd.grad([o for o, _ in pairs], args,
-                                        [g for _, g in pairs],
-                                        allow_unused=True)
-        return grads
+@_scan_op.register_kernel("cuda")
+def _(a, b):
+    return linear_scan_cuda(a.contiguous(), b.contiguous())
+
+
+@_scan_op.register_fake
+def _(a, b):
+    return (b.new_empty(b.shape),
+            b.new_empty((b.shape[0], b.shape[2]), dtype=torch.float32))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+    ctx.set_materialize_grads(False)
+
+
+def _backward(ctx, gh, ghl):
+    inputs = ctx.saved_tensors
+    with torch.enable_grad():
+        args = [t.detach().requires_grad_() for t in inputs]
+        outs = linear_scan_reference(*args)
+        pairs = [(o, g) for o, g in zip(outs, (gh, ghl)) if g is not None]
+        grads = torch.autograd.grad([o for o, _ in pairs], args,
+                                    [g for _, g in pairs],
+                                    allow_unused=True)
+    return grads
+
+
+_scan_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
@@ -50,7 +71,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     if h0 is not None:
         b0 = b[:, :1] + (a[:, :1] * h0.to(b.dtype)[:, None]).to(b.dtype)
         b = torch.cat([b0, b[:, 1:]], dim=1)
-    return _LScan.apply(a, b)
+    return _scan_op(a, b)
 
 
 def linear_scan_decode_step(a: torch.Tensor, b: torch.Tensor,

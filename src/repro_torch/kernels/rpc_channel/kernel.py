@@ -3,10 +3,12 @@
 Replaces no Pallas kernel: the JAX package's transport is XLA's
 ``io_callback`` (``repro/core/rpc.py::rpc_call``).  A :class:`Channel`
 belongs to one (device, stream).  It holds one record in pinned,
-host-mapped memory, a sequence counter in device memory, one
-:class:`Staging` region per landing pad, and a daemon thread that drains
-the record: it waits in C (``rpc_wait``, Python's lock released), runs the
-pad's ``serve`` callable (numpy only, on the staging region's views) and
+host-mapped memory, a sequence counter in device memory, its
+:class:`Stagings` (one :class:`Staging` region per landing pad and result
+shape, or per queue geometry, each under a channel-local id that the
+record carries), and a daemon thread that drains the record: it waits in
+C (``rpc_wait``, Python's lock released), runs the ``serve`` callable of
+the record's staging id (numpy only, on the staging region's views) and
 answers with ``rpc_complete``.  :func:`rpc_post` issues one round trip on
 the channel's stream: the operand copies, the ``rpc_post`` kernel and the
 result copies; the host never waits for the device there.  The library
@@ -18,7 +20,7 @@ import atexit
 import ctypes
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,7 +83,8 @@ class Staging:
     """A landing pad's region of mapped pinned memory: :data:`INLINE_WORDS`
     scalar words first, then one slot per size in ``slot_bytes`` (the
     pad's tensor operands and its result), each :data:`ALIGN`-aligned.
-    A pad's operand shapes are fixed, so its region is sized once."""
+    A pad's operand shapes are fixed and a region is keyed by its result
+    shapes too (:class:`Stagings`), so each region is sized once."""
 
     def __init__(self, slot_bytes: Sequence[int]):
         offsets, end = [], ALIGN
@@ -106,12 +109,40 @@ class Staging:
         return self.host + self.offsets[i]
 
 
+class Stagings:
+    """A channel's staging regions by the id that its records carry.
+
+    :meth:`get` gives the id and the region of ``key``, made by ``make()``
+    (a ``(Staging, serve)`` pair) at the key's first use; ids are
+    channel-local, 1, 2, ... in order of first use.  A key names what fixes
+    a region's layout: a landing pad with its result shapes (so one callee
+    can return another shape on the same channel), or a queue geometry.
+    ``serve()`` runs the callee on the staged operands and writes the
+    result into the region."""
+
+    def __init__(self):
+        self.ids: Dict[Hashable, int] = {}
+        self.entries: Dict[int, Tuple[Staging, Callable[[], None]]] = {}
+
+    def get(self, key: Hashable,
+            make: Callable[[], Tuple[Staging, Callable[[], None]]]
+            ) -> Tuple[int, Staging]:
+        sid = self.ids.get(key)
+        if sid is None:
+            sid = len(self.entries) + 1
+            self.entries[sid] = make()
+            self.ids[key] = sid
+        return sid, self.entries[sid][0]
+
+    def serve(self, sid: int) -> None:
+        self.entries[sid][1]()
+
+
 class Channel:
     """The RPC channel of one (device, stream): see the module docstring.
 
-    ``pads`` maps a landing-pad id to its ``(Staging, serve, result
-    spec)``: ``serve()`` runs the pad's callee on the staged operands and
-    writes the result into the staging region.  A callee's exception is
+    ``stagings`` holds its staging regions (:class:`Stagings`); the drain
+    serves the one whose id the record carries.  A callee's exception is
     kept in ``error`` (the record is answered all the same) and raised by
     the port's ``effects_barrier()``."""
 
@@ -120,7 +151,7 @@ class Channel:
         lib = _lib()
         self.record_host, self.record_dev = _host_alloc(lib.rpc_record_bytes())
         self.counter = torch.zeros(1, dtype=torch.int32, device=device)
-        self.pads: Dict[int, Tuple[Staging, Callable[[], None], object]] = {}
+        self.stagings = Stagings()
         self.error: Optional[BaseException] = None
         self.last_serve_ns = 0
         self._stop = threading.Event()
@@ -130,15 +161,15 @@ class Channel:
 
     def _drain(self) -> None:
         lib = _lib()
-        pad = _ULL()
+        sid = _ULL()
         while not self._stop.is_set():
             if not lib.rpc_wait(self.record_host, WAIT_US, SPIN_US,
-                                ctypes.byref(pad)):
+                                ctypes.byref(sid)):
                 continue
             t0 = time.perf_counter_ns()
             status = 1
             try:
-                self.pads[pad.value][1]()
+                self.stagings.serve(sid.value)
                 status = 0
             except Exception as e:  # answered all the same; raised later
                 if self.error is None:
@@ -202,13 +233,14 @@ def _shutdown() -> None:
         ch.stop()
 
 
-def rpc_post(channel: Channel, pad_id: int, staging: Staging,
+def rpc_post(channel: Channel, staging_id: int, staging: Staging,
              inputs: Sequence[Tuple[int, torch.Tensor]],
              words: Sequence[int],
              outputs: Sequence[Tuple[int, torch.Tensor]]) -> None:
     """One round trip on ``channel``'s stream: copy each ``(slot, tensor)``
     of ``inputs`` into the staging region, launch ``rpc_post`` with the
-    scalar ``words`` (uint32 values) for pad ``pad_id``, then copy each
+    scalar ``words`` (uint32 values) and ``staging_id`` (the region's id in
+    ``channel.stagings``, which the record carries), then copy each
     ``(slot, tensor)`` of ``outputs`` out of the region into the tensor.
     Every tensor must be contiguous on the channel's device; the caller
     keeps them alive (PyTorch's stream-ordered allocator does)."""
@@ -232,7 +264,7 @@ def rpc_post(channel: Channel, pad_id: int, staging: Staging,
     n_in, in_dst, in_src, in_bytes = arrays(inputs, True)
     n_out, out_dst, out_src, out_bytes = arrays(outputs, False)
     err = _lib().rpc_roundtrip(
-        channel.record_dev, channel.counter.data_ptr(), pad_id,
+        channel.record_dev, channel.counter.data_ptr(), staging_id,
         int(TIMEOUT_S * 1e9), n_in, in_dst, in_src, in_bytes,
         (_U * INLINE_WORDS)(*words), len(words), staging.dev, n_out, out_dst,
         out_src, out_bytes, ctypes.c_void_p(channel.stream.cuda_stream))

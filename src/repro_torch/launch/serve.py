@@ -14,10 +14,26 @@ prompts, as JAX's engine serves it).  A family the engine does not serve
 (ssm, hybrid, encdec) is refused before its weights are built.
 ``--device cuda`` (the default) needs a card; ``--device cpu`` runs the
 plain PyTorch versions of the kernels.
+
+The durable artifact's round trip (cold start, as JAX's ``launch/serve.py``):
+
+  # process A: build the model, serve, export the step, manifest, weights
+  python -m repro_torch.launch.serve --arch llama3.2-3b --preset tiny \
+      --device cpu --export-artifact /path/to/art
+
+  # process B (fresh): adopt manifest.json, load serve_step.pt2 and the
+  # step-0 weights, serve the same traffic (no model built, no tracing)
+  python -m repro_torch.launch.serve --from-artifact /path/to/art \
+      --device cpu
+
+``--from-artifact`` reads the architecture and the preset from the
+artifact's ``engine.json``; an artifact serves on the device it was
+exported on.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
@@ -82,7 +98,29 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--export-artifact", metavar="DIR", default=None,
+                    help="after serving, export the decode step, the RPC "
+                         "manifest and the weights as a cold-start artifact")
+    ap.add_argument("--from-artifact", metavar="DIR", default=None,
+                    help="cold start: adopt the artifact's manifest and "
+                         "serve its exported step (no model built, nothing "
+                         "traced); --arch and --preset come from its "
+                         "engine.json")
     args = ap.parse_args(argv)
+
+    if args.from_artifact:
+        with open(os.path.join(args.from_artifact, "engine.json")) as f:
+            meta = json.load(f)
+        cfg = get_config(meta["arch"])
+        if meta.get("tiny_preset"):
+            cfg = tiny_preset(cfg)
+        engine = ServingEngine.from_artifact(args.from_artifact, cfg,
+                                             device=args.device)
+        print(f"[serve] cold start from {args.from_artifact} "
+              f"(arch={meta['arch']}, {engine._step_source} step, no "
+              "model built)")
+        _serve_traffic(engine, cfg, args.requests, args.max_new, "serve")
+        return
 
     cfg = get_config(args.arch)
     if args.preset == "tiny":
@@ -95,6 +133,13 @@ def main(argv=None):
                            max_len=256, page_size=args.page_size,
                            device=args.device)
     _serve_traffic(engine, cfg, args.requests, args.max_new, "serve")
+
+    if args.export_artifact:
+        engine.export_artifact(
+            args.export_artifact,
+            extra_meta={"arch": args.arch,
+                        "tiny_preset": args.preset == "tiny"})
+        print(f"[serve] artifact exported to {args.export_artifact}")
 
 
 if __name__ == "__main__":

@@ -1,13 +1,20 @@
 """Continuous-batching serving engine with paged KV (the dense, moe and
 vlm decoder LMs; a vlm request is a token prompt).
 
-The port of ``repro/serving/engine.py`` without its mesh and artifact
-export (ROADMAP item 5).  A fixed
-grid of request slots decodes in lock-step, one batched decode step per
-tick; finished slots are released through the balanced allocator's chunk
-reset and refilled from the request queue.  The engine has no prefill:
-prompt tokens go through the decode step one per tick.  Each tick copies
-one (B,) argmax from the device to the host.
+The port of ``repro/serving/engine.py`` without its mesh (ROADMAP item
+5).  A fixed grid of request slots decodes in lock-step, one batched
+decode step per tick (``self._step``); finished slots are released through
+the balanced allocator's chunk reset and refilled from the request queue.
+The engine has no prefill: prompt tokens go through the decode step one
+per tick.  Each tick copies one (B,) argmax from the device to the host.
+
+The durable artifact (JAX's ``export_artifact``/``from_artifact``):
+:meth:`ServingEngine.export_artifact` writes the decode step as a
+``torch.export`` program (``serve_step.pt2``: the kernels are
+``torch.ops.repro_torch`` custom ops, the weights are inputs), the RPC
+manifest, a step-0 checkpoint of the weights in JAX's files and stacked
+layout, and ``engine.json``; :meth:`ServingEngine.from_artifact` serves
+it in a fresh process without building a model or tracing anything.
 
 A ``spill_sink`` receives each retiring request's page ids through an
 async :class:`~repro_torch.core.rpc.RpcQueue` on the engine's device (on
@@ -17,12 +24,18 @@ a card: one ``rpc_enqueue`` a request, and ``rpc_async_post`` and
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
+from repro_torch.ckpt.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import from_jax_layout, to_jax_layout
 from repro_torch.core import rpc as rpc_mod
 from repro_torch.core.rpc import REGISTRY, RpcQueue, ShapeDtype
 from repro_torch.models import common
@@ -84,6 +97,46 @@ def paged_decode_step(params, kv: PagedKV, tokens: torch.Tensor,
     return logits, kv
 
 
+class ServeStep(torch.nn.Module):
+    """:func:`paged_decode_step` of ``cfg`` over ``(values, kv, tokens,
+    active)``: the program :meth:`ServingEngine.export_artifact` exports.
+    It holds no weights; they are its first input."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+
+    def forward(self, values, kv: PagedKV, tokens: torch.Tensor,
+                active: torch.Tensor) -> Tuple[torch.Tensor, PagedKV]:
+        return paged_decode_step(values, kv, tokens, active, self.cfg)
+
+
+#: The artifact's files (JAX's, with ``serve_step.pt2`` for its
+#: ``serve_step.bin``); the step-0 checkpoint's files sit beside them.
+STEP_FILE, MANIFEST_FILE, META_FILE = ("serve_step.pt2", "manifest.json",
+                                       "engine.json")
+
+
+def _exported_inputs(program) -> Tuple[Any, torch.device]:
+    """The exported step's ``(values, kv, tokens, active)`` as
+    :class:`~repro_torch.core.rpc.ShapeDtype` stand-ins, and the device it
+    was exported on."""
+    vals = {n.name: n.meta["val"] for n in program.graph.nodes
+            if n.op == "placeholder"}
+    user = [vals[name] for name in program.graph_signature.user_inputs]
+    flat = [ShapeDtype(tuple(v.shape), v.dtype) for v in user]
+    args, _ = pytree.tree_unflatten(flat, program.call_spec.in_spec)
+    return args, user[0].device
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
+
+
 @dataclasses.dataclass
 class _Slot:
     request_id: int = -1
@@ -113,18 +166,28 @@ class ServingEngine:
         redriven by the transport for ``spill_retries`` more drains, and
         one that still fails (or whose reply is lost) acks None and its
         request joins ``recompute_on_readmit``."""
-        self.device = resolve_device(device)
-        if model.device != self.device:
+        device = resolve_device(device)
+        if model.device != device:
             raise ValueError(f"model is on {model.device}, engine on "
-                             f"{self.device}")
+                             f"{device}")
+        check_servable(model.cfg)
+        self._setup(model.cfg, batch_slots, max_len, page_size, eos_id,
+                    spill_sink, spill_timeout, spill_retries, device)
         self.model = model
-        self.cfg = model.cfg
-        check_servable(self.cfg)
         self.params = params
+        self._values = params
+        self._step = ServeStep(self.cfg)
+        self._step_source = "live"
+
+    def _setup(self, cfg, batch_slots, max_len, page_size, eos_id,
+               spill_sink, spill_timeout, spill_retries, device) -> None:
+        """Everything but the step: the KV cache, the spill queue, the
+        slots and the geometry ``export_artifact`` writes."""
+        self.device = device
+        self.cfg = cfg
         self.B = batch_slots
         self.kv = kvcache.paged_cache_init(
-            self.cfg, batch_slots, max_len, page_size=page_size,
-            device=self.device)
+            cfg, batch_slots, max_len, page_size=page_size, device=device)
         self.eos_id = eos_id
         self.spill_sink = spill_sink
         self.spill_q: Optional[RpcQueue] = None
@@ -138,13 +201,16 @@ class ServingEngine:
                 payload_capacity=max(batch_slots * maxp, 8),
                 reply_capacity=max(2 * batch_slots, 8),
                 timeout=spill_timeout, mode="async",
-                carry_budget=self.spill_retries, device=self.device)
+                carry_budget=self.spill_retries, device=device)
         self.slots: List[_Slot] = [_Slot() for _ in range(batch_slots)]
         self.queue: List[Tuple[int, List[int], int]] = []
         self.finished: Dict[int, List[int]] = {}
         self._next_id = 0
         #: fp32 logits (B, V) of the last tick, on the device.
         self.last_logits: Optional[torch.Tensor] = None
+        self._geom = {"batch_slots": int(batch_slots),
+                      "max_len": int(max_len), "page_size": int(page_size),
+                      "eos_id": eos_id}
 
     # -- public API --------------------------------------------------------------
     def submit(self, prompt: List[int], max_new: int = 16) -> int:
@@ -175,8 +241,7 @@ class ServingEngine:
 
         tok = torch.tensor(tokens, dtype=torch.int64, device=self.device)
         act = torch.tensor(active, dtype=torch.bool, device=self.device)
-        logits, self.kv = paged_decode_step(self.params, self.kv, tok, act,
-                                            self.cfg)
+        logits, self.kv = self._step(self._values, self.kv, tok, act)
         self.last_logits = logits
         nxt = torch.argmax(logits, dim=-1).tolist()    # the tick's one copy
 
@@ -281,3 +346,95 @@ class ServingEngine:
             self.step()
             ticks += 1
         return dict(self.finished)
+
+    # -- durable artifact: torch.export of the step, cold start -----------------
+    def export_artifact(self, directory: str,
+                        extra_meta: Optional[dict] = None) -> str:
+        """Export this engine as a durable cold-start artifact.
+
+        Writes into ``directory``:
+
+        * ``serve_step.pt2``: ``torch.export`` of :class:`ServeStep` over
+          ``(values, kv, tokens, active)``, the weights an input (its
+          example inputs are not saved, so the weights are written once);
+        * ``manifest.json``: the :class:`~repro_torch.core.rpc.
+          RpcManifest` of every pad, callee id, format string and queue
+          geometry this process bound (the engine's spill queue included);
+        * a step-0 checkpoint of the weights in JAX's files and stacked
+          layout, whose manifest embeds the same transport section;
+        * ``engine.json``: the geometry (batch slots, max_len, page size,
+          eos id) and ``extra_meta``, as JAX's ``json.dump`` writes them.
+
+        :meth:`from_artifact` serves all four in a fresh process.  The
+        program records the device it was traced on (``torch.arange``'s
+        and ``.to``'s ``device=``), so it serves there.  The seconds of
+        each part land in ``self.export_seconds`` (``export``, ``save``,
+        ``checkpoint``)."""
+        os.makedirs(directory, exist_ok=True)
+        t0 = time.perf_counter()
+        tokens = torch.zeros((self.B,), dtype=torch.int64, device=self.device)
+        active = torch.zeros((self.B,), dtype=torch.bool, device=self.device)
+        program = torch.export.export(
+            ServeStep(self.cfg), (self._values, self.kv, tokens, active),
+            strict=False)
+        program.example_inputs = None
+        t1 = time.perf_counter()
+        torch.export.save(program, os.path.join(directory, STEP_FILE))
+        t2 = time.perf_counter()
+        queues = [self.spill_q] if self.spill_q is not None else []
+        manifest = rpc_mod.export_manifest(queues=queues)
+        manifest.save(os.path.join(directory, MANIFEST_FILE))
+        save_checkpoint(directory, 0, {"values": to_jax_layout(self._values)},
+                        transport=manifest)
+        meta = dict(self._geom)
+        meta.update(extra_meta or {})
+        with open(os.path.join(directory, META_FILE), "w") as f:
+            json.dump(meta, f, indent=2, sort_keys=True)
+            f.write("\n")
+        self.export_seconds = {"export": t1 - t0, "save": t2 - t1,
+                               "checkpoint": time.perf_counter() - t2}
+        return directory
+
+    @classmethod
+    def from_artifact(cls, directory: str, cfg: ModelConfig, *,
+                      spill_sink: Optional[Any] = None,
+                      spill_timeout: Optional[float] = None,
+                      spill_retries: int = 1,
+                      device="cuda") -> "ServingEngine":
+        """Cold-start an engine from :meth:`export_artifact`'s output in a
+        fresh process: adopt the manifest (so every id the step and the
+        spill queue use resolves; as in JAX, every callee it names must be
+        registered here, so export from a process that bound no other
+        landing pads), load ``serve_step.pt2`` (the custom ops
+        are registered by this module's imports), and restore the weights
+        into the exported input structure.  No model is built and nothing
+        is traced (``engine.model is None``, ``engine._step_source ==
+        "artifact"``).  ``cfg`` must be the config the exporting process
+        served (the KV cache is made from it); ``device`` must be the
+        device the step was exported on."""
+        with open(os.path.join(directory, META_FILE)) as f:
+            meta = json.load(f)
+        rpc_mod.adopt_manifest(rpc_mod.RpcManifest.load(
+            os.path.join(directory, MANIFEST_FILE)))
+        program = torch.export.load(os.path.join(directory, STEP_FILE))
+        (values_like, _, _, _), traced_on = _exported_inputs(program)
+        device = resolve_device(device)
+        if not _same_device(device, traced_on):
+            raise ValueError(f"the artifact's step was exported on "
+                             f"{traced_on}, not {device}: it serves only "
+                             "there")
+        check_servable(cfg)
+        self = cls.__new__(cls)
+        self._setup(cfg, int(meta["batch_slots"]), int(meta["max_len"]),
+                    int(meta["page_size"]), meta.get("eos_id"), spill_sink,
+                    spill_timeout, spill_retries, device)
+        _, restored = restore_checkpoint(
+            directory, {"values": to_jax_layout(values_like)}, step=0,
+            device=device)
+        self.model = None
+        self.params = None
+        self._values = from_jax_layout(restored["values"])
+        self._step = program.module()
+        self._step_source = "artifact"
+        return self
+

@@ -26,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.allocator import BalancedAllocator, BalancedState
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.models.common import torch_dtype
+from repro_torch.tree import register_export_node
 
 
 @dataclasses.dataclass
@@ -36,6 +37,11 @@ class PagedKV:
     lengths: torch.Tensor       # (B,) int32
     alloc: BalancedState        # page-slot allocator (arena = page-id space)
     page_size: int
+
+
+#: A pytree node for ``torch.export`` (the engine's exported step takes and
+#: returns the cache), ``page_size`` its context.
+register_export_node(PagedKV, ("page_size",))
 
 
 def paged_cache_init(cfg: ModelConfig, batch_slots: int, max_len: int,

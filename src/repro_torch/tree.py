@@ -6,10 +6,17 @@ them.  They flatten as ``jax.tree`` does: dict keys in sorted order, so
 leaves line up with the JAX package's; ``None`` is an empty subtree (no
 leaf, kept as ``None`` by :func:`tree_map`); a NamedTuple is rebuilt by
 its fields.
+
+:func:`register_export_node` registers a state dataclass with
+``torch.utils._pytree``, so a ``torch.export`` program takes and returns
+it (the serving engine's :class:`~repro_torch.serving.kvcache.PagedKV`
+and the allocator states).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, List
+import dataclasses
+import json
+from typing import Any, Callable, Dict, Iterable, List, Tuple
 
 
 def leaves(tree: Any) -> List[Any]:
@@ -100,3 +107,36 @@ def unflatten(structure: Any, values: Iterable[Any]) -> Any:
     if next(it, _END) is not _END:
         raise ValueError("unflatten: more values than the structure's leaves")
     return out
+
+
+def register_export_node(cls: type, static: Tuple[str, ...]) -> None:
+    """Register the dataclass ``cls`` as a ``torch.utils._pytree`` node: its
+    fields other than ``static`` are its children, in declaration order;
+    the values of ``static`` (ints) are its context, which a saved
+    ``torch.export`` program keeps as a JSON list and reads back as a
+    tuple.  Its serialized type name is ``<module>.<class>``, as the JAX
+    package's ``register_pytree_node_serialization`` names its states
+    (the counterpart of ``src/repro/core/allocator.py:1389-1414``)."""
+    import torch.utils._pytree as pytree
+
+    children = tuple(f.name for f in dataclasses.fields(cls)
+                     if f.name not in static)
+
+    def flatten(x):
+        return ([getattr(x, f) for f in children],
+                tuple(getattr(x, f) for f in static))
+
+    def flatten_with_keys(x):
+        values, context = flatten(x)
+        return [(pytree.GetAttrKey(f), v)
+                for f, v in zip(children, values)], context
+
+    def unflatten(values, context):
+        return cls(**dict(zip(children, values)), **dict(zip(static, context)))
+
+    pytree.register_pytree_node(
+        cls, flatten, unflatten,
+        serialized_type_name=f"{cls.__module__}.{cls.__name__}",
+        flatten_with_keys_fn=flatten_with_keys,
+        to_dumpable_context=lambda context: json.dumps(list(context)),
+        from_dumpable_context=lambda dumped: tuple(json.loads(dumped)))

@@ -686,6 +686,22 @@ def test_fig7_records_and_replies_match_jax():
     assert all(a == b == sum(range(64)) for a, b in ev.values())
 
 
+def test_fig7_reply_section_calls_one_callee_at_every_size():
+    """As benchmarks/rpc_bench.py: one callee, ``bench.reply``, answers
+    1, 64 and 1024 elements through one landing pad (on a card a staging
+    region a result shape, F6), and every sum is the reply's first
+    elements'."""
+    from repro_torch.core import rpc as trpc
+    _, ev = trpc_eval.reply_section(torch.device("cpu"), rounds=1,
+                                    warmup=0, iters=1)
+    assert sorted(ev) == sorted(f"elems{P}" for P in trpc_eval.REPLY_ELEMS)
+    assert all(a == b == sum(range(trpc_eval.N_QUEUED))
+               for a, b in ev.values())
+    assert [n for n in trpc.REGISTRY.hosts if n.startswith("bench.reply")] \
+        == ["bench.reply"]
+    assert trpc.rpc_stats("bench.reply")["pads"] == 1
+
+
 def test_fig7_other_sections_deliver_every_record():
     dev = torch.device("cpu")
     _, ev = trpc_eval.sharded_section(dev, warmup=0, iters=1)

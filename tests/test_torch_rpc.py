@@ -413,3 +413,76 @@ def test_remote_malloc_conformance_across_transports():
             for t in ("immediate", "batched", "sharded")]
     assert runs[0] == runs[1] == runs[2]
     assert runs[0][1] == [[0, 8], [24]]
+
+
+class _HostStaging:
+    """``kernels/rpc_channel``'s ``Staging`` in ordinary host memory: the
+    inline words, then one slot a size (no card, no mapped memory)."""
+
+    def __init__(self, slot_bytes):
+        self.words = np.zeros(64, np.uint8)
+        self.slots = [np.zeros(n, np.uint8) for n in slot_bytes]
+
+    def slot(self, i):
+        return self.slots[i]
+
+    def word(self, k):
+        return self.words[4 * k:4 * k + 4]
+
+
+def _reply(i, p):
+    return np.arange(int(p), dtype=np.int32) + int(i)
+
+
+def test_channel_staging_is_keyed_by_pad_and_result_shape(monkeypatch):
+    """F6: one callee returns 1, 64 and 1024 elements (then 1 again) on one
+    channel.  Its one landing pad gets a staging region a result shape, each
+    under its own channel-local id, and serving a region's id (what the
+    drain does with the id the record carries) writes that call's result
+    in that call's shape.  The card's channel is held to this by
+    chip_smoke.py's ``rpc`` case."""
+    from repro_torch.kernels.rpc_channel.kernel import Stagings
+
+    monkeypatch.setattr(trpc, "Staging", _HostStaging)
+    name = f"torch_parity_reply_{next(_ids)}"
+    trpc.REGISTRY.register(name, _reply)
+    channel = type("Channel", (), {"stagings": Stagings()})()
+    sids, pids = {}, set()
+    for i, P in enumerate((1, 64, 1024, 1)):
+        spec = trpc.ShapeDtype((P,), torch.int32)
+        specs, _, sig, ops, _, pid = trpc._prepare(
+            name, (torch.tensor(i, dtype=torch.int32), P), spec, False, None)
+        sid, staging = trpc._pad_staging(channel, name, pid, sig, ops, specs)
+        # what rpc_post's copies and kernel write before the drain serves
+        staging.slot(0).view(np.int32)[:] = i
+        number = ops[1]
+        staging.word(0)[:number.dtype.itemsize].view(number.dtype)[0] = P
+        channel.stagings.serve(sid)
+        np.testing.assert_array_equal(staging.slot(1).view(np.int32),
+                                      _reply(i, P))
+        assert sids.setdefault(P, sid) == sid
+        assert channel.stagings.ids[trpc.staging_key(pid, spec)] == sid
+        pids.add(pid)
+    assert len(pids) == 1
+    assert sorted(sids.values()) == [1, 2, 3]
+    assert len(channel.stagings.entries) == 3
+
+
+def test_one_callee_at_three_result_sizes_keeps_pad_stats_per_pad():
+    """JAX's ``bench.reply`` pattern (benchmarks/rpc_bench.py): one callee
+    at 1, 64 and 1024 elements.  The results are JAX's; the callee has one
+    landing pad, whose statistics count every call, as JAX's."""
+    name = f"torch_parity_reply_{next(_ids)}"
+    jrpc.REGISTRY.register(name, _reply)
+    trpc.REGISTRY.register(name, _reply)
+    for i, P in enumerate((1, 64, 1024)):
+        j, _ = jrpc.rpc_call(name, jnp.int32(i), P,
+                             result_shape=jax.ShapeDtypeStruct((P,),
+                                                               jnp.int32))
+        t, _ = trpc.rpc_call(name, torch.tensor(i, dtype=torch.int32), P,
+                             result_shape=trpc.ShapeDtype((P,), torch.int32))
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    st = _same_bookkeeping(name)
+    assert st["pads"] == 1 and st["calls"] == 3
+    (pid,) = [k for k, v in trpc.pad_table().items() if v[0] == name]
+    assert trpc.pad_stats(pid)["calls"] == 3
