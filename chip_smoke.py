@@ -45,7 +45,11 @@ source, all started together) and runs, in order:
    checkpoint, ``engine.json``) and cold-started in a fresh process
    (``from_artifact``), which serves the same traffic with the live
    engine's streams, spill calls and acks and 28 ``paged_attention``
-   launches a tick;
+   launches a tick; then ``analysis``: the analyzer's 33 ported corpus
+   cases on the card against JAX's golden codes, the export-graph walker
+   over the saved ``serve_step.pt2`` (28 ``paged_attention`` nodes, no
+   transport node, no hazard), and captures of that engine's ticks and of
+   a hooked ``device_run`` against the codes the CPU test pins;
 4. ``identity``: fp32, full width, 4 layers; the engine's greedy streams
    must equal the contiguous decode's token for token;
 5. ``flash``: the flash kernel against its plain version, fp32 and bf16, at
@@ -168,8 +172,9 @@ source, all started together) and runs, in order:
 23. ``rpc_queue_time``: host and device us per ``rpc_enqueue`` and per
     plain enqueue (behind a device sleep that hides the host) for a
     scalar record at W 4, a 1 KB and a 64 KB payload, beside the bytes
-    bound; the flush of a full 1024-record ring (events, host, the
-    drain's Python) beside the link's bound;
+    bound, and the op's host us beside the direct ctypes launch's;
+    the flush of a full 1024-record ring (events, host, the drain's
+    Python) beside the link's bound;
 24. ``libc_io``: ``fprintf``, ``fwrite``, ``fgets``, ``fread``, remote
     malloc and ``LogRing`` on a card queue equal to a CPU queue (11
     ``rpc_enqueue`` launches, 2 ``rpc_post``);
@@ -211,13 +216,14 @@ source, all started together) and runs, in order:
     exactly those the sections' loops make.
 
 Between ``identity`` and ``flash`` runs
-``dense_serve``: qwen2.5-14b at full width, cut from 48 to 24 layers
-(40 heads padded to 48 over 8 KV heads of 128, QKV bias, bf16, ~8.3e9
-random parameters from seed 0 built on the card; the cut keeps the
-script near 10 minutes beside ``artifact_serve``) through the engine as
-``serve`` runs llama: ms/tick, tok/s, init time, peak memory, the
-logits gate against the teacher-forced contiguous decode and exact
-launches (paged 24 a tick, decode 24 a step), and ``dense_profile`` (8
+``dense_serve``: qwen2.5-14b at full width, cut from 48 to
+:data:`DENSE_LAYERS` layers (40 heads padded to 48 over 8 KV heads of
+128, QKV bias, bf16, random parameters from seed 0 built on the card;
+the cut keeps the script within its limit beside ``artifact_serve`` and
+``analysis``) through the engine as ``serve`` runs llama: ms/tick,
+tok/s, init time, peak memory, the logits gate against the
+teacher-forced contiguous decode and exact launches (paged and decode
+one a layer a tick or step), and ``dense_profile`` (8
 busy ticks under ``torch.profiler``).  Between
 ``device_run_hooks`` and ``gpu_first`` run:
 ``rpc_queue_async``: ``rpc_queue``'s three plans on async queues
@@ -278,8 +284,9 @@ distance (bf16 rounding alone puts the two bf16 paths ~0.1 apart), and
 ``encdec_profile``; ``encdec_fp32``, the same width in
 fp32 at 2 + 2 layers with ragged ``enc_lens``: the card's decode logits
 against the same parameters on the CPU's plain versions within 1e-3;
-``vlm_serve``, qwen2-vl-2b (14 of its 28 layers since ``artifact_serve``
-joined the script, 12 heads padded to 16 over 2 of 128, M-RoPE, bf16):
+``vlm_serve``, qwen2-vl-2b (:data:`VLM_SERVE_LAYERS` of its 28 layers,
+cut as ``dense_serve`` is; 12 heads padded to 16 over 2 of 128, M-RoPE,
+bf16):
 ``Model.prefill`` of 2 x 1024 patch-and-text embeddings at Qwen2-VL's
 (t, h, w) positions and 32 greedy steps, the last 4 fed as embeddings
 (exact launches; the logits
@@ -367,6 +374,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1046,8 +1054,12 @@ def serve_phase():
         _engine_serve("serve", cfg, 8, 200, 7)
     spill, spill_engine, spill_calls, spill_ms = serve_spill_phase(
         model, params, prompts, max_new, max_len, streams)
-    artifact = artifact_serve_phase(spill_engine, spill_calls, spill_ms,
-                                    prompts, max_new)
+    artifact, directory = artifact_serve_phase(spill_engine, spill_calls,
+                                               spill_ms, prompts, max_new)
+    try:
+        analysis = timed(analysis_phase, spill_engine, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
     del spill_engine
     profile_window(model, params, prompts, max_new, max_len)
     tokens = torch.tensor([prompts[0][:64]], device="cuda")
@@ -1061,7 +1073,7 @@ def serve_phase():
                                    .float().mean())}})
     del params, model, fwd, dec
     torch.cuda.empty_cache()
-    return launches, spill, artifact
+    return launches, spill, artifact, analysis
 
 
 # A fresh process: cold-start the artifact on the card and serve the
@@ -1132,9 +1144,9 @@ def artifact_serve_phase(engine, calls, live_ms, prompts, max_new):
     and an ``artifact`` step.  Reports the artifact's bytes, the export,
     save and checkpoint seconds, the cold start (the child's process start
     to its first token, on the wall clock), both ms/tick and the exported
-    graph's ops.  Returns the child's launches (the path)."""
-    import shutil
-
+    graph's ops.  Returns the child's launches (the path) and the
+    artifact's directory, which the ``analysis`` phase reads and
+    ``serve_phase`` then deletes."""
     t_phase = time.perf_counter()
     directory = os.path.join(ROOT, "build", "artifact_serve")
     shutil.rmtree(directory, ignore_errors=True)
@@ -1164,7 +1176,6 @@ def artifact_serve_phase(engine, calls, live_ms, prompts, max_new):
                              f"failed:\n{proc.stderr[-4000:]}")
     with open(out_path) as f:
         child = json.load(f)
-    shutil.rmtree(directory, ignore_errors=True)
     per_tick = child["paged_attention"] / child["ticks"]
     checks = {
         "streams_bit_equal": child["streams"] == live,
@@ -1198,7 +1209,166 @@ def artifact_serve_phase(engine, calls, live_ms, prompts, max_new):
     log({"artifact_serve": rec})
     if not all(checks.values()):
         raise AssertionError(f"artifact_serve: {checks}")
-    return {"paged_attention": child["paged_attention"]}
+    return {"paged_attention": child["paged_attention"]}, directory
+
+
+#: The codes of the ``analysis`` phase's engine ticks and hooked
+#: ``device_run``: the codes that tests/test_torch_analysis.py pins for the
+#: same programs on the CPU, where JAX's engine gives the same and JAX's
+#: ``device_run`` one false ``CAPACITY_REPLY`` (its returning hook's flush
+#: inside ``lax.cond`` joins no queue lineage; see the test).
+ANALYSIS_ENGINE_CODES: list = []
+ANALYSIS_LOOP_CODES: list = []
+#: Requests (two-token prompts, two new tokens) and ticks of the engine
+#: program: every request retires, and spills, at the third tick.
+ANALYSIS_PROMPTS = [[11, 23], [12, 24], [13, 25], [14, 26]]
+ANALYSIS_TICKS = 4
+ANALYSIS_STEPS = 1000
+
+
+def analysis_hooks(HostHook, ShapeDtype, dtype):
+    """``device_run_hooks``' hooks in one run: a named immediate hook every
+    100 steps and one every step, a batched hook every step and a
+    returning hook every 100 steps (the same program in either package:
+    its ``HostHook``, its ``ShapeDtype`` and float32)."""
+    def note(i, v):
+        return None
+
+    def reply(i, v):
+        import numpy as np
+        return np.float32(1.0)
+
+    return [
+        HostHook(every=100, extract=lambda i, s: s[:256].sum(),
+                 host_fn=note, name="analysis.every_100"),
+        HostHook(every=1, extract=lambda i, s: s[:256].sum(),
+                 host_fn=note, name="analysis.every_1"),
+        HostHook(every=1, extract=lambda i, s: s[:256].sum(),
+                 host_fn=note, name="analysis.batched_every_1",
+                 batched=True),
+        HostHook(every=100, extract=lambda i, s: s[:256].sum(),
+                 host_fn=reply, name="analysis.returning_every_100",
+                 batched=True, returns=ShapeDtype((), dtype),
+                 consume=lambda i, s, v, ok: s + v * ok),
+    ]
+
+
+def analysis_phase(engine, directory):
+    """The analyzer (``repro_torch.analysis``, the paper's §5.3 porting
+    advisor) on the card.  Gates, each failing the run:
+
+    * the corpus: each of the 33 ported cases on ``device="cuda"`` gives
+      JAX's golden codes (``tests/data/hazard_corpus.json``), its
+      transport launched through the ops (``rpc_enqueue``, ``rpc_post``,
+      ``rpc_async_post`` and ``rpc_async_collect`` each at least once);
+    * the walker over ``artifact_serve``'s ``serve_step.pt2`` (loaded,
+      not exported again): 28 ``paged_attention`` nodes, no transport
+      node, no hazard, in under a second;
+    * ``analyze`` of ``serve_spill``'s llama3.2-3b engine (full width and
+      depth, bf16): four requests through 4 ticks under a capture (28
+      ``paged_attention`` launches a tick; the requests retire and spill
+      at the third), and a ``device_run`` of 1000 steps with
+      :func:`analysis_hooks`: their codes are the ones the CPU test pins
+      (:data:`ANALYSIS_ENGINE_CODES`, :data:`ANALYSIS_LOOP_CODES`).
+
+    Returns the transport's launches over the corpus, the ticks and the
+    loop (the kernels line's ``analysis`` path)."""
+    from repro_torch.analysis import capture, corpus, walk_graph
+    from repro_torch.core import (HostHook, ShapeDtype, device_run,
+                                  effects_barrier)
+    from repro_torch.kernels import rpc_async, rpc_channel, rpc_queue
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda)
+
+    t_phase = time.perf_counter()
+    counters = {"rpc_post": rpc_channel.rpc_post,
+                "rpc_enqueue": rpc_queue.rpc_enqueue,
+                "rpc_async_post": rpc_async.rpc_async_post,
+                "rpc_async_collect": rpc_async.rpc_async_collect}
+    with open(os.path.join(ROOT, "tests", "data", "hazard_corpus.json")) as f:
+        golden = json.load(f)["cases"]
+
+    for fn in counters.values():      # main path: counts from 0 just before
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cases = {c.name: corpus.run_case(c, device="cuda").codes
+             for c in corpus.CASES}
+    effects_barrier()
+    corpus_s = time.perf_counter() - t0
+    corpus_launches = {k: fn.launches for k, fn in counters.items()}
+    mismatched = sorted(n for n, codes in cases.items()
+                        if codes != golden[n])
+
+    t0 = time.perf_counter()
+    program = torch.export.load(os.path.join(directory, "serve_step.pt2"))
+    load_s = time.perf_counter() - t0
+    counts: dict = {}
+    t0 = time.perf_counter()
+    walked = walk_graph(program.graph_module, counts=counts)
+    walk_s = time.perf_counter() - t0
+    del program
+
+    for p in ANALYSIS_PROMPTS:
+        engine.submit(p, max_new=2)
+    spilled = len(engine.spill_acks)
+    paged_attention_cuda.launches = 0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    t0 = time.perf_counter()
+    with capture() as cap:
+        for _ in range(ANALYSIS_TICKS):
+            engine.step()
+    torch.cuda.synchronize()
+    ticks_s = time.perf_counter() - t0
+    paged = paged_attention_cuda.launches
+    engine_codes = cap.report().codes
+    engine_events = (len(cap.events), len(cap.folded()))
+    new_acks = len(engine.spill_acks) - spilled
+
+    state = torch.zeros(256, device="cuda")
+    t0 = time.perf_counter()
+    with capture() as cap:
+        device_run(lambda i, s: s + 1.0, state, ANALYSIS_STEPS,
+                   hooks=analysis_hooks(HostHook, ShapeDtype,
+                                        torch.float32))
+    effects_barrier()
+    loop_s = time.perf_counter() - t0
+    loop_codes = cap.report().codes
+    loop_events = (len(cap.events), len(cap.folded()))
+    total = {k: fn.launches for k, fn in counters.items()}
+    program_launches = {k: total[k] - launches[k] for k in counters}
+
+    checks = {
+        "corpus_golden_on_cuda": not mismatched,
+        "corpus_through_ops": all(n >= 1 for n in corpus_launches.values()),
+        "walker_28_paged": counts.get("paged_attention") == SERVE_LAYERS,
+        "walker_no_transport_no_hazard": not walked and not any(
+            k.startswith("rpc_") for k in counts),
+        "walker_under_1s": walk_s < 1.0,
+        "engine_codes": engine_codes == ANALYSIS_ENGINE_CODES,
+        "engine_28_paged_a_tick": paged == SERVE_LAYERS * ANALYSIS_TICKS,
+        "engine_spilled": new_acks == len(ANALYSIS_PROMPTS),
+        "loop_codes": loop_codes == ANALYSIS_LOOP_CODES,
+    }
+    rec = {"cases": cases, "ported": len(cases),
+           "not_ported": list(corpus.NOT_PORTED), "mismatched": mismatched,
+           "corpus_s": corpus_s, "corpus_launches": corpus_launches,
+           "graph": {"ops": counts, "hazards": walked.codes,
+                     "load_s": load_s, "walk_s": walk_s},
+           "engine": {"layers": SERVE_LAYERS, "ticks": ANALYSIS_TICKS,
+                      "requests": len(ANALYSIS_PROMPTS),
+                      "paged_attention_launches": paged,
+                      "codes": engine_codes, "events": engine_events[0],
+                      "events_folded": engine_events[1], "s": ticks_s},
+           "loop": {"steps": ANALYSIS_STEPS, "hooks": 4,
+                    "codes": loop_codes, "events": loop_events[0],
+                    "events_folded": loop_events[1], "s": loop_s},
+           "program_launches": program_launches,
+           "nvidia_smi": nvidia_smi(), "checks": checks,
+           "phase_seconds": time.perf_counter() - t_phase}
+    log({"analysis": rec})
+    if not all(checks.values()):
+        raise AssertionError(f"analysis: {checks}")
+    return total
 
 
 def dense_serve_phase():
@@ -4309,7 +4479,13 @@ def rpc_queue_time_phase(card_line):
     """Host and device microseconds per ``rpc_enqueue`` and per plain
     enqueue on the card (behind a device sleep that hides the host) for a
     scalar record at W 4, a 1 KB and a 64 KB payload, beside the bound
-    (the record's bytes at 3.35 TB/s); then the flush of a full ring of
+    (the record's bytes at 3.35 TB/s); beside them ``ctypes``: the same
+    record appended by the op's CUDA kernel called directly
+    (``kernels/rpc_queue/kernel.py::rpc_enqueue`` on the queue's state,
+    geometry and record: the ctypes launch ``RpcQueue.enqueue`` ran
+    before it became the ``torch.ops.repro_torch.rpc_enqueue`` op),
+    timed in turns with the op, so ``op_host_us_over_ctypes`` is the
+    op's dispatch on the host; then the flush of a full ring of
     1024 records with a 4096-word arena (CUDA events around the round
     trip, the host's time in ``flush``, the drain's Python; median of 5).
     Returns the scalar record's numbers for the kernels line."""
@@ -4317,7 +4493,7 @@ def rpc_queue_time_phase(card_line):
     from repro_torch.core import RpcQueue, effects_barrier
     from repro_torch.core.rpc import REGISTRY
     from repro_torch.kernels.rpc_channel import channel_for
-    from repro_torch.kernels.rpc_queue import enqueue_reference
+    from repro_torch.kernels.rpc_queue import enqueue_reference, rpc_enqueue
 
     REGISTRY.register("smoke.q_sink", lambda *a: None)
     dev = torch.device("cuda", 0)
@@ -4329,29 +4505,46 @@ def rpc_queue_time_phase(card_line):
         args = ([1, 2.5, torch.tensor(3, dtype=torch.int32, device=dev),
                  torch.tensor(0.25, device=dev)] if not words else
                 [7, torch.randn(words, device=dev)])
-        # room for the warm-up calls and three attempts: nothing dropped
-        arena = max(1, (3 + 3 * n) * words)
+        # room for two timings' warm-up calls and three attempts each:
+        # nothing dropped
+        arena = max(1, (6 + 6 * n) * words)
         q = RpcQueue.create(max(n, 64), width, arena, device=dev)
         qp = RpcQueue.create(max(n, 64), width, arena, device=dev)
+        # twice more room: the op and the direct launch, in turns
+        qc = RpcQueue.create(max(n, 64), width, arena, device=dev)
         kernel = _behind_busy(lambda: q.enqueue("smoke.q_sink", *args), n)
+        direct = _behind_busy(lambda: rpc_enqueue(
+            qc.state, qc.layout.lanes, qc.arrivals,
+            qc.record("smoke.q_sink", args)), n)
+        kernel2 = _behind_busy(lambda: q.enqueue("smoke.q_sink", *args), n)
+        direct2 = _behind_busy(lambda: rpc_enqueue(
+            qc.state, qc.layout.lanes, qc.arrivals,
+            qc.record("smoke.q_sink", args)), n)
         # the plain version is ~100 small launches a record: five stay
         # within CUDA's launch queue behind the sleep (more would block
         # the host on the sleeping device)
         plain = _behind_busy(lambda: enqueue_reference(
             qp.lanes(), qp.record("smoke.q_sink", args)), PLAIN_TIMED_CALLS)
-        equal = int(q.head) == 3 + kernel["attempts"] * n and \
-            int(q.adrops) == 0
+        equal = int(q.head) == 6 + (kernel["attempts"] +
+                                    kernel2["attempts"]) * n and \
+            int(q.adrops) == 0 and int(qc.adrops) == 0
         lanes = 4 + 3 * width
         nbytes = 4 * lanes + 8 * words + 4 * 6 + 4
         cases[label] = {
             "payload_words": words, "kernel": kernel, "plain": plain,
+            "ctypes": direct,
+            "op_host_us": [kernel["host_us"], kernel2["host_us"]],
+            "ctypes_host_us": [direct["host_us"], direct2["host_us"]],
+            "op_host_us_over_ctypes": (
+                kernel["host_us"] + kernel2["host_us"]
+                - direct["host_us"] - direct2["host_us"]) / 2,
             "ms": kernel["device_us"] * 1e-3,
             "plain_ms": plain["device_us"] * 1e-3,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
             "all_kept": equal}
         if not (kernel["host_hidden"] and plain["host_hidden"] and equal):
             raise AssertionError(f"rpc_queue_time {label}: {cases[label]}")
-        del q, qp
+        del q, qp, qc
     # flush of a full ring
     REGISTRY.register("smoke.q_full", lambda i, x, p: None)
     q = RpcQueue.create(1024, width, 4096, device=dev)
@@ -7176,7 +7369,7 @@ def main() -> int:
     timed(decode_reuse_phase)
     timed(decode_launch_phase)
     timed(rglru_launch_phase)
-    serve, spill, artifact = timed(serve_phase)
+    serve, spill, artifact, analysis = timed(serve_phase)
     timed(identity_phase)
     dense = timed(dense_serve_phase)
     moe = timed(moe_serve_phase)
@@ -7274,14 +7467,16 @@ def main() -> int:
                         "rpc_sharded": sharded["rpc_post"],
                         "manifest": manifest["rpc_post"],
                         "gpu_first": gpu_first,
-                        "paper_eval": paper_eval["rpc_post"]},
+                        "paper_eval": paper_eval["rpc_post"],
+                        "analysis": analysis["rpc_post"]},
         "rpc_queue": {"rpc_queue": queue_launches, "libc_io": libc_launches,
                       "device_run_hooks": hook_enqueues,
                       "serve_spill": spill["rpc_enqueue"],
                       "sanitizer": san_enqueues,
                       "rpc_sharded": sharded["rpc_enqueue"],
                       "manifest": manifest["rpc_enqueue"],
-                      "paper_eval": paper_eval["rpc_enqueue"]},
+                      "paper_eval": paper_eval["rpc_enqueue"],
+                      "analysis": analysis["rpc_enqueue"]},
     }
     for name in ENTRY_NAMES["rpc_async"]:
         by_path[name] = {"rpc_queue_async": async_queue[name],
@@ -7289,7 +7484,8 @@ def main() -> int:
                          "serve_spill": spill[name],
                          "sanitizer": san_async[name],
                          "rpc_sharded": sharded[name],
-                         "paper_eval": paper_eval[name]}
+                         "paper_eval": paper_eval[name],
+                         "analysis": analysis[name]}
     kernels = []
     # a source with one kernel keys its records by the source's name
     entries = [(name, name if name in by_path else src_name, source,

@@ -40,8 +40,9 @@ it returns.  Not ported yet: ``mesh=`` (ROADMAP queue 1, item 5).
 
 Events (:mod:`repro_torch.core.events`), as JAX's: a ``hook_decl`` for
 each hook, the step loop inside ``loop_scope(n_steps)`` and each hook
-inside ``cond_scope(every)``.  JAX emits the loop body's events once, as
-it traces; the eager loop here emits them at each firing.
+inside ``cond_scope(every, key=name)``.  JAX emits the loop body's
+events once, as it traces; the eager loop here emits them at each firing,
+each hook's inside the one frame it enters at every step.
 """
 from __future__ import annotations
 
@@ -275,8 +276,8 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
                 else:
                     state = step_fn(step, state)
                 for h, hname in named:
-                    with (events.cond_scope(int(h.every)) if tracing
-                          else _NO_SCOPE):
+                    with (events.cond_scope(int(h.every), key=hname)
+                          if tracing else _NO_SCOPE):
                         if h.returns is not None:
                             state = _fire_returning(h, hname, step + 1,
                                                     state, q)

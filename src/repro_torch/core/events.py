@@ -11,7 +11,8 @@ analysis layer; with no subscriber :func:`emit` is one attribute check.
 Events carry what a rule needs:
 
 * **call sites**: the innermost stack frame outside the runtime (the
-  port's ``core`` and ``kernels`` packages, PyTorch, ``contextlib`` and
+  port's ``core`` and ``kernels`` packages, its ``analysis`` package but
+  the seeded corpus ``analysis/corpus.py``, PyTorch, ``contextlib`` and
   friends), so a hazard points at the user's enqueue or free;
 * **scope context**: the stack of enclosing loop and conditional regions
   at emit time.  ``loop_scope(trips)`` marks a region that runs ``trips``
@@ -24,7 +25,13 @@ Events carry what a rule needs:
 
 JAX emits while it traces, so a loop body's events appear once inside its
 ``loop_scope``.  The port runs eagerly, so they appear once per run of the
-body, each inside the same scopes.  A value an event would read from a
+body, each inside the same scopes: inside a loop frame, a region's uid
+is the same each time the loop's body enters it from the same place (the
+same stack of code locations, under the same enclosing frame, with the
+same ``key``), as JAX's one trace of the body has one frame.  A region
+under no loop frame gets a fresh uid each time it is entered: a bare
+Python loop around it is unrolled, and JAX traces each of its calls
+anew.  The analysis layer folds the repeats (``analysis/capture.py``).  A value an event would read from a
 CUDA tensor (a heap pointer on the card) is ``None``, as JAX gives
 ``None`` for a tracer: an event never reads the device.
 
@@ -36,16 +43,32 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import sys
 import threading
 import traceback
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Hashable, List, Optional, Tuple
 
 ScopeFrame = Tuple[str, int, Optional[int]]
 
 #: Path parts of the frames a site skips: the runtime and PyTorch.
 _RUNTIME = ("/repro_torch/core/", "/repro_torch/kernels/", "/torch/")
+#: The analysis package's frames are skipped too, but for its seeded
+#: corpus: its programs are the linted subject, so hazard sites point
+#: into it (JAX's rule).
+_ANALYSIS, _CORPUS = "/repro_torch/analysis/", "/corpus.py"
 _PLUMBING = ("/contextlib.py", "/functools.py", "/threading.py",
              "/runpy.py")
+
+
+def is_internal_frame(path: str) -> bool:
+    """True iff a frame in file ``path`` is one a hazard site skips: the
+    runtime, PyTorch, the standard library's plumbing, and the analysis
+    package but its corpus.  The event sites and the graph walker's node
+    sites share this rule."""
+    path = path.replace("\\", "/")
+    if any(part in path for part in _RUNTIME) or path.endswith(_PLUMBING):
+        return True
+    return _ANALYSIS in path and not path.endswith(_CORPUS)
 
 
 class _State(threading.local):
@@ -53,6 +76,8 @@ class _State(threading.local):
         self.sinks: List[list] = []
         self.stack: List[ScopeFrame] = []
         self.uids = itertools.count()
+        # (kind, value, key, enclosing uid, code locations) -> uid
+        self.frames: Dict[Tuple, int] = {}
 
 
 _S = _State()
@@ -64,13 +89,11 @@ def active() -> bool:
 
 
 def _user_site() -> str:
-    """``file:line`` of the innermost stack frame outside the runtime and
-    PyTorch."""
+    """``file:line`` of the innermost stack frame outside the runtime, the
+    analysis package (but its corpus) and PyTorch."""
     for fr in reversed(traceback.extract_stack()):
         fn = (fr.filename or "").replace("\\", "/")
-        if not fn or fn.startswith("<"):
-            continue
-        if any(part in fn for part in _RUNTIME) or fn.endswith(_PLUMBING):
+        if not fn or fn.startswith("<") or is_internal_frame(fn):
             continue
         return f"{fn}:{fr.lineno}"
     return "<unknown>"
@@ -100,15 +123,35 @@ def record(sink: list):
         yield sink
     finally:
         _S.sinks.remove(sink)
+        if not _S.sinks:
+            _S.frames.clear()
+
+
+def _frame(kind: str, value: Optional[int], key: Hashable) -> ScopeFrame:
+    """The frame of a region entered here.  Inside a loop frame its uid is
+    the one the region got when the loop's body last entered it from the
+    same code locations under the same enclosing frame with the same
+    ``key`` (a new one the first time); under no loop frame it is new."""
+    if not any(k == "loop" for k, _u, _v in _S.stack):
+        return (kind, next(_S.uids), value)
+    where, f = [], sys._getframe(3)
+    while f is not None:
+        where.append((f.f_code.co_filename, f.f_lineno))
+        f = f.f_back
+    at = (kind, value, key, _S.stack[-1][1] if _S.stack else None,
+          tuple(where))
+    uid = _S.frames.get(at)
+    if uid is None:
+        uid = _S.frames[at] = next(_S.uids)
+    return (kind, uid, value)
 
 
 @contextlib.contextmanager
 def loop_scope(trips: Optional[int]):
     """Mark a region whose body runs ``trips`` times per outer run (None:
     unbounded)."""
-    frame = ("loop", next(_S.uids),
-             None if trips is None else max(int(trips), 0))
-    _S.stack.append(frame)
+    _S.stack.append(_frame(
+        "loop", None if trips is None else max(int(trips), 0), None))
     try:
         yield
     finally:
@@ -116,12 +159,12 @@ def loop_scope(trips: Optional[int]):
 
 
 @contextlib.contextmanager
-def cond_scope(period: Optional[int] = None):
+def cond_scope(period: Optional[int] = None, key: Hashable = None):
     """Mark a conditionally run region; ``period`` says it fires at most
-    once every ``period`` iterations of the innermost enclosing loop."""
-    frame = ("cond", next(_S.uids),
-             None if period is None else max(int(period), 1))
-    _S.stack.append(frame)
+    once every ``period`` iterations of the innermost enclosing loop.
+    ``key`` tells apart regions entered from one place."""
+    _S.stack.append(_frame(
+        "cond", None if period is None else max(int(period), 1), key))
     try:
         yield
     finally:

@@ -20,9 +20,12 @@ spread a region over several devices: ROADMAP queue 1, item 5.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from repro_torch.core import events
 
 _MESH = "ROADMAP queue 1, item 5 (expansion over several devices)"
 
@@ -103,10 +106,14 @@ def parallel_for(body: Callable, n: int, *arrays, mesh=None, device=None
 def serial_for(body: Callable, n: int, *arrays) -> torch.Tensor:
     """Single-team execution of the same loop: a sequential Python loop,
     ``i`` a Python int, the results stacked.  The host enqueues each
-    iteration's kernels in order and never waits for the device."""
+    iteration's kernels in order and never waits for the device.  Under
+    an event capture the loop runs inside ``events.loop_scope(n)`` (JAX's
+    capture scopes the ``lax.map`` its ``serial_for`` is)."""
     if n == 0:
         return _empty_like_loop(body, arrays)
-    return torch.stack([body(i, *arrays) for i in range(n)])
+    with (events.loop_scope(n) if events.active()
+          else contextlib.nullcontext()):
+        return torch.stack([body(i, *arrays) for i in range(n)])
 
 
 def _needs_mesh(name: str) -> Callable:

@@ -27,10 +27,20 @@ Transport, by the operands' device, as the kernels dispatch:
   JAX's ordered ``io_callback`` never blocks the tracing thread.  Host
   effects are visible after :func:`effects_barrier`.  There is no
   fallback: a failed build, allocation or launch raises.
-* **CPU tensors** (and calls with no tensor) call the landing pad
-  directly: :func:`rpc_call_reference`, the transport's plain version,
-  which on CUDA tensors is the host-synchronous path (copy to the host,
-  call, copy back).
+* **CPU tensors** (and calls with no tensor) take the same round trip
+  on the thread's host channel (``kernels/rpc_channel``'s
+  ``HostChannel``): the operands copied into a staging region of host
+  memory, the same ``serve`` the card's drain runs, on the calling
+  thread, and the result copied out.  :func:`rpc_call_reference` is the
+  host-synchronous twin on any device (copy to the host, call the landing
+  pad, copy back).
+
+Each round trip is one call of the custom op ``torch.ops.repro_torch.
+rpc_post``, each enqueue one of ``rpc_enqueue`` and each async flush one
+of ``rpc_async_post`` and one of ``rpc_async_collect`` (``kernels/
+rpc_*/ops.py``): the CUDA kernels are the launches named below, the CPU
+kernels their plain versions, so ``torch.export`` of a program keeps its
+transport as graph nodes (what ``analysis/walker.py`` reads).
 
 bf16 operands reach the callee as float32 and a bf16 write-back is rounded
 back.  ``rpc_stats``' byte counts are JAX's: operands in, result and every
@@ -108,16 +118,17 @@ import torch
 
 from repro_torch.core import events
 from repro_torch.core.allocator import I32, _concrete_int, as_i32, find_obj
-from repro_torch.kernels.rpc_async import (AsyncRing, collect_reference,
-                                           post_reference, rpc_async_collect,
-                                           rpc_async_post)
+from repro_torch.kernels.rpc_async import (AsyncRing, async_collect,
+                                           async_post, collect_plain,
+                                           post_plain)
 from repro_torch.kernels.rpc_async.ref import H_CDEPTH
 from repro_torch.kernels.rpc_channel import (channel_for, channels,
-                                             rpc_post)
+                                             host_channel, post)
 from repro_torch.kernels.rpc_channel.kernel import (INLINE_WORDS, TIMEOUT_S,
                                                     Staging)
 from repro_torch.kernels.rpc_queue import (Arg, Lanes, Record,
-                                           enqueue_reference, rpc_enqueue)
+                                           enqueue as enqueue_op,
+                                           geometry as lane_geometry)
 from repro_torch.kernels.rpc_queue.ref import (CANARY as _CANARY, DEVICE,
                                                IMMEDIATE, PAYLOAD)
 from repro_torch.tree import leaves, tree_map
@@ -195,7 +206,9 @@ def _san_bump(key: str, n: int = 1) -> None:
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
-    return torch.empty((), dtype=dtype).numpy().dtype
+    """numpy's dtype of ``dtype`` (no tensor made: this also runs under
+    ``torch.export``'s fake tensors)."""
+    return np.dtype(str(dtype).removeprefix("torch."))
 
 
 @dataclasses.dataclass
@@ -916,9 +929,7 @@ def rpc_call(name: str, *args, result_shape=None, pure: bool = False,
                     in_mesh=False)
     specs, device, sig, ops, refs, pid = _prepare(name, args, result_shape,
                                                   pure, device)
-    if device.type == "cpu":
-        return _call_host(name, pid, sig, ops, refs, specs, device)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"RPC operands on {device}")
     return _call_channel(name, pid, sig, ops, refs, specs, device)
 
@@ -980,8 +991,8 @@ def _pad_staging(channel, name, pid, sig, ops, specs) -> Tuple[int, Staging]:
         res_bytes = [int(np.prod(s.shape, dtype=np.int64))
                      * torch.empty((), dtype=_DTYPES[s.dtype][1])
                      .element_size() for s in spec_leaves]
-        staging = Staging([t.numel() * t.element_size() for t in tensors]
-                          + res_bytes)
+        staging = channel.new_staging(
+            [t.numel() * t.element_size() for t in tensors] + res_bytes)
         views, slot, word = [], 0, 0
         for op in ops:
             if isinstance(op, torch.Tensor):
@@ -1007,7 +1018,7 @@ def _pad_staging(channel, name, pid, sig, ops, specs) -> Tuple[int, Staging]:
 
 
 def _call_channel(name, pid, sig, ops, refs, specs, device):
-    channel = channel_for(device)
+    channel = host_channel() if device.type == "cpu" else channel_for(device)
     sid, staging = _pad_staging(channel, name, pid, sig, ops, specs)
     slots, inputs, words = {}, [], []
     for i, op in enumerate(ops):
@@ -1029,7 +1040,7 @@ def _call_channel(name, pid, sig, ops, refs, specs, device):
         if acc != READ:
             backs[i] = torch.empty_like(ops[i])
             outputs.append((slots[i], backs[i]))
-    rpc_post(channel, sid, staging, inputs, words, outputs)
+    post(device, sid, inputs, words, outputs)
     updated = [orig if acc == READ else backs[i].to(orig.dtype)
                for i, acc, orig in refs]
     return _rebuild(specs, [r.to(s.dtype) for r, s in
@@ -2132,6 +2143,23 @@ def _reserve_epochs(layout: "_Layout", srcs: Sequence[np.ndarray]
         for v in views])
 
 
+def _install_epoch(state: torch.Tensor, layout: "_Layout",
+                   words: torch.Tensor) -> None:
+    """The device side of a host-collected async flush: the windows move
+    (``rpc_async_post``) and each row's reply words (``words``, a row a
+    row of ``state``) are installed (``rpc_async_collect``).  A CPU queue
+    goes through the two ops, whose CPU kernels are the plain versions; a
+    card queue's host twin (``RpcQueue.flush_reference``) calls the plain
+    versions themselves, which the kernels are held against."""
+    L, rc = layout, layout.reply_capacity
+    if state.device.type == "cpu":
+        async_post(state, 0, 0, L.out_start, bool(rc))
+        async_collect(state, 0, 0, L.out_start, L.rslots, rc, None, words)
+    else:
+        post_plain(state, L.out_start, bool(rc))
+        collect_plain(state, L.out_start, words)
+
+
 def _submit_epoch(slot: _QueueSlot, layout: "_Layout", src: np.ndarray,
                   ctx: _FlushCtx, carry_budget: int, occ, probe=None,
                   on_done=None) -> Optional[_EpochJob]:
@@ -2228,6 +2256,11 @@ class _Layout:
     def words(self) -> int:
         return self.offsets()["words"][0]
 
+    @property
+    def lanes(self) -> Tuple[int, ...]:
+        """The ``geometry`` argument of the ``rpc_enqueue`` op."""
+        return _lane_words(self)
+
     def views(self, buf, base: int = 0) -> Dict[str, Any]:
         """Each field held in ``buf`` as a view (``buf`` a torch tensor or
         a numpy array holding the layout's words from ``base`` on);
@@ -2263,6 +2296,14 @@ def _layout_offsets(layout: "_Layout"
         at += int(np.prod(shape, dtype=np.int64))
     out["words"] = (at, ())
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_words(layout: "_Layout") -> Tuple[int, ...]:
+    return tuple(lane_geometry(layout.capacity, layout.width,
+                               layout.payload_capacity, layout.rslots,
+                               {k: at for k, (at, _) in
+                                _layout_offsets(layout).items()}))
 
 
 #: The heads a flush reads and resets, and the reply window it stamps.
@@ -2331,14 +2372,23 @@ _FLUSH_IDS = itertools.count(1)
 _FLUSH_LOCK = threading.Lock()
 
 
+def _post_flush(ctx: _FlushCtx) -> int:
+    """The id under which a flush's context waits for its drain (the
+    record's first scalar word)."""
+    with _FLUSH_LOCK:
+        fid = next(_FLUSH_IDS) % (1 << 32)
+        _FLUSHES[fid] = ctx
+    return fid
+
+
 def _queue_staging(channel, layout: _Layout) -> Tuple[int, Staging]:
     """``(staging id, region)`` of ``channel`` for queues of ``layout``'s
     geometry (one for all of them: a channel's round trips are serial),
     made at the first flush; its ``serve`` drains the flush whose id the
     record's first scalar word carries."""
     def make():
-        staging = Staging([4 * layout.in_end,
-                           4 * (layout.words - layout.out_start)])
+        staging = channel.new_staging([4 * layout.in_end,
+                                       4 * (layout.words - layout.out_start)])
         src = staging.slot(0).view(np.int32)
         dst = staging.slot(1).view(np.int32)
 
@@ -2360,8 +2410,9 @@ def _sharded_staging(channel, layout: _Layout, D: int
     from ``out_start`` on; its ``serve`` drains the sharded flush whose id
     the record carries."""
     def make():
-        staging = Staging([4 * layout.in_end] * D
-                          + [4 * (layout.words - layout.out_start)] * D)
+        staging = channel.new_staging(
+            [4 * layout.in_end] * D
+            + [4 * (layout.words - layout.out_start)] * D)
         srcs = [staging.slot(d).view(np.int32) for d in range(D)]
         dsts = [staging.slot(D + d).view(np.int32) for d in range(D)]
 
@@ -2679,10 +2730,7 @@ class RpcQueue:
     def _enqueue(self, name: str, args, returns, where
                  ) -> Tuple["RpcQueue", torch.Tensor]:
         rec = self.record(name, args, returns, where)
-        if self.device.type == "cpu":
-            ticket = enqueue_reference(self.lanes(), rec)
-        else:
-            ticket = rpc_enqueue(self.lanes(), self.arrivals, rec)
+        ticket = enqueue_op(self.state, self.arrivals, self.layout.lanes, rec)
         if events.active():
             # the queue is updated in place: qid_out is the queue itself
             events.emit("rpc_enqueue", _refs=(self, ticket), qid=id(self),
@@ -2736,17 +2784,13 @@ class RpcQueue:
     def _flush_sync(self, ctx: _FlushCtx) -> None:
         L = self.layout
         if self.device.type == "cpu":
-            src = self.state[:L.in_end].numpy().copy()
-            _serve_flush(L, ctx, [src], [self.state[L.out_start:].numpy()])
-            return
-        self._check_policy()
-        channel = channel_for(self.device)
-        sid, staging = _queue_staging(channel, L)
-        with _FLUSH_LOCK:
-            fid = next(_FLUSH_IDS) % (1 << 32)
-            _FLUSHES[fid] = ctx
-        rpc_post(channel, sid, staging, [(0, self.state[:L.in_end])], [fid],
-                 [(1, self.state[L.out_start:])])
+            channel = host_channel()
+        else:
+            self._check_policy()
+            channel = channel_for(self.device)
+        sid, _ = _queue_staging(channel, L)
+        post(self.device, sid, [(0, self.state[:L.in_end])],
+             [_post_flush(ctx)], [(1, self.state[L.out_start:])])
 
     def _flush_async(self, ctx: _FlushCtx) -> "RpcQueue":
         """The double-buffered hand-off: submit this epoch's drain, install
@@ -2763,9 +2807,9 @@ class RpcQueue:
         epoch = ring.issue()
         with slot.lock:
             slot.ctxs[epoch] = ctx
-        rpc_async_post(ring, epoch, self.state, L.out_start, bool(rc))
-        rpc_async_collect(ring, epoch, self.state, L.out_start, L.rslots, rc,
-                          self.shard_deadline)
+        async_post(self.state, ring.id, epoch, L.out_start, bool(rc))
+        async_collect(self.state, ring.id, epoch, L.out_start, L.rslots, rc,
+                      self.shard_deadline)
         return self
 
     def _flush_async_host(self, ctx: _FlushCtx) -> "RpcQueue":
@@ -2773,14 +2817,12 @@ class RpcQueue:
         collect waiting on the host (a CPU queue's flush)."""
         L, slot = self.layout, _slot(self.qslot)
         rc = L.reply_capacity
-        h = self.state[L.out_start:]
         src = self.state[:L.in_end].cpu().numpy().copy()
         prev = _submit_epoch(slot, L, src, ctx, self.carry_budget,
                              _reserve_epochs(L, [src])[0])
         quad, cd = slot.collect(prev, self.shard_deadline, L.capacity, rc)
-        post_reference(h, bool(rc))
-        collect_reference(h, torch.from_numpy(
-            _reply_words(quad, cd, rc)).to(h.device))
+        _install_epoch(self.state, L, torch.from_numpy(
+            _reply_words(quad, cd, rc)))
         return self
 
     def flush_reference(self, handlers: Optional[Dict[str, Callable]] = None
@@ -3249,21 +3291,15 @@ class ShardedRpcQueue:
     def _flush_sync(self, ctx: _FlushCtx) -> None:
         L, D = self.layout, self.n_devices
         if self.device.type == "cpu":
-            words = self.state.numpy()
-            _serve_flush(L, ctx, [words[d, :L.in_end].copy()
-                                  for d in range(D)],
-                         [words[d, L.out_start:] for d in range(D)],
-                         sharded=True)
-            return
-        self._check_policy()
-        channel = channel_for(self.device)
-        sid, staging = _sharded_staging(channel, L, D)
-        with _FLUSH_LOCK:
-            fid = next(_FLUSH_IDS) % (1 << 32)
-            _FLUSHES[fid] = ctx
-        rpc_post(channel, sid, staging,
-                 [(d, self.state[d, :L.in_end]) for d in range(D)], [fid],
-                 [(D + d, self.state[d, L.out_start:]) for d in range(D)])
+            channel = host_channel()
+        else:
+            self._check_policy()
+            channel = channel_for(self.device)
+        sid, _ = _sharded_staging(channel, L, D)
+        post(self.device, sid,
+             [(d, self.state[d, :L.in_end]) for d in range(D)],
+             [_post_flush(ctx)],
+             [(D + d, self.state[d, L.out_start:]) for d in range(D)])
 
     def _check_policy(self) -> None:
         """A card flush's worst case must stay within the channel's wait:
@@ -3304,9 +3340,9 @@ class ShardedRpcQueue:
         epoch = ring.issue()
         with slot.lock:
             slot.ctxs[epoch] = ctx
-        rpc_async_post(ring, epoch, self.state, L.out_start, bool(rc))
-        rpc_async_collect(ring, epoch, self.state, L.out_start, L.rslots, rc,
-                          self.shards[0].shard_deadline)
+        async_post(self.state, ring.id, epoch, L.out_start, bool(rc))
+        async_collect(self.state, ring.id, epoch, L.out_start, L.rslots, rc,
+                      self.shards[0].shard_deadline)
 
     def _flush_async_host(self, ctx: _FlushCtx) -> None:
         L, rc = self.layout, self.reply_capacity
@@ -3318,14 +3354,13 @@ class ShardedRpcQueue:
                                       _reserve_epochs(L, srcs))]
         deadline = self.shards[0].shard_deadline
         t0 = time.monotonic()
+        words = []
         for q, prev in zip(self.shards, prevs):
             left = (None if deadline is None
                     else max(0.0, deadline - (time.monotonic() - t0)))
             quad, cd = _slot(q.qslot).collect(prev, left, L.capacity, rc)
-            h = q.state[L.out_start:]
-            post_reference(h, bool(rc))
-            collect_reference(h, torch.from_numpy(
-                _reply_words(quad, cd, rc)).to(h.device))
+            words.append(torch.from_numpy(_reply_words(quad, cd, rc)))
+        _install_epoch(self.state, L, torch.stack(words))
 
     def join(self, timeout: Optional[float] = None) -> bool:
         """Async queues: wait until every shard's submitted drains have

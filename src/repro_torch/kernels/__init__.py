@@ -17,8 +17,10 @@ kernel to the plain version.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import sys
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -38,6 +40,27 @@ _MIN_SPLIT, _MAX_SPLIT = 64, 256
 
 #: The namespace of the port's custom ops: ``torch.ops.repro_torch.*``.
 OPS_NAMESPACE = "repro_torch"
+
+
+#: The key under ``node.meta["custom"]`` of a transport op's call stack.
+STACK_KEY = "repro_torch_stack"
+
+
+def traced_stack():
+    """Under ``torch.export`` (non-strict, outside dynamo), a context that
+    annotates the nodes made inside it with the Python call stack
+    (``node.meta["custom"][STACK_KEY]``: ``file:line`` of every frame,
+    outermost first), which a node's ``stack_trace`` keeps only as far as
+    ``forward``; it takes effect when the export runs under
+    ``torch.fx.traceback.preserve_node_meta()``.  Elsewhere, nothing."""
+    if not torch.compiler.is_exporting() or \
+            torch.compiler.is_dynamo_compiling():
+        return contextlib.nullcontext()
+    frames, f = [], sys._getframe(1)
+    while f is not None:
+        frames.append(f"{f.f_code.co_filename}:{f.f_lineno}")
+        f = f.f_back
+    return torch.fx.traceback.annotate({STACK_KEY: frames[::-1]})
 
 
 def owned(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
-from repro_torch.kernels.rpc_async.kernel import (AsyncRing,
+from repro_torch.kernels.rpc_async.kernel import (AsyncRing, ring_by_id,
                                                   rpc_async_collect,
                                                   rpc_async_post)
+from repro_torch.kernels.rpc_async.ops import (async_collect, async_post,
+                                               collect_plain, post_plain)
 from repro_torch.kernels.rpc_async.ref import (collect_reference,
                                                post_reference)
 
-__all__ = ["AsyncRing", "collect_reference", "post_reference",
+__all__ = ["AsyncRing", "async_collect", "async_post", "collect_plain",
+           "collect_reference", "post_plain", "post_reference", "ring_by_id",
            "rpc_async_collect", "rpc_async_post"]

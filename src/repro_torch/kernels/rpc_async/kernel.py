@@ -13,13 +13,17 @@ answers through :meth:`AsyncRing.complete` (its ``out`` written, then its
 ``done`` released).  :func:`rpc_async_post` and
 :func:`rpc_async_collect` are the two launches of a flush; the plain
 versions of their device work are ``ref.py``.  The library builds at the
-first ring.
+first ring.  ``ops.py`` makes the two launches the custom ops
+``torch.ops.repro_torch.rpc_async_post`` and ``rpc_async_collect``, which
+name a ring by its :attr:`AsyncRing.id` (:func:`ring_by_id`).
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
 import threading
-from typing import Callable, Optional
+import weakref
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -56,6 +60,19 @@ def _lib() -> ctypes.CDLL:
         lib.rpc_async_load.restype = _U
         lib.typed = True
     return lib
+
+
+_RINGS: "Dict[int, weakref.ref]" = {}
+_RING_IDS = itertools.count(1)
+
+
+def ring_by_id(ring_id: int) -> "AsyncRing":
+    """The live ring whose :attr:`AsyncRing.id` is ``ring_id``."""
+    ref = _RINGS.get(ring_id)
+    ring = ref() if ref is not None else None
+    if ring is None:
+        raise KeyError(f"rpc_async: no live ring {ring_id}")
+    return ring
 
 
 class AsyncRing:
@@ -99,6 +116,8 @@ class AsyncRing:
         self._in_host = [self.host + o for o in offsets[:2]]
         self._out_dev = [self.dev + o for o in offsets[2:]]
         self.on_posted = on_posted
+        self.id = next(_RING_IDS)
+        _RINGS[self.id] = weakref.ref(self)
         self.issued = 0          # epochs flushed by the host
         self.ingested = 0        # epochs handed to the drain
         self.error: Optional[BaseException] = None

@@ -1,5 +1,8 @@
-from repro_torch.kernels.rpc_channel.kernel import (Channel, Staging,
+from repro_torch.kernels.rpc_channel.kernel import (Channel, HostChannel,
+                                                    HostStaging, Staging,
                                                     channel_for, channels,
-                                                    rpc_post)
+                                                    host_channel, rpc_post)
+from repro_torch.kernels.rpc_channel.ops import post
 
-__all__ = ["Channel", "Staging", "channel_for", "channels", "rpc_post"]
+__all__ = ["Channel", "HostChannel", "HostStaging", "Staging", "channel_for",
+           "channels", "host_channel", "post", "rpc_post"]

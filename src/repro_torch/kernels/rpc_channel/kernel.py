@@ -91,11 +91,15 @@ class Staging:
         for n in slot_bytes:
             offsets.append(end)
             end += -(-max(n, 1) // ALIGN) * ALIGN
-        self.host, self.dev = _host_alloc(end)
-        self.buf = np.ctypeslib.as_array(
-            (ctypes.c_uint8 * end).from_address(self.host))
+        self.host, self.dev, self.buf = self._memory(end)
         self.offsets = offsets
         self.slot_bytes = list(slot_bytes)
+
+    @staticmethod
+    def _memory(nbytes: int) -> Tuple[int, Optional[int], np.ndarray]:
+        host, dev = _host_alloc(nbytes)
+        return host, dev, np.ctypeslib.as_array(
+            (ctypes.c_uint8 * nbytes).from_address(host))
 
     def slot(self, i: int) -> np.ndarray:
         """Slot ``i`` as writable uint8 (a view of the pinned memory)."""
@@ -107,6 +111,16 @@ class Staging:
 
     def host_ptr(self, i: int) -> int:
         return self.host + self.offsets[i]
+
+
+class HostStaging(Staging):
+    """:class:`Staging`'s layout in ordinary host memory: the region of a
+    :class:`HostChannel` (no card, no mapped memory)."""
+
+    @staticmethod
+    def _memory(nbytes: int) -> Tuple[int, Optional[int], np.ndarray]:
+        buf = np.zeros(nbytes, np.uint8)
+        return buf.ctypes.data, None, buf
 
 
 class Stagings:
@@ -178,6 +192,11 @@ class Channel:
                 self.last_serve_ns = time.perf_counter_ns() - t0
                 lib.rpc_complete(self.record_host, status)
 
+    @staticmethod
+    def new_staging(slot_bytes: Sequence[int]) -> Staging:
+        """A region for the channel's :class:`Stagings` (mapped memory)."""
+        return Staging(slot_bytes)
+
     def waited_ns(self) -> int:
         """The device's wait in the last call, post to reply (its clock)."""
         return _lib().rpc_waited_ns(self.record_host)
@@ -200,6 +219,66 @@ class Channel:
 
 _CHANNELS: Dict[Tuple[int, int], Channel] = {}
 _LOCK = threading.Lock()
+
+
+class HostChannel:
+    """The channel of CPU tensors: the same :class:`Stagings`, in host
+    memory (:class:`HostStaging`), and no drain thread.  :meth:`post` is
+    :func:`rpc_post`'s plain version: the operand copies into the region,
+    the scalar words, the region's ``serve()`` (the drain's work) and the
+    result copies, in that order on the calling thread.  Each thread has
+    its own (:func:`host_channel`), and a call posted from inside a
+    ``serve()`` gets a channel of its own too."""
+
+    def __init__(self):
+        self.stagings = Stagings()
+
+    @staticmethod
+    def new_staging(slot_bytes: Sequence[int]) -> Staging:
+        return HostStaging(slot_bytes)
+
+    def post(self, staging_id: int,
+             inputs: Sequence[Tuple[int, torch.Tensor]],
+             words: Sequence[int],
+             outputs: Sequence[Tuple[int, torch.Tensor]]) -> None:
+        if len(words) > INLINE_WORDS:
+            raise ValueError(f"rpc_post: {len(words)} scalar words, at most "
+                             f"{INLINE_WORDS}")
+        staging = self.stagings.entries[staging_id][0]
+        for slot, t in inputs:
+            staging.slot(slot)[:] = _bytes(t).numpy()
+        for k, w in enumerate(words):
+            staging.word(k).view(np.uint32)[0] = w
+        _HOST.depth += 1
+        try:
+            self.stagings.serve(staging_id)
+        finally:
+            _HOST.depth -= 1
+        for slot, t in outputs:
+            if not t.is_contiguous():
+                raise ValueError("rpc_post: outputs must be contiguous")
+            _bytes(t).copy_(torch.from_numpy(staging.slot(slot)))
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's memory as uint8 (a view)."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+class _HostChannels(threading.local):
+    def __init__(self):
+        self.depth = 0
+        self.stack: List[HostChannel] = []
+
+
+_HOST = _HostChannels()
+
+
+def host_channel() -> HostChannel:
+    """This thread's :class:`HostChannel` at the current nesting depth."""
+    while len(_HOST.stack) <= _HOST.depth:
+        _HOST.stack.append(HostChannel())
+    return _HOST.stack[_HOST.depth]
 
 
 def channel_for(device: torch.device) -> Channel:

@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rpc_queue.ref import PAYLOAD, Lanes, Record
+from repro_torch.kernels.rpc_queue.ref import PAYLOAD, Record
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 
@@ -65,26 +65,31 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr() if t.numel() else 0
 
 
-def rpc_enqueue(q: Lanes, arrivals: torch.Tensor, rec: Record
-                ) -> torch.Tensor:
-    """Append ``rec`` to the CUDA queue ``q`` in one launch on the current
-    stream; returns the ticket, a 0-d int32 tensor the stream fills.
-    ``arrivals`` is the queue's int32 counter (zero between launches).
-    The lanes are updated in place; a failed build or launch raises."""
-    dev = q.head.device
-    if dev.type != "cuda":
-        raise ValueError(f"rpc_enqueue: the queue is on {dev}; the kernel "
-                         "takes CUDA tensors only")
+def rpc_enqueue(state: torch.Tensor, geometry, arrivals: torch.Tensor,
+                rec: Record) -> torch.Tensor:
+    """Append ``rec`` in one launch on the current stream to the CUDA queue
+    whose int32 words are ``state``, its lanes where ``geometry`` places
+    them (``ops.py::geometry``: the lanes' addresses are computed from the
+    offsets, no views); returns the ticket, a 0-d int32 tensor the stream
+    fills.  ``arrivals`` is the queue's int32 counter (zero between
+    launches).  The lanes are updated in place; a failed build or launch
+    raises."""
+    dev = state.device
+    if dev.type != "cuda" or state.dtype != torch.int32 or \
+            not state.is_contiguous():
+        raise ValueError(f"rpc_enqueue: a {state.dtype} state on {dev}; the "
+                         "kernel takes a contiguous int32 CUDA state")
+    N, W, PC, R = geometry[:4]
+    base = state.data_ptr()
+    sizes = (N, N, N, N, N * W, N * W, N * W, PC, 1, 1, 1, R, 1)
+    lane_ptrs = [base + 4 * at if n else 0
+                 for at, n in zip(geometry[4:], sizes)]
     if len(rec.args) > MAX_ARGS:
         raise ValueError(f"rpc_enqueue: {len(rec.args)} arguments, at most "
                          f"{MAX_ARGS}")
     ticket = torch.empty((), dtype=torch.int32, device=dev)
-    lanes = _QueueLanes(
-        *[_ptr(t) for t in (q.callee, q.nargs, q.imask, q.pmask, q.ivals,
-                            q.fvals, q.plens, q.pbuf, q.head, q.phead,
-                            q.adrops, q.rwant, q.base, arrivals, ticket)],
-        q.callee.shape[0], q.ivals.shape[1], q.pbuf.shape[0],
-        int(rec.sanitize))
+    lanes = _QueueLanes(*lane_ptrs, _ptr(arrivals), _ptr(ticket), N, W, PC,
+                        int(rec.sanitize))
     r = _Record(rec.callee, len(rec.args), rec.imask, rec.pmask, rec.rwant,
                 rec.npay)
     if rec.where is None:

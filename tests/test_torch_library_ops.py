@@ -1,4 +1,5 @@
-"""The five kernels as ``torch.library`` custom ops, on the CPU.
+"""The five kernels and the four transport launches as ``torch.library``
+custom ops, on the CPU.
 
 ``torch.ops.repro_torch.{decode_attention, paged_attention,
 flash_attention, ssd_scan, rglru_scan}``: ``torch.library.opcheck`` on
@@ -7,7 +8,11 @@ which is the plain version, the autograd registration, and AOT dispatch
 with dynamic shapes); each public function traced by ``torch.export`` with
 fake tensors to a graph that holds its op, whose module gives the eager
 result bit for bit; and the public functions equal to their plain versions
-bit for bit (the op adds nothing on the CPU), gradients included."""
+bit for bit (the op adds nothing on the CPU), gradients included.  The
+transport's ops (``rpc_post``, ``rpc_enqueue``, ``rpc_async_post``,
+``rpc_async_collect``) mutate their queue or outputs: ``opcheck`` on each,
+and ``torch.export`` keeps each call as a node (marked side-effectful)
+whose exported module mutates its inputs as the eager op does."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -79,11 +84,59 @@ def _inputs(name, grad=False):
 NAMES = ("decode_attention", "paged_attention", "flash_attention",
          "ssd_scan", "rglru_scan")
 WITH_GRAD = ("flash_attention", "ssd_scan", "rglru_scan")
+TRANSPORT = ("rpc_post", "rpc_enqueue", "rpc_async_post",
+             "rpc_async_collect")
 
 
-@pytest.mark.parametrize("name", NAMES)
+def _plus_one_staging():
+    """A staging region on this thread's host channel whose serve writes
+    slot 0's int32 word plus the first scalar word into slot 1."""
+    import numpy as np
+    from repro_torch.kernels.rpc_channel import host_channel
+
+    def make():
+        staging = host_channel().new_staging([4, 4])
+
+        def serve():
+            staging.slot(1).view(np.int32)[0] = \
+                staging.slot(0).view(np.int32)[0] + \
+                staging.word(0).view(np.int32)[0]
+        return staging, serve
+
+    return host_channel().stagings.get(("test_library_ops", "plus"),
+                                       make)[0]
+
+
+def _transport_args(name):
+    """Op args of a transport op on a CPU queue (or the host channel)."""
+    from repro_torch.core.rpc import REGISTRY, RpcQueue
+    from repro_torch.kernels.rpc_queue.ops import flatten
+    REGISTRY.register("test_library_ops.note", lambda *a: None)
+    if name == "rpc_post":
+        x = torch.tensor([41], dtype=torch.int32)
+        out = torch.zeros(1, dtype=torch.int32)
+        return (x, _plus_one_staging(), [x], [0], [1], [out], [1])
+    q = RpcQueue.create(8, 4, 64, reply_capacity=8, mode="async",
+                        device="cpu")
+    L = q.layout
+    if name == "rpc_enqueue":
+        rec = q.record("test_library_ops.note",
+                       (3, 2.5, torch.arange(4, dtype=torch.int32)))
+        header, args, srcs, where = flatten(rec)
+        return (q.state, q.arrivals, L.lanes, header, args, srcs, where)
+    if name == "rpc_async_post":
+        return (q.state, 0, 0, L.out_start, True)
+    words = torch.arange(L.words - L.out_start - 9, dtype=torch.int32)
+    return (q.state, 0, 0, L.out_start, L.rslots, L.reply_capacity, None,
+            words)
+
+
+@pytest.mark.parametrize("name", NAMES + TRANSPORT)
 def test_opcheck(name):
-    args, _, _ = _inputs(name, grad=name in WITH_GRAD)
+    if name in TRANSPORT:
+        args = _transport_args(name)
+    else:
+        args, _, _ = _inputs(name, grad=name in WITH_GRAD)
     result = torch.library.opcheck(getattr(OPS, name).default, args)
     assert set(result.values()) == {"SUCCESS"}, result
 
@@ -161,6 +214,45 @@ def test_export_traces_the_op_with_fake_tensors(name):
     for g_, w in zip(*(t if isinstance(t, tuple) else (t,)
                        for t in (got, want))):
         assert torch.equal(g_, w)
+
+
+@pytest.mark.parametrize("name", TRANSPORT)
+def test_export_keeps_the_transport_op(name):
+    """torch.export keeps the transport op as a node though nothing reads
+    its result, and the exported module mutates its inputs as the eager
+    op does (same words of the queue's state, or the same output)."""
+    args = _transport_args(name)
+    op = getattr(OPS, name)
+    if name == "rpc_post":
+        anchor, sid, _, in_slots, words, outputs, out_slots = args
+        inputs = (anchor, outputs[0])
+
+        def call(x, out):
+            op(x, sid, [x], in_slots, words, [out], out_slots)
+            return x + 0
+    else:
+        at = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        inputs = tuple(args[i] for i in at)
+
+        def call(*ts):
+            full = list(args)
+            for i, t in zip(at, ts):
+                full[i] = t
+            op(*full)
+            return ts[0] + 0
+
+    eager = [t.clone() for t in inputs]
+    exported = [t.clone() for t in inputs]
+    program = torch.export.export(_Call(call), tuple(exported),
+                                  strict=False)
+    targets = [n.target for n in program.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count(op.default) == 1
+    call(*eager)
+    program.module()(*exported)
+    assert not all(torch.equal(a, b) for a, b in zip(eager, inputs))
+    for a, b in zip(eager, exported):
+        assert torch.equal(a, b)
 
 
 def test_ops_dispatch_by_device():

@@ -415,38 +415,23 @@ def test_remote_malloc_conformance_across_transports():
     assert runs[0][1] == [[0, 8], [24]]
 
 
-class _HostStaging:
-    """``kernels/rpc_channel``'s ``Staging`` in ordinary host memory: the
-    inline words, then one slot a size (no card, no mapped memory)."""
-
-    def __init__(self, slot_bytes):
-        self.words = np.zeros(64, np.uint8)
-        self.slots = [np.zeros(n, np.uint8) for n in slot_bytes]
-
-    def slot(self, i):
-        return self.slots[i]
-
-    def word(self, k):
-        return self.words[4 * k:4 * k + 4]
-
-
 def _reply(i, p):
     return np.arange(int(p), dtype=np.int32) + int(i)
 
 
-def test_channel_staging_is_keyed_by_pad_and_result_shape(monkeypatch):
+def test_channel_staging_is_keyed_by_pad_and_result_shape():
     """F6: one callee returns 1, 64 and 1024 elements (then 1 again) on one
     channel.  Its one landing pad gets a staging region a result shape, each
     under its own channel-local id, and serving a region's id (what the
     drain does with the id the record carries) writes that call's result
-    in that call's shape.  The card's channel is held to this by
-    chip_smoke.py's ``rpc`` case."""
-    from repro_torch.kernels.rpc_channel.kernel import Stagings
+    in that call's shape.  The channel here is a ``HostChannel`` (the CPU's:
+    the same regions in host memory); the card's channel is held to this
+    by chip_smoke.py's ``rpc`` case."""
+    from repro_torch.kernels.rpc_channel import HostChannel
 
-    monkeypatch.setattr(trpc, "Staging", _HostStaging)
     name = f"torch_parity_reply_{next(_ids)}"
     trpc.REGISTRY.register(name, _reply)
-    channel = type("Channel", (), {"stagings": Stagings()})()
+    channel = HostChannel()
     sids, pids = {}, set()
     for i, P in enumerate((1, 64, 1024, 1)):
         spec = trpc.ShapeDtype((P,), torch.int32)
