@@ -45,11 +45,17 @@ source, all started together) and runs, in order:
    checkpoint, ``engine.json``) and cold-started in a fresh process
    (``from_artifact``), which serves the same traffic with the live
    engine's streams, spill calls and acks and 28 ``paged_attention``
-   launches a tick; then ``analysis``: the analyzer's 33 ported corpus
-   cases on the card against JAX's golden codes, the export-graph walker
-   over the saved ``serve_step.pt2`` (28 ``paged_attention`` nodes, no
-   transport node, no hazard), and captures of that engine's ticks and of
-   a hooked ``device_run`` against the codes the CPU test pins;
+   launches a tick; then ``analysis``: the analyzer's 34 corpus cases on
+   the card against JAX's golden codes, the export-graph walker over the
+   saved ``serve_step.pt2`` (28 ``paged_attention`` nodes, no transport
+   node, no hazard), and captures of that engine's ticks and of a hooked
+   ``device_run`` against the codes the CPU test pins; then ``mesh``: a
+   world of one process (``nccl``) and its one-device mesh, bit-identical
+   to the paths without one (Fig. 6's region, ``expand(sanitize=True)``,
+   ``device_run(mesh=)``, ``parallel_for(mesh=)``), the engine on the
+   sharded page heap with the one-device mesh and 4 shards beside the
+   unsharded one (streams, page tables, shard spans), and Fig. 6's mesh
+   section;
 4. ``identity``: fp32, full width, 4 layers; the engine's greedy streams
    must equal the contiguous decode's token for token;
 5. ``flash``: the flash kernel against its plain version, fp32 and bf16, at
@@ -1061,6 +1067,7 @@ def serve_phase():
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     del spill_engine
+    mesh = timed(mesh_phase, model, params, prompts)
     profile_window(model, params, prompts, max_new, max_len)
     tokens = torch.tensor([prompts[0][:64]], device="cuda")
     fwd, dec = _forward_vs_decode(model, params, tokens)
@@ -1073,7 +1080,7 @@ def serve_phase():
                                    .float().mean())}})
     del params, model, fwd, dec
     torch.cuda.empty_cache()
-    return launches, spill, artifact, analysis
+    return launches, spill, artifact, analysis, mesh
 
 
 # A fresh process: cold-start the artifact on the card and serve the
@@ -1257,7 +1264,7 @@ def analysis_phase(engine, directory):
     """The analyzer (``repro_torch.analysis``, the paper's §5.3 porting
     advisor) on the card.  Gates, each failing the run:
 
-    * the corpus: each of the 33 ported cases on ``device="cuda"`` gives
+    * the corpus: each of the 34 ported cases on ``device="cuda"`` gives
       JAX's golden codes (``tests/data/hazard_corpus.json``), its
       transport launched through the ops (``rpc_enqueue``, ``rpc_post``,
       ``rpc_async_post`` and ``rpc_async_collect`` each at least once);
@@ -7117,6 +7124,296 @@ def manifest_phase(queues):
     return a["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Meshes, the runtime side: the one-device mesh on the card
+# ---------------------------------------------------------------------------
+
+#: The mesh phase's traffic: four short requests of 16 new tokens on four
+#: slots (``serve``'s llama3.2-3b, full width and depth), and the steps of
+#: its ``device_run`` comparison.
+MESH_NEW = 16
+MESH_MAX_LEN = 64
+MESH_STEPS = 200
+MESH_SHARDS = 4
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _mesh_fig6_region(mesh, device):
+    """Fig. 6's region (``malloc_grid`` 8 x 4 on the team's balanced heap,
+    the sum of its pointers logged on the team's ring row) expanded over
+    ``mesh``, against the same requests on one heap and one ring without
+    a mesh: the pointers (``team_ptr`` of each, resolved through
+    ``find_obj``) and the records must be the single heap's."""
+    from repro_torch.core import (P, effects_barrier, expand, find_obj,
+                                  set_team_heap, set_team_queue, shard_heap,
+                                  team_heap, team_id, team_ptr, team_queue)
+    from repro_torch.core.allocator import BalancedAllocator as BA
+    from repro_torch.core.libc import LogRing, drain_log_lines
+    from repro_torch.evaluation.allocator import MESH_GRID, MESH_SPAN
+
+    T, G = MESH_GRID
+    sizes = (torch.arange(T * G, dtype=torch.int32,
+                          device=device).reshape(T, G) % 7) + 1
+
+    def log_sum(ring, tag, ptrs):
+        total = torch.sum(torch.where(ptrs >= 0, ptrs, 0))
+        return ring.log(tag, total.to(torch.float32))
+
+    def region():
+        st, ptrs = BA.malloc_grid(team_heap(), T, G, sizes)
+        set_team_heap(st)
+        set_team_queue(log_sum(team_queue(), team_id(), ptrs))
+        return team_ptr(ptrs)[None]
+
+    heap = shard_heap(BA.init(MESH_SPAN, 4, 2, cap=64, device=device), 1,
+                      span=MESH_SPAN)
+    ring = LogRing.create_sharded(1, 16, device=device)
+    heap2, ring2, gptrs = expand(region, mesh, (), P("dev"), heap=True,
+                                 queue=True)(heap, ring)
+    effects_barrier()
+    drain_log_lines()
+    ring2.flush()
+    effects_barrier()
+    recs = drain_log_lines()
+    st, ref = BA.malloc_grid(BA.init(MESH_SPAN, 4, 2, cap=64, device=device),
+                             T, G, sizes)
+    plain = LogRing.create(16, device=device)
+    log_sum(plain, 0, ref).flush()
+    effects_barrier()
+    want = drain_log_lines()
+    resolved = [[int(v) for v in find_obj(heap2, p)] for p in
+                gptrs.reshape(-1) if int(p) >= 0]
+    return {"pointers_equal": torch.equal(gptrs[0], ref),
+            "records_equal": recs == want and len(recs) == 1,
+            "find_obj_resolves": len(resolved) == MESH_GRID[0] * MESH_GRID[1]
+            and all(found == 1 and base == p for (found, base, _), p in
+                    zip(resolved, gptrs.reshape(-1).tolist())),
+            "heap_state_equal": all(
+                torch.equal(getattr(heap2.shards, f)[0], getattr(st, f))
+                for f in ("offsets", "sizes", "in_use", "count",
+                          "watermark"))}
+
+
+def _mesh_sanitize(mesh, device):
+    """``tests/test_sanitizer.py:134-160``'s program on the card:
+    ``expand(queue=True, sanitize=True)`` against ``sanitize=False``,
+    the same outputs and records, no canary stomp or poison hit."""
+    import numpy as np
+    from repro_torch.core import (P, ShardedRpcQueue, effects_barrier, expand,
+                                  reset_sanitize_stats, sanitize_stats,
+                                  set_team_queue, team_queue)
+    from repro_torch.core.rpc import REGISTRY
+    recs = []
+    REGISTRY.register("smoke.mesh_rec", lambda *a: recs.append(
+        [np.asarray(x).tolist() for x in a]))
+
+    def region(x):
+        q = team_queue()
+        q.enqueue("smoke.mesh_rec", x * 2)
+        q.enqueue("smoke.mesh_rec", 0.5)
+        set_team_queue(q)
+        return torch.cumsum(x, 0).to(torch.int32) + 1
+
+    runs = {}
+    for sanitize in (False, True):
+        recs.clear()
+        reset_sanitize_stats()
+        f = expand(region, mesh, (P("dev"),), P("dev"), queue=True,
+                   sanitize=sanitize)
+        q, out = f(ShardedRpcQueue.create(1, 8, 4, 64, device=device),
+                   torch.arange(4, dtype=torch.int32, device=device))
+        q.flush()
+        effects_barrier()
+        runs[sanitize] = (out.cpu(), list(recs), sanitize_stats())
+    st = runs[True][2]
+    return {"outputs_equal": torch.equal(runs[True][0], runs[False][0])
+            and runs[True][0].tolist() == [1, 2, 4, 7],
+            "records_equal": runs[True][1] == runs[False][1]
+            and runs[True][1] == [[[0, 2, 4, 6]], [0.5]],
+            "sanitizer_clean": st["canary_stomps"] == 0
+            and st["poison_hits"] == 0 and len(st["epochs"]) == 1}
+
+
+def _mesh_device_run(mesh, device):
+    """``device_run_hooks``' hooks (an immediate hook every 100 steps and
+    one every step, a batched one every step) over :data:`MESH_STEPS`
+    steps with ``mesh=`` and without: the same host records in the same
+    order and the same final state (under the mesh every hook rides the
+    team's queue row and one flush at the end)."""
+    from repro_torch.core import HostHook, device_run, effects_barrier
+    runs, secs = [], []
+    for m in (None, mesh):
+        seen = []
+        hooks = [HostHook(every=every, extract=lambda i, s: s[:256].sum(),
+                          host_fn=lambda i, v, tag=tag: seen.append(
+                              (tag, i, float(v))),
+                          name=f"smoke.mesh_{tag}", batched=batched)
+                 for tag, every, batched in (("every_100", 100, False),
+                                             ("every_1", 1, False),
+                                             ("batched_every_1", 1, True))]
+        t0 = time.perf_counter()
+        final = device_run(lambda i, s: s + 1.0,
+                           torch.zeros(256, device=device), MESH_STEPS,
+                           hooks=hooks, mesh=m, queue_capacity=4096)
+        effects_barrier()
+        secs.append(time.perf_counter() - t0)
+        runs.append((final.cpu(), sorted(seen, key=lambda r: (r[1], r[0]))))
+    return ({"records_equal": runs[0][1] == runs[1][1]
+             and len(runs[0][1]) == MESH_STEPS * 2 + MESH_STEPS // 100,
+             "state_equal": torch.equal(runs[0][0], runs[1][0])},
+            {"plain_s": secs[0], "mesh_s": secs[1]})
+
+
+def _mesh_engines(model, params, prompts, mesh, device):
+    """Three engines on the same four requests, tick by tick: without a
+    mesh, on the one-device mesh (``mesh=`` the ``DeviceMesh``) and on
+    :data:`MESH_SHARDS` shards of the page heap stacked on the card
+    (``mesh=4``).  Page tables equal without a mesh and on the one-device
+    mesh at every tick; at ``mesh=4`` each slot's live pages lie in its
+    shard's span; the greedy streams equal.  Returns the checks, ms a
+    tick of each engine and the ticks."""
+    from repro_torch.serving import kvcache
+    from repro_torch.serving.engine import ServingEngine
+
+    engines = [ServingEngine(model, params, batch_slots=4, page_size=16,
+                             max_len=MESH_MAX_LEN, device=device, mesh=m)
+               for m in (None, mesh, MESH_SHARDS)]
+    rids = [[e.submit(p, max_new=MESH_NEW) for p in prompts]
+            for e in engines]
+    tables_equal, in_span, ticks = True, True, 0
+    secs = [0.0, 0.0, 0.0]
+    span = engines[2].kv.alloc.span
+    per = engines[2].B // MESH_SHARDS
+    while any(e.queue or any(s.request_id >= 0 for s in e.slots)
+              for e in engines):
+        for k, e in enumerate(engines):
+            _sync(device)
+            t0 = time.perf_counter()
+            e.step()
+            _sync(device)
+            secs[k] += time.perf_counter() - t0
+        ticks += 1
+        tables_equal &= torch.equal(engines[0].kv.page_table,
+                                    engines[1].kv.page_table)
+        kv = engines[2].kv
+        for b in range(engines[2].B):
+            pages = kvcache.live_pages(kv, b)
+            d = b // per
+            in_span &= bool(((pages >= d * span)
+                             & (pages < (d + 1) * span)).all())
+    streams = [[e.finished[r] for r in rs] for e, rs in zip(engines, rids)]
+    checks = {"streams_equal": streams[0] == streams[1] == streams[2]
+              and all(len(s) == MESH_NEW for s in streams[0]),
+              "page_tables_equal_mesh1": tables_equal,
+              "pages_in_shard_span_mesh4": in_span}
+    return checks, {"ms_per_tick": {k: s / ticks * 1e3 for k, s in
+                                    zip(("unsharded", "mesh1", "mesh4"),
+                                        secs)},
+                    "ticks": ticks, "streams": streams[0]}
+
+
+def mesh_phase(model, params, prompts):
+    """Meshes, the runtime side, on the card: a world of one process
+    (``nccl``) and its one-device mesh ``("dev",)``.  Gates, each failing
+    the run:
+
+    * (a) the one-device mesh bit-identical to the paths without one:
+      Fig. 6's region (:func:`_mesh_fig6_region`), ``expand(sanitize=
+      True)`` (:func:`_mesh_sanitize`), ``device_run(mesh=)``
+      (:func:`_mesh_device_run`) and ``parallel_for(mesh=)``; a CPU
+      tensor for the card's mesh raises;
+    * (b) the engine on the sharded page heap (:func:`_mesh_engines`):
+      ``serve``'s llama3.2-3b at full width and depth on 4 slots and 4
+      short requests of :data:`MESH_NEW` new tokens, with ``mesh=`` the
+      one-device mesh and ``mesh=4`` beside the unsharded engine;
+    * (c) Fig. 6's mesh section (``evaluation/allocator.py::
+      mesh_section``) on the one-device mesh.
+
+    The launch counts are set to 0 just before and read just after:
+    ``paged_attention`` (3 engines x ticks x 28 layers), ``rpc_enqueue``
+    and ``rpc_post`` (the kernels line's ``mesh`` path).  The world (which
+    the corpus's ``callback_in_mesh`` may have started) is left after the
+    phase."""
+    from repro_torch.launch.mesh import close_world, init_world, make_mesh
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    init_world(device="cuda")
+    mesh = make_mesh((1,), ("dev",), device="cuda")
+    world_s = time.perf_counter() - t0
+    try:
+        return _mesh_gates(model, params, prompts, mesh, world_s, t_phase)
+    finally:
+        close_world()     # the later phases run without a process group
+
+
+def _mesh_gates(model, params, prompts, mesh, world_s, t_phase):
+    """:func:`mesh_phase`'s gates on ``mesh``; returns the launches."""
+    from repro_torch.core import P, expand, parallel_for
+    from repro_torch.evaluation.allocator import mesh_section
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda)
+    from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.kernels.rpc_queue import rpc_enqueue
+
+    requests = prompts[1:5]
+    # main path: counts from 0 just before, read just after
+    paged_attention_cuda.launches = 0
+    rpc_post.launches = rpc_enqueue.launches = 0
+    checks = {f"fig6_region_{k}": v
+              for k, v in _mesh_fig6_region(mesh, CARD).items()}
+    checks.update({f"sanitize_{k}": v
+                   for k, v in _mesh_sanitize(mesh, CARD).items()})
+    run_checks, run_times = _mesh_device_run(mesh, CARD)
+    checks.update({f"device_run_{k}": v for k, v in run_checks.items()})
+    arr = torch.arange(64.0, device=CARD)
+    body = lambda i, a: a[i] * 3.0 + i  # noqa: E731
+    checks["parallel_for_equal"] = torch.equal(
+        parallel_for(body, 61, arr, mesh=mesh), parallel_for(body, 61, arr))
+    try:
+        expand(lambda x: x, mesh, (P("dev"),), P("dev"))(torch.zeros(1))
+        checks["cpu_tensor_refused"] = False
+    except ValueError:
+        checks["cpu_tensor_refused"] = True
+    engine_checks, engines = _mesh_engines(model, params, requests, mesh,
+                                           model.device)
+    checks.update({f"engine_{k}": v for k, v in engine_checks.items()})
+    fig6 = mesh_section(mesh, mesh)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": paged_attention_cuda.launches,
+                "rpc_enqueue": rpc_enqueue.launches,
+                "rpc_post": rpc_post.launches}
+    checks["fig6_mesh_section"] = (
+        fig6["per_device_bit_identical_to_single_heap"]
+        and fig6["one_device_mesh_bit_identical"]
+        and fig6["queue_flush_records"] == 1
+        and fig6["queue_flush_device_major"])
+    checks["paged_3_engines_x_ticks_x_layers"] = (
+        launches["paged_attention"] == 3 * engines["ticks"] * SERVE_LAYERS)
+    checks["transport_launched"] = (launches["rpc_enqueue"] >= 1
+                                    and launches["rpc_post"] >= 1)
+    rec = {"world": {"backend": str(torch.distributed.get_backend()),
+                     "size": torch.distributed.get_world_size(),
+                     "init_s": world_s},
+           "mesh": {"shape": [mesh.size()], "axes": ["dev"],
+                    "device_type": mesh.device_type},
+           "engines": {"layers": SERVE_LAYERS, "slots": 4,
+                       "requests": len(requests), "new_tokens": MESH_NEW,
+                       "shards": MESH_SHARDS, **engines},
+           "device_run": {"steps": MESH_STEPS, **run_times},
+           "fig6": fig6, "launches": launches, "nvidia_smi": nvidia_smi(),
+           "checks": checks,
+           "phase_seconds": time.perf_counter() - t_phase}
+    log({"mesh": rec})
+    if not all(checks.values()):
+        raise AssertionError(f"mesh: {checks}")
+    return launches
+
+
 def _cuobjdump():
     """The toolkit's ``cuobjdump``, else the copy bundled with Triton."""
     import shutil
@@ -7369,7 +7666,7 @@ def main() -> int:
     timed(decode_reuse_phase)
     timed(decode_launch_phase)
     timed(rglru_launch_phase)
-    serve, spill, artifact, analysis = timed(serve_phase)
+    serve, spill, artifact, analysis, mesh = timed(serve_phase)
     timed(identity_phase)
     dense = timed(dense_serve_phase)
     moe = timed(moe_serve_phase)
@@ -7439,6 +7736,7 @@ def main() -> int:
                              "hybrid_serve": hybrid["decode_attention"]},
         "paged_attention": {"serve": serve["paged_attention"],
                             "artifact_serve": artifact["paged_attention"],
+                            "mesh": mesh["paged_attention"],
                             "dense_serve": dense["paged_attention"],
                             "moe_serve": moe["paged_attention"],
                             "moe_fp32": moe32["paged_attention"],
@@ -7468,7 +7766,8 @@ def main() -> int:
                         "manifest": manifest["rpc_post"],
                         "gpu_first": gpu_first,
                         "paper_eval": paper_eval["rpc_post"],
-                        "analysis": analysis["rpc_post"]},
+                        "analysis": analysis["rpc_post"],
+                        "mesh": mesh["rpc_post"]},
         "rpc_queue": {"rpc_queue": queue_launches, "libc_io": libc_launches,
                       "device_run_hooks": hook_enqueues,
                       "serve_spill": spill["rpc_enqueue"],
@@ -7476,7 +7775,8 @@ def main() -> int:
                       "rpc_sharded": sharded["rpc_enqueue"],
                       "manifest": manifest["rpc_enqueue"],
                       "paper_eval": paper_eval["rpc_enqueue"],
-                      "analysis": analysis["rpc_enqueue"]},
+                      "analysis": analysis["rpc_enqueue"],
+                      "mesh": mesh["rpc_enqueue"]},
     }
     for name in ENTRY_NAMES["rpc_async"]:
         by_path[name] = {"rpc_queue_async": async_queue[name],

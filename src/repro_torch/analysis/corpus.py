@@ -1,10 +1,11 @@
 """Seeded hazard corpus: one tiny program per hazard class, buggy + fixed.
 
 The port of ``repro/analysis/corpus.py``: the same case names,
-expectations and ``# BUG`` comments, 33 of JAX's 34 cases.
-``callback_in_mesh`` waits for the port's mesh (ROADMAP item 5.4, with
-``CALLBACK_IN_MESH``).  Each case takes ``device`` (the card unless the
-caller asks for the CPU) and builds every queue, heap and tensor there;
+expectations and ``# BUG`` comments, all 34 of JAX's cases.
+``callback_in_mesh`` runs on a mesh of one device (a world of one
+process, :mod:`repro_torch.launch.mesh`).  Each case takes ``device``
+(the card unless the caller asks for the CPU) and builds every queue,
+heap and tensor there;
 ``run_case(case, device=...)`` analyzes one.  The expectations are
 JAX's golden file, ``tests/data/hazard_corpus.json``: the buggy programs
 are the analyzer's positive tests, every ``*_fixed`` variant must report
@@ -20,7 +21,8 @@ of ``repro_torch/analysis`` is skipped): hazard sites point into this
 file, at the ``# BUG`` line of the offending call.
 
 Run modes: ``run`` feeds the event rules only; ``both`` also exports the
-program for the graph walker.
+program for the graph walker; ``trace`` (``callback_in_mesh``, as JAX's)
+only exports and walks it.
 """
 from __future__ import annotations
 
@@ -35,15 +37,16 @@ import torch
 from repro_torch.core import allocator
 from repro_torch.core.allocator import SizeClassAllocator
 from repro_torch.core.device_main import HostHook, device_run
-from repro_torch.core.expand import serial_for
+from repro_torch.core.expand import P, expand, serial_for
 from repro_torch.core.rpc import (REGISTRY, RetryPolicy, RpcQueue, ShapeDtype,
                                   rpc_call)
+from repro_torch.launch.mesh import one_device_mesh
 
 _I32 = ShapeDtype((), torch.int32)
 #: The cases' device unless the caller names one.
 DEVICE = "cuda"
-#: JAX's case that waits for the port's mesh (ROADMAP item 5.4).
-NOT_PORTED = ("callback_in_mesh",)
+#: JAX's cases the port lacks: none since the mesh (ROADMAP item 5.4).
+NOT_PORTED: Tuple[str, ...] = ()
 
 
 def _echo(x):
@@ -76,7 +79,7 @@ class Case:
     name: str
     fn: Callable
     expect: Tuple[str, ...]        # sorted hazard codes the analyzer must find
-    mode: str = "run"              # "run" | "both"
+    mode: str = "run"              # "run" | "both" | "trace"
 
 
 # -- ticket lifecycle -------------------------------------------------------
@@ -304,6 +307,19 @@ def callback_in_loop(device=DEVICE):
     serial_for(lambda i: rpc_call("corpus.echo", xs[i], result_shape=_I32)[0], 5)  # BUG
 
 
+def callback_in_mesh(device=DEVICE):
+    # walker-only ("trace"), as JAX's: an immediate call inside a region
+    # expanded over a mesh of one device
+    mesh = one_device_mesh("d", device=device)
+
+    def region(x):
+        r, _ = rpc_call("corpus.echo", x[0], result_shape=_I32)  # BUG
+        return x + r
+
+    return expand(region, mesh, (P("d"),), P("d"))(
+        torch.zeros((1,), dtype=torch.int32, device=device))
+
+
 def _zero(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=device)
 
@@ -375,6 +391,8 @@ CASES = (
     Case("rpc_in_loop_fixed", rpc_in_loop_fixed, ()),
     Case("callback_in_loop", callback_in_loop,
          ("CALLBACK_IN_LOOP", "RPC_IN_LOOP"), mode="both"),
+    Case("callback_in_mesh", callback_in_mesh,
+         ("CALLBACK_IN_MESH",), mode="trace"),
     Case("hook_never_fires", hook_never_fires, ("HOOK_NEVER_FIRES",)),
     Case("hook_never_fires_fixed", hook_never_fires_fixed, ()),
     Case("unstable_pad_name", unstable_pad_name, ("UNSTABLE_PAD_NAME",)),
@@ -389,7 +407,10 @@ def run_case(case: Case, device=DEVICE):
     The buggy programs really do drop records when they run — their
     RuntimeWarnings are the seeded defect, not noise worth surfacing."""
     from repro_torch.analysis.capture import analyze
+    from repro_torch.analysis.walker import analyze_graph
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
+        if case.mode == "trace":
+            return analyze_graph(case.fn, device=device)
         return analyze(case.fn, device=device,
                        graph=(True if case.mode == "both" else False))

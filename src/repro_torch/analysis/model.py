@@ -46,9 +46,11 @@ Performance lints
   or one call path's op repeated by an unrolled loop, not in a taken
   branch; see :mod:`repro_torch.analysis.walker`).
   ``CALLBACK_IN_MESH`` — host callback inside a partitioned program: in
-  JAX, XLA cannot lower the gathered operand (the known abort case).
-  The port has no mesh yet (ROADMAP item 5.4): the code stays in the
-  taxonomy and nothing emits it.
+  JAX, XLA cannot lower the gathered operand (the known abort case).  In
+  the port, an immediate call inside an ``expand`` region (the event
+  rules read ``rpc_immediate``'s ``in_mesh``; the walker tests a
+  transport node's call stack for the region's frame): every team's
+  host is called, where a team queue drains once at the boundary.
   ``HOOK_NEVER_FIRES`` — immediate/batched hook whose ``every`` exceeds
   the run's ``n_steps``: it can never fire.
 

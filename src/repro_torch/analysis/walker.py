@@ -18,9 +18,12 @@ it is counted, never flagged (it is what the lint recommends).
   ``stack_trace`` outside the runtime and torch: one line, reached from
   one place), outside any ``cond`` branch: the unrolled loop.  A
   callback in a taken branch is exempt (firing is data-dependent).
-* ``CALLBACK_IN_MESH`` stays in the taxonomy: the port has no mesh yet
-  (``core/expand.py::expand`` raises), so nothing here emits it (ROADMAP
-  item 5.4).
+* ``CALLBACK_IN_MESH``, the port's analogue of JAX's ``MESH_PRIMS``
+  rule.  An expanded region is Python that export inlines (its
+  collectives are ``_c10d_functional`` nodes, no region node), so the
+  test is a frame test: a callback node whose call stack passes through
+  ``core/expand.py::expand``'s region wrapper (:func:`region_frame`) sits
+  inside a partitioned program.
 
 A node's site is the last frame of its call stack (the one its op
 wrapper annotates under export, else ``node.meta["stack_trace"]``)
@@ -38,6 +41,7 @@ import torch
 
 from repro_torch.analysis.model import Hazard, HazardReport
 from repro_torch.core import events
+from repro_torch.core.expand import region_frame
 from repro_torch.kernels import OPS_NAMESPACE, STACK_KEY
 from repro_torch.tree import leaves
 
@@ -64,6 +68,18 @@ def _user_frames(node: torch.fx.Node) -> List[str]:
                  _FRAME.findall(node.meta.get("stack_trace") or "")]
     return [site for site in stack
             if not events.is_internal_frame(site.rpartition(":")[0])]
+
+
+def _in_region(node: torch.fx.Node) -> bool:
+    """True iff the node's call stack (all of it, the runtime's frames
+    included) passes through ``expand``'s region wrapper."""
+    path, first, last = region_frame()
+    stack = (node.meta.get("custom") or {}).get(STACK_KEY)
+    frames = ([tuple(site.rsplit(":", 1)) for site in stack]
+              if stack is not None else
+              _FRAME.findall(node.meta.get("stack_trace") or ""))
+    return any(fn == path and first <= int(line) <= last
+               for fn, line in frames)
 
 
 def _op_name(target) -> Tuple[str, str]:
@@ -113,6 +129,13 @@ def walk_graph(gm: torch.fx.GraphModule,
             if name in CALLBACK_OPS:
                 frames = _user_frames(node)
                 site = frames[-1] if frames else "<unknown>"
+                if _in_region(node):
+                    report.add(Hazard.make(
+                        "CALLBACK_IN_MESH",
+                        f"host callback {name!r} inside an expanded region "
+                        "— every team calls its host; enqueue on the team "
+                        "queue and drain at the program boundary",
+                        site, callback=name))
                 if in_loop and not in_cond:
                     report.add(_in_loop(name, site))
                 elif not in_cond:

@@ -34,7 +34,7 @@ writes its int32 step.  Two differences from the JAX package:
 * the JAX package cannot restore a bf16 leaf (``np.load`` gives raw
   ``V2`` records, which numpy does not cast); the port can.
 
-Restoring onto a mesh (``shardings=``) waits for ROADMAP queue 1, item 5.
+Restoring onto a mesh (``shardings=``) waits for ROADMAP queue 1, item 5.5.
 """
 from __future__ import annotations
 
@@ -200,8 +200,9 @@ def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
     the card unless the caller asks for the CPU) or of Python ints.
     Returns ``(step, tree)``."""
     if shardings is not None:
-        raise NotImplementedError("restoring onto a mesh (shardings=) waits "
-                                  "for ROADMAP queue 1, item 5 (scale-out)")
+        raise NotImplementedError(
+            "restoring onto a mesh (shardings=) waits for ROADMAP queue 1, "
+            "item 5.5 (meshes, the model side)")
     step, manifest = read_manifest(directory, step)
     flat_like = flatten_with_paths(like)
     if any(isinstance(w, ShapeDtype) for w in flat_like.values()):

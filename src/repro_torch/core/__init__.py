@@ -10,10 +10,13 @@
                 the async queue, the sanitizer (canary-bracketed
                 payloads, poison scans, sanitize_stats), the
                 ShardedRpcQueue (shards stacked on one device, replayed in
-                (device, slot) order, shard_deadline) and the RpcManifest
+                (device, slot) order, shard_deadline; drained on a mesh's
+                first rank once gathered over it) and the RpcManifest
                 of durable ids (export_manifest, adopt_manifest)
-  expand      — single-team parallelism expansion: parallel_for vs
-                serial_for (§3.3)
+  expand      — parallelism expansion (§3.3): the team vocabulary,
+                expand over a torch.distributed mesh with team heaps and
+                queues (team_heap, team_queue, team_ptr), parallel_for
+                (over a mesh too) vs serial_for
   allocator   — generic, size-class, balanced and sharded heap
                 allocators (§3.4), find_obj and find_obj_linear
   events      — the instrumentation seam the analysis layer subscribes to
@@ -29,8 +32,9 @@ from repro_torch.core.allocator import (
 from repro_torch.core.device_main import (HostHook, device_run,
                                           host_driven_run)
 from repro_torch.core.expand import (
-    barrier, expand, num_teams, num_threads, parallel_for, serial_for,
-    team_id, thread_id, ws_range)
+    P, barrier, expand, num_teams, num_threads, parallel_for, serial_for,
+    set_team_heap, set_team_queue, team_heap, team_id, team_ptr, team_queue,
+    thread_id, ws_range)
 from repro_torch.core.libc import (
     LogRing, atoi, drain_fwrite, drain_log_lines, drain_printf, fgets,
     fprintf, fread, fread_feed, fwrite, rand_init, rand_u32, rand_uniform,
@@ -52,8 +56,9 @@ __all__ = [
     "SizeClassState", "allocator_for", "events", "find_obj",
     "find_obj_linear", "shard_heap",
     "HostHook", "device_run", "host_driven_run",
-    "barrier", "expand", "num_teams", "num_threads", "parallel_for",
-    "serial_for", "team_id", "thread_id", "ws_range",
+    "P", "barrier", "expand", "num_teams", "num_threads", "parallel_for",
+    "serial_for", "set_team_heap", "set_team_queue", "team_heap", "team_id",
+    "team_ptr", "team_queue", "thread_id", "ws_range",
     "LogRing", "atoi", "drain_fwrite", "drain_log_lines", "drain_printf",
     "fgets", "fprintf", "fread", "fread_feed", "fwrite", "rand_init",
     "rand_u32", "rand_uniform", "realloc", "remote_heap_register",

@@ -16,8 +16,10 @@ The port of ``repro/core/allocator.py``:
   requests run in every chunk at once (``malloc_grid``, ``free_grid``),
   the ``*_scan`` paths request by request.
 * :class:`ShardedHeap` / :class:`ShardedAllocator`: one inner state per
-  device of a mesh, stacked along a leading axis on one card; pointers
-  are global (``dev * span + local``).
+  device of a mesh, stacked along a leading axis on one device; pointers
+  are global (``dev * span + local``); an expanded region's teams each
+  work on a copy of their row (``team_local``, gathered after the
+  region); ``local_view``/``with_local`` are JAX's one-row protocol.
 
 State lives in device tensors and every operation is torch ops on them:
 each ``lax.cond`` of the JAX version becomes a select over both branches,
@@ -43,6 +45,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.core import events
+from repro_torch.distributed.collectives import gather_blocks
 from repro_torch.tree import register_export_node
 
 I32 = torch.int32
@@ -1018,11 +1021,49 @@ class ShardedHeap:
     local offset ``p`` has the global address ``d * span + p`` (``span`` >=
     the per-device heap size), so a pointer names a unique object and
     :meth:`ShardedAllocator.find_obj` (the dispatch target of ``ArenaRef``
-    marshalling) resolves it.  The port stacks the shards on one card; the
-    mesh placement of JAX's ``shard_map`` is item 5."""
+    marshalling) resolves it.  The shards are stacked on one device; in an
+    expanded region (``core/expand.py``) each team of the mesh works on a
+    copy of its row, and the rows are gathered after the region."""
     shards: Any
     n_devices: int
     span: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards.count.device
+
+    # -- the team protocol of an expanded region (JAX's) ------------------
+    def local_view(self):
+        """The one shard of a one-row heap (the team's block in a
+        region) as a plain allocator state."""
+        rows = {f: getattr(self.shards, f) for f in
+                _tensor_fields(self.shards)}
+        assert all(t.shape[0] == 1 for t in rows.values()), \
+            "local_view() needs a one-row heap (a team's block); use " \
+            "local(dev) outside a region"
+        return dataclasses.replace(self.shards,
+                                   **{f: t[0] for f, t in rows.items()})
+
+    def with_local(self, local) -> "ShardedHeap":
+        """Inverse of :meth:`local_view`: the one-row heap of ``local``."""
+        return dataclasses.replace(self, shards=dataclasses.replace(
+            local, **{f: getattr(local, f).unsqueeze(0)
+                      for f in _tensor_fields(local)}))
+
+    def team_local(self, dev: int):
+        """Team ``dev``'s heap in an expanded region: a copy of row
+        ``dev`` as a plain allocator state, so the team's writes never
+        touch this heap."""
+        sh = self.shards
+        return dataclasses.replace(sh, **{f: getattr(sh, f)[dev].clone()
+                                          for f in _tensor_fields(sh)})
+
+    def gathered(self, local, mesh) -> "ShardedHeap":
+        """The heap of every team's ``local`` state of ``mesh``, in team
+        order: a new heap, as every allocator op returns a new state."""
+        return dataclasses.replace(self, shards=dataclasses.replace(
+            local, **{f: gather_blocks(getattr(local, f).unsqueeze(0), mesh)
+                      for f in _tensor_fields(local)}))
 
     def local(self, dev):
         """Device ``dev``'s shard (an int or a 0-d tensor, read on the

@@ -36,7 +36,15 @@ registry at a constant size).
 epoch to a host drain that overlaps the device's work) and owns its
 boundary: the flush after the loop only submits the last epoch, so the
 run flushes once more to collect it and joins the queue's drains before
-it returns.  Not ported yet: ``mesh=`` (ROADMAP queue 1, item 5).
+it returns.
+
+``mesh=`` (a ``DeviceMesh``) runs the whole loop under parallelism
+expansion (``core/expand.py``): every rank runs it as one team of the
+mesh, ``step_fn`` and ``extract`` may use the team vocabulary
+(``team_id()``, ...), and every hook, immediate or batched, enqueues on
+the team's row of one :class:`~repro_torch.core.rpc.ShardedRpcQueue`,
+drained once at the program boundary on the mesh's first rank, in
+``(device, slot)`` order.
 
 Events (:mod:`repro_torch.core.events`), as JAX's: a ``hook_decl`` for
 each hook, the step loop inside ``loop_scope(n_steps)`` and each hook
@@ -54,11 +62,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import events
+from repro_torch.core.expand import (P, _check_mesh, expand, set_team_queue,
+                                     team_queue)
 from repro_torch.core.rpc import (REGISTRY, RpcQueue, ShapeDtype,
-                                  effects_barrier, rpc_call, stable_hook_id)
+                                  ShardedRpcQueue, effects_barrier, rpc_call,
+                                  stable_hook_id)
 from repro_torch.tree import leaves
 
-_MESH = "ROADMAP queue 1, item 5 (scale-out)"
 _NO_SCOPE = contextlib.nullcontext()
 _I32 = ShapeDtype((), torch.int32)
 
@@ -212,7 +222,8 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
                queue_reply: int = 0, queue_retry=None,
                queue_timeout: Optional[float] = None,
                queue_async: bool = False, thread_queue: bool = False,
-               return_queue: bool = False, mesh=None) -> Any:
+               return_queue: bool = False, mesh=None,
+               state_spec: Optional[P] = None) -> Any:
     """Run ``state = step_fn(step, state)`` for ``step`` in 0..n_steps-1,
     firing each hook after its step as ``step + 1``.  Returns the final
     state; its tensors may still be in flight on the card (synchronise
@@ -229,9 +240,18 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
     flushed queue)``.  ``queue_async=True`` runs the queue async (see the
     module docstring): in-loop flushes land replies one epoch late, so it
     refuses returning hooks, and every host effect has retired when the
-    run returns.  ``mesh=`` (item 5) raises ``NotImplementedError``."""
+    run returns.
+
+    ``mesh=`` (see the module docstring) refuses returning hooks (their
+    reply needs a flush inside the region); with ``thread_queue`` the
+    step gets its team's queue row and may only enqueue, and
+    ``return_queue`` returns the flushed sharded queue, every team's
+    replies in its row.  ``state_spec`` is the state's
+    :class:`~repro_torch.core.expand.P` (``P()``, replicated, by
+    default: the step must then keep the state the same on every
+    team)."""
     if mesh is not None:
-        raise NotImplementedError(f"device_run(mesh=) needs {_MESH}")
+        _check_mesh(mesh)
     for h in hooks:
         if h.every < 1:
             raise ValueError(f"hook every={h.every} must be >= 1")
@@ -243,7 +263,7 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
         for h, hname in named:
             events.emit("hook_decl", name=hname, every=int(h.every),
                         n_steps=int(n_steps), batched=bool(h.batched),
-                        mesh=False,
+                        mesh=mesh is not None,
                         unstable=h.name is None and _hook_key(h) is None)
     try:
         returning = [hname for h, hname in named if h.returns is not None]
@@ -254,6 +274,21 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
                 "late, but a consume step folds its reply into the SAME "
                 "firing step's state; use the synchronous queue for "
                 "reply-consuming hooks")
+        if mesh is not None:
+            if returning:
+                raise ValueError(
+                    f"hook(s) {returning} use returns= under mesh=: the "
+                    "reply needs a flush inside the expanded region; read "
+                    "replies after the boundary flush through "
+                    "thread_queue/return_queue instead")
+            return _device_run_mesh(
+                step_fn, state, n_steps, named, mesh, state_spec,
+                dict(capacity=queue_capacity, width=queue_width,
+                     payload_capacity=queue_payload,
+                     reply_capacity=queue_reply, retry=queue_retry,
+                     timeout=queue_timeout,
+                     mode="async" if queue_async else "sync"),
+                thread_queue, return_queue, tracing)
         carries_queue = (any(h.batched for h in hooks) or thread_queue
                          or return_queue)
         if returning:
@@ -299,6 +334,40 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
             effects_barrier()
             for hname in auto:
                 REGISTRY.unregister(hname)
+
+
+def _device_run_mesh(step_fn, state, n_steps, named, mesh, state_spec,
+                     queue_kw, thread_queue, return_queue, tracing):
+    """The step loop as one expanded region: each team runs every step,
+    its hooks enqueue on its queue row (a silent step enqueues nothing),
+    and one gathered flush after the region drains every team's firings
+    (an async queue: flush, flush again to collect, join)."""
+    q0 = ShardedRpcQueue.create(mesh.size(), **queue_kw,
+                                device=mesh.device_type)
+
+    def region(state):
+        lq = team_queue()
+        with (events.loop_scope(int(n_steps)) if tracing else _NO_SCOPE):
+            for step in range(n_steps):
+                if thread_queue:
+                    state, lq = step_fn(step, state, lq)
+                else:
+                    state = step_fn(step, state)
+                for h, hname in named:
+                    with (events.cond_scope(int(h.every), key=hname)
+                          if tracing else _NO_SCOPE):
+                        _fire_batched(h, hname, step + 1, state, lq)
+        set_team_queue(lq)
+        return state
+
+    spec = state_spec if state_spec is not None else P()
+    q, final = expand(region, mesh, (spec,), spec, queue=True,
+                      queue_async=queue_kw["mode"] == "async")(q0, state)
+    q.flush()
+    if queue_kw["mode"] == "async":
+        q.flush()
+        q.join()
+    return (final, q) if return_queue else final
 
 
 def host_driven_run(step_fn: Callable[[int, Any], Any], state: Any,

@@ -399,13 +399,29 @@ class LogRing:
             n_devices, capacity, width=3, payload_capacity=payload_capacity,
             retry=retry, timeout=timeout, device=device), name)
 
+    @property
+    def device(self) -> torch.device:
+        return self.q.device
+
     def local_view(self) -> "LogRing":
-        """The ring of a single-device sharded ring's one shard."""
+        """The ring of a one-row sharded ring's shard (a team's block in an
+        expanded region)."""
         return LogRing(self.q.local_view(), self.name)
 
     def with_local(self, local: "LogRing") -> "LogRing":
         """Inverse of :meth:`local_view`."""
         return LogRing(self.q.with_local(local.q), self.name)
+
+    def team_local(self, dev: int) -> "LogRing":
+        """Team ``dev``'s ring of a sharded ring (see
+        ``ShardedRpcQueue.team_local``)."""
+        return LogRing(self.q.team_local(dev), self.name)
+
+    def gathered(self, local: "LogRing", mesh) -> "LogRing":
+        """Every team's ``local`` ring written back (see
+        ``ShardedRpcQueue.gathered``); returns the ring."""
+        self.q.gathered(local.q, mesh)
+        return self
 
     def log(self, tag, value, payload=None, where=None) -> "LogRing":
         """Append one record (the oldest is overwritten when the ring is

@@ -118,6 +118,9 @@ import torch
 
 from repro_torch.core import events
 from repro_torch.core.allocator import I32, _concrete_int, as_i32, find_obj
+from repro_torch.core.expand import in_region as _in_region
+from repro_torch.distributed.collectives import (broadcast_from_first,
+                                                 gather_blocks)
 from repro_torch.kernels.rpc_async import (AsyncRing, async_collect,
                                            async_post, collect_plain,
                                            post_plain)
@@ -308,6 +311,18 @@ def register_format_section(export_fn: Callable[[], Dict[int, str]],
                             adopt_fn: Callable[[Dict[int, str]], None]
                             ) -> None:
     _FORMAT_SECTION[:] = [export_fn, adopt_fn]
+
+
+def _refuse_in_region(what: str) -> None:
+    """A queue flush inside an expanded region raises, as JAX's does
+    (XLA cannot lower the drain inside a partitioned program): enqueue in
+    the region and flush at the program boundary, as
+    ``device_run(mesh=)`` does."""
+    if _in_region():
+        raise RuntimeError(
+            f"{what} inside an expanded region: enqueue in the region and "
+            "flush at the program boundary (device_run(mesh=) and "
+            "ShardedRpcQueue.flush after expand do)")
 
 
 def queue_geometry(q) -> Dict[str, int]:
@@ -924,9 +939,9 @@ def rpc_call(name: str, *args, result_shape=None, pure: bool = False,
             "immediate call has no conditional form; route it through a "
             "queue")
     if events.active():
-        # every immediate call is ordered here, and there is no mesh yet
+        # every immediate call is ordered here
         events.emit("rpc_immediate", name=name, ordered=True, pure=pure,
-                    in_mesh=False)
+                    in_mesh=_in_region())
     specs, device, sig, ops, refs, pid = _prepare(name, args, result_shape,
                                                   pure, device)
     if device.type not in ("cpu", "cuda"):
@@ -1499,7 +1514,7 @@ def _replay_shard(callee, nargs, imask, pmask, ivals, fvals, plens, pbuf,
             break
         k = j % cap
         cid = int(callee[k])
-        name = names.get(cid)
+        name = names.get(cid) or _bind_callee_id(cid, names)
         if name is None:
             raise KeyError(
                 f"RpcQueue record carries unknown callee id {cid}: this "
@@ -1593,6 +1608,19 @@ def _finish_flush(drops: int, arena_drops: int, per_name_calls,
                         callee_errors=callee_errors, retries=retries)
     for name, calls in per_name_calls.items():
         REGISTRY.bump(name, None, per_name_bytes[name], 0, calls=calls)
+
+
+def _bind_callee_id(cid: int, names: Dict[int, str]) -> Optional[str]:
+    """The registered callee whose stable id is ``cid``, bound now (into
+    the registry and the drain's ``names``), or None: a record enqueued by
+    another rank of a mesh names a callee that this process registered
+    but never enqueued itself."""
+    for name in list(REGISTRY.hosts):
+        if stable_callee_id(name) == cid:
+            names[cid] = name
+            REGISTRY.batch_callee_id(name)
+            return name
+    return None
 
 
 def _registry_snapshot():
@@ -2755,7 +2783,9 @@ class RpcQueue:
         of the RPC channel (one ``rpc_post``): the host returns at once
         and the stream carries the drain; on the CPU the drain runs here.
         An async queue hands the epoch over instead (see
-        :meth:`create`).  Returns the queue."""
+        :meth:`create`).  Returns the queue.  Refused inside an expanded
+        region (:func:`_refuse_in_region`)."""
+        _refuse_in_region("RpcQueue.flush()")
         ctx = _FlushCtx(dict(handlers) if handlers else None, self.retry,
                         self.timeout, self.sanitize)
         if self.mode == "async":
@@ -3136,8 +3166,13 @@ class ShardedRpcQueue:
     JAX's ``ShardedRpcQueue``.
 
     The shards are stacked along a leading axis of one int32 state
-    ``(D, words)`` on one device (placing them across devices is ROADMAP
-    item 5).  Deliberately unlike JAX's functional shards, :meth:`local`
+    ``(D, words)`` on one device.  In an expanded region
+    (``core/expand.py``) each team of the mesh enqueues on a copy of its
+    row (:meth:`team_local`), and :meth:`gathered` writes every team's
+    row back after the region and ties the queue to the mesh: its flushes
+    then drain on the mesh's first rank alone, which broadcasts the
+    state, replies and statuses included, to the others (host effects
+    happen once).  Deliberately unlike JAX's functional shards, :meth:`local`
     returns an :class:`RpcQueue` that is a view of row ``d``: an enqueue
     through it lands in the stacked state (on a card it is one
     ``rpc_enqueue`` on the row's storage), and the same view is returned
@@ -3170,6 +3205,9 @@ class ShardedRpcQueue:
                        for d in range(state.shape[0])]
         for d, q in enumerate(self.shards):
             q._owner = (weakref.ref(self), d, len(self.shards))
+        #: The DeviceMesh whose teams filled the rows, once
+        #: :meth:`gathered`; its flushes drain on the first rank.
+        self.mesh = None
 
     @property
     def n_devices(self) -> int:
@@ -3249,11 +3287,11 @@ class ShardedRpcQueue:
         return self.shards[int(dev)]
 
     def local_view(self) -> RpcQueue:
-        """The one shard of a single-device sharded queue (the team
-        protocol of an expanded region)."""
+        """The one shard of a one-row sharded queue: a view of its
+        row."""
         assert self.n_devices == 1, \
-            "local_view() is only meaningful on a single-device shard " \
-            "(inside shard_map); use local(dev) outside"
+            "local_view() needs a one-row queue (a team's block); use " \
+            "local(dev) outside a region"
         view = self.local(0)
         if events.active():
             events.emit("queue_view", _refs=(view,), qid=id(view),
@@ -3267,19 +3305,45 @@ class ShardedRpcQueue:
         """Inverse of :meth:`local_view`."""
         return ShardedRpcQueue.stack([local])
 
+    def team_local(self, dev: int) -> RpcQueue:
+        """Team ``dev``'s queue in an expanded region: a view of a copy of
+        row ``dev``, with this queue's options, so its enqueues do not
+        touch this queue.  It reports this queue's mode, and has no
+        epochs of its own (a region never flushes)."""
+        q0 = self.shards[0]
+        block = ShardedRpcQueue(
+            self.layout, self.state[dev:dev + 1].clone(), retry=q0.retry,
+            timeout=q0.timeout, carry_budget=q0.carry_budget,
+            shard_deadline=q0.shard_deadline, sanitize=q0.sanitize)
+        block.shards[0].mode = self.mode
+        return block.local_view()
+
+    def gathered(self, local: RpcQueue, mesh) -> "ShardedRpcQueue":
+        """Write every team's ``local`` queue of ``mesh`` into this
+        queue's rows (in team order) and tie the queue to ``mesh``, in
+        place, as every queue op is.  Returns the queue."""
+        self.state.copy_(gather_blocks(local.state.unsqueeze(0), mesh))
+        self.mesh = mesh
+        return self
+
     def flush(self, handlers: Optional[Dict[str, Callable]] = None
               ) -> "ShardedRpcQueue":
         """Drain every shard to the host, records replayed in ``(device,
         slot)`` order (see the class docstring); each shard's replies land
-        in its row, read with :meth:`result` or ``local(d).result``.
-        Returns the queue."""
+        in its row, read with :meth:`result` or ``local(d).result``.  On a
+        queue gathered over a mesh, only the mesh's first rank drains and
+        every rank gets its state.  Returns the queue."""
+        _refuse_in_region("ShardedRpcQueue.flush()")
         q0 = self.shards[0]
         ctx = _FlushCtx(dict(handlers) if handlers else None, q0.retry,
                         q0.timeout, q0.sanitize, q0.shard_deadline)
-        if self.mode == "async":
+        first = self.mesh is None or not any(self.mesh.get_coordinate())
+        if first and self.mode == "async":
             self._flush_async(ctx)
-        else:
+        elif first:
             self._flush_sync(ctx)
+        if self.mesh is not None:
+            broadcast_from_first(self.state, self.mesh)
         if events.active():
             events.emit("rpc_flush", _refs=(self,), qid=id(self),
                         qid_out=id(self), capacity=self.capacity,

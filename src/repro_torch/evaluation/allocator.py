@@ -1,7 +1,5 @@
 """Paper Fig. 6: allocator throughput, v1 (request at a time) against v2
-(vectorised), on one device (the JAX package's
-``benchmarks/allocator_bench.py`` without its mesh section, which waits
-for expansion over several devices: ROADMAP queue 1, item 5.4).
+(vectorised) (the JAX package's ``benchmarks/allocator_bench.py``).
 
 All threads of all teams allocate a region at a parallel region's entry
 and free it at the exit, the SPEC-OMP-style stress pattern.  Contestants
@@ -23,10 +21,16 @@ against the O(log cap) sorted index, the marshalled objects against the
 linear scan's, and one ``ArenaRef`` round trip; then the
 funneled-against-sharded heap and queue contrast.  Every section returns
 its rows' numbers and its evidence: the pointers and records, which are
-bit-equal on every device.
+bit-equal on every device.  Last, :func:`mesh_section` (JAX's
+``_mesh_section``): ``malloc_grid`` and a sharded ring's flush in a
+region expanded over a real mesh (a ``gloo`` world of
+:data:`MESH_DEVICES` processes on the CPU, :func:`run_mesh`; the
+one-device mesh on the card), each team's pointers bit-identical to the
+single heap's; a failure raises, it is never skipped.
 """
 from __future__ import annotations
 
+import tempfile
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,9 +42,14 @@ from repro_torch.core.allocator import GenericAllocator as GA
 from repro_torch.core.allocator import ShardedAllocator as SA
 from repro_torch.core.allocator import SizeClassAllocator as SC
 from repro_torch.core.allocator import find_obj, find_obj_linear, shard_heap
+from repro_torch.core.expand import (P, expand, set_team_heap, set_team_queue,
+                                     team_heap, team_id, team_queue)
+from repro_torch.core.libc import LogRing, drain_log_lines
 from repro_torch.evaluation.common import (contrast_best_of, emit,
                                            sharded_queue_contrast,
                                            time_drained, time_region)
+from repro_torch.launch.mesh import init_world, make_mesh
+from repro_torch.launch.world import run_world
 
 GRIDS = [(1, 1), (8, 4), (16, 8), (32, 16)]
 #: 128 threads x 132 teams: one team an SM of an H100.
@@ -51,6 +60,9 @@ SHARD_DEVICES = 4                 # logical shards, one device
 SHARD_GRID = (32, 16)
 QUEUE_PER_SHARD = 64
 QUEUE_ITERS = 5                   # the queue contrast's timed iterations
+MESH_DEVICES = 2                  # the CPU world of the mesh section
+MESH_GRID = (8, 4)
+MESH_SPAN = 4096                  # pages of each team's balanced heap
 
 
 def grid_contestants(threads: int, teams: int, device,
@@ -289,3 +301,94 @@ def run(device, *, grids: Sequence[Tuple[int, int]] = GRIDS,
     s, se = sharded_section(device, warmup=warmup)
     return ({"grids": g, "find_obj": f, "sharded": s},
             {"grids": ge, "find_obj": fe, "sharded": se})
+
+
+def mesh_section(mesh, one_mesh, *, iters: int = 10) -> Dict:
+    """JAX's ``_MESH_CHILD`` on ``mesh`` and on ``one_mesh`` (a mesh of one
+    device), both on axis ``dev``: each team runs ``malloc_grid`` of the
+    8 x 4 grid on its heap and logs the sum of its pointers on its ring
+    row; the rings flush after the region.  Returns JAX's keys: each
+    team's pointers against the single heap's (bit for bit), the
+    one-device mesh's, the records this host's flush drained (the
+    mesh's first rank drains all of them; another rank none) and whether
+    they come team by team, and the mean microseconds of a region
+    (heap and ring made in it, as JAX's).  Raises unless the pointers are
+    bit-identical."""
+    T, G = MESH_GRID
+    device = mesh.device_type
+    sizes = (torch.arange(T * G, dtype=torch.int32,
+                          device=device).reshape(T, G) % 7) + 1
+
+    def one(m):
+        D = m.size()
+
+        def region():
+            st = team_heap()
+            st, ptrs = BA.malloc_grid(st, T, G, sizes)
+            set_team_heap(st)
+            total = torch.sum(torch.where(ptrs >= 0, ptrs, 0))
+            set_team_queue(team_queue().log(team_id(),
+                                            total.to(torch.float32)))
+            return ptrs[None]
+
+        f = expand(region, m, (), P("dev"), heap=True, queue=True)
+
+        def once():
+            heap = shard_heap(BA.init(MESH_SPAN, 4, 2, cap=64, device=device),
+                              D, span=MESH_SPAN)
+            return f(heap, LogRing.create_sharded(D, 16, device=device))
+
+        _, ring, ptrs = once()
+        dt = time_region(once, warmup=0, iters=iters, device=device)
+        rpc_mod.effects_barrier()
+        drain_log_lines()
+        ring.flush()
+        rpc_mod.effects_barrier()
+        return ptrs.cpu(), drain_log_lines(), dt
+
+    ptrs_mesh, recs, dt_mesh = one(mesh)
+    ptrs_one, _, dt_one = one(one_mesh)
+    st = BA.init(MESH_SPAN, 4, 2, cap=64, device=device)
+    _, ptrs_ref = BA.malloc_grid(st, T, G, sizes)
+    ptrs_ref = ptrs_ref.cpu()
+    local_ok = all(torch.equal(ptrs_mesh[d] % MESH_SPAN, ptrs_ref)
+                   for d in range(mesh.size()))
+    one_ok = torch.equal(ptrs_one[0], ptrs_ref)
+    info = {"mesh_devices": mesh.size(), "grid": f"{T}x{G}",
+            "per_device_bit_identical_to_single_heap": bool(local_ok),
+            "one_device_mesh_bit_identical": bool(one_ok),
+            "queue_flush_records": len(recs),
+            "queue_flush_device_major":
+                recs == sorted(recs, key=lambda r: r[0]),
+            "mesh_us_per_region": dt_mesh * 1e6,
+            "one_device_us_per_region": dt_one * 1e6}
+    if not (local_ok and one_ok):
+        raise AssertionError(f"Fig. 6 mesh section: a team's pointers "
+                             f"differ from the single heap's: {info}")
+    return info
+
+
+_MESH_WORLD = """
+from repro_torch.evaluation.allocator import mesh_section
+from repro_torch.launch.mesh import make_mesh, make_rank_mesh
+report(mesh_section(make_mesh((WORLD,), ("dev",), device="cpu"),
+                    make_rank_mesh("dev", device="cpu")))
+"""
+
+
+def run_mesh(device) -> Dict:
+    """Fig. 6's mesh section, its row printed as JAX's: on a card in this
+    process on the one-device mesh (a world of one), on the CPU in a
+    ``gloo`` world of :data:`MESH_DEVICES` processes (JAX's child of as
+    many forced host devices), whose first rank's numbers it returns."""
+    if torch.device(device).type == "cuda":
+        init_world(device="cuda")
+        mesh = make_mesh((1,), ("dev",), device="cuda")
+        info = mesh_section(mesh, mesh)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            info = run_world(_MESH_WORLD, MESH_DEVICES, tmp)[0][0]
+    emit("sharded/mesh/us_per_region", info["mesh_us_per_region"],
+         f"devices={info['mesh_devices']} "
+         f"bit_identical={info['per_device_bit_identical_to_single_heap']}")
+    return info

@@ -7,9 +7,10 @@ JAX package's ``benchmarks/run.py``).
 Prints ``name,us_per_call,derived`` CSV rows, named letter for letter as
 the JAX package's.  ``--device`` defaults to the card, where it runs the
 sizes of :data:`CARD_SIZES`, and refuses to run without one; ``--device
-cpu`` runs the CPU at the JAX modules' sizes.  Writes no file.  JAX's
-``roofline`` suite waits for ROADMAP item 5.6, Fig. 6's mesh section for
-item 5.4.
+cpu`` runs the CPU at the JAX modules' sizes.  Writes no file.  Fig. 6's
+mesh section runs on the one-device mesh on the card and in a ``gloo``
+world of two processes on the CPU.  JAX's ``roofline`` suite waits for
+ROADMAP item 5.6.
 """
 from __future__ import annotations
 
@@ -78,8 +79,9 @@ def run_suite(name: str, device, sizes: Optional[Dict] = None, *,
     """One suite's rows; returns its records."""
     sizes = dict(sizes or {})
     if name == "fig6_allocator":
-        return allocator.run(device, warmup=warmup, iters=iters,
-                             **sizes)[0]
+        recs = allocator.run(device, warmup=warmup, iters=iters, **sizes)[0]
+        recs["sharded_mesh"] = allocator.run_mesh(device)
+        return recs
     if name == "fig7_rpc":
         return rpc.run(device)[0]
     lengths = sizes.pop("smithwa", spec.SMITHWA_LENGTHS)

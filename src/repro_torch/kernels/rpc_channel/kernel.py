@@ -164,7 +164,11 @@ class Channel:
         self.device, self.stream = device, stream
         lib = _lib()
         self.record_host, self.record_dev = _host_alloc(lib.rpc_record_bytes())
-        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        # a channel first used by a program being exported is made under
+        # the trace's fake mode: its own counter stays a real tensor
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        with unset_fake_temporarily():
+            self.counter = torch.zeros(1, dtype=torch.int32, device=device)
         self.stagings = Stagings()
         self.error: Optional[BaseException] = None
         self.last_serve_ns = 0

@@ -7,13 +7,13 @@
 width and depth with random weights from seed 0; an architecture whose
 weights exceed the device's memory is refused (phi3.5-moe-42b-a6.6b: 32
 layers of bf16 weights, 83.7 GB by its config's parameter count, more
-than an 80 GB card holds; it needs ROADMAP item 5's meshes).  ``--preset
-tiny`` serves the small preset of ``launch/train.py``, for any of the
-engine's families (dense, moe and vlm: qwen2-vl-2b is served on token
-prompts, as JAX's engine serves it).  A family the engine does not serve
-(ssm, hybrid, encdec) is refused before its weights are built.
-``--device cuda`` (the default) needs a card; ``--device cpu`` runs the
-plain PyTorch versions of the kernels.
+than an 80 GB card holds; it needs ROADMAP item 5.5's sharded
+weights).  ``--preset tiny`` serves the small preset of
+``launch/train.py``, for any of the engine's families (dense, moe and
+vlm: qwen2-vl-2b is served on token prompts, as JAX's engine serves
+it).  A family the engine does not serve (ssm, hybrid, encdec) is refused
+before its weights are built. ``--device cuda`` (the default) needs a
+card; ``--device cpu`` runs the plain PyTorch versions of the kernels.
 
 The durable artifact's round trip (cold start, as JAX's ``launch/serve.py``):
 
@@ -86,7 +86,7 @@ def check_fits(cfg, device) -> None:
             f"GB of {cfg.param_dtype} weights, more than the "
             f"{have / 1e9:.1f} GB of one {dev.type} device: it does not fit "
             "one card; serving it sharded over a mesh is ROADMAP queue 1, "
-            "item 5 (use --preset tiny)")
+            "item 5.5 (use --preset tiny)")
 
 
 def main(argv=None):

@@ -91,7 +91,8 @@ def run(arch: str, *, preset: str = "tiny", steps: int = 50, batch: int = 8,
     lets go of it, which at full width is most of the card)."""
     if mesh is not None or rules is not None:
         raise NotImplementedError("mesh runs are not ported yet (ROADMAP "
-                                  "queue 1, item 5: scale-out)")
+                                  "queue 1, item 5.5: meshes, the model "
+                                  "side)")
     cfg = get_config(arch)
     if preset == "tiny":
         cfg = tiny_preset(cfg)

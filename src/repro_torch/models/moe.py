@@ -5,7 +5,7 @@ what JAX's computes on one device, the dropless dense oracle
 :func:`moe_reference`, which evaluates every expert for every token and
 weights the top-k.  JAX's expert-parallel bodies (``_moe_local`` and
 ``_moe_local_replicated``: capacity packing, ``all_to_all`` and ``psum``
-over the mesh's ``model`` axis) are ROADMAP item 5; ``moe_apply`` with a
+over the mesh's ``model`` axis) are ROADMAP item 5.5; ``moe_apply`` with a
 mesh raises.
 
 The expert products are batched matmuls over the expert axis
@@ -92,7 +92,7 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     if mesh is not None:
         raise NotImplementedError(
             "moe_apply over a mesh (expert parallelism: _moe_local, "
-            "_moe_local_replicated) is ROADMAP queue 1, item 5")
+            "_moe_local_replicated) is ROADMAP queue 1, item 5.5")
     B, S, d = x.shape
     y, aux = moe_reference(p, x.reshape(B * S, d), cfg)
     return y.reshape(B, S, d), aux

@@ -1,12 +1,15 @@
 """Continuous-batching serving engine with paged KV (the dense, moe and
 vlm decoder LMs; a vlm request is a token prompt).
 
-The port of ``repro/serving/engine.py`` without its mesh (ROADMAP item
-5).  A fixed grid of request slots decodes in lock-step, one batched
-decode step per tick (``self._step``); finished slots are released through
-the balanced allocator's chunk reset and refilled from the request queue.
-The engine has no prefill: prompt tokens go through the decode step one
-per tick.  Each tick copies one (B,) argmax from the device to the host.
+The port of ``repro/serving/engine.py``.  A fixed grid of request slots
+decodes in lock-step, one batched decode step per tick (``self._step``);
+finished slots are released through the balanced allocator's chunk reset
+and refilled from the request queue. The engine has no prefill: prompt
+tokens go through the decode step one per tick.  Each tick copies one
+(B,) argmax from the device to the host. ``mesh=`` (a ``DeviceMesh`` or
+a shard count) shards the page heap, one shard a block of slots, stacked
+on the engine's device (``serving/kvcache.py``); it needs no process
+group.
 
 The durable artifact (JAX's ``export_artifact``/``from_artifact``):
 :meth:`ServingEngine.export_artifact` writes the decode step as a
@@ -154,7 +157,7 @@ class ServingEngine:
                  eos_id: Optional[int] = None,
                  spill_sink: Optional[Any] = None,
                  spill_timeout: Optional[float] = None,
-                 spill_retries: int = 1, device="cuda"):
+                 spill_retries: int = 1, device="cuda", mesh=None):
         """``spill_sink(request_id, n_tokens, pages)``, a host callback,
         receives every retiring request's page ids (a 1-D int32 numpy
         array) before its slot is released: the requests retiring in a
@@ -165,14 +168,17 @@ class ServingEngine:
         each sink call; a record whose sink raises or times out is
         redriven by the transport for ``spill_retries`` more drains, and
         one that still fails (or whose reply is lost) acks None and its
-        request joins ``recompute_on_readmit``."""
+        request joins ``recompute_on_readmit``.  ``mesh`` (a
+        ``DeviceMesh`` or an int shard count) shards the KV page heap: each
+        shard serves its block of slots, so page allocation and release
+        never funnel through one allocator state."""
         device = resolve_device(device)
         if model.device != device:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{device}")
         check_servable(model.cfg)
         self._setup(model.cfg, batch_slots, max_len, page_size, eos_id,
-                    spill_sink, spill_timeout, spill_retries, device)
+                    spill_sink, spill_timeout, spill_retries, device, mesh)
         self.model = model
         self.params = params
         self._values = params
@@ -180,14 +186,16 @@ class ServingEngine:
         self._step_source = "live"
 
     def _setup(self, cfg, batch_slots, max_len, page_size, eos_id,
-               spill_sink, spill_timeout, spill_retries, device) -> None:
+               spill_sink, spill_timeout, spill_retries, device,
+               mesh) -> None:
         """Everything but the step: the KV cache, the spill queue, the
         slots and the geometry ``export_artifact`` writes."""
         self.device = device
         self.cfg = cfg
         self.B = batch_slots
         self.kv = kvcache.paged_cache_init(
-            cfg, batch_slots, max_len, page_size=page_size, device=device)
+            cfg, batch_slots, max_len, page_size=page_size, device=device,
+            mesh=mesh)
         self.eos_id = eos_id
         self.spill_sink = spill_sink
         self.spill_q: Optional[RpcQueue] = None
@@ -399,8 +407,8 @@ class ServingEngine:
     def from_artifact(cls, directory: str, cfg: ModelConfig, *,
                       spill_sink: Optional[Any] = None,
                       spill_timeout: Optional[float] = None,
-                      spill_retries: int = 1,
-                      device="cuda") -> "ServingEngine":
+                      spill_retries: int = 1, device="cuda",
+                      mesh=None) -> "ServingEngine":
         """Cold-start an engine from :meth:`export_artifact`'s output in a
         fresh process: adopt the manifest (so every id the step and the
         spill queue use resolves; as in JAX, every callee it names must be
@@ -411,7 +419,8 @@ class ServingEngine:
         is traced (``engine.model is None``, ``engine._step_source ==
         "artifact"``).  ``cfg`` must be the config the exporting process
         served (the KV cache is made from it); ``device`` must be the
-        device the step was exported on."""
+        device the step was exported on, and ``mesh`` the exporting
+        engine's (the cache's page heap is an input of the step)."""
         with open(os.path.join(directory, META_FILE)) as f:
             meta = json.load(f)
         rpc_mod.adopt_manifest(rpc_mod.RpcManifest.load(
@@ -427,7 +436,7 @@ class ServingEngine:
         self = cls.__new__(cls)
         self._setup(cfg, int(meta["batch_slots"]), int(meta["max_len"]),
                     int(meta["page_size"]), meta.get("eos_id"), spill_sink,
-                    spill_timeout, spill_retries, device)
+                    spill_timeout, spill_retries, device, mesh)
         _, restored = restore_checkpoint(
             directory, {"values": to_jax_layout(values_like)}, step=0,
             device=device)

@@ -53,7 +53,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, *,
     if gather_once:
         raise NotImplementedError(
             "gather_once is a mesh path, not ported yet (ROADMAP queue 1, "
-            "item 5: scale-out)")
+            "item 5.5: meshes, the model side)")
 
     def grads_of(values, batch):
         vals = tree_map(lambda t: t.detach().requires_grad_(), values)

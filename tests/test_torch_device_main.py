@@ -123,7 +123,7 @@ def test_device_run_refuses_the_batched_transport():
         tdm.device_run(lambda i, s: s, torch.tensor(0.0), 1,
                        hooks=[tdm.HostHook(**hook, batched=True,
                                            returns=_F32)])
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tdm.device_run(lambda i, s: s, torch.tensor(0.0), 1, mesh=object())
 
 

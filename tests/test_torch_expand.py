@@ -52,10 +52,14 @@ def test_single_team_vocabulary():
     start, count = texpand.ws_range(12)
     assert (int(start), count) == (0, 12)
     texpand.barrier()
-    for fn in (texpand.expand, texpand.team_heap, texpand.team_queue):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn()
-    with pytest.raises(NotImplementedError, match="item 5"):
+    for fn in (texpand.team_heap, texpand.team_queue, texpand.set_team_heap,
+               texpand.set_team_queue, texpand.team_ptr):
+        with pytest.raises(RuntimeError, match="region"):
+            fn(*([None] if fn.__name__.startswith(("set_", "team_ptr"))
+                 else []))
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        texpand.expand(lambda: None, object(), (), texpand.P())
+    with pytest.raises(TypeError, match="DeviceMesh"):
         texpand.parallel_for(lambda i: i, 4, mesh=object())
 
 

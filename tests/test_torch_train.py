@@ -296,7 +296,7 @@ def test_device_run_refuses_transport_options():
     with pytest.raises(ValueError, match="queue_async=True"):
         device_run(lambda i, s: s, torch.zeros(()), 2, hooks=[ret],
                    queue_async=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         device_run(lambda i, s: s, torch.zeros(()), 2, mesh=object())
 
 
