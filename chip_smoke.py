@@ -86,7 +86,12 @@ source, all started together) and runs, in order:
    hook that logs the loss through the RPC channel: losses, ms/step,
    tokens/s, train_mfu, the flash kernel's launches (all of the bf16
    wgmma variant), ``rpc_post``'s (one a firing) and the peak device
-   memory;
+   memory; then ``mesh_train``: the same run through ``run(mesh=)`` on a
+   world of one and its (1, 1) ``("data", "model")`` mesh (``train``'s
+   losses), phi3.5-moe at full width in 2 of its 32 layers through the
+   expert-parallel path (finite losses, drops a step; its MoE layer
+   against ``moe_reference``), and a llama-100m run that fails after a
+   save and resumes from it with ``restore_checkpoint(shardings=)``;
 8. ``train_profile``: outside the counted path, one llama step timed in
    halves (forward + backward, AdamW) and one under ``torch.profiler``
    (device time by kernel kind, top kernels);
@@ -1855,7 +1860,8 @@ def train_phase():
         raise AssertionError(f"training's flash launches were not all of "
                              f"the wgmma variant: {by_variant}")
     torch.cuda.empty_cache()
-    return {"flash_attention": launches, "rpc_post": hook_launches}
+    return {"flash_attention": launches, "rpc_post": hook_launches,
+            "losses": losses}
 
 
 def _kernel_kind(name: str) -> str:
@@ -3064,6 +3070,241 @@ def ckpt_train_phase():
     del live, like, hooked, last, va, oa, vb, ob, model
     torch.cuda.empty_cache()
     return {"flash_attention": flash, "rpc_post": posts}
+
+
+#: mesh_train: phi3.5-moe's depth cut (of 32 layers), its steps, the
+#: kill-and-resume's steps a part, and the losses' tolerance against runs
+#: whose embedding backward (``index_add_``, atomics) is not bitwise
+#: repeatable on the card; the first step, before any update, is exact.
+MESH_MOE_LAYERS, MESH_MOE_STEPS = 2, 3
+MESH_CKPT_STEPS = 2
+MESH_LOSS_RTOL = 1e-4
+
+
+class _Killed(RuntimeError):
+    """The failure :func:`_killed_at` injects."""
+
+
+@contextlib.contextmanager
+def _killed_at(step):
+    """With ``step``, ``launch/train.py::run``'s training step raises
+    :class:`_Killed` when called for the ``step``-th time (a run that
+    fails mid-way); without, nothing."""
+    if step is None:
+        yield
+        return
+    import repro_torch.launch.train as train
+    real = train.make_train_step
+
+    def dying(*args, **kwargs):
+        fn, calls = real(*args, **kwargs), []
+
+        def step_fn(*a):
+            calls.append(1)
+            if len(calls) == step:
+                raise _Killed(f"killed in step {step}")
+            return fn(*a)
+        return step_fn
+
+    train.make_train_step = dying
+    try:
+        yield
+    finally:
+        train.make_train_step = real
+
+
+def _mesh_counts(*fns):
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def mesh_train_phase(train_losses):
+    """Meshes, the model side, on the card: a world of one process
+    (``nccl``) and its one-device ``("data", "model")`` (1, 1) mesh, every
+    run through ``launch/train.py::run(mesh=)`` (blocks, the sharded step,
+    ``device_run(mesh=)``: its hooks stage on the sharded queue, one
+    ``rpc_enqueue`` a firing and one ``rpc_post`` a run).  Gates, each
+    failing the run:
+
+    * (a) llama3.2-3b at full width and depth, as ``train``: 4 steps of 2 x
+      1024, remat "full"; the losses are ``train``'s (the first exactly,
+      the rest within :data:`MESH_LOSS_RTOL`) and flash launches 2 x 28 a
+      step;
+    * (b) phi3.5-moe at full width, :data:`MESH_MOE_LAYERS` of 32 layers,
+      3 steps of 2 x 1024 through the expert-parallel path (ep 1): the
+      losses finite, the capacity drops a step at the config's 1.25
+      printed, flash 2 x 2 a step; and its MoE layer under the mesh at a
+      capacity that drops nothing against ``moe_reference`` within bf16's
+      tolerance;
+    * (c) ``ckpt_train``'s llama-100m, a run of 4 steps with a save every
+      2 that fails in its third step (:func:`_killed_at`): the save of
+      step 2 is on disk and no later one; the last 2 steps resumed from
+      it with ``restore_checkpoint(shardings=)`` log the losses of 4
+      steps uninterrupted, within :data:`MESH_LOSS_RTOL`.
+
+    The launch counts are set to 0 just before each run and read just
+    after.  The world is left after the phase."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+    from repro_torch import configs as registry
+    from repro_torch.ckpt import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingCtx, rows_over
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rpc_channel import rpc_post
+    from repro_torch.kernels.rpc_queue import rpc_enqueue
+    from repro_torch.launch.mesh import close_world, init_world, make_mesh
+    from repro_torch.launch.train import run
+    from repro_torch.models import moe
+
+    kernels = (flash_attention_cuda, rpc_post, rpc_enqueue)
+    t_phase = time.perf_counter()
+    init_world(device="cuda")
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    world_s = time.perf_counter() - t_phase
+    tmp = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    rec, launches = {"world_s": world_s}, {}
+
+    def one(tag, *args, kill_at=None, **kw):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # main path: counts from 0 just before, read just after
+        reset_launches(*kernels)
+        try:
+            with _killed_at(kill_at):
+                out = run(*args, device="cuda", mesh=mesh, **kw)
+        except _Killed:
+            # the failed run's logged losses were staged on the sharded
+            # queue, which drains only when the run ends
+            out = {"losses": [], "seconds": None, "killed": True}
+        torch.cuda.synchronize()
+        launches[tag] = _mesh_counts(*kernels)
+        rec[tag] = {"losses": [l for _, l in out["losses"]],
+                    "seconds": out["seconds"],
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": launches[tag]}
+        return out
+
+    try:
+        # (a) llama3.2-3b at full width and depth
+        one("llama", "llama3.2-3b", preset="full", steps=TRAIN_STEPS,
+            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=1)
+        got = rec["llama"]["losses"]
+        rec["llama"]["train_losses"] = train_losses
+        rec["llama"]["max_rel_diff"] = max(
+            abs(a - b) / abs(b) for a, b in zip(got, train_losses))
+        # (b) phi3.5-moe at full width, cut in depth, its drops a step
+        cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                                  name="phi3.5-moe-mesh",
+                                  num_layers=MESH_MOE_LAYERS)
+        registry.CONFIGS[cfg.name] = cfg
+        with moe.record_drops() as drops:
+            one("moe", cfg.name, preset="full", steps=MESH_MOE_STEPS,
+                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=1)
+        per = len(drops) // MESH_MOE_STEPS
+        rec["moe"].update(
+            params=cfg.num_params(), layers=cfg.num_layers,
+            capacity_factor=cfg.capacity_factor,
+            drops_per_step=[float(sum(drops[i * per:(i + 1) * per]))
+                            for i in range(MESH_MOE_STEPS)],
+            assignments_per_step=TRAIN_BATCH * TRAIN_SEQ *
+            cfg.experts_per_token * cfg.num_layers)
+        del drops
+        torch.cuda.empty_cache()
+        rec["moe_layer"] = _mesh_moe_layer(cfg, mesh, moe, ShardingCtx,
+                                           rows_over)
+        # (c) the kill-and-resume of ckpt_train's llama-100m
+        c100 = _example("train_100m_torch").full_100m()
+        registry.CONFIGS[c100.name] = c100
+        kw = dict(preset="full", batch=CKPT_BATCH, seq_len=CKPT_SEQ,
+                  lr=3e-3, log_every=1, total_steps=2 * MESH_CKPT_STEPS)
+        part1 = one("ckpt_part1", c100.name, steps=2 * MESH_CKPT_STEPS,
+                    ckpt_dir=tmp, ckpt_every=MESH_CKPT_STEPS,
+                    kill_at=MESH_CKPT_STEPS + 1, **kw)
+        newest = latest_step(tmp)
+        manifests = sorted(n for n in os.listdir(tmp)
+                           if n.startswith("manifest"))
+        part2 = one("ckpt_part2", c100.name, steps=MESH_CKPT_STEPS,
+                    ckpt_dir=tmp, resume=True, **kw)
+        one("ckpt_whole", c100.name, steps=2 * MESH_CKPT_STEPS, **kw)
+        rec["ckpt"] = {"arch": c100.name,
+                       "killed_in_step": MESH_CKPT_STEPS + 1,
+                       "killed": bool(part1.get("killed")),
+                       "manifests": manifests, "newest_manifest": newest,
+                       "resumed_from": part2["start_step"],
+                       "restore_s": part2["restore_s"]}
+    finally:
+        close_world()     # the later phases run without a process group
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log({"mesh_train": rec})
+
+    def same(a, b):
+        return len(a) == len(b) and a[:1] == b[:1] and all(
+            abs(x - y) <= MESH_LOSS_RTOL * abs(y) for x, y in zip(a, b))
+
+    L = get_config("llama3.2-3b").num_layers
+    resumed = rec["ckpt_part2"]["losses"]
+    after = rec["ckpt_whole"]["losses"][MESH_CKPT_STEPS:]
+    checks = {
+        "llama_losses_are_train_s": same(rec["llama"]["losses"],
+                                         train_losses),
+        "llama_flash": launches["llama"]["flash_attention_cuda"] ==
+        2 * L * TRAIN_STEPS,
+        "moe_losses_finite": len(rec["moe"]["losses"]) == MESH_MOE_STEPS
+        and all(math.isfinite(x) for x in rec["moe"]["losses"]),
+        "moe_flash": launches["moe"]["flash_attention_cuda"] ==
+        2 * MESH_MOE_LAYERS * MESH_MOE_STEPS,
+        "moe_layer_within_bf16": rec["moe_layer"]["ok"],
+        "moe_layer_no_drops": rec["moe_layer"]["drops"] == 0.0,
+        "killed_mid_run": rec["ckpt"]["killed"] and
+        rec["ckpt"]["manifests"] == [f"manifest-{MESH_CKPT_STEPS}.json"],
+        "resume_losses_are_uninterrupted": len(resumed) == len(after) ==
+        MESH_CKPT_STEPS and all(abs(x - y) <= MESH_LOSS_RTOL * abs(y)
+                                for x, y in zip(resumed, after)),
+        "resume_from_the_save": rec["ckpt"]["newest_manifest"] ==
+        MESH_CKPT_STEPS == rec["ckpt"]["resumed_from"],
+        # one staged record a logged step and one post a run; the failed
+        # run staged its steps before the failure and posted nothing
+        "hook_launches": all(
+            (launches[t]["rpc_enqueue"], launches[t]["rpc_post"]) ==
+            ((MESH_CKPT_STEPS, 0) if t == "ckpt_part1" else
+             (len(rec[t]["losses"]), 1)) for t in launches),
+    }
+    log({"mesh_train_checks": checks})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"mesh_train: failed {bad}")
+    return {"flash_attention": sum(c["flash_attention_cuda"]
+                                   for c in launches.values()),
+            "rpc_post": sum(c["rpc_post"] for c in launches.values()),
+            "rpc_enqueue": sum(c["rpc_enqueue"] for c in launches.values())}
+
+
+def _mesh_moe_layer(cfg, mesh, moe, ShardingCtx, rows_over):
+    """phi3.5-moe's MoE layer at full width on 2 x 1024 bf16 tokens under
+    the (1, 1) mesh (``_moe_local``, ep 1) at a capacity for every
+    assignment, against the dense ``moe_reference``."""
+    import dataclasses
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.moe_init(gen, cfg)
+    x = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                     device="cuda") * 0.5).to(torch.bfloat16)
+    roomy = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    with torch.no_grad():
+        with ShardingCtx(mesh), rows_over(("data", "model")), \
+                moe.record_drops() as drops:
+            y, aux = moe.moe_apply(p, x, roomy)
+        ref, aux_ref = moe.moe_reference(p, x.reshape(-1, cfg.d_model), cfg)
+    err, ok = _close(y.reshape(ref.shape), ref, "bfloat16")
+    out = {"tokens": TRAIN_BATCH * TRAIN_SEQ, "max_abs_err": err,
+           "tol": TOL["bfloat16"], "ok": ok,
+           "aux": float(aux), "aux_ref": float(aux_ref),
+           "drops": float(sum(drops))}
+    del p, x, y, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 def _hybrid_train_cfg():
@@ -7679,6 +7920,7 @@ def main() -> int:
     summary["flash_attention"] = at_flash["train"]
     timed(prefill_phase)
     train = timed(train_phase)
+    mesh_train = timed(mesh_train_phase, train["losses"])
     timed(train_profile)
     at_ssd = timed(ssd_kernel_phase, card_line)
     summary["ssd_scan"] = at_ssd["prefill"]
@@ -7742,6 +7984,7 @@ def main() -> int:
                             "moe_fp32": moe32["paged_attention"],
                             "vlm_serve": vlm["paged_attention"]},
         "flash_attention": {"train": train["flash_attention"],
+                            "mesh_train": mesh_train["flash_attention"],
                             "encdec_serve": encdec["flash_attention"],
                             "encdec_fp32": encdec32["flash_attention"],
                             "vlm_serve": vlm["flash_attention"],
@@ -7767,7 +8010,8 @@ def main() -> int:
                         "gpu_first": gpu_first,
                         "paper_eval": paper_eval["rpc_post"],
                         "analysis": analysis["rpc_post"],
-                        "mesh": mesh["rpc_post"]},
+                        "mesh": mesh["rpc_post"],
+                        "mesh_train": mesh_train["rpc_post"]},
         "rpc_queue": {"rpc_queue": queue_launches, "libc_io": libc_launches,
                       "device_run_hooks": hook_enqueues,
                       "serve_spill": spill["rpc_enqueue"],
@@ -7776,7 +8020,8 @@ def main() -> int:
                       "manifest": manifest["rpc_enqueue"],
                       "paper_eval": paper_eval["rpc_enqueue"],
                       "analysis": analysis["rpc_enqueue"],
-                      "mesh": mesh["rpc_enqueue"]},
+                      "mesh": mesh["rpc_enqueue"],
+                      "mesh_train": mesh_train["rpc_enqueue"]},
     }
     for name in ENTRY_NAMES["rpc_async"]:
         by_path[name] = {"rpc_queue_async": async_queue[name],

@@ -34,7 +34,14 @@ writes its int32 step.  Two differences from the JAX package:
 * the JAX package cannot restore a bf16 leaf (``np.load`` gives raw
   ``V2`` records, which numpy does not cast); the port can.
 
-Restoring onto a mesh (``shardings=``) waits for ROADMAP queue 1, item 5.5.
+On a mesh, as JAX's "elastic restore": the manifest keeps full (logical)
+shapes, and :func:`restore_checkpoint` with ``shardings=`` reads each
+rank's block of each leaf through a memory map of its ``.npy``, so a
+checkpoint saved by a world of any size restores on a world of any other
+(a pure resharding).  :meth:`CheckpointManager.mesh_save` saves from a
+sharded run's step: the state is all-gathered to full leaves and the
+first rank alone queues their write, so the files are the ones a run
+without a mesh writes.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ import torch
 
 from repro_torch.core.device_main import HostHook
 from repro_torch.core.rpc import RpcManifest, ShapeDtype, _torch_dtype
+from repro_torch.distributed.sharding import block
 from repro_torch.models.model_zoo import resolve_device
 from repro_torch.tree import flatten_with_paths, tree_map, unflatten
 
@@ -172,8 +180,9 @@ def load_transport(directory: str,
     return RpcManifest.from_json(json.dumps(section))
 
 
-def _load_leaf(directory: str, ent: dict, want, device) -> Any:
-    arr = np.load(os.path.join(directory, ent["file"]))
+def _load_leaf(directory: str, ent: dict, want, device,
+               sharding=None) -> Any:
+    arr = np.load(os.path.join(directory, ent["file"]), mmap_mode="r")
     if list(arr.shape) != list(want.shape if hasattr(want, "shape")
                                else ()):
         raise ValueError(f"checkpoint leaf {ent['file']} has shape "
@@ -181,6 +190,8 @@ def _load_leaf(directory: str, ent: dict, want, device) -> Any:
                          f"{list(getattr(want, 'shape', ()))}")
     if isinstance(want, int) and not isinstance(want, bool):
         return int(arr)
+    if sharding is not None:
+        arr = block(arr, sharding)
     if ent["dtype"] == _BF16:
         t = torch.from_numpy(np.array(arr).view(np.int16)).view(
             torch.bfloat16)
@@ -198,16 +209,17 @@ def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
     restored leaf lands on its tensor's device), of
     :class:`~repro_torch.core.rpc.ShapeDtype` stand-ins (on ``device``,
     the card unless the caller asks for the CPU) or of Python ints.
-    Returns ``(step, tree)``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh (shardings=) waits for ROADMAP queue 1, "
-            "item 5.5 (meshes, the model side)")
+    ``shardings`` (the same structure, ``distributed.sharding.
+    NamedSharding`` leaves, or None for a leaf restored whole) gives this
+    rank its block of each leaf, read through a memory map; ``like``
+    keeps the full shapes.  Returns ``(step, tree)``."""
     step, manifest = read_manifest(directory, step)
     flat_like = flatten_with_paths(like)
+    flat_sh = flatten_with_paths(shardings) if shardings is not None else {}
     if any(isinstance(w, ShapeDtype) for w in flat_like.values()):
         device = resolve_device(device)
-    loaded = [_load_leaf(directory, manifest["entries"][key], want, device)
+    loaded = [_load_leaf(directory, manifest["entries"][key], want, device,
+                         flat_sh.get(key))
               for key, want in flat_like.items()]
     return step, unflatten(like, loaded)
 
@@ -219,7 +231,8 @@ class CheckpointManager:
     writer thread's time), ``hook_s`` ``(step, seconds)`` of each firing
     of :meth:`host_hook`'s host function (the copy out of the transport
     and the wait for room in the queue: on a card the device waits that
-    long); ``errors`` the exceptions of failed saves."""
+    long) or of :meth:`mesh_save` (the gather, the wait for the device
+    and the copy); ``errors`` the exceptions of failed saves."""
 
     def __init__(self, directory: str, *, queue_depth: int = 2):
         self.directory = directory
@@ -289,3 +302,23 @@ class CheckpointManager:
 
         return HostHook(every=every, extract=extract_and_remember,
                         host_fn=host_fn)
+
+    def mesh_save(self, step: int, tree: Any, gather, first: bool
+                  ) -> None:
+        """The save of a run under ``device_run(mesh=)``, called from its
+        step on every rank: ``gather(tree)`` (a collective: full leaves),
+        then, on the first rank alone (``first``), :meth:`submit`.  Its
+        seconds go to ``hook_s``.
+
+        The save does not ride the run's sharded queue, which drains only
+        at the program boundary (JAX's rule for callbacks in a
+        partitioned region): a save there would land when the run ends
+        and the queue would hold every one.  So the first rank copies the
+        full leaves to the host at the save's step (the host waits for
+        the device there) and the writer thread writes them while the
+        loop goes on, as in a run without a mesh."""
+        t0 = time.perf_counter()
+        full = gather(tree)
+        if first:
+            self.submit(step, full)
+            self.hook_s.append((int(step), time.perf_counter() - t0))

@@ -66,6 +66,27 @@ def params_from_jax(values: Dict[str, Any], *, device) -> Dict[str, Any]:
     return out
 
 
+def axes_from_jax(axes: Dict[str, Any], values: Dict[str, Any]
+                  ) -> Dict[str, Any]:
+    """JAX's logical-axes tree (``split_params``'s second tree) -> the
+    port's layout: each stacked group's axes, their leading ``"stack"``
+    dropped, repeated for its layers (counted in ``values``, the matching
+    JAX values or shapes)."""
+    def unstack(a):
+        if isinstance(a, dict):
+            return {k: unstack(v) for k, v in a.items()}
+        if a[:1] != ("stack",):
+            raise ValueError(f"a stacked leaf's axes {a!r} lack 'stack'")
+        return tuple(a[1:])
+
+    out = {k: v for k, v in axes.items() if k not in _STACKED}
+    for key in _STACKED:
+        if key in axes:
+            n = np.shape(values[key]["ln1"])[0]
+            out[key] = [unstack(axes[key]) for _ in range(n)]
+    return out
+
+
 def _stack(layer_list):
     """A list of per-layer trees -> one tree of leaves stacked on axis 0."""
     first = layer_list[0]

@@ -78,7 +78,10 @@ class HostHook:
     """A periodic host escape from the device main loop.
 
     every:    fire after step ``s`` (counted from 1) when ``s % every == 0``
-    extract:  (step, state) -> tree of tensors shipped to the host
+    extract:  (step, state) -> tree of tensors shipped to the host; a
+              batched hook's (every hook's under ``mesh=``) may return
+              None to stage nothing, as every team but one does with a
+              payload that all the teams gather together
     host_fn:  host callback receiving (step, *leaves); immediate hooks get
               each leaf as a numpy array (bf16 as float32), batched ones a
               0-d leaf as a Python int or float and an array as a 1-D
@@ -188,9 +191,12 @@ def _fire(hook: HostHook, hname: str, step: int, state: Any) -> None:
 
 def _fire_batched(hook: HostHook, hname: str, step: int, state: Any,
                   q: RpcQueue) -> None:
-    """Batched hook: one record on firing steps, none on silent ones."""
+    """Batched hook: one record on firing steps, none on silent ones or
+    where ``extract`` returns None (a team with nothing to stage)."""
     if _fires(hook, step):
-        q.enqueue(hname, step, *leaves(hook.extract(step, state)))
+        payload = hook.extract(step, state)
+        if payload is not None:
+            q.enqueue(hname, step, *leaves(payload))
 
 
 def _fire_returning(hook: HostHook, hname: str, step: int, state: Any,

@@ -38,9 +38,9 @@ mesh runs the same code.
   same loop as a sequential Python loop (``lax.map``'s single-team
   semantics, the baseline column of the paper's Figs. 8-10).
 
-Specs are the port's small :class:`P`: ``P()`` (replicated) and
-``P(axes)`` (the leading dimension over those axes), the only ones the
-JAX package's callers of ``expand`` pass.  A queue flush inside a region
+Specs are the port's :class:`P`; ``expand`` takes ``P()`` (replicated)
+and ``P(axes)`` (the leading dimension over those axes), the only ones
+the JAX package's callers of ``expand`` pass.  A queue flush inside a region
 raises ``RuntimeError``, as JAX's does: enqueue in the region and flush
 at the program boundary.
 """
@@ -213,9 +213,11 @@ def team_ptr(local_ptr) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class P(tuple):
-    """A partition spec, the subset the port supports: ``P()`` replicated,
-    ``P(axes)`` the leading dimension split over ``axes`` (a mesh axis
-    name or a tuple of them), row-major in their order."""
+    """A partition spec (JAX's ``PartitionSpec``): one entry a dimension,
+    None, a mesh axis name or a tuple of them (split row-major in their
+    order).  ``distributed/sharding.py`` computes full specs; ``expand``
+    takes two: ``P()`` replicated and ``P(axes)`` over the leading
+    dimension."""
 
     def __new__(cls, *parts):
         return super().__new__(cls, parts)

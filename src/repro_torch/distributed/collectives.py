@@ -15,7 +15,11 @@ exported).
   flat fall-backs without an inter axis, for a 0-d tensor, or a leading
   dimension that ``intra_axis`` does not divide.
 * :func:`all_to_all_tokens`: tiled all-to-all (split, send chunk ``j`` to
-  rank ``j``, concatenate what arrives in rank order).
+  rank ``j``, concatenate what arrives in rank order), differentiable (its
+  backward is the reverse all-to-all), as are :func:`psum_autograd` and
+  :func:`gather_autograd` (the MoE layer's collectives in training).
+* :func:`reduce_scatter_dim`: a sum over one axis cut along any dim
+  (the sharded step's gradients to their ZeRO-1 blocks).
 * :func:`barrier`, :func:`global_norm_sq`.
 * :func:`gather_blocks`: every team's block along dim 0, row-major over
   the axes (how an expanded region's sharded outputs come back whole).
@@ -126,6 +130,15 @@ def hierarchical_psum(x: torch.Tensor, mesh=None, *, intra_axis: str = "data",
     return gather_blocks(shard, mesh, intra_axis)
 
 
+def reduce_scatter_dim(x: torch.Tensor, axis: str, dim: int, mesh
+                       ) -> torch.Tensor:
+    """Sum over ``axis`` and keep this rank's block of dim ``dim`` (block
+    ``i`` of ``n`` equal ones for the rank at ``i`` on the axis): one
+    reduce-scatter."""
+    return _wait(_reduce_scatter(x.contiguous(), "sum", dim,
+                                 mesh.get_group(axis)))
+
+
 def all_to_all_tokens(x: torch.Tensor, axis: str, *, split_dim: int,
                       concat_dim: int, mesh=None) -> torch.Tensor:
     """Tiled all-to-all over ``axis`` (JAX's ``lax.all_to_all(...,
@@ -138,11 +151,33 @@ def all_to_all_tokens(x: torch.Tensor, axis: str, *, split_dim: int,
     if x.shape[split_dim] % n:
         raise ValueError(f"all_to_all_tokens: dim {split_dim} of "
                          f"{tuple(x.shape)} does not split {n} ways")
+    if n == 1:
+        return x
     moved = x.movedim(split_dim, 0).contiguous()
-    got = _wait(funcol.all_to_all_single(moved, None, None,
-                                         mesh.get_group(axis)))
+    got = _wait(funcol.all_to_all_single_autograd(
+        moved, None, None, mesh.get_group(axis)))
     chunks = got.movedim(0, split_dim).chunk(n, dim=split_dim)
     return torch.cat(chunks, dim=concat_dim)
+
+
+def psum_autograd(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """Sum over ``axes`` whose backward sums the cotangents over them
+    (JAX's ``psum`` under ``grad``); axes of one rank are skipped."""
+    from torch.distributed.nn.functional import all_reduce
+    for ax in _axes(mesh, axes):
+        if _size(mesh, ax) > 1:
+            x = all_reduce(x, group=mesh.get_group(ax))
+    return x
+
+
+def gather_autograd(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """:func:`gather_blocks`, differentiable: the backward hands each
+    team the cotangent of its block, summed over the ranks."""
+    for ax in reversed(_axes(mesh, axes)):
+        if _size(mesh, ax) > 1:
+            x = _wait(funcol.all_gather_tensor_autograd(
+                x.contiguous(), 0, mesh.get_group(ax)))
+    return x
 
 
 def barrier(axis: Axes = None, mesh=None) -> None:

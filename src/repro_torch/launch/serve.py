@@ -7,8 +7,8 @@
 width and depth with random weights from seed 0; an architecture whose
 weights exceed the device's memory is refused (phi3.5-moe-42b-a6.6b: 32
 layers of bf16 weights, 83.7 GB by its config's parameter count, more
-than an 80 GB card holds; it needs ROADMAP item 5.5's sharded
-weights).  ``--preset tiny`` serves the small preset of
+than an 80 GB card holds; the serve CLI has no mesh option, as JAX's
+has none).  ``--preset tiny`` serves the small preset of
 ``launch/train.py``, for any of the engine's families (dense, moe and
 vlm: qwen2-vl-2b is served on token prompts, as JAX's engine serves
 it).  A family the engine does not serve (ssm, hybrid, encdec) is refused
@@ -85,8 +85,8 @@ def check_fits(cfg, device) -> None:
             f"{cfg.name} at {cfg.num_layers} layers holds {need / 1e9:.1f} "
             f"GB of {cfg.param_dtype} weights, more than the "
             f"{have / 1e9:.1f} GB of one {dev.type} device: it does not fit "
-            "one card; serving it sharded over a mesh is ROADMAP queue 1, "
-            "item 5.5 (use --preset tiny)")
+            "one card, and this CLI serves on one device (it has no mesh "
+            "option, as the JAX package's has none; use --preset tiny)")
 
 
 def main(argv=None):

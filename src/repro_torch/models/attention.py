@@ -22,6 +22,18 @@ from repro_torch.models import common
 from repro_torch.models.common import normal, torch_dtype, zeros
 
 
+def attn_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical axes of :func:`attn_init`'s leaves (JAX's ``Param.axes``)."""
+    axes = {"wq": ("fsdp", "heads", "head_dim"),
+            "wk": ("fsdp", "kv_heads", "head_dim"),
+            "wv": ("fsdp", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "fsdp")}
+    if cfg.qkv_bias:
+        axes.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                    bv=("kv_heads", "head_dim"))
+    return axes
+
+
 def attn_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Q heads zero-padded to ``cfg.padded_heads``: pad rows of ``wq`` and
     ``wo`` are zero and their outputs are masked in ``_mask_heads``."""

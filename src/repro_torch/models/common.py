@@ -59,6 +59,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 # Embedding / LM head
 # ---------------------------------------------------------------------------
 
+#: Logical axes (JAX's ``Param.axes``) of the norm scales, the embedding
+#: table (replicated: ZeRO-1 shards its fp32 copies) and the LM head.
+NORM_AXES = (None,)
+EMBED_AXES = (None, None)
+LM_HEAD_AXES = ("fsdp", "vocab")
+
+
 def embedding_init(gen: torch.Generator, cfg: ModelConfig) -> torch.Tensor:
     return normal(gen, (cfg.padded_vocab, cfg.d_model),
                   torch_dtype(cfg.param_dtype), scale=0.02)

@@ -24,10 +24,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.attention import (
-    attn_apply, attn_decode, attn_init, cross_attn_apply, cross_attn_decode,
-    cross_kv)
-from repro_torch.models.common import ones, rmsnorm, torch_dtype
-from repro_torch.models.mlp import mlp_apply, mlp_init
+    attn_apply, attn_axes, attn_decode, attn_init, cross_attn_apply,
+    cross_attn_decode, cross_kv)
+from repro_torch.models.common import (
+    EMBED_AXES, LM_HEAD_AXES, NORM_AXES, ones, rmsnorm, torch_dtype)
+from repro_torch.models.mlp import MLP_AXES, mlp_apply, mlp_init
 from repro_torch.models.transformer import _remat
 
 
@@ -68,6 +69,17 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
         "ln_enc": ones((cfg.d_model,), pd, gen.device),
         "ln_f": ones((cfg.d_model,), pd, gen.device),
     }
+
+
+def encdec_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`encdec_init`'s tree, leaf for leaf."""
+    enc = [{"ln1": NORM_AXES, "attn": attn_axes(cfg), "ln2": NORM_AXES,
+            "mlp": dict(MLP_AXES)} for _ in range(cfg.encoder_layers)]
+    dec = [{"ln1": NORM_AXES, "self_attn": attn_axes(cfg), "ln_x": NORM_AXES,
+            "cross_attn": attn_axes(cfg), "ln2": NORM_AXES,
+            "mlp": dict(MLP_AXES)} for _ in range(cfg.decoder_layers)]
+    return {"embed": EMBED_AXES, "lm_head": LM_HEAD_AXES, "enc_layers": enc,
+            "dec_layers": dec, "ln_enc": NORM_AXES, "ln_f": NORM_AXES}
 
 
 def _enc_layer(layer, x: torch.Tensor, angles: torch.Tensor, *,

@@ -10,6 +10,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import normal, torch_dtype
 
 
+#: Logical axes of :func:`mlp_init`'s leaves (JAX's ``Param.axes``).
+MLP_AXES = {"wi_gate": ("fsdp", "ffn"), "wi_up": ("fsdp", "ffn"),
+            "wo": ("ffn", "fsdp")}
+
+
 def mlp_init(gen: torch.Generator, cfg: ModelConfig,
              d_ff: Optional[int] = None) -> Dict[str, torch.Tensor]:
     d = cfg.d_model

@@ -50,6 +50,25 @@ class Model:
             return encdec.encdec_init(gen, self.cfg)
         return transformer.lm_init(gen, self.cfg)
 
+    def param_axes(self) -> Dict[str, Any]:
+        """The logical axes of :meth:`init`'s tree, leaf for leaf (JAX's
+        ``Param.axes`` in the per-layer-list layout)."""
+        if self.is_encdec:
+            return encdec.encdec_axes(self.cfg)
+        return transformer.lm_axes(self.cfg)
+
+    def param_specs(self) -> Tuple[Any, Any]:
+        """(:class:`~repro_torch.core.rpc.ShapeDtype` tree, axes tree) of
+        :meth:`init`, allocating nothing (JAX's ``eval_shape``): the init
+        runs on fake tensors."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from repro_torch.tree import tree_map
+        init = encdec.encdec_init if self.is_encdec else transformer.lm_init
+        with FakeTensorMode():
+            tree = init(torch.Generator(device="cpu"), self.cfg)
+            specs = tree_map(lambda t: ShapeDtype(t.shape, t.dtype), tree)
+        return specs, self.param_axes()
+
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.is_encdec:
             return encdec.encdec_forward(params, batch, self.cfg)
@@ -145,3 +164,22 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ShapeDtype]:
     else:
         batch["tokens"] = ShapeDtype((B, S), i32)
     return batch
+
+
+def batch_sharding_axes(cfg: ModelConfig, shape: ShapeConfig
+                        ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The logical axes of each :func:`input_specs` leaf."""
+    if shape.kind not in ("train", "prefill"):
+        return {"tokens": ("batch",)}
+    axes: Dict[str, Tuple[Optional[str], ...]] = {}
+    if cfg.embeds_input:
+        axes["embeds"] = ("batch", "seq", "embed")
+        if cfg.family == "encdec":
+            axes["tokens"] = ("batch", "seq")
+        else:
+            axes["labels"] = ("batch", "seq")
+            if cfg.mrope_sections:
+                axes["positions"] = (None, "batch", "seq")
+    else:
+        axes["tokens"] = ("batch", "seq")
+    return axes

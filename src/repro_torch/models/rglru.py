@@ -28,6 +28,15 @@ from repro_torch.models.common import normal, torch_dtype, zeros
 _C = 8.0
 
 
+#: Logical axes of :func:`rglru_init`'s leaves (JAX's ``Param.axes``).
+RGLRU_AXES = {
+    "in_proj": ("fsdp", "lru"), "gate_proj": ("fsdp", "lru"),
+    "conv_w": ("conv", "lru"), "conv_b": ("lru",), "g_r": ("lru",),
+    "b_r": ("lru",), "g_i": ("lru",), "b_i": ("lru",), "a_param": ("lru",),
+    "out_proj": ("lru", "fsdp"),
+}
+
+
 def rglru_init(gen: torch.Generator, cfg: ModelConfig
                ) -> Dict[str, torch.Tensor]:
     d, w = cfg.d_model, cfg.lru_width

@@ -26,6 +26,16 @@ def _dims(cfg: ModelConfig):
     return di, n, h, di + 2 * n         # conv_dim: x, B, C
 
 
+#: Logical axes of :func:`ssd_init`'s leaves (JAX's ``Param.axes``).
+SSD_AXES = {
+    "in_proj_zx": ("fsdp", "ssm_inner"), "in_proj_bc": ("fsdp", "ssm_state"),
+    "in_proj_dt": ("fsdp", None), "conv_w": ("conv", "ssm_inner"),
+    "conv_b": ("ssm_inner",), "dt_bias": ("ssm_heads",),
+    "a_log": ("ssm_heads",), "d_skip": ("ssm_heads",),
+    "gate_norm": ("ssm_inner",), "out_proj": ("ssm_inner", "fsdp"),
+}
+
+
 def ssd_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     d = cfg.d_model
     di, n, h, conv_dim = _dims(cfg)

@@ -21,15 +21,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import checkpoint_contexts
 from repro_torch.models import common
-from repro_torch.models.attention import attn_apply, attn_decode, attn_init
-from repro_torch.models.common import ones, rmsnorm, torch_dtype
-from repro_torch.models.mlp import mlp_apply, mlp_init
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.attention import (
+    attn_apply, attn_axes, attn_decode, attn_init)
+from repro_torch.models.common import (
+    EMBED_AXES, LM_HEAD_AXES, NORM_AXES, ones, rmsnorm, torch_dtype)
+from repro_torch.models.mlp import MLP_AXES, mlp_apply, mlp_init
+from repro_torch.models.moe import MOE_AXES, moe_apply, moe_init
 from repro_torch.models.rglru import (
-    rglru_apply, rglru_decode, rglru_init, rglru_init_cache)
+    RGLRU_AXES, rglru_apply, rglru_decode, rglru_init, rglru_init_cache)
 from repro_torch.models.ssd import (
-    ssd_apply, ssd_decode, ssd_init, ssd_init_cache)
+    SSD_AXES, ssd_apply, ssd_decode, ssd_init, ssd_init_cache)
 
 LM_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
@@ -120,6 +123,36 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     return params
 
 
+def _attn_layer_axes(cfg: ModelConfig) -> dict:
+    return {"ln1": NORM_AXES, "attn": attn_axes(cfg), "ln2": NORM_AXES,
+            **({"moe": dict(MOE_AXES)} if cfg.is_moe
+               else {"mlp": dict(MLP_AXES)})}
+
+
+def lm_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`lm_init`'s tree, leaf for leaf (JAX's
+    ``Param.axes``; its stacked layers' leading ``"stack"`` has no
+    counterpart in the per-layer lists)."""
+    check_family(cfg)
+    axes: Dict[str, Any] = {"embed": EMBED_AXES, "ln_f": NORM_AXES}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = LM_HEAD_AXES
+    if cfg.family == "hybrid":
+        kinds = hybrid_layer_kinds(cfg)
+        axes["rec_layers"] = [
+            {"ln1": NORM_AXES, "rglru": dict(RGLRU_AXES), "ln2": NORM_AXES,
+             "mlp": dict(MLP_AXES)} for k in kinds if k == "rec"]
+        axes["attn_layers"] = [_attn_layer_axes(cfg)
+                               for k in kinds if k == "attn"]
+    elif cfg.family == "ssm":
+        axes["layers"] = [{"ln1": NORM_AXES, "ssd": dict(SSD_AXES)}
+                          for _ in range(cfg.num_layers)]
+    else:
+        axes["layers"] = [_attn_layer_axes(cfg)
+                          for _ in range(cfg.num_layers)]
+    return axes
+
+
 def _lm_head(params, cfg: ModelConfig) -> torch.Tensor:
     """LM head weights (d, V)."""
     if cfg.tie_embeddings:
@@ -144,7 +177,8 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=checkpoint_contexts)
     return wrapped
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -82,22 +82,31 @@ def global_clip(grads: List[torch.Tensor], clip_norm: float
 
 
 @torch.no_grad()
-def adamw_update(grads: Any, opt: OptState, cfg: OptConfig, like: Any
+def adamw_update(grads: Any, opt: OptState, cfg: OptConfig, like: Any,
+                 grad_norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, OptState, Dict[str, Any]]:
     """One AdamW step.  ``grads`` is a tree matching ``like`` (the
     parameters), or its leaves in :func:`~repro_torch.tree.leaves` order.
     Returns (``like``, updated in place and cast leaf-wise to its dtypes,
     the new state, metrics); ``opt``'s master and moments are updated in
-    place too and belong to the new state."""
+    place too and belong to the new state.  ``like=None`` updates the
+    state alone; ``grad_norm`` (the global norm of gradients that this
+    rank holds only blocks of) replaces the norm of ``grads``."""
     gl = leaves(grads)
-    scale, gnorm = global_clip(gl, cfg.clip_norm)
+    if grad_norm is None:
+        scale, gnorm = global_clip(gl, cfg.clip_norm)
+    else:
+        gnorm = grad_norm
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
     step = opt.step + 1
     lr = cosine_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = float(1 - _f(b1) ** _f(step))
     bc2 = float(1 - _f(b2) ** _f(step))
+    targets = leaves(like) if like is not None else [None] * len(gl)
     for g, p, m, n, v in zip(gl, leaves(opt.master), leaves(opt.mu),
-                             leaves(opt.nu), leaves(like)):
+                             leaves(opt.nu), targets):
         g = g.float() if g.dtype != torch.float32 else g.clone()
         g.mul_(scale)
         m.mul_(b1).add_(g, alpha=1 - b1)
@@ -107,7 +116,8 @@ def adamw_update(grads: Any, opt: OptState, cfg: OptConfig, like: Any
         upd.div_(g.sqrt_().add_(cfg.eps))
         upd.add_(p, alpha=cfg.weight_decay)
         p.add_(upd, alpha=-lr)
-        v.copy_(p)
+        if v is not None:
+            v.copy_(p)
         del g, upd          # free before the next leaf's temporaries
     return like, OptState(opt.master, opt.mu, opt.nu, step), \
         {"grad_norm": gnorm, "lr": lr}

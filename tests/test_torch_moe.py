@@ -96,11 +96,23 @@ def test_moe_reference_matches_jax(arch, dtype):
     _close(tprobs, jprobs, TOL["float32"])
     _close(ty, jy, TOL[dtype])
     _close(taux, jaux, TOL["float32"])
-    # moe_apply without a mesh is the reference; with one, item 5
+    # moe_apply without a mesh is the reference; under a one-device mesh
+    # the expert-parallel path (ep 1), which drops nothing at a capacity
+    # for every token and gives the same y and aux
     ya, auxa = t_moe.moe_apply(tvals, tx.reshape(2, 12, -1), tcfg)
     assert torch.equal(ya.reshape(24, -1), ty) and torch.equal(auxa, taux)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_moe.moe_apply(tvals, tx[None], tcfg, mesh=object())
+    from repro_torch.distributed.sharding import ShardingCtx, rows_over
+    from repro_torch.launch.mesh import init_world, make_mesh
+    init_world(device="cpu")
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    roomy = dataclasses.replace(tcfg, capacity_factor=float(
+        tcfg.num_experts))
+    with ShardingCtx(mesh), rows_over(("data", "model")), \
+            t_moe.record_drops() as drops:
+        ye, auxe = t_moe.moe_apply(tvals, tx.reshape(2, 12, -1), roomy)
+    assert [float(d) for d in drops] == [0.0]
+    _close(ye.reshape(24, -1), jy, TOL[dtype])
+    _close(auxe, jaux, TOL["float32"])
 
 
 def test_moe_reference_routing_topk():
@@ -290,7 +302,7 @@ def test_serve_cli_serves_moe_tiny_and_refuses_full(capsys):
     assert out.count("[serve] request") == 2
     cfg = get_config("phi3.5-moe-42b-a6.6b")
     assert serve.weight_bytes(cfg) > 80e9          # 32 layers, bf16
-    # more than any device holds: refused, naming the mesh item
-    with pytest.raises(SystemExit, match="does not fit one card.*item 5"):
+    # more than any device holds: refused, saying the CLI has no mesh
+    with pytest.raises(SystemExit, match="does not fit one card.*no mesh"):
         serve.check_fits(dataclasses.replace(cfg, num_layers=10 ** 4),
                          "cpu")

@@ -248,9 +248,21 @@ def test_make_train_step_microbatches_matches_jax(pair):
     _close(tm["tokens"], jm["tokens"])
     _check_tree(tv, jax.tree.map(np.asarray, jv),
                 lambda t, j: _close(t, j, 0.0, atol=2e-4))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        make_train_step(tmodel, OptConfig(), microbatches=2,
-                        gather_once=True)
+    # gather_once: the whole microbatch loop differentiated at once
+    jstep = j_make_train_step(jmodel, axes, JOptConfig(**cfg),
+                              microbatches=2, gather_once=True)
+    jv, jopt, jm = jstep(values, j_adamw_init(values),
+                         {"tokens": jnp.asarray(tokens)})
+    tstep = make_train_step(tmodel, OptConfig(**cfg), microbatches=2,
+                            gather_once=True)
+    tv = tree_map(lambda t: t.clone(), tparams)
+    tv, topt, tm = tstep(tv, adamw_init(tv),
+                         {"tokens": torch.from_numpy(tokens)})
+    _close(tm["loss"], jm["loss"], 2e-5)
+    _close(tm["grad_norm"], jm["grad_norm"], 2e-5)
+    # the parameters after one Adam step, as the accumulating path's
+    _check_tree(tv, jax.tree.map(np.asarray, jv),
+                lambda t, j: _close(t, j, 0.0, atol=2e-4))
 
 
 def test_device_run_hooks_fire_as_in_jax():
@@ -326,8 +338,16 @@ def test_train_cli_on_the_cpu(capsys):
           "--log-every", "1"])
     out = capsys.readouterr().out
     assert "[train] step 2 loss" in out and "final_loss" in out
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        run("llama3.2-3b", device="cpu", steps=1, mesh=object())
+    # a one-device (data, model) mesh of a world of one trains as the run
+    # without a mesh, bit for bit
+    from repro_torch.launch.mesh import init_world, make_mesh
+    init_world(device="cpu")
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    kw = dict(device="cpu", steps=2, batch=2, seq_len=16, log_every=1)
+    plain = run("llama3.2-3b", **kw)
+    meshed = run("llama3.2-3b", mesh=mesh, **kw)
+    assert meshed["losses"] == plain["losses"]
+    assert meshed["final_loss"] == plain["final_loss"]
 
 
 def test_train_cli_checkpoints_and_resumes_on_the_cpu(capsys, tmp_path):
