@@ -1959,8 +1959,82 @@ def train_profile(arch="llama3.2-3b", rows=TRAIN_BATCH, seq=TRAIN_SEQ):
         "fwd_bwd_ms": (t1 - t0) * 1e3, "adamw_ms": (t2 - t1) * 1e3,
         "profiled_step_ms": (t4 - t3) * 1e3,
         **_profile_summary(prof, 1, (t2 - t0) * 1e3)}})
+    if arch == "llama3.2-3b":
+        dryrun_line(model, params, opt, step_fn, batch)
     del params, opt, model, step_fn
     torch.cuda.empty_cache()
+
+
+#: The card's counted FLOPs of a step against the CPU's fake and meta
+#: counts of the same step (``launch/opcost.py``): relative difference.
+DRYRUN_FLOP_TOL = 0.01
+
+
+def dryrun_line(model, params, opt, step_fn, batch):
+    """The dry run's counter on the card: one training step of the train
+    phase's llama3.2-3b under ``OpCost``, held against the same step
+    counted on the CPU on ``FakeTensorMode`` tensors and on the meta
+    tensors of ``launch/dryrun.py`` (FLOPs within
+    :data:`DRYRUN_FLOP_TOL`), beside the step's time measured without the
+    counter and its compute and memory terms at the dry run's H100
+    constants."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.opcost import OpCost
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.tree import tree_map
+
+    t_line = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, _ = step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with OpCost() as card:
+        params, opt, _ = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+
+    def on_cpu(device):
+        t = time.perf_counter()
+        like = lambda x: torch.zeros(x.shape, dtype=x.dtype,  # noqa: E731
+                                     device=device)
+        vals = tree_map(like, params)
+        cpu_batch = {k: like(v) for k, v in batch.items()}
+        with OpCost() as c:
+            step_fn(vals, adamw_init(vals), cpu_batch)
+        return c.summary(), time.perf_counter() - t
+
+    with FakeTensorMode():
+        fake, fake_s = on_cpu("cpu")
+    meta, meta_s = on_cpu("meta")
+    got = card.summary()
+    rel = {k: abs(got["flops"] - c["flops"]) / c["flops"]
+           for k, c in (("fake", fake), ("meta", meta))}
+    compute_s = got["flops"] / dryrun.PEAK_FLOPS
+    memory_s = got["bytes"] / dryrun.HBM_BW
+    log({"dryrun": {
+        "arch": "llama3.2-3b", "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+        "card": nvidia_smi(), "counted_flops": got["flops"],
+        "counted_bytes": got["bytes"],
+        "flops_by_class": got["flops_by_class"],
+        "kernel_calls": got["kernel_calls"], "ops": got["ops"],
+        "fake_cpu_flops": fake["flops"], "meta_cpu_flops": meta["flops"],
+        "fake_cpu_bytes": fake["bytes"], "meta_cpu_bytes": meta["bytes"],
+        "flops_rel_diff": rel, "step_ms": step_s * 1e3,
+        "counted_step_ms": counted_s * 1e3,
+        "compute_ms": compute_s * 1e3, "memory_ms": memory_s * 1e3,
+        "compute_over_step": compute_s / step_s,
+        "memory_over_step": memory_s / step_s,
+        "fake_count_s": fake_s, "meta_count_s": meta_s,
+        "seconds": time.perf_counter() - t_line}})
+    if not got["flops"] > 0 or got["kernel_calls"]["flash_attention"] == 0:
+        raise AssertionError(f"the counter saw no step on the card: {got}")
+    if max(rel.values()) > DRYRUN_FLOP_TOL:
+        raise AssertionError(f"the card's counted FLOPs {got['flops']} are "
+                             f"not within {DRYRUN_FLOP_TOL} of the CPU's "
+                             f"(fake {fake['flops']}, meta {meta['flops']})")
 
 
 # ---------------------------------------------------------------------------

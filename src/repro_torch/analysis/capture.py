@@ -10,15 +10,21 @@ rule for ``lax.while_loop``: the capacity model may under-count it, it
 never gives a false positive.
 
 **The fold.**  JAX emits while it traces, so a loop body's events appear
-once.  The eager port emits once per run of the body, each run inside the
-same scope frames (``events`` gives a region the same uid each time it is
-entered from the same place).  Fed to the rules unchanged, the five
-enqueues of ``serial_for(body, 5)`` would each count five times.  So
-:meth:`Capture.folded` drops an event that lies under at least one loop
-frame and equals an earlier one in kind, site, scope frames (uids
-included) and data without the ids (``_refs``, ``qid``, ``qid_out``,
-``ptr_id``, ``ticket_id``); the first occurrence keeps its ids.  Two
-kinds of event are never dropped:
+once, a bare Python loop inside the body unrolled.  The eager port emits
+once per run of the body, each run inside the same scope frames
+(``events`` gives a region the same uid each time it is entered from the
+same place), and each event carries ``trips``, the trip index of every
+enclosing loop frame: a run of the body is one tuple of trips.  Fed to
+the rules unchanged, the five enqueues of ``serial_for(body, 5)`` would
+each count five times.  So :meth:`Capture.folded` keeps an event that
+lies under at least one loop frame as many times as its key occurs in
+the run where it occurs most, and drops the rest.  The key is the kind,
+site, scope frames (uids included) and data without the ids and the
+trips (``IDS``); the kept occurrences are the first of each count, with
+their ids.  So two enqueues from a bare inner loop of one trip both
+count, as in JAX's unrolled trace, and an event that first fires on a
+later trip (a hook with ``every > 1``) is kept.  Two kinds of event are
+never dropped:
 
 * events under no loop frame: JAX traces an unscoped Python loop once an
   iteration, so it sees each of them too;
@@ -39,15 +45,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.analysis.model import HazardReport
 from repro_torch.analysis.rules import analyze_events
 from repro_torch.analysis.walker import analyze_graph
 from repro_torch.core import events
 
-#: An event's object identities: left out when events are compared.
-IDS = ("_refs", "qid", "qid_out", "ptr_id", "ticket_id")
+#: An event's object identities and its trips: left out when events are
+#: compared.
+IDS = ("_refs", "qid", "qid_out", "ptr_id", "ticket_id", "trips")
 #: Events the fold never drops.
 HEAP_KINDS = frozenset({"heap_malloc", "heap_free", "ptr_lookup",
                         "arena_marshal"})
@@ -64,15 +71,20 @@ def _fold_key(ev: dict):
 
 def fold(stream: List[dict]) -> List[dict]:
     """``stream`` with the repeats of looped events dropped (see the module
-    docstring), in order."""
-    seen, out = set(), []
+    docstring), in order: an occurrence is kept when its count within its
+    run exceeds the count kept so far for its key."""
+    kept: Dict[Any, int] = {}
+    in_run: Dict[Any, int] = {}
+    out = []
     for ev in stream:
         if ev["kind"] not in HEAP_KINDS and any(
                 kind == "loop" for kind, _u, _v in ev["scopes"]):
             key = _fold_key(ev)
-            if key in seen:
+            run = (key, ev.get("trips", ()))
+            in_run[run] = in_run.get(run, 0) + 1
+            if in_run[run] <= kept.get(key, 0):
                 continue
-            seen.add(key)
+            kept[key] = in_run[run]
         out.append(ev)
     return out
 

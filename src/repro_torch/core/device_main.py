@@ -310,8 +310,10 @@ def device_run(step_fn: Callable[..., Any], state: Any, n_steps: int, *,
                                 timeout=queue_timeout,
                                 mode="async" if queue_async else "sync",
                                 device=_device_of(state))
-        with (events.loop_scope(int(n_steps)) if tracing else _NO_SCOPE):
+        with (events.loop_scope(int(n_steps)) if tracing
+              else events.NO_LOOP) as trip:
             for step in range(n_steps):
+                trip.next()
                 if thread_queue:
                     state, q = step_fn(step, state, q)
                 else:
@@ -353,8 +355,10 @@ def _device_run_mesh(step_fn, state, n_steps, named, mesh, state_spec,
 
     def region(state):
         lq = team_queue()
-        with (events.loop_scope(int(n_steps)) if tracing else _NO_SCOPE):
+        with (events.loop_scope(int(n_steps)) if tracing
+              else events.NO_LOOP) as trip:
             for step in range(n_steps):
+                trip.next()
                 if thread_queue:
                     state, lq = step_fn(step, state, lq)
                 else:

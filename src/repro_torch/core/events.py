@@ -31,9 +31,13 @@ same stack of code locations, under the same enclosing frame, with the
 same ``key``), as JAX's one trace of the body has one frame.  A region
 under no loop frame gets a fresh uid each time it is entered: a bare
 Python loop around it is unrolled, and JAX traces each of its calls
-anew.  The analysis layer folds the repeats (``analysis/capture.py``).  A value an event would read from a
-CUDA tensor (a heap pointer on the card) is ``None``, as JAX gives
-``None`` for a tracer: an event never reads the device.
+anew.  An event under a loop frame also carries ``trips``: the trip
+index of each enclosing loop frame, outermost first, which the loop sets
+through the handle ``loop_scope`` yields (``next()`` at each trip).  The
+analysis layer folds the repeats by it (``analysis/capture.py``).  A
+value an event would read from a CUDA tensor (a heap pointer on the
+card) is ``None``, as JAX gives ``None`` for a tracer: an event never
+reads the device.
 
 Scope frames are ``(kind, uid, value)`` tuples: ``("loop", n, trips)``
 with ``trips`` an int or None (unbounded), and ``("cond", n, period)``
@@ -75,6 +79,8 @@ class _State(threading.local):
     def __init__(self):
         self.sinks: List[list] = []
         self.stack: List[ScopeFrame] = []
+        # one trip handle per loop frame on the stack, outermost first
+        self.loops: List["Trips"] = []
         self.uids = itertools.count()
         # (kind, value, key, enclosing uid, code locations) -> uid
         self.frames: Dict[Tuple, int] = {}
@@ -108,6 +114,8 @@ def emit(kind: str, _refs: Tuple = (), **data: Any) -> None:
         return
     ev: Dict[str, Any] = {"kind": kind, "site": _user_site(),
                           "scopes": tuple(_S.stack)}
+    if _S.loops:
+        ev["trips"] = tuple(t.index for t in _S.loops)
     ev.update(data)
     if _refs:
         ev["_refs"] = tuple(_refs)
@@ -146,15 +154,42 @@ def _frame(kind: str, value: Optional[int], key: Hashable) -> ScopeFrame:
     return (kind, uid, value)
 
 
+class Trips:
+    """A loop frame's trip counter: the loop calls :meth:`next` as each
+    trip starts (-1 before the first)."""
+
+    __slots__ = ("index",)
+
+    def __init__(self):
+        self.index = -1
+
+    def next(self) -> None:
+        self.index += 1
+
+
+class _NoTrips:
+    """The handle of a loop run with no capture: counts nothing."""
+
+    def next(self) -> None:
+        pass
+
+
+#: Entered in place of ``loop_scope`` when no capture records.
+NO_LOOP = contextlib.nullcontext(_NoTrips())
+
+
 @contextlib.contextmanager
 def loop_scope(trips: Optional[int]):
     """Mark a region whose body runs ``trips`` times per outer run (None:
-    unbounded)."""
+    unbounded).  Yields the frame's :class:`Trips`."""
     _S.stack.append(_frame(
         "loop", None if trips is None else max(int(trips), 0), None))
+    handle = Trips()
+    _S.loops.append(handle)
     try:
-        yield
+        yield handle
     finally:
+        _S.loops.pop()
         _S.stack.pop()
 
 

@@ -496,6 +496,10 @@ def serial_for(body: Callable, n: int, *arrays) -> torch.Tensor:
     capture scopes the ``lax.map`` its ``serial_for`` is)."""
     if n == 0:
         return _empty_like_loop(body, arrays)
+    outs = []
     with (events.loop_scope(n) if events.active()
-          else contextlib.nullcontext()):
-        return torch.stack([body(i, *arrays) for i in range(n)])
+          else events.NO_LOOP) as trip:
+        for i in range(n):
+            trip.next()
+            outs.append(body(i, *arrays))
+    return torch.stack(outs)

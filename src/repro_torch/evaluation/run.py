@@ -9,8 +9,9 @@ the JAX package's.  ``--device`` defaults to the card, where it runs the
 sizes of :data:`CARD_SIZES`, and refuses to run without one; ``--device
 cpu`` runs the CPU at the JAX modules' sizes.  Writes no file.  Fig. 6's
 mesh section runs on the one-device mesh on the card and in a ``gloo``
-world of two processes on the CPU.  JAX's ``roofline`` suite waits for
-ROADMAP item 5.6.
+world of two processes on the CPU.  The ``roofline`` suite renders the
+dry run's JSONs (``evaluation/roofline.py``; it times nothing, on either
+device).
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch.evaluation import (allocator, amgmk_pagerank, hypterm,
-                                    interleaved, rpc, rsbench, spec, xsbench)
+                                    interleaved, roofline, rpc, rsbench,
+                                    spec, xsbench)
 from repro_torch.evaluation.common import Region, emit, emit_region, \
     time_region
 
@@ -84,6 +86,8 @@ def run_suite(name: str, device, sizes: Optional[Dict] = None, *,
         return recs
     if name == "fig7_rpc":
         return rpc.run(device)[0]
+    if name == "roofline":
+        return roofline.run()
     lengths = sizes.pop("smithwa", spec.SMITHWA_LENGTHS)
     recs = []
     for reg in REGION_SUITES[name](device, **sizes):
@@ -95,7 +99,7 @@ def run_suite(name: str, device, sizes: Optional[Dict] = None, *,
     return recs
 
 
-SUITES = ["fig6_allocator", "fig7_rpc", *REGION_SUITES]
+SUITES = ["fig6_allocator", "fig7_rpc", *REGION_SUITES, "roofline"]
 
 
 def main(argv=None) -> int:

@@ -125,8 +125,8 @@ def production_shape(multi_pod: bool = False
 def make_production_mesh(*, multi_pod: bool = False,
                          device: Optional[str] = None):
     """The production mesh: a world of 256 ranks (512 with
-    ``multi_pod``).  The dry run over a mesh of fake devices is ROADMAP
-    queue 1, item 5.6."""
+    ``multi_pod``), real or the dry run's ``fake`` one
+    (``launch/dryrun.py::production_mesh``)."""
     shape, axes = production_shape(multi_pod)
     need = 1
     for s in shape:
@@ -135,6 +135,6 @@ def make_production_mesh(*, multi_pod: bool = False,
     if world != need:
         raise RuntimeError(
             f"the production mesh {shape} needs a world of {need} ranks, "
-            f"not {world}; the dry run over fake devices is ROADMAP queue "
-            "1, item 5.6")
+            f"not {world}; the dry run starts a fake world of that size "
+            "(launch/dryrun.py)")
     return make_mesh(shape, axes, device=device)

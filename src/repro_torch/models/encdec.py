@@ -167,6 +167,14 @@ def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def encdec_cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """The logical axes of :func:`encdec_init_cache`'s leaves (the second
+    value of JAX's ``encdec_init_cache``)."""
+    kv = ("stack", "batch", "seq_kv", None, "head_dim")
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv, "enc_lens": ("batch",),
+            "lengths": ("batch",)}
+
+
 def encdec_prefill_cross(params, cache: Dict[str, torch.Tensor],
                          embeds: torch.Tensor, enc_lens: torch.Tensor,
                          cfg: ModelConfig) -> Dict[str, torch.Tensor]:

@@ -122,6 +122,13 @@ class Model:
         return transformer.lm_init_cache(self.cfg, batch, max_len,
                                          self.device)
 
+    def cache_axes(self) -> Dict[str, Any]:
+        """The logical axes of :meth:`init_cache`'s tree, leaf for leaf (the
+        second value of JAX's ``Model.init_cache``)."""
+        if self.is_encdec:
+            return encdec.encdec_cache_axes(self.cfg)
+        return transformer.lm_cache_axes(self.cfg)
+
     def decode_step(self, params, cache, tokens: torch.Tensor,
                     embeds: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -163,6 +163,14 @@ def _scatter_rows(n: int, idx: torch.Tensor, rows: torch.Tensor
     return buf.index_put((idx,), rows)[:n]
 
 
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in [0, n): int64 counts
+    of a fixed length, so the layer also runs on meta and fake tensors
+    (the dry run), where bincount's data-dependent length cannot."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
+
+
 def _moe_local(x_loc, router_w, wg, wu, wo, *, E: int, K: int, C: int,
                ep_axis: str = "model", mesh=None):
     """One team's body of the full path: ``x_loc`` (T_loc, d) its token
@@ -178,7 +186,7 @@ def _moe_local(x_loc, router_w, wg, wu, wo, *, E: int, K: int, C: int,
     t_f = torch.arange(T_loc, device=dev).repeat_interleave(K)
     order = torch.argsort(e_f, stable=True)
     se, st, sw = e_f[order], t_f[order], w_f[order]
-    counts = torch.bincount(e_f, minlength=E)
+    counts = _counts(e_f, E)
     offsets = torch.cumsum(counts, 0) - counts
     pos = torch.arange(se.numel(), device=dev) - offsets[se]
     keep = pos < C
@@ -220,7 +228,7 @@ def _moe_local_replicated(x_row, router_w, wg, wu, wo, *, E: int, K: int,
     le = torch.where(local, e_f - my * E_loc, E_loc)   # E_loc: not ours
     order = torch.argsort(le, stable=True)           # ours first, by expert
     se, st, sw = le[order], t_f[order], w_f[order]
-    counts = torch.bincount(le, minlength=E_loc + 1)[:E_loc]
+    counts = _counts(le, E_loc + 1)[:E_loc]
     offsets = torch.cumsum(counts, 0) - counts
     se_c = torch.clamp(se, max=E_loc - 1)
     pos = torch.arange(se.numel(), device=dev) - offsets[se_c]
@@ -235,7 +243,7 @@ def _moe_local_replicated(x_row, router_w, wg, wu, wo, *, E: int, K: int,
     y = torch.zeros((T_row, d), dtype=torch.float32, device=dev) \
         .index_add(0, st, gathered)
     y = psum_autograd(y, mesh, ep_axis)
-    f_e = torch.bincount(e_f, minlength=E).float() / max(e_f.numel(), 1)
+    f_e = _counts(e_f, E).float() / max(e_f.numel(), 1)
     aux = E * torch.sum(f_e * probs.mean(0))
     return y.to(x_row.dtype), aux
 

@@ -128,6 +128,11 @@ def rglru_init_cache(cfg: ModelConfig, batch: int,
     }
 
 
+def rglru_cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """The logical axes of :func:`rglru_init_cache`'s leaves."""
+    return {"conv": ("batch", None, "lru"), "h": ("batch", "lru")}
+
+
 def rglru_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                  cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

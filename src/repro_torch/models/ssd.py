@@ -130,6 +130,14 @@ def ssd_init_cache(cfg: ModelConfig, batch: int,
     }
 
 
+def ssd_cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """The logical axes of :func:`ssd_init_cache`'s leaves."""
+    return {
+        "conv": ("batch", None, "ssm_inner"),
+        "ssm": ("batch", "ssm_heads", None, None),
+    }
+
+
 def ssd_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token step. x: (B,1,d) -> (out (B,1,d), new cache)."""

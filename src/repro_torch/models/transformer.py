@@ -30,9 +30,11 @@ from repro_torch.models.common import (
 from repro_torch.models.mlp import MLP_AXES, mlp_apply, mlp_init
 from repro_torch.models.moe import MOE_AXES, moe_apply, moe_init
 from repro_torch.models.rglru import (
-    RGLRU_AXES, rglru_apply, rglru_decode, rglru_init, rglru_init_cache)
+    RGLRU_AXES, rglru_apply, rglru_cache_axes, rglru_decode, rglru_init,
+    rglru_init_cache)
 from repro_torch.models.ssd import (
-    SSD_AXES, ssd_apply, ssd_decode, ssd_init, ssd_init_cache)
+    SSD_AXES, ssd_apply, ssd_cache_axes, ssd_decode, ssd_init,
+    ssd_init_cache)
 
 LM_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
@@ -360,6 +362,23 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
         "v": torch.zeros(shape, dtype=cdt, device=device),
         "lengths": lengths,
     }
+
+
+def lm_cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`lm_init_cache`'s leaves (the second value
+    of JAX's ``lm_init_cache``)."""
+    check_family(cfg)
+    if cfg.family == "ssm":
+        return {"layers": {k: ("stack",) + a
+                           for k, a in ssd_cache_axes(cfg).items()},
+                "lengths": ("batch",)}
+    if cfg.family == "hybrid":
+        kv = ("stack", "batch", None, "kv_heads", "head_dim")
+        return {"rec": {k: ("stack",) + a
+                        for k, a in rglru_cache_axes(cfg).items()},
+                "k": kv, "v": kv, "lengths": ("batch",)}
+    kv = ("stack", "batch", "seq_kv", None, "head_dim")
+    return {"k": kv, "v": kv, "lengths": ("batch",)}
 
 
 def lm_prefill(params, batch, cfg: ModelConfig, max_len: int

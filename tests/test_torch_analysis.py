@@ -238,8 +238,76 @@ def test_fold_keeps_unscoped_and_heap_events():
              "scopes": (("loop", 0, 4),), "ptr": 8, "ptr_id": i}
             for i in range(3)]
     assert fold(heap) == heap
-    loop = [dict(e, scopes=(("loop", 0, 3),)) for e in ev]
+    loop = [dict(e, scopes=(("loop", 0, 3),), trips=(i,))
+            for i, e in enumerate(ev)]
     assert fold(loop) == loop[:1]
+    # repeats within one run stay: as often as in the run with the most
+    runs = [dict(e, trips=(t,)) for e, t in zip(loop * 2, (0, 1, 1, 2, 2, 2))]
+    assert fold(runs) == [runs[0], runs[2], runs[5]]
+
+
+def _jax_inner(trips, inner, capacity):
+    def prog():
+        q = jrpc.RpcQueue.create(capacity, 4, 64)
+
+        def body(i):
+            for _ in range(inner):
+                q.enqueue("corpus.note", i)
+            return i
+        j_serial_for(body, trips)
+        q.flush()
+    return jcapture.analyze(prog, jaxpr=False).codes
+
+
+def _port_inner(trips, inner, capacity):
+    q = trpc.RpcQueue.create(capacity, 4, 64, device="cpu")
+    xs = torch.arange(trips, dtype=torch.int32)
+
+    def body(i):
+        for _ in range(inner):
+            q.enqueue("corpus.note", xs[i])
+        return xs[i]
+    with capture() as cap:
+        serial_for(body, trips)
+        q.flush()
+    return cap
+
+
+@pytest.mark.parametrize("trips,inner,capacity", [
+    (3, 2, 4), (3, 1, 4), (1, 3, 4), (2, 2, 4)])
+def test_fold_counts_a_bare_inner_loop_in_both_packages(trips, inner,
+                                                        capacity):
+    """F7: the enqueues of a bare loop inside one trip of a scoped loop
+    all count (JAX unrolls it in its one trace of the body)."""
+    want = ["CAPACITY_RECORDS"] if trips * inner > capacity else []
+    assert _jax_inner(trips, inner, capacity) == want
+    cap = _port_inner(trips, inner, capacity)
+    assert cap.report().codes == want
+    enq = [e for e in cap.folded() if e["kind"] == "rpc_enqueue"]
+    assert len(enq) == inner
+    assert [e["trips"] for e in enq] == [(0,)] * inner
+
+
+def test_fold_keeps_a_hook_that_first_fires_late():
+    """A hook firing from the third trip on (``every=3``) keeps its event,
+    once, beside JAX's one traced firing."""
+    def hooks(HostHook):
+        return [HostHook(every=3, extract=lambda s, st: st,
+                         host_fn=lambda s, x: None, name="tan.late",
+                         batched=True)]
+    with jcapture.capture() as jc:
+        jdm.device_run(lambda s, st: st + 1.0, jnp.zeros(3), 7,
+                       hooks=hooks(jdm.HostHook))
+        jax.effects_barrier()
+    with capture() as tc:
+        tdm.device_run(lambda s, st: st + 1.0, torch.zeros(3), 7,
+                       hooks=hooks(tdm.HostHook))
+    t_enq = [e for e in tc.folded() if e["kind"] == "rpc_enqueue"]
+    j_enq = [e for e in jc.events if e["kind"] == "rpc_enqueue"]
+    assert len(t_enq) == len(j_enq) == 1
+    assert t_enq[0]["trips"] == (2,)
+    assert sorted(map(_key, tc.folded())) == sorted(map(_key, jc.events))
+    assert tc.report().codes == jc.report().codes
 
 
 def test_device_run_hook_frames_are_one_a_hook():

@@ -22,7 +22,7 @@ from repro_torch.core import device_main as tdm  # noqa: E402
 from repro_torch.core import events as tev  # noqa: E402
 from repro_torch.core import rpc as trpc  # noqa: E402
 
-IDS = ("site", "_refs", "qid", "qid_out", "ptr_id", "ticket_id")
+IDS = ("site", "_refs", "qid", "qid_out", "ptr_id", "ticket_id", "trips")
 
 for _reg in (jrpc.REGISTRY, trpc.REGISTRY):
     _reg.register("tev.rec", lambda *a: None)

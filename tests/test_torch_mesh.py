@@ -374,7 +374,7 @@ def test_expand_refusals():
     with pytest.raises(TypeError, match="DeviceMesh"):
         tkv.paged_cache_init(cfg, 4, 64, page_size=16, device="cpu",
                              mesh=object())
-    with pytest.raises(RuntimeError, match="item 5.6"):
+    with pytest.raises(RuntimeError, match="needs a world of 256 ranks"):
         make_production_mesh(device="cpu")
     assert production_shape(True) == ((2, 16, 16), ("pod", "data", "model"))
     assert texpand.num_teams() == 1 and not texpand.in_region()
