@@ -159,16 +159,22 @@ source, all started together) and runs, in order:
     bf16 ref, each call bit-equal to the host-synchronous version
     (``rpc_call_reference``) on the same inputs, one launch a call; and
     ``one_callee_sizes``: one callee returning 1, 64 and 1024 elements on
-    one channel (one landing pad, a staging region a result shape);
+    one channel (one landing pad, a staging region a result shape); the
+    call plan's cases: a slot under the copy limit beside one above it in
+    one call (both routes), as many tensor slots as the descriptor holds,
+    and a call captured in a CUDA graph and replayed twice;
 19. ``rpc_gil``: a posted call whose callee sleeps, followed at once by
     ``.item()``, ``.cpu()``, ``torch.cuda.synchronize()``,
     ``Event.synchronize()`` and 4096 launches, each under a 60 s
     ``faulthandler`` watchdog (a deadlock ends the run, it never hangs);
 20. ``rpc_time``: the empty round trip (CUDA events, median of 200; the
-    kernel's wait and the host thread's time beside it) and READWRITE refs
-    of 4 KB, 1 MB and 64 MB against the host link's rate
-    (``nvidia-smi`` PCIe generation and width), each beside the
-    host-synchronous version's wall time;
+    kernel's wait, the drain's Python and its wait for Python's lock, the
+    CUDA API calls a call: one), the same after 60 ms idle, the latency
+    floor (a C loop answers, no Python), the enqueue's split (Python, the
+    op's dispatch, the launch's Python, the C call), READWRITE refs of
+    4 KB, 1 MB and 64 MB against the host link's rate (``nvidia-smi``
+    PCIe generation and width), each beside the host-synchronous
+    version's wall time, and both copy routes at 4 KB-64 MB;
 21. ``rpc_queue``: the batched queue's ``rpc_enqueue`` kernel
     (``csrc/rpc_queue.cu``) against its plain version on the card and a
     CPU queue, three seeded plans of 250 records (ring overwrite, arena
@@ -3718,11 +3724,174 @@ def rpc_phase():
     checks["one_callee_sizes"] = all(
         r["bit_equal"] and r["launches"] == 1 for r in sizes["calls"]) \
         and sizes["pads"] == 1 and len(set(sizes["staging_ids"])) == 3
+    plans = _rpc_plan_cases(dev)
+    checks.update(plans.pop("checks"))
     log({"rpc": {"cases": rec, "checks": checks,
-                 "one_callee_sizes": sizes}})
+                 "one_callee_sizes": sizes, "plans": plans}})
     if not all(checks.values()):
         raise AssertionError(f"rpc checks failed: {checks}")
     return 0.0
+
+
+def _rpc_plan_cases(dev):
+    """The call plan's cases, each against the host-synchronous version on
+    the same inputs, bit-equal, one ``rpc_post`` launch a call:
+
+    * ``routes``: a 4 KB READWRITE ref (at most ``COPY_LIMIT``: the kernel
+      copies it) beside one of 2 x ``COPY_LIMIT`` (a copy engine around
+      the launch) in one call: the launch's table holds both routes, and
+      the call makes 3 CUDA API calls (the big ref's two copies and the
+      launch); the 4 KB ref alone makes 1;
+    * ``max_slots``: as many tensor slots as the descriptor holds
+      (``MAX_SLOTS``: 447 READWRITE refs, their write-backs, 449 values
+      and the result, of 2 to 256 bytes and int32, float32, bf16 and
+      int16), and one more refused; its grid has several blocks (a
+      cooperative launch), and only the blocks that copy results back
+      (``out_grid``, fewer) wait for the host;
+    * ``graph_replay``: a call captured into a CUDA graph on a stream of
+      its own, replayed twice: two records posted (the channel's device
+      sequence counter), the callee run twice, the graph's outputs those
+      of the second replay; the capture is the one host launch.  Its
+      32 KB ref makes a grid of several blocks: a cooperative launch in
+      a graph."""
+    import numpy as np
+    from repro_torch.core import (READWRITE, Ref, ShapeDtype,
+                                  effects_barrier, rpc_call,
+                                  rpc_call_reference)
+    from repro_torch.core.rpc import REGISTRY
+    from repro_torch.kernels.rpc_channel import (COPY_LIMIT, ENGINE, KERNEL,
+                                                 MAX_SLOTS, channel_for,
+                                                 rpc_post)
+    from repro_torch.kernels.rpc_channel.kernel import api_calls
+
+    i32 = ShapeDtype((), torch.int32)
+    checks, rec = {}, {}
+
+    def both(name, *args):
+        """The channel's call and the plain one, with launches and CUDA
+        API calls of the channel's."""
+        calls0, rpc_post.launches = api_calls(), 0
+        chan = rpc_call(name, *args, result_shape=i32)
+        launches, api = rpc_post.launches, api_calls() - calls0
+        plain = rpc_call_reference(name, *args, result_shape=i32)
+        effects_barrier()
+        equal = _same_tensor(chan[0], plain[0]) and all(
+            _same_tensor(a, b) for a, b in zip(chan[1], plain[1]))
+        return equal, launches, api
+
+    def bump(small, big):
+        small[:] = small * 3 + 1
+        big[::4097] += 1.5
+        return np.int32(small.size + big.size)
+
+    REGISTRY.register("smoke.bump", bump)
+    small = torch.arange(1024, dtype=torch.float32, device=dev)
+    big = torch.linspace(0, 1, 2 * COPY_LIMIT // 4, device=dev)
+    equal, launches, api = both("smoke.bump", Ref(small, READWRITE),
+                                Ref(big, READWRITE))
+    sizes = [4096, 2 * COPY_LIMIT, 4, 4096, 2 * COPY_LIMIT]
+    (launch,) = [d for d in channel_for(dev).launches.values()
+                 if d.bytes == sizes]
+    routes = [row[3] for row in launch.table]
+    REGISTRY.register("smoke.bump_small", lambda s: bump(s, np.zeros(0)))
+    equal_small, launches_small, api_small = both(
+        "smoke.bump_small", Ref(small, READWRITE))
+    rec["routes"] = {"table": [list(r) for r in launch.table],
+                     "bit_equal": equal and equal_small,
+                     "launches": [launches, launches_small],
+                     "cuda_api_calls": [api, api_small],
+                     "grid": launch.call.grid}
+    checks["plan_routes"] = equal and equal_small \
+        and [launches, launches_small] == [1, 1] \
+        and [api, api_small] == [3, 1] \
+        and routes == [KERNEL, ENGINE, KERNEL, KERNEL, ENGINE]
+
+    n_refs = (MAX_SLOTS - 1) // 3
+    n_vals = MAX_SLOTS - 1 - 2 * n_refs
+    dtypes = (torch.int32, torch.float32, torch.bfloat16, torch.int16)
+
+    def many(*arrays):
+        total = 0
+        for k, a in enumerate(arrays):
+            total += int(np.asarray(a, np.float64).sum())
+            if k < n_refs:
+                a[...] = a * 2 + k
+        return np.int32(total)
+
+    REGISTRY.register("smoke.many", many)
+    args = [Ref((torch.arange(k % 64 + 1, device=dev) % 7).to(dtypes[k % 4]),
+                READWRITE) for k in range(n_refs)] + \
+        [(torch.arange(k % 61 + 2, device=dev) % 5).to(dtypes[k % 4])
+         for k in range(n_vals)]
+    equal, launches, api = both("smoke.many", *args)
+    refused = False
+    try:
+        rpc_call("smoke.many", *args, torch.zeros(2, device=dev),
+                 result_shape=i32)
+    except ValueError as e:
+        refused = "tensor slots" in str(e)
+    (table,) = [d for d in channel_for(dev).launches.values()
+                if len(d.table) == MAX_SLOTS]
+    grid, out_grid = table.call.grid, table._params.out_grid
+    rec["max_slots"] = {"slots": len(table.table), "bit_equal": equal,
+                        "launches": launches, "cuda_api_calls": api,
+                        "grid": grid, "out_grid": out_grid,
+                        "one_more_refused": refused}
+    checks["plan_max_slots"] = equal and launches == 1 and api == 1 \
+        and refused and 1 <= out_grid < grid
+
+    seen = []
+
+    def count(x, buf):
+        seen.append(int(x))
+        buf[:] = buf + float(len(seen))
+        return np.int32(len(seen) * 10 + int(x))
+
+    REGISTRY.register("smoke.count", count)
+    side = torch.cuda.Stream(dev)
+    x = torch.full((), 7, dtype=torch.int32, device=dev)
+    buf = torch.zeros(8192, device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        rpc_call("smoke.count", x, Ref(buf, READWRITE), result_shape=i32)
+    side.synchronize()
+    effects_barrier()
+    graph = torch.cuda.CUDAGraph()
+    rpc_post.launches = 0
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        out, (back,) = rpc_call("smoke.count", x, Ref(buf, READWRITE),
+                                result_shape=i32)
+    captured = rpc_post.launches
+    seq0 = int(channel_for_stream(side, dev).counter[0])
+    del seen[:]
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    effects_barrier()
+    seq1 = int(channel_for_stream(side, dev).counter[0])
+    want_out = torch.tensor(2 * 10 + 7, dtype=torch.int32)
+    want_back = torch.full((8192,), 2.0)
+    (grid,) = [d.call.grid for d in
+               channel_for_stream(side, dev).launches.values()]
+    rec["graph_replay"] = {"launches_at_capture": captured,
+                           "launches_at_replay": rpc_post.launches - captured,
+                           "records_posted": seq1 - seq0,
+                           "callee_runs": len(seen), "result": int(out),
+                           "grid": grid}
+    checks["plan_graph_replay"] = captured == 1 and grid > 1 \
+        and rpc_post.launches == captured and seq1 - seq0 == 2 \
+        and seen == [7, 7] and _same_tensor(out, want_out) \
+        and _same_tensor(back, want_back)
+    del graph
+    return {"checks": checks, **rec}
+
+
+def channel_for_stream(stream, dev):
+    """The RPC channel of ``stream`` on ``dev``."""
+    from repro_torch.kernels.rpc_channel import channel_for
+    with torch.cuda.stream(stream):
+        return channel_for(dev)
 
 
 def _one_callee_sizes(dev):
@@ -3829,18 +3998,29 @@ def rpc_time_phase(card_line):
     an empty call (an int32 result; CUDA events around the three stream
     operations on an idle stream, median of 200, so the host's enqueue is
     inside; with the host's time in ``rpc_call``, the kernel's own wait,
-    post to reply, the drain thread's time in Python, and the events'
-    time when a 1 GB add ahead on the stream hides the enqueue), and
+    post to reply, the drain thread's time in Python and its wait for
+    Python's lock before it (``drain_gil_us``), the CUDA API calls a call,
+    and the events' time when a 1 GB add ahead on the stream hides the
+    enqueue); the same call after 60 ms idle (``isolated``: the drain
+    asleep, woken by the launch); the latency floor (``latency_floor``:
+    records answered by a C loop, no Python); the enqueue's split (Python
+    before the op, the op's dispatch, the launch's Python, the C call);
     READWRITE refs of 4 KB, 1 MB and 64 MB (GB/s both ways against the
     host link's rate from ``nvidia-smi``, or the data sheet's where it
-    reports none).  The host-synchronous times are wall times (that
-    version waits for the device by design).  Returns the empty call's
-    numbers for the kernels line."""
+    reports none); and both copy routes at 4 KB-64 MB on one slot
+    (``routes``: the kernel's copies against the copy engines', bit-equal,
+    in turns), from which ``kernel.py::COPY_LIMIT`` was set.  The
+    host-synchronous times are wall times (that version waits for the
+    device by design).  Returns the empty call's numbers for the kernels
+    line."""
     import numpy as np
     from repro_torch.core import (Ref, ShapeDtype, effects_barrier, rpc_call,
                                   rpc_call_reference)
-    from repro_torch.core.rpc import REGISTRY
-    from repro_torch.kernels.rpc_channel import channel_for
+    from repro_torch.core.rpc import REGISTRY, _result_specs, plan_key
+    from repro_torch.kernels.rpc_channel import COPY_LIMIT, channel_for
+    from repro_torch.kernels.rpc_channel.kernel import (_lib, api_calls,
+                                                        latency_floor)
+    from repro_torch.kernels.rpc_channel.ops import _ANCHORS, _OP
 
     dev = torch.device("cuda", 0)
     i32 = ShapeDtype((), torch.int32)
@@ -3856,30 +4036,38 @@ def rpc_time_phase(card_line):
     REGISTRY.register("smoke.touch", touch)
     chan = channel_for(dev)
 
+    def one(fn, ahead=None):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        if ahead is not None:
+            ahead()
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        enq = (time.perf_counter() - t0) * 1e6
+        b.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        return (a.elapsed_time(b), wall, enq, chan.waited_ns() * 1e-3,
+                chan.last_serve_ns * 1e-3, chan.last_gil_ns * 1e-3)
+
+    def summary(rows, n, api=None):
+        cols = list(zip(*rows))
+        out = {k: _median(c) for k, c in zip(
+            ("ms", "wall_ms", "enqueue_us", "kernel_wait_us",
+             "host_serve_us", "drain_gil_us"), cols)}
+        out["calls"] = n
+        if api is not None:
+            out["cuda_api_calls_per_call"] = api / n
+        return out
+
     def on_channel(fn, n, ahead=None):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        dev_ms, wall_ms, enq_us, waited_us, serve_us = [], [], [], [], []
-        for _ in range(n):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            if ahead is not None:
-                ahead()
-            t0 = time.perf_counter()
-            a.record()
-            fn()
-            enq_us.append((time.perf_counter() - t0) * 1e6)
-            b.record()
-            torch.cuda.synchronize()
-            wall_ms.append((time.perf_counter() - t0) * 1e3)
-            dev_ms.append(a.elapsed_time(b))
-            waited_us.append(chan.waited_ns() * 1e-3)
-            serve_us.append(chan.last_serve_ns * 1e-3)
-        return {"ms": _median(dev_ms), "wall_ms": _median(wall_ms),
-                "enqueue_us": _median(enq_us),
-                "kernel_wait_us": _median(waited_us),
-                "host_serve_us": _median(serve_us), "calls": n}
+        calls0 = api_calls()
+        rows = [one(fn, ahead) for _ in range(n)]
+        return summary(rows, n, api_calls() - calls0)
 
     def host_sync(fn, n):
         for _ in range(3):
@@ -3900,8 +4088,20 @@ def rpc_time_phase(card_line):
     ahead = torch.zeros(128 << 20, device=dev)   # 1 GB moved, ~0.3 ms
     busy = on_channel(call_empty, 100, ahead=lambda: ahead.add_(1.0))
     empty_rec.update(behind_busy_stream_ms=busy["ms"],
-                     behind_busy_stream_kernel_wait_us=busy["kernel_wait_us"])
+                     behind_busy_stream_kernel_wait_us=busy["kernel_wait_us"],
+                     behind_busy_stream_host_serve_us=busy["host_serve_us"],
+                     behind_busy_stream_drain_gil_us=busy["drain_gil_us"])
     del ahead
+    rows = []
+    for _ in range(10):
+        time.sleep(0.06)
+        rows.append(one(call_empty))
+    empty_rec["isolated"] = dict(summary(rows, 10), idle_ms=60)
+    empty_rec["latency_floor"] = latency_floor(dev, 200)
+    empty_rec["enqueue_split"] = _enqueue_split(
+        chan, call_empty, dev, _OP, _ANCHORS,
+        chan.plans[plan_key(REGISTRY.pads[("smoke.empty",)],
+                            _result_specs(i32))], _lib())
     empty_rec["plain_ms"] = host_sync(
         lambda: rpc_call_reference("smoke.empty", result_shape=i32,
                                    device=dev), 200)
@@ -3918,6 +4118,7 @@ def rpc_time_phase(card_line):
         refs[label] = r
         del buf
     effects_barrier()
+    routes = _copy_routes(chan, dev)
     link = pcie_link()                   # read just after the 64 MB calls
     rate = link["bytes_per_s"]
     for r in [empty_rec] + list(refs.values()):
@@ -3926,8 +4127,102 @@ def rpc_time_phase(card_line):
         r["gb_per_s"] = moved / (r["ms"] * 1e-3) / 1e9
         r["plain_gb_per_s"] = moved / (r["plain_ms"] * 1e-3) / 1e9
     log({"rpc_time": {"card": card_line, "link": link, "empty": empty_rec,
-                      "readwrite": refs}})
+                      "readwrite": refs, "copy_limit": COPY_LIMIT,
+                      "routes": routes}})
+    if empty_rec["cuda_api_calls_per_call"] != 1 or \
+            refs["4KB"]["cuda_api_calls_per_call"] != 1:
+        raise AssertionError("rpc_time: a call with no slot above the "
+                             "limit made more than one CUDA API call")
     return empty_rec
+
+
+def _enqueue_split(chan, call, dev, op, anchors, plan, lib, n=200):
+    """The host's enqueue of ``call`` (an empty call on ``chan``) cut in
+    four, median us of ``n`` calls of each, in turns, each followed by a
+    synchronise (outside the time): the whole ``rpc_call``; the op called
+    with the plan's arguments (``op_us``); the plan's ``Launch.run`` (the
+    launch's Python and the C call); the C call alone (``rpc_roundtrip``
+    through ctypes).  ``python_us`` = whole - op, ``dispatch_us`` = op -
+    run, ``launch_python_us`` = run - C."""
+    out = torch.empty((), dtype=torch.int32, device=dev)
+    launch = plan.launch
+    anchor = anchors[dev]
+    fns = {
+        "rpc_call_us": call,
+        "op_us": lambda: op(anchor, plan.sid, [], [], [], [out],
+                            plan.out_slots),
+        "run_us": lambda: launch.run([], [], [out]),
+        "c_call_us": lambda: lib.rpc_roundtrip(launch._address,
+                                               chan.stream_handle),
+    }
+    times = {k: [] for k in fns}
+    for _ in range(5):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    for _ in range(n):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            times[k].append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+    m = {k: _median(v) for k, v in times.items()}
+    m.update(python_us=m["rpc_call_us"] - m["op_us"],
+             dispatch_us=m["op_us"] - m["run_us"],
+             launch_python_us=m["run_us"] - m["c_call_us"], calls=n)
+    return m
+
+
+def _copy_routes(chan, dev):
+    """One slot copied device -> staging -> device by each route at 4 KB to
+    64 MB: the kernel's copies (a ``Launch`` whose limit is the slot's
+    size) against the copy engines' (a limit one byte below), in turns
+    (kernel, engine, engine, kernel), CUDA events on an idle stream (the
+    host's enqueue inside: ``*_ms``) and behind a device sleep (the
+    device's time: ``*_busy_ms``); the served region does nothing, so
+    both outputs must equal the input bit for bit.  ``limit_measured`` is
+    the largest size at which the kernel's route is no slower on the
+    device."""
+    from repro_torch.kernels.rpc_channel.kernel import _launch_with_limit
+    rec = {}
+    for nbytes, n in ((4 << 10, 40), (64 << 10, 40), (256 << 10, 20),
+                      (1 << 20, 20), (4 << 20, 10), (16 << 20, 6),
+                      (64 << 20, 4)):
+        src = torch.randint(-2**31, 2**31 - 1, (nbytes // 4,),
+                            dtype=torch.int32, device=dev)
+        sid, staging = chan.stagings.get(
+            ("smoke.route", nbytes),
+            lambda: (chan.new_staging([nbytes]), lambda: None))
+        routes = {"kernel": _launch_with_limit(nbytes, sid, staging, [0],
+                                               [0], channel=chan),
+                  "engine": _launch_with_limit(nbytes - 1, sid, staging, [0],
+                                               [0], channel=chan)}
+        outs = {k: torch.zeros_like(src) for k in routes}
+        ms = {k + busy: [] for k in routes for busy in ("", "_busy")}
+        for r in range(2 * n):
+            busy = "_busy" if r >= n else ""
+            for k in (("kernel", "engine") if r % 2 == 0
+                      else ("engine", "kernel")):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                if busy:                 # the stream busy: device time
+                    torch.cuda._sleep(2_000_000)
+                a.record()
+                routes[k].run([src], [], [outs[k]])
+                b.record()
+                torch.cuda.synchronize()
+                ms[k + busy].append(a.elapsed_time(b))
+        row = {k + "_ms": _median(v) for k, v in ms.items()}
+        row["kernel_grid"] = routes["kernel"].call.grid
+        row["bit_equal"] = all(_same_tensor(o, src) for o in outs.values())
+        if not row["bit_equal"]:
+            raise AssertionError(f"rpc_time: the copy routes disagree at "
+                                 f"{nbytes} bytes")
+        rec[str(nbytes)] = row
+    rec["limit_measured"] = max(
+        [int(k) for k, v in rec.items()
+         if v["kernel_busy_ms"] <= v["engine_busy_ms"]] or [0])
+    return rec
 
 
 def device_run_hooks_phase():
@@ -8017,7 +8312,8 @@ def main() -> int:
     summary["rpc_channel"] = {
         "max_abs_err": rpc_err, "kernel_ms": empty["ms"],
         "plain_ms": empty["plain_ms"], "bound_ms": empty["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}
+        "bound_by": "bytes", "library_ms": None,
+        "latency_floor_ms": empty["latency_floor"]["ms"]}
     queue_launches, queue_posts = timed(rpc_queue_phase)
     timed(rpc_queue_faults_phase)
     scalar = timed(rpc_queue_time_phase, card_line)
@@ -8124,6 +8420,8 @@ def main() -> int:
             "ms": rec["kernel_ms"] if "kernel_ms" in rec else rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        if "latency_floor_ms" in rec:
+            kernels[-1]["latency_floor_ms"] = rec["latency_floor_ms"]
         if len(paths) > 1:
             kernels[-1]["launches_by_path"] = paths
         is_flash = name == "flash_attention"

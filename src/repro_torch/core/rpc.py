@@ -18,11 +18,14 @@ included).
 Transport, by the operands' device, as the kernels dispatch:
 
 * **CUDA tensors** go through the port's channel
-  (``kernels/rpc_channel``): in stream order the operands are copied into
-  the pad's staging region in pinned, host-mapped memory, a CUDA kernel
-  (``rpc_post``) posts the record and waits on a reply flag that a host
-  thread sets after running the callee, and the result and the
-  write-back refs are copied out.  The Python thread never waits for the
+  (``kernels/rpc_channel``) in one launch of a CUDA kernel
+  (``rpc_post``): it copies the operands into the pad's staging region in
+  pinned, host-mapped memory (a slot above ``COPY_LIMIT`` takes a copy
+  engine around the launch), posts the record, waits on a reply flag that
+  a host thread sets after running the callee, and copies the result and
+  the write-back refs out.  The first call of a (landing pad, result
+  shapes, stream) makes a :class:`CallPlan`, which later calls take.  The
+  Python thread never waits for the
   device: the call returns at once with tensors that the stream fills, as
   JAX's ordered ``io_callback`` never blocks the tracing thread.  Host
   effects are visible after :func:`effects_barrier`.  There is no
@@ -756,7 +759,11 @@ def _stage(t: torch.Tensor) -> Tuple[torch.Tensor, str]:
     if t.dtype not in _DTYPES:
         raise TypeError(f"RPC operand of dtype {t.dtype} is not supported")
     name, staged = _DTYPES[t.dtype]
-    return t.detach().to(staged).contiguous(), name
+    if t.requires_grad:
+        t = t.detach()
+    if t.dtype is not staged:
+        t = t.to(staged)
+    return t.contiguous(), name
 
 
 def _device_of(args, device) -> torch.device:
@@ -827,13 +834,28 @@ def _store(view: np.ndarray, out, name: str) -> None:
 def _result_specs(result_shape):
     """``result_shape`` (any pytree of objects with ``shape`` and
     ``dtype``, as JAX takes it; ``()`` for no result) as the same tree of
-    :class:`ShapeDtype`."""
+    :class:`ShapeDtype`.  A :class:`ShapeDtype` or a tuple of them is
+    looked up by value, its specs made once; any other tree (whose leaves
+    may be tensors, kept by identity) is mapped at each call."""
+    by_value = type(result_shape) is ShapeDtype or (
+        type(result_shape) is tuple
+        and all(type(s) is ShapeDtype for s in result_shape))
+    if by_value and result_shape in _SPECS:
+        return _SPECS[result_shape]
+
     def spec(s):
         if not (hasattr(s, "shape") and hasattr(s, "dtype")):
             raise TypeError(f"result_shape leaf {s!r} has no shape and dtype")
         return ShapeDtype(s.shape, _torch_dtype(s.dtype))
 
-    return tree_map(spec, result_shape)
+    specs = tree_map(spec, result_shape)
+    if by_value:
+        _SPECS[result_shape] = specs
+    return specs
+
+
+#: :func:`_result_specs` of each ShapeDtype result shape, by value.
+_SPECS: Dict[Any, Any] = {}
 
 
 def _result_leaves(specs, result, name: str) -> List[Any]:
@@ -1032,34 +1054,82 @@ def _pad_staging(channel, name, pid, sig, ops, specs) -> Tuple[int, Staging]:
     return channel.stagings.get(staging_key(pid, specs), make)
 
 
+class CallPlan:
+    """An immediate call's plan on one channel, made at the first call of a
+    (landing pad, result specs, channel) and taken by every later one:
+    the staging id and region (:func:`_pad_staging`), the slot of each
+    tensor operand (``tensor_ops``, in order, into slots 0, 1, ...) and
+    the scalar word of each Python number (``word_ops``), the result leaves
+    (``results``: shape, staged dtype, the spec's dtype) and the write-back
+    refs (``back_ops``), and ``out_slots``: the results' slots, then the
+    write-backs'; and ``launch``, the descriptor that the launch takes
+    (``Launch``: each slot's offset, bytes and copy route), which the
+    channel also keeps under the staging id, where the op finds it.  A
+    later call fills in the tensors and the words and makes one call of
+    the op."""
+
+    __slots__ = ("sid", "staging", "tensor_ops", "in_slots", "word_ops",
+                 "results", "back_ops", "out_slots", "single", "launch")
+
+    def __init__(self, channel, name, pid, sig, ops, refs, specs):
+        self.sid, self.staging = _pad_staging(channel, name, pid, sig, ops,
+                                              specs)
+        self.tensor_ops = [i for i, op in enumerate(ops)
+                           if isinstance(op, torch.Tensor)]
+        self.word_ops = [i for i, op in enumerate(ops)
+                         if not isinstance(op, torch.Tensor)]
+        if len(self.word_ops) > INLINE_WORDS:
+            raise ValueError(f"RPC {name!r}: {len(self.word_ops)} "
+                             f"Python-number operands, at most "
+                             f"{INLINE_WORDS}; pass tensors")
+        n = len(self.tensor_ops)
+        self.in_slots = list(range(n))
+        self.results = [(s.shape, _DTYPES[s.dtype][1], s.dtype)
+                        for s in leaves(specs)]
+        self.single = isinstance(specs, ShapeDtype)
+        slot_of = {i: k for k, i in enumerate(self.tensor_ops)}
+        self.back_ops = [i for i, acc, _ in refs if acc != READ]
+        self.out_slots = [n + k for k in range(len(self.results))] + \
+            [slot_of[i] for i in self.back_ops]
+        self.launch = channel.launch_for(self.sid, self.in_slots,
+                                         self.out_slots)
+
+    def call(self, ops, refs, specs, device):
+        """One round trip of ``ops``; returns ``(result, updated)``."""
+        results = [torch.empty(shape, dtype=dt, device=device)
+                   for shape, dt, _ in self.results]
+        backs = [torch.empty_like(ops[i]) for i in self.back_ops]
+        post(device, self.sid, [ops[i] for i in self.tensor_ops],
+             self.in_slots,
+             [int.from_bytes(ops[i].tobytes(), "little")
+              for i in self.word_ops], results + backs, self.out_slots)
+        results = [r if dt is want else r.to(want)
+                   for r, (_, dt, want) in zip(results, self.results)]
+        back = dict(zip(self.back_ops, backs))
+        updated = [orig if acc == READ else back[i].to(orig.dtype)
+                   for i, acc, orig in refs]
+        return (results[0] if self.single else _rebuild(specs, results)), \
+            updated
+
+
+def plan_key(pid: int, specs) -> Tuple:
+    """The key of a call plan on a channel: the landing pad and the result
+    specs (their ``repr`` where they cannot be hashed)."""
+    try:
+        hash(specs)
+    except TypeError:
+        return pid, repr(specs)
+    return pid, specs
+
+
 def _call_channel(name, pid, sig, ops, refs, specs, device):
     channel = host_channel() if device.type == "cpu" else channel_for(device)
-    sid, staging = _pad_staging(channel, name, pid, sig, ops, specs)
-    slots, inputs, words = {}, [], []
-    for i, op in enumerate(ops):
-        if isinstance(op, torch.Tensor):
-            slots[i] = len(inputs)
-            inputs.append((slots[i], op))
-        else:
-            word = np.zeros(4, np.uint8)
-            word[:op.dtype.itemsize] = np.frombuffer(op.tobytes(), np.uint8)
-            words.append(int(word.view(np.uint32)[0]))
-    if len(words) > INLINE_WORDS:
-        raise ValueError(f"RPC {name!r}: {len(words)} Python-number operands, "
-                         f"at most {INLINE_WORDS}; pass tensors")
-    results = [torch.empty(s.shape, dtype=_DTYPES[s.dtype][1], device=device)
-               for s in leaves(specs)]
-    outputs = [(len(inputs) + i, r) for i, r in enumerate(results)]
-    backs = {}
-    for i, acc, _ in refs:
-        if acc != READ:
-            backs[i] = torch.empty_like(ops[i])
-            outputs.append((slots[i], backs[i]))
-    post(device, sid, inputs, words, outputs)
-    updated = [orig if acc == READ else backs[i].to(orig.dtype)
-               for i, acc, orig in refs]
-    return _rebuild(specs, [r.to(s.dtype) for r, s in
-                            zip(results, leaves(specs))]), updated
+    key = plan_key(pid, specs)
+    plan = channel.plans.get(key)
+    if plan is None:
+        plan = channel.plans[key] = CallPlan(channel, name, pid, sig, ops,
+                                             refs, specs)
+    return plan.call(ops, refs, specs, device)
 
 
 def effects_barrier() -> None:
@@ -2819,8 +2889,8 @@ class RpcQueue:
             self._check_policy()
             channel = channel_for(self.device)
         sid, _ = _queue_staging(channel, L)
-        post(self.device, sid, [(0, self.state[:L.in_end])],
-             [_post_flush(ctx)], [(1, self.state[L.out_start:])])
+        post(self.device, sid, [self.state[:L.in_end]], [0],
+             [_post_flush(ctx)], [self.state[L.out_start:]], [1])
 
     def _flush_async(self, ctx: _FlushCtx) -> "RpcQueue":
         """The double-buffered hand-off: submit this epoch's drain, install
@@ -3360,10 +3430,10 @@ class ShardedRpcQueue:
             self._check_policy()
             channel = channel_for(self.device)
         sid, _ = _sharded_staging(channel, L, D)
-        post(self.device, sid,
-             [(d, self.state[d, :L.in_end]) for d in range(D)],
-             [_post_flush(ctx)],
-             [(D + d, self.state[d, L.out_start:]) for d in range(D)])
+        post(self.device, sid, [self.state[d, :L.in_end] for d in range(D)],
+             list(range(D)), [_post_flush(ctx)],
+             [self.state[d, L.out_start:] for d in range(D)],
+             list(range(D, 2 * D)))
 
     def _check_policy(self) -> None:
         """A card flush's worst case must stay within the channel's wait:

@@ -1,0 +1,120 @@
+"""The host RPC's round trip of two or more builds, in turns on one card.
+
+    python -m repro_torch.evaluation.rpc_ab ROOT[:FLAG,...] ... \\
+        [--out chiprun_out/rpc_ab.jsonl]
+
+Each variant is a checkout's root (its ``chip_smoke.py`` and ``src/``),
+with extra ``nvcc`` flags for its kernels after a colon: ``.`` is this
+tree, ``build/parent`` a parent commit unpacked there with ``git
+archive``, ``.:-DRPC_SLOTS=32`` this tree with ``rpc_post``'s slot table
+cut to 32 slots (the library is built apart, its name hashed with the
+flags).  Each variant runs in a child process of its own, in the order
+given, so give them in turns (A B B A).  A child measures with its own
+tree's code: ``chip_smoke.py``'s ``rpc_time`` phase (the empty round trip
+and its parts, READWRITE refs of 4 KB to 64 MB, and whatever else that
+tree's phase measures), its ``device_run_hooks`` phase, and Fig. 7's
+round trip (``evaluation/rpc.py::roundtrip_section``).  Every JSON line a
+child prints goes to ``--out`` (one object a variant); a summary line a
+variant goes to standard output.  It needs a card and the CUDA toolkit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from typing import Dict, List
+
+# The child: argv is the variant's root and its nvcc flags (comma-joined).
+_CHILD = r"""
+import json, sys
+root, flags = sys.argv[1], [f for f in sys.argv[2].split(",") if f]
+sys.path[:0] = [root + "/src", root]
+from repro_torch.kernels import _build
+_build.NVCC_FLAGS.extend(flags)
+import torch
+import chip_smoke
+from repro_torch.evaluation import rpc as fig
+chip_smoke.rpc_time_phase(chip_smoke.nvidia_smi())
+chip_smoke.device_run_hooks_phase()
+stats, _ = fig.roundtrip_section(torch.device("cuda", 0))
+print(json.dumps({"fig7": stats}), flush=True)
+"""
+
+
+def _lines(text: str) -> Dict[str, dict]:
+    """The child's one-key JSON lines, by key."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("{"):
+            try:
+                obj = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(obj, dict) and len(obj) == 1:
+                out.update(obj)
+    return out
+
+
+def summary(lines: Dict[str, dict]) -> Dict[str, float]:
+    """The readings compared between variants (absent ones left out)."""
+    t = lines.get("rpc_time", {})
+    empty, refs = t.get("empty", {}), t.get("readwrite", {})
+    hooks, fig7 = lines.get("device_run_hooks", {}), lines.get("fig7", {})
+    picks = {
+        "empty_ms": empty.get("ms"),
+        "empty_enqueue_us": empty.get("enqueue_us"),
+        "empty_kernel_wait_us": empty.get("kernel_wait_us"),
+        "empty_busy_ms": empty.get("behind_busy_stream_ms"),
+        "isolated_ms": empty.get("isolated", {}).get("ms"),
+        "latency_floor_ms": empty.get("latency_floor", {}).get("ms"),
+        "cuda_api_calls_per_call": empty.get("cuda_api_calls_per_call"),
+        "plain_ms": empty.get("plain_ms"),
+        "fig7_roundtrip_us": fig7.get("rpc_roundtrip_us"),
+    }
+    for label in ("4KB", "1MB", "64MB"):
+        picks[f"ref_{label}_ms"] = refs.get(label, {}).get("ms")
+    for key in ("every_1", "every_100"):
+        picks[f"hooks_{key}_device_ms"] = hooks.get(key, {}).get("device_ms")
+    return {k: v for k, v in picks.items() if v is not None}
+
+
+def run_variant(spec: str, timeout: float) -> dict:
+    root, _, flags = spec.partition(":")
+    root = os.path.abspath(root)
+    proc = subprocess.run([sys.executable, "-c", _CHILD, root, flags],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"rpc_ab: {spec} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    lines = _lines(proc.stdout)
+    return {"variant": spec, "summary": summary(lines), "lines": lines}
+
+
+def main(argv: List[str] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("variants", nargs="+",
+                    help="ROOT[:NVCC_FLAG,...], in the order to run")
+    ap.add_argument("--out", default=None, help="JSON lines, one a variant")
+    ap.add_argument("--timeout", type=float, default=600.0,
+                    help="seconds a variant may take")
+    args = ap.parse_args(argv)
+    out = open(args.out, "w") if args.out else None
+    try:
+        for spec in args.variants:
+            rec = run_variant(spec, args.timeout)
+            if out is not None:
+                out.write(json.dumps(rec) + "\n")
+                out.flush()
+            print(json.dumps({"rpc_ab": {"variant": spec,
+                                         **rec["summary"]}}), flush=True)
+    finally:
+        if out is not None:
+            out.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

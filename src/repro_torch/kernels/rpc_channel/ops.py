@@ -19,7 +19,7 @@ defined with ``torch.library.Library`` (as ``rpc_enqueue``, see
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence
 
 import torch
 
@@ -35,15 +35,12 @@ _LIB.define("rpc_post(Tensor anchor, int staging, Tensor[] inputs, "
 
 
 def _cpu(anchor, staging, inputs, in_slots, words, outputs, out_slots):
-    host_channel().post(staging, list(zip(in_slots, inputs)), words,
-                        list(zip(out_slots, outputs)))
+    host_channel().post(staging, inputs, in_slots, words, outputs, out_slots)
 
 
 def _cuda(anchor, staging, inputs, in_slots, words, outputs, out_slots):
-    channel = channel_for(anchor.device)
-    rpc_post(channel, staging, channel.stagings.entries[staging][0],
-             list(zip(in_slots, inputs)), words,
-             list(zip(out_slots, outputs)))
+    rpc_post(channel_for(anchor.device), staging, inputs, in_slots, words,
+             outputs, out_slots)
 
 
 def _fake(anchor, staging, inputs, in_slots, words, outputs, out_slots):
@@ -56,16 +53,25 @@ torch.library.register_fake(f"{OPS_NAMESPACE}::rpc_post", _fake, lib=_LIB)
 _OP = torch.ops.repro_torch.rpc_post.default
 torch.fx.node.has_side_effect(_OP)
 
+#: An empty tensor a device: the anchor of eager calls with no input.
+_ANCHORS: Dict[torch.device, torch.Tensor] = {}
 
-def post(device: torch.device, staging: int,
-         inputs: Sequence[Tuple[int, torch.Tensor]], words: Sequence[int],
-         outputs: Sequence[Tuple[int, torch.Tensor]]) -> None:
+
+def post(device: torch.device, staging: int, inputs: Sequence[torch.Tensor],
+         in_slots: Sequence[int], words: Sequence[int],
+         outputs: Sequence[torch.Tensor], out_slots: Sequence[int]) -> None:
     """One round trip through the op on ``device``'s channel (see the
-    module docstring); ``inputs`` and ``outputs`` are ``(slot, tensor)``
-    pairs."""
-    anchor = inputs[0][1] if inputs else torch.empty(
-        0, dtype=torch.int32, device=device)
-    with traced_stack():
-        _OP(anchor, staging, [t for _, t in inputs], [s for s, _ in inputs],
-            [int(w) for w in words], [t for _, t in outputs],
-            [s for s, _ in outputs])
+    module docstring): ``inputs[k]`` into slot ``in_slots[k]``, slot
+    ``out_slots[k]`` into ``outputs[k]``; ``words`` are ints."""
+    if torch.compiler.is_exporting():
+        # a fresh anchor: the export's own (fake) tensor
+        anchor = inputs[0] if inputs else torch.empty(
+            0, dtype=torch.int32, device=device)
+        with traced_stack():
+            _OP(anchor, staging, inputs, in_slots, words, outputs, out_slots)
+        return
+    anchor = inputs[0] if inputs else _ANCHORS.get(device)
+    if anchor is None:
+        anchor = _ANCHORS[device] = torch.empty(0, dtype=torch.int32,
+                                                device=device)
+    _OP(anchor, staging, inputs, in_slots, words, outputs, out_slots)

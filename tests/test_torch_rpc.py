@@ -471,3 +471,287 @@ def test_one_callee_at_three_result_sizes_keeps_pad_stats_per_pad():
     assert st["pads"] == 1 and st["calls"] == 3
     (pid,) = [k for k, v in trpc.pad_table().items() if v[0] == name]
     assert trpc.pad_stats(pid)["calls"] == 3
+
+
+# -- the call plan: made once a (landing pad, result specs, channel) --------
+
+def _plan_of(name, pid_sig, result_shape):
+    """This thread's host channel's plan and launch descriptor of
+    ``name`` at the signature ``pid_sig`` and ``result_shape``."""
+    from repro_torch.kernels.rpc_channel import host_channel
+    pid = trpc.REGISTRY.pads[(name,) + pid_sig]
+    channel = host_channel()
+    plan = channel.plans[trpc.plan_key(pid, trpc._result_specs(result_shape))]
+    assert plan.launch is channel.launches[plan.sid]
+    return plan, plan.launch, channel
+
+
+def _plan_cases():
+    """The cases of test_rpc_value_and_ref_args_match_jax,
+    test_rpc_narrow_and_bf16_operands_match_jax and
+    test_rpc_empty_and_tuple_result_shapes_match_jax: ``(callee, JAX args,
+    port args, JAX result shape, port result shape)``; the port's args
+    are made anew at each call."""
+    def scanf_like(scale, buf):
+        buf[:] = np.arange(len(buf), dtype=np.float32) * float(scale)
+        return np.int32(len(buf))
+
+    def fill(idx, buf):
+        buf[:] = np.float32(1.0 / 3.0) * (1 + np.asarray(idx, np.float32))
+        return np.int32(idx.sum())
+
+    i32 = (jax.ShapeDtypeStruct((), jnp.int32),
+           trpc.ShapeDtype((), torch.int32))
+    pair = ((jax.ShapeDtypeStruct((), jnp.int32),
+             jax.ShapeDtypeStruct((), jnp.float32)),
+            (trpc.ShapeDtype((), torch.int32),
+             trpc.ShapeDtype((), torch.float32)))
+    idx = np.arange(3, dtype=np.int64)
+    return {
+        "value_and_ref": (
+            scanf_like, lambda: (3, jrpc.Ref(jnp.zeros(4, jnp.float32))),
+            lambda: (3, trpc.Ref(torch.zeros(4))), *i32),
+        "narrow_and_bf16": (
+            fill, lambda: (idx, jrpc.Ref(jnp.zeros(3, jnp.bfloat16))),
+            lambda: (torch.from_numpy(idx),
+                     trpc.Ref(torch.zeros(3, dtype=torch.bfloat16))), *i32),
+        "tuple_result": (
+            _two_results, lambda: (jnp.int32(1),), lambda: (1,), *pair),
+        "empty_result": (
+            lambda x: None, lambda: (jnp.int32(7),), lambda: (7,), (), ()),
+    }
+
+
+@pytest.mark.parametrize("case", list(_plan_cases()))
+def test_call_plan_slot_table_matches_staging_layout(case):
+    """The plan's slot table against its ``Staging`` region: tensor
+    operands in slots 0, 1, ... in order, Python numbers in the scalar
+    words in order, the result leaves after the operands, the write-backs
+    back into their operand's slot; each row's offset and bytes the
+    region's, its route by size (every slot here is under the limit)."""
+    from repro_torch.kernels.rpc_channel import COPY_LIMIT, KERNEL
+    fn, _, targs, _, tshape = _plan_cases()[case]
+    name = f"torch_plan_{case}_{next(_ids)}"
+    trpc.REGISTRY.register(name, fn)
+    args = targs()
+    trpc.rpc_call(name, *args, result_shape=tshape)
+    specs, _, sig, ops, refs, _ = trpc._prepare(name, args, tshape, False,
+                                                 None)
+    plan, launch, _ = _plan_of(name, sig, tshape)
+    staging = plan.staging
+    tensors = [i for i, op in enumerate(ops) if isinstance(op, torch.Tensor)]
+    assert plan.tensor_ops == tensors and plan.in_slots == list(
+        range(len(tensors)))
+    assert plan.word_ops == [i for i in range(len(ops)) if i not in tensors]
+    n_res = len(trpc.leaves(specs))
+    backs = [tensors.index(i) for i, acc, _ in refs if acc != trpc.READ]
+    assert plan.out_slots == [len(tensors) + k for k in range(n_res)] + backs
+    assert len(staging.slot_bytes) == len(tensors) + n_res
+    assert [row[0] for row in launch.table] == plan.in_slots + plan.out_slots
+    for slot, offset, nbytes, route, out in launch.table:
+        assert offset == staging.offsets[slot] and offset % 256 == 0
+        assert nbytes == staging.slot_bytes[slot]
+        assert route == KERNEL and nbytes <= COPY_LIMIT
+    assert [row[4] for row in launch.table] == \
+        [False] * len(plan.in_slots) + [True] * len(plan.out_slots)
+    for slot, i in zip(plan.in_slots, plan.tensor_ops):
+        assert staging.slot_bytes[slot] == ops[i].numel() * \
+            ops[i].element_size()
+
+
+@pytest.mark.parametrize("case", list(_plan_cases()))
+def test_call_plan_round_trip_is_jax_bit_for_bit(case):
+    """Two calls of each case through the plan (made at the first, taken
+    at the second) give JAX's results and write-backs bit for bit."""
+    fn, jargs, targs, jshape, tshape = _plan_cases()[case]
+    name = f"torch_plan_rt_{case}_{next(_ids)}"
+    jrpc.REGISTRY.register(name, fn)
+    trpc.REGISTRY.register(name, fn)
+    for _ in range(2):
+        jr, jup = jrpc.rpc_call(name, *jargs(), result_shape=jshape)
+        jax.effects_barrier()
+        tr, tup = trpc.rpc_call(name, *targs(), result_shape=tshape)
+        jl, tl = jax.tree.leaves(jr), trpc.leaves(tr)
+        assert len(jl) == len(tl) and len(jup) == len(tup)
+        for j, t in zip(jl + list(jup), tl + list(tup)):
+            assert str(t.dtype).removeprefix("torch.") == str(j.dtype)
+            np.testing.assert_array_equal(t.float().numpy(),
+                                          np.asarray(j, np.float32))
+    from repro_torch.kernels.rpc_channel import host_channel
+    plans = [k for k in host_channel().plans
+             if trpc.REGISTRY.pad_info[k[0]][0] == name]
+    assert len(plans) == 1
+    _same_bookkeeping(name)
+
+
+def test_call_plan_is_made_once_and_a_new_result_shape_makes_another():
+    """The plan and its launch descriptor are made at the first call and
+    taken by later ones; a new result shape of the same landing pad makes
+    a new plan and a new staging id (F6), and the old shape's plan is
+    taken again after it."""
+    from repro_torch.kernels.rpc_channel import host_channel
+    name = f"torch_plan_reply_{next(_ids)}"
+    trpc.REGISTRY.register(name, _reply)
+    channel = host_channel()
+    seen = {}
+    for i, P in enumerate((4, 4, 16, 4)):
+        spec = trpc.ShapeDtype((P,), torch.int32)
+        out, _ = trpc.rpc_call(name, torch.tensor(i, dtype=torch.int32), P,
+                               result_shape=spec)
+        np.testing.assert_array_equal(out.numpy(), _reply(i, P))
+        pid = trpc.REGISTRY.pads[(name, ("val", (), "int32"),
+                                  ("val", (), "int32"))]
+        plan = channel.plans[trpc.plan_key(pid, spec)]
+        launch = plan.launch
+        assert launch is channel.launches[plan.sid]
+        if P in seen:
+            assert seen[P] == (plan, launch)
+        seen[P] = (plan, launch)
+    assert seen[4][0] is not seen[16][0]
+    assert seen[4][0].sid != seen[16][0].sid
+    assert channel.stagings.ids[trpc.staging_key(
+        pid, trpc.ShapeDtype((16,), torch.int32))] == seen[16][0].sid
+    assert trpc.rpc_stats(name)["pads"] == 1
+
+
+def test_call_plan_rebinds_a_reregistered_callee():
+    """A callee registered again under its name is the one a cached plan
+    calls (the landing pad looks the name up at each call)."""
+    from repro_torch.kernels.rpc_channel import host_channel
+    name = f"torch_plan_rebind_{next(_ids)}"
+    trpc.REGISTRY.register(name, lambda x: np.int32(x + 1))
+    spec = trpc.ShapeDtype((), torch.int32)
+    a, _ = trpc.rpc_call(name, 5, result_shape=spec)
+    n_plans = len(host_channel().plans)
+    trpc.REGISTRY.register(name, lambda x: np.int32(x * 10))
+    b, _ = trpc.rpc_call(name, 5, result_shape=spec)
+    assert (int(a), int(b)) == (6, 50)
+    assert len(host_channel().plans) == n_plans
+    assert trpc.rpc_stats(name)["calls"] == 2
+
+
+def test_call_plan_routes_by_size_and_stays_bit_equal():
+    """A READWRITE ref above ``COPY_LIMIT`` beside one below: the table
+    gives the copy engines the large slot (operand and write-back) and
+    the kernel the rest, and the round trip through the plan equals the
+    host-synchronous version's and JAX's."""
+    from repro_torch.kernels.rpc_channel import COPY_LIMIT, ENGINE, KERNEL
+
+    def bump(small, big):
+        small[:] = small * 3 + 1
+        big[::4097] += 1.5
+        return np.int32(small.size + big.size)
+
+    name = f"torch_plan_routes_{next(_ids)}"
+    jrpc.REGISTRY.register(name, bump)
+    trpc.REGISTRY.register(name, bump)
+    small = np.arange(1024, dtype=np.float32)
+    big = np.linspace(0, 1, 2 * COPY_LIMIT // 4, dtype=np.float32)
+    jr, (js, jb) = jrpc.rpc_call(name, jrpc.Ref(jnp.asarray(small)),
+                                 jrpc.Ref(jnp.asarray(big)),
+                                 result_shape=jax.ShapeDtypeStruct(
+                                     (), jnp.int32))
+    spec = trpc.ShapeDtype((), torch.int32)
+    args = (trpc.Ref(torch.from_numpy(small.copy())),
+            trpc.Ref(torch.from_numpy(big.copy())))
+    tr, (ts, tb) = trpc.rpc_call(name, *args, result_shape=spec)
+    pr, (ps, pb) = trpc.rpc_call_reference(name, *args, result_shape=spec)
+    for t, p, j in ((tr, pr, jr), (ts, ps, js), (tb, pb, jb)):
+        assert torch.equal(t, p)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    sig = (("ref", (1024,), "float32", "readwrite"),
+           ("ref", (big.size,), "float32", "readwrite"))
+    _, launch, _ = _plan_of(name, sig, spec)
+    assert [(row[0], row[3], row[4]) for row in launch.table] == [
+        (0, KERNEL, False), (1, ENGINE, False), (2, KERNEL, True),
+        (0, KERNEL, True), (1, ENGINE, True)]
+    assert [row[2] for row in launch.table] == [
+        4096, 2 * COPY_LIMIT, 4, 4096, 2 * COPY_LIMIT]
+
+
+def test_call_plan_refuses_more_kernel_slots_than_the_table_holds():
+    """``MAX_SLOTS`` tensor slots under the limit fit the descriptor (the
+    host channel takes the same table); one more is refused before the
+    callee runs."""
+    from repro_torch.kernels.rpc_channel import MAX_SLOTS
+    runs = []
+
+    def count(*arrays):
+        runs.append(len(arrays))
+        return np.int32(sum(int(a.sum()) for a in arrays))
+
+    name = f"torch_plan_slots_{next(_ids)}"
+    trpc.REGISTRY.register(name, count)
+    spec = trpc.ShapeDtype((), torch.int32)
+    args = [torch.full((2,), k, dtype=torch.int32) for k in range(MAX_SLOTS)]
+    out, _ = trpc.rpc_call(name, *args[:-1], result_shape=spec)
+    assert int(out) == 2 * sum(range(MAX_SLOTS - 1))
+    with pytest.raises(ValueError, match="tensor slots"):
+        trpc.rpc_call(name, *args, result_shape=spec)
+    assert runs == [MAX_SLOTS - 1]
+
+
+def test_result_specs_are_kept_by_value_only():
+    """Result specs made from ShapeDtypes (alone or in a tuple) are made
+    once and looked up by value; a tree of tensors is mapped at each call
+    and none of its tensors is kept."""
+    import weakref
+    a = trpc._result_specs(trpc.ShapeDtype((3,), torch.int32))
+    b = trpc._result_specs(trpc.ShapeDtype((3,), torch.int32))
+    assert a is b and a == trpc.ShapeDtype((3,), torch.int32)
+    pair = (trpc.ShapeDtype((), torch.int32),
+            trpc.ShapeDtype((2,), torch.float32))
+    assert trpc._result_specs(pair) is trpc._result_specs(tuple(pair))
+    like = torch.zeros(2, 5, dtype=torch.bfloat16)
+    gone = weakref.ref(like)
+    specs = trpc._result_specs((like,))
+    assert specs == (trpc.ShapeDtype((2, 5), torch.bfloat16),)
+    name = f"torch_specs_{next(_ids)}"
+    trpc.REGISTRY.register(name, lambda: np.ones((2, 5), np.float32))
+    out, _ = trpc.rpc_call(name, result_shape=like)
+    assert out.shape == (2, 5) and out.dtype == torch.bfloat16
+    del like
+    assert gone() is None
+
+
+@pytest.mark.parametrize("rows, want", [
+    ([], (1, 0)),                                   # an empty call
+    ([(0, 256, 4, "kernel", True)], (1, 1)),        # an int32 result
+    ([(0, 256, 1 << 20, "kernel", False),
+      (1, 0, 4, "kernel", True)], (64, 1)),          # 1 MB in, 4 B back
+    ([(0, 256, 4096, "kernel", False),
+      (0, 256, 4096, "kernel", True)], (1, 1)),      # a 4 KB ref
+    ([(0, 256, 1 << 20, "kernel", False),
+      (0, 256, 1 << 20, "kernel", True)], (64, 64)),  # a 1 MB ref
+    ([(k, 0, 1 << 20, "kernel", False) for k in range(200)] +
+     [(k, 0, 1 << 20, "kernel", True) for k in range(200)], (132, 132)),
+    ([(0, 256, 64, "kernel", False)] * 5, (1, 0)),   # operands only
+])
+def test_launch_grid_holds_one_block_an_sm_and_waits_only_for_results(
+        rows, want):
+    """A launch's grid: a block a 16 KB each way, at most one an SM (132
+    on the H100); the blocks that wait for the host are those that copy
+    results back, the rest exit after the operands."""
+    from repro_torch.kernels.rpc_channel.kernel import BLOCK_BYTES, grids
+    assert BLOCK_BYTES == 16 << 10
+    grid, out_grid = grids(rows, 132)
+    assert (grid, out_grid) == want and 0 <= out_grid <= grid <= 132
+
+
+def test_launch_refuses_a_call_that_does_not_match_its_slots():
+    """A staging id's launch is made once, with its slots; a later post
+    with another number of tensors is refused before the callee runs."""
+    from repro_torch.kernels.rpc_channel import host_channel
+    runs = []
+    name = f"torch_plan_count_{next(_ids)}"
+    trpc.REGISTRY.register(name, lambda x: runs.append(1) or np.int32(x))
+    spec = trpc.ShapeDtype((), torch.int32)
+    x = torch.tensor(3, dtype=torch.int32)
+    out, _ = trpc.rpc_call(name, x, result_shape=spec)
+    assert int(out) == 3 and runs == [1]
+    sig = (("val", (), "int32"),)
+    plan, launch, channel = _plan_of(name, sig, spec)
+    with pytest.raises(ValueError, match="inputs and"):
+        channel.post(plan.sid, [x, x], [0, 0], [], [torch.empty_like(x)],
+                     plan.out_slots)
+    assert runs == [1]
