@@ -189,9 +189,12 @@ source, all started together) and runs, in order:
 23. ``rpc_queue_time``: host and device us per ``rpc_enqueue`` and per
     plain enqueue (behind a device sleep that hides the host) for a
     scalar record at W 4, a 1 KB and a 64 KB payload, beside the bytes
-    bound, and the op's host us beside the direct ctypes launch's;
-    the flush of a full 1024-record ring (events, host, the drain's
-    Python) beside the link's bound;
+    bound: ``enqueue`` through the queue's enqueue plan (one direct
+    launch), ``enqueue_ticketed``, and the forced op route, in turns;
+    the plan route against the op route on a seeded plan (queue states,
+    replay logs, tickets, replies and statuses bit-equal); the flush of
+    a full 1024-record ring (events, host, the drain's Python) beside
+    the link's bound;
 24. ``libc_io``: ``fprintf``, ``fwrite``, ``fgets``, ``fread``, remote
     malloc and ``LogRing`` on a card queue equal to a CPU queue (11
     ``rpc_enqueue`` launches, 2 ``rpc_post``);
@@ -395,6 +398,7 @@ import shutil
 import subprocess
 import sys
 import time
+import timeit
 import warnings
 
 import torch
@@ -5092,25 +5096,111 @@ def _behind_busy(fn, n):
             "host_hidden": host_ms < busy_ms, "attempts": attempt + 1}
 
 
+def _enqueue_routes_gate(dev):
+    """The plan route (``RpcQueue.enqueue``/``enqueue_ticketed`` in eager
+    mode: one direct launch through the queue's enqueue plan; a
+    fire-and-forget record with no ticket) against the op route (the
+    ``rpc_enqueue`` op on ``record()``'s record, as under export or a
+    dispatch mode) on a seeded plan of :data:`QUEUE_RECORDS` records:
+    each queue state before each flush, the flushes' replay logs and
+    states after them (replies, statuses, heads), the tickets and the
+    last epoch's reads bit-equal.  Twice: on queues as made
+    (``as_made``), and on queues whose ``sanitize`` is set after the
+    first flush (``sanitize_set_later``, as ``expand(queue=True,
+    sanitize=True)`` sets it on a queue already made), when the plan
+    route holds plans and lanes made unsanitized."""
+    from repro_torch.core import RpcQueue, effects_barrier
+    from repro_torch.core.expand import _with_sanitize
+    from repro_torch.kernels.rpc_queue import enqueue as enqueue_op
+
+    logged = _queue_callees()
+    plan = _queue_plan(dev, 3, QUEUE_RECORDS)
+    out = {}
+    for label in ("as_made", "sanitize_set_later"):
+        qa = RpcQueue.create(**QUEUE_GEOMETRY, device=dev)
+        qb = RpcQueue.create(**QUEUE_GEOMETRY, device=dev)
+        logs = {"plan": [], "op": []}
+        states, tickets, last, reads = [], [], [], []
+        with warnings.catch_warnings(), sync_errors():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            for k, (name, card, _, returns, wcard, _) in enumerate(plan):
+                if returns is None:
+                    qa.enqueue(name, *card, where=wcard)
+                    ta = None
+                else:
+                    _, ta = qa.enqueue_ticketed(name, *card, returns=returns,
+                                                where=wcard)
+                tb = enqueue_op(qb.state, qb.arrivals, qb.layout.lanes,
+                                qb.record(name, card, returns, wcard))
+                tickets.append((ta, tb))
+                last.append((k, returns))
+                if (k + 1) % QUEUE_FLUSH_EVERY and k + 1 != len(plan):
+                    continue
+                before = (qa.state.clone(), qb.state.clone())
+                qa.flush(logged(logs["plan"]))
+                qb.flush(logged(logs["op"]))
+                states.append(before + (qa.state.clone(), qb.state.clone()))
+                if k + 1 != len(plan):
+                    last = []
+                if label == "sanitize_set_later" and \
+                        k + 1 == QUEUE_FLUSH_EVERY:
+                    _with_sanitize(qa)
+                    _with_sanitize(qb)
+            for k, returns in last:
+                ta, tb = tickets[k]
+                if returns is not None:
+                    reads.append(([qa.result_status(ta)]
+                                  + list(qa.result_ok(ta, returns)),
+                                  [qb.result_status(tb)]
+                                  + list(qb.result_ok(tb, returns))))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            effects_barrier()
+        checks = {
+            "states_before_flush": all(_equal_states(a, b)
+                                       for a, b, _, _ in states),
+            "replies_statuses_heads": all(_equal_states(a, b)
+                                          for _, _, a, b in states),
+            "replay_log": logs["plan"] == logs["op"] and bool(logs["op"]),
+            "tickets": all(a is None or int(a) == int(b)
+                           for a, b in tickets),
+            "last_epoch_reads": bool(reads) and all(
+                all(_equal_states(x, y) for x, y in zip(a, b))
+                for a, b in reads),
+            "sanitize": qa.sanitize == qb.sanitize
+            == (label == "sanitize_set_later"),
+        }
+        out[label] = {"checks": checks, "records": len(plan),
+                      "flushes": len(states),
+                      "fire_and_forget": sum(a is None for a, _ in tickets)}
+        if not all(checks.values()):
+            raise AssertionError(f"rpc_queue_time routes {label}: "
+                                 f"{out[label]}")
+    return out
+
+
 def rpc_queue_time_phase(card_line):
     """Host and device microseconds per ``rpc_enqueue`` and per plain
     enqueue on the card (behind a device sleep that hides the host) for a
     scalar record at W 4, a 1 KB and a 64 KB payload, beside the bound
-    (the record's bytes at 3.35 TB/s); beside them ``ctypes``: the same
-    record appended by the op's CUDA kernel called directly
-    (``kernels/rpc_queue/kernel.py::rpc_enqueue`` on the queue's state,
-    geometry and record: the ctypes launch ``RpcQueue.enqueue`` ran
-    before it became the ``torch.ops.repro_torch.rpc_enqueue`` op),
-    timed in turns with the op, so ``op_host_us_over_ctypes`` is the
-    op's dispatch on the host; then the flush of a full ring of
-    1024 records with a 4096-word arena (CUDA events around the round
-    trip, the host's time in ``flush``, the drain's Python; median of 5).
-    Returns the scalar record's numbers for the kernels line."""
+    (the record's bytes at 3.35 TB/s), through three routes timed in
+    turns: ``plan``, ``RpcQueue.enqueue`` (the queue's enqueue plan, one
+    direct launch, no ticket); ``ticketed``, ``enqueue_ticketed`` (the
+    same plus a 0-d ticket); ``op``, the ``torch.ops.repro_torch.
+    rpc_enqueue`` op on ``record()``'s record (the route under export or
+    a dispatch mode, and the whole enqueue before the plan), so
+    ``op_host_us_over_ctypes`` is the op's host us over the direct plan
+    launch's.  Then the routes' gate (:func:`_enqueue_routes_gate`) and
+    the flush of a full ring of 1024 records with a 4096-word arena (CUDA
+    events around the round trip, the host's time in ``flush``, the
+    drain's Python; median of 5).  Returns the scalar record's numbers
+    for the kernels line."""
     import numpy as np
     from repro_torch.core import RpcQueue, effects_barrier
     from repro_torch.core.rpc import REGISTRY
     from repro_torch.kernels.rpc_channel import channel_for
-    from repro_torch.kernels.rpc_queue import enqueue_reference, rpc_enqueue
+    from repro_torch.kernels.rpc_queue import enqueue as enqueue_op
+    from repro_torch.kernels.rpc_queue import enqueue_reference
 
     REGISTRY.register("smoke.q_sink", lambda *a: None)
     dev = torch.device("cuda", 0)
@@ -5125,43 +5215,64 @@ def rpc_queue_time_phase(card_line):
         # room for two timings' warm-up calls and three attempts each:
         # nothing dropped
         arena = max(1, (6 + 6 * n) * words)
-        q = RpcQueue.create(max(n, 64), width, arena, device=dev)
-        qp = RpcQueue.create(max(n, 64), width, arena, device=dev)
-        # twice more room: the op and the direct launch, in turns
-        qc = RpcQueue.create(max(n, 64), width, arena, device=dev)
-        kernel = _behind_busy(lambda: q.enqueue("smoke.q_sink", *args), n)
-        direct = _behind_busy(lambda: rpc_enqueue(
-            qc.state, qc.layout.lanes, qc.arrivals,
-            qc.record("smoke.q_sink", args)), n)
-        kernel2 = _behind_busy(lambda: q.enqueue("smoke.q_sink", *args), n)
-        direct2 = _behind_busy(lambda: rpc_enqueue(
-            qc.state, qc.layout.lanes, qc.arrivals,
-            qc.record("smoke.q_sink", args)), n)
+        queues = {route: RpcQueue.create(max(n, 64), width, arena, device=dev)
+                  for route in ("plan", "ticketed", "op", "plain")}
+        q, qt, qo, qp = (queues[r] for r in ("plan", "ticketed", "op",
+                                             "plain"))
+        calls = {
+            "plan": lambda: q.enqueue("smoke.q_sink", *args),
+            "ticketed": lambda: qt.enqueue_ticketed("smoke.q_sink", *args),
+            "op": lambda: enqueue_op(qo.state, qo.arrivals, qo.layout.lanes,
+                                     qo.record("smoke.q_sink", args)),
+        }
+        runs = {route: [] for route in calls}
+        for _ in range(2):                       # in turns
+            for route, fn in calls.items():
+                runs[route].append(_behind_busy(fn, n))
         # the plain version is ~100 small launches a record: five stay
         # within CUDA's launch queue behind the sleep (more would block
         # the host on the sleeping device)
         plain = _behind_busy(lambda: enqueue_reference(
             qp.lanes(), qp.record("smoke.q_sink", args)), PLAIN_TIMED_CALLS)
-        equal = int(q.head) == 6 + (kernel["attempts"] +
-                                    kernel2["attempts"]) * n and \
-            int(q.adrops) == 0 and int(qc.adrops) == 0
+        kept = all(int(queues[r].head) == 6 + n * sum(
+            t["attempts"] for t in runs[r]) and int(queues[r].adrops) == 0
+            for r in calls)
         lanes = 4 + 3 * width
         nbytes = 4 * lanes + 8 * words + 4 * 6 + 4
+
+        def host(route):
+            return [t["host_us"] for t in runs[route]]
+
+        def device(route):
+            return [t["device_us"] for t in runs[route]]
+
+        kernel = runs["plan"][0]
         cases[label] = {
             "payload_words": words, "kernel": kernel, "plain": plain,
-            "ctypes": direct,
-            "op_host_us": [kernel["host_us"], kernel2["host_us"]],
-            "ctypes_host_us": [direct["host_us"], direct2["host_us"]],
-            "op_host_us_over_ctypes": (
-                kernel["host_us"] + kernel2["host_us"]
-                - direct["host_us"] - direct2["host_us"]) / 2,
-            "ms": kernel["device_us"] * 1e-3,
+            "plan_host_us": host("plan"), "plan_device_us": device("plan"),
+            "ticketed_host_us": host("ticketed"),
+            "ticketed_device_us": device("ticketed"),
+            "op_host_us": host("op"), "op_device_us": device("op"),
+            "op_host_us_over_ctypes": float(np.mean(host("op"))
+                                            - np.mean(host("plan"))),
+            "ms": float(np.mean(device("plan"))) * 1e-3,
             "plain_ms": plain["device_us"] * 1e-3,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
-            "all_kept": equal}
-        if not (kernel["host_hidden"] and plain["host_hidden"] and equal):
+            "all_kept": kept}
+        hidden = all(t["host_hidden"] for ts in runs.values() for t in ts)
+        if not (hidden and plain["host_hidden"] and kept):
             raise AssertionError(f"rpc_queue_time {label}: {cases[label]}")
-        del q, qp, qc
+        del q, qt, qo, qp, queues, calls
+    routes = _enqueue_routes_gate(dev)
+    # the current stream's handle: the raw one the plan route reads every
+    # launch, against a stream object's
+    reps = 100_000
+    stream_us = {
+        "raw": timeit.timeit(lambda: torch._C._cuda_getCurrentRawStream(0),
+                             number=reps) / reps * 1e6,
+        "current_stream": timeit.timeit(
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+            number=reps) / reps * 1e6}
     # flush of a full ring
     REGISTRY.register("smoke.q_full", lambda i, x, p: None)
     q = RpcQueue.create(1024, width, 4096, device=dev)
@@ -5191,6 +5302,7 @@ def rpc_queue_time_phase(card_line):
              "link_bound_ms": moved / link["bytes_per_s"] * 1e3,
              "flushes_timed": len(ev_ms) - 1}
     log({"rpc_queue_time": {"card": card_line, "enqueue": cases,
+                            "routes": routes, "stream_handle_us": stream_us,
                             "flush_full_ring": flush}})
     return cases["scalar_w4"]
 

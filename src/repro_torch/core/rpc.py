@@ -43,7 +43,11 @@ rpc_post``, each enqueue one of ``rpc_enqueue`` and each async flush one
 of ``rpc_async_post`` and one of ``rpc_async_collect`` (``kernels/
 rpc_*/ops.py``): the CUDA kernels are the launches named below, the CPU
 kernels their plain versions, so ``torch.export`` of a program keeps its
-transport as graph nodes (what ``analysis/walker.py`` reads).
+transport as graph nodes (what ``analysis/walker.py`` reads).  A card
+queue's enqueue in eager mode (no export, compile, dispatch or function
+mode) launches the same kernel without the op's dispatch, through the
+queue's cached enqueue plans (``kernels/rpc_queue/kernel.py::
+EnqueuePlan``).
 
 bf16 operands reach the callee as float32 and a bf16 write-back is rounded
 back.  ``rpc_stats``' byte counts are JAX's: operands in, result and every
@@ -55,7 +59,8 @@ a ring of records (callee id and up to W arguments: scalars in int32 or
 float32 lanes, arrays in a payload arena) on the queue's device, JAX's
 lanes, tickets, drops and statuses bit for bit.  On a card each
 ``enqueue`` is one launch of the ``rpc_enqueue`` kernel
-(``kernels/rpc_queue``, no host contact) and each ``flush`` one round trip
+(``kernels/rpc_queue``, no host contact; a fire-and-forget record writes
+no ticket) and each ``flush`` one round trip
 of the channel whose host side is the drain: it replays the records in
 enqueue order, each callee isolated (an exception or a per-callee
 ``timeout`` fails only its record, with ``RetryPolicy`` retries of
@@ -106,6 +111,7 @@ import functools
 import hashlib
 import itertools
 import json
+import struct
 import threading
 import time
 import traceback as traceback_mod
@@ -118,6 +124,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._device import DeviceContext as _DeviceContext
 
 from repro_torch.core import events
 from repro_torch.core.allocator import I32, _concrete_int, as_i32, find_obj
@@ -135,6 +142,8 @@ from repro_torch.kernels.rpc_channel.kernel import (INLINE_WORDS, TIMEOUT_S,
 from repro_torch.kernels.rpc_queue import (Arg, Lanes, Record,
                                            enqueue as enqueue_op,
                                            geometry as lane_geometry)
+from repro_torch.kernels.rpc_queue.kernel import EnqueuePlan, QueueLaunch
+from repro_torch.kernels.rpc_queue.ops import flatten as flatten_record
 from repro_torch.kernels.rpc_queue.ref import (CANARY as _CANARY, DEVICE,
                                                IMMEDIATE, PAYLOAD)
 from repro_torch.tree import leaves, tree_map
@@ -2553,13 +2562,100 @@ def _is_int_dtype(dtype: torch.dtype) -> bool:
     return not (dtype.is_floating_point or dtype.is_complex)
 
 
-def _immediate(a) -> Arg:
-    """A Python or numpy number as a lane value known to the host: JAX's
-    dtype for it (x64 off), int lane for integers and bools."""
+_F32, _U32 = struct.Struct("<f"), struct.Struct("<I")
+
+
+def _immediate(a) -> Tuple[bool, int]:
+    """A Python or numpy number as a lane value known to the host: whether
+    it rides the int lane (integers and bools) and its 32 bits in JAX's
+    dtype for it (x64 off).  A Python bool, an int in int32's range and a
+    float go without numpy: the float's C cast to float32, which is
+    numpy's (past float32's range numpy's inf is taken)."""
+    tp = type(a)
+    if tp is int and -0x80000000 <= a <= 0x7FFFFFFF:
+        return True, a & 0xFFFFFFFF
+    if tp is bool:
+        return True, int(a)
+    if tp is float:
+        try:
+            return False, _U32.unpack(_F32.pack(a))[0]
+        except OverflowError:
+            pass
     v = _scalar(a)
     is_int = v.dtype.kind in "biu"
     bits = np.asarray(v, np.int32 if is_int else np.float32).view(np.uint32)
-    return Arg(IMMEDIATE, is_int, word=int(bits))
+    return is_int, int(bits)
+
+
+def _classify(name: str, j: int, a, dev: torch.device):
+    """Argument ``j`` of an enqueue of ``name`` as ``(tag, value)``: its
+    part of an enqueue plan's key, ``(kind, is_int[, dtype[, length]])``,
+    and what the record holds of it.  A Python or numpy number (or a 0-d
+    tensor on another device, its ``item()``) is an immediate, its word;
+    a 0-d tensor on ``dev`` is read there; an array is a payload, flat and
+    contiguous on ``dev``.  :meth:`RpcQueue.record` and a plan's key both
+    come from here."""
+    if isinstance(a, (int, float, np.generic)):         # a bool is an int
+        is_int, word = _immediate(a)
+        return (IMMEDIATE, is_int), word
+    if isinstance(a, torch.Tensor):
+        t = a.detach() if a.requires_grad else a
+    else:
+        t = torch.as_tensor(np.asarray(a))
+    dt = t.dtype
+    if dt.is_complex:
+        raise TypeError(f"RPC record arg {j} for {name!r}: complex "
+                        f"dtype {dt}")
+    if t.dim() == 0:
+        if t.device != dev:
+            is_int, word = _immediate(t.item())
+            return (IMMEDIATE, is_int), word
+        return (DEVICE, _is_int_dtype(dt), dt), t
+    if t.dim() != 1 or t.device != dev or not t.is_contiguous():
+        t = t.to(dev).contiguous().reshape(-1)
+    return (PAYLOAD, _is_int_dtype(dt), dt, t.shape[0]), t
+
+
+def _where(where, dev: torch.device):
+    """``where`` as a record holds it: None, a Python bool, or a 0-d bool
+    tensor on ``dev``."""
+    if isinstance(where, torch.Tensor):
+        if where.dim() != 0:
+            raise ValueError("where must be a scalar")
+        if where.dtype is not torch.bool or where.device != dev:
+            where = where.detach().to(device=dev, dtype=torch.bool)
+        return where
+    return None if where is None else bool(where)
+
+
+def _call_signature(name: str, args, where, dev: torch.device):
+    """One enqueue's arguments and ``where`` classified as a record takes
+    them (:func:`_classify`, :func:`_where`): ``(tags, values, mode,
+    where)``, ``mode`` 0 for no ``where``, 1 a constant, 2 a tensor."""
+    tags, values = [], []
+    for j, a in enumerate(args):
+        tag, v = _classify(name, j, a, dev)
+        tags.append(tag)
+        values.append(v)
+    where = _where(where, dev)
+    mode = 0 if where is None else 1 if type(where) is bool else 2
+    return tuple(tags), values, mode, where
+
+
+def _eager() -> bool:
+    """Whether an enqueue may launch directly: no ``torch.export``,
+    dynamo or compile traces, and no dispatch mode (fake tensors, a
+    proxy, an op counter) or function mode would see the op.  A
+    ``DeviceContext`` (``with torch.device(...)``, ``set_default_device``)
+    only sets factory calls' default device, so it does not count."""
+    if (torch._C._len_torch_dispatch_stack()
+            or torch.compiler.is_compiling()
+            or torch.compiler.is_exporting()):
+        return False
+    if torch._C._is_torch_function_mode_enabled():
+        return all(type(torch._C._get_function_stack_at(i)) is _DeviceContext
+                   for i in range(torch._C._len_torch_function_stack()))
+    return True
 
 
 class RpcQueue:
@@ -2609,6 +2705,13 @@ class RpcQueue:
                                     device=state.device)
         for name, view in layout.views(state).items():
             setattr(self, name, view)
+        # a card queue's launches (its lanes packed once) and enqueue plans,
+        # by signature (see _enqueue_direct)
+        self._dev = state.device
+        self._direct = state.is_cuda and type(state) is torch.Tensor
+        self._launch = QueueLaunch(state, layout.lanes, self.arrivals) \
+            if self._direct else None
+        self._plans: Dict[Tuple, EnqueuePlan] = {}
         self._failed_read_warned = False
         # on a ShardedRpcQueue's shard: (a weak reference to that queue,
         # the row, the number of rows)
@@ -2719,8 +2822,9 @@ class RpcQueue:
 
     def enqueue(self, name: str, *args, where=None) -> "RpcQueue":
         """Queue one fire-and-forget RPC to host function ``name``; see
-        :meth:`enqueue_ticketed`.  Returns the queue."""
-        return self._enqueue(name, args, None, where)[0]
+        :meth:`enqueue_ticketed`.  Returns the queue; on a card no ticket
+        is made (nor written)."""
+        return self._enqueue(name, args, None, where, ticketed=False)[0]
 
     def enqueue_ticketed(self, name: str, *args, returns=None, where=None
                          ) -> Tuple["RpcQueue", torch.Tensor]:
@@ -2737,7 +2841,7 @@ class RpcQueue:
         (``where`` false or a full arena).  ``where`` (a Python bool or a
         0-d bool tensor) makes the append conditional.  On a card this is
         one ``rpc_enqueue`` launch and reads nothing back."""
-        return self._enqueue(name, args, returns, where)
+        return self._enqueue(name, args, returns, where, ticketed=True)
 
     def _reply_words(self, name: str, returns) -> int:
         rc = self.reply_capacity
@@ -2780,56 +2884,80 @@ class RpcQueue:
         mask = pm = npay = 0
         rargs = []
         for j, a in enumerate(args):
-            arg = self._arg(name, j, a, npay)
-            if arg.kind == PAYLOAD:
+            (kind, is_int, *_), v = _classify(name, j, a, dev)
+            if kind == PAYLOAD:
+                if pc == 0:
+                    raise ValueError(
+                        f"RPC record arg {j} for {name!r} is an array but "
+                        "the queue has no payload arena; create the queue "
+                        "with payload_capacity > 0")
+                arg = Arg(PAYLOAD, is_int, src=v, offset=npay,
+                          length=v.shape[0])
                 pm |= 1 << j
                 # a sanitized reservation is [CANARY][words][CANARY]
                 npay += arg.length + (2 if self.sanitize else 0)
-            if arg.is_int:
+            elif kind == DEVICE:
+                arg = Arg(DEVICE, is_int, src=v)
+            else:
+                arg = Arg(IMMEDIATE, is_int, word=v)
+            if is_int:
                 mask |= 1 << j
             rargs.append(arg)
         if npay > pc:
             raise ValueError(
                 f"RPC record for {name!r} carries {npay} payload words but "
                 f"the arena only holds {pc}; enlarge payload_capacity")
-        if isinstance(where, torch.Tensor):
-            if where.dim() != 0:
-                raise ValueError("where must be a scalar")
-            where = where.detach().to(device=dev, dtype=torch.bool)
-        elif where is not None:
-            where = bool(where)
-        return Record(cid, mask, pm, rw, npay, rargs, where, self.sanitize)
+        return Record(cid, mask, pm, rw, npay, rargs, _where(where, dev),
+                      self.sanitize)
 
-    def _arg(self, name: str, j: int, a, offset: int) -> Arg:
-        """Argument ``j`` of a record: a Python number (or a 0-d tensor on
-        another device) rides as an immediate, a 0-d tensor on the queue's
-        device is read there, an array goes to the payload arena at
-        ``offset`` words into the record's reservation."""
-        if isinstance(a, (bool, int, float, np.generic)):
-            return _immediate(a)
-        t = a.detach() if isinstance(a, torch.Tensor) else \
-            torch.as_tensor(np.asarray(a))
-        if t.dtype.is_complex:
-            raise TypeError(f"RPC record arg {j} for {name!r}: complex "
-                            f"dtype {t.dtype}")
-        if t.dim() == 0:
-            if t.device != self.device:
-                return _immediate(t.item())
-            return Arg(DEVICE, _is_int_dtype(t.dtype), src=t)
-        if self.payload_capacity == 0:
-            raise ValueError(
-                f"RPC record arg {j} for {name!r} is an array but the "
-                "queue has no payload arena; create the queue with "
-                "payload_capacity > 0")
-        t = t.to(self.device).contiguous().reshape(-1)
-        return Arg(PAYLOAD, _is_int_dtype(t.dtype), src=t, offset=offset,
-                   length=t.shape[0])
+    def _enqueue_direct(self, name: str, args, returns, where,
+                        ticketed: bool):
+        """One launch of the ``rpc_enqueue`` kernel through the call's
+        enqueue plan (``kernels/rpc_queue/kernel.py::EnqueuePlan``), made
+        at its signature's first call with every check of :meth:`record`.
+        The key holds the callee, each argument's kind, lane, dtype and
+        payload length (:func:`_call_signature`), the ``where`` mode, the
+        declared ``returns`` and ``sanitize``: all that those checks read
+        but the callee's registration, which every call checks.  Returns
+        the plan's record (its ``npay`` and ``rwant``) and the ticket,
+        None unless ``ticketed``."""
+        try:
+            sig, values, mode, bound = _call_signature(name, args, where,
+                                                       self._dev)
+        except Exception:
+            # record() raises it, or one that its checks meet first
+            self.record(name, args, returns, where)
+            raise
+        key = (name, sig, mode, returns, self.sanitize) \
+            if returns is None or type(returns) is ShapeDtype else None
+        plan = self._plans.get(key) if key is not None else None
+        if plan is None:
+            plan = EnqueuePlan(*flatten_record(
+                self.record(name, args, returns, where)), self._dev)
+            if key is not None:
+                self._plans[key] = plan
+        elif name not in REGISTRY.batch_ids or name not in REGISTRY.hosts:
+            REGISTRY.batch_callee_id(name)       # raises, or binds it again
+        ticket = torch.empty((), dtype=torch.int32, device=self._dev) \
+            if ticketed else None
+        self._launch.run(plan, values, bound, ticket)
+        return plan.record, ticket
 
-    def _enqueue(self, name: str, args, returns, where
-                 ) -> Tuple["RpcQueue", torch.Tensor]:
-        rec = self.record(name, args, returns, where)
-        ticket = enqueue_op(self.state, self.arrivals, self.layout.lanes, rec)
-        if events.active():
+    def _enqueue(self, name: str, args, returns, where, ticketed: bool
+                 ) -> Tuple["RpcQueue", Optional[torch.Tensor]]:
+        """Append one record: on a card in eager mode through
+        :meth:`_enqueue_direct` (the event stream's record needs a
+        ticket), else through the ``rpc_enqueue`` op, whose ticket is
+        always made."""
+        emit = events.active()
+        if self._direct and _eager():
+            rec, ticket = self._enqueue_direct(name, args, returns, where,
+                                               ticketed or emit)
+        else:
+            rec = self.record(name, args, returns, where)
+            ticket = enqueue_op(self.state, self.arrivals, self.layout.lanes,
+                                rec)
+        if emit:
             # the queue is updated in place: qid_out is the queue itself
             events.emit("rpc_enqueue", _refs=(self, ticket), qid=id(self),
                         qid_out=id(self), name=name, payload_words=rec.npay,

@@ -36,6 +36,14 @@
 // reservation's start, its words and its descriptor one word in, and the
 // record's `npay` (which the arena-full test reads) counts the canaries.
 // An unsanitized queue's arena is as before.
+//
+// The host side (kernels/rpc_queue/kernel.py) packs a queue's lanes once
+// and a record signature's static fields once, and patches per call only
+// the immediate words, the source and `where` addresses and the ticket's.
+// A record whose ticket nobody reads passes a null ticket, and the kernel
+// writes none.  One instantiation takes every record (1,032 bytes of
+// parameters): instantiations for at most 4 and 8 arguments, launched for
+// records that fit them, measured no better on the H100 (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -216,9 +224,10 @@ __global__ void __launch_bounds__(kThreads)
       if (r.npay) *q.phead = phead + r.npay;
     }
     if (dropped) *q.adrops += 1;
-    *q.ticket = keep ? static_cast<int>(static_cast<unsigned>(*q.base) +
-                                        static_cast<unsigned>(head))
-                     : -1;
+    if (q.ticket)
+      *q.ticket = keep ? static_cast<int>(static_cast<unsigned>(*q.base) +
+                                          static_cast<unsigned>(head))
+                       : -1;
   }
 }
 
@@ -235,7 +244,8 @@ int rpc_queue_max_args() { return kMaxArgs; }
 int rpc_queue_arg_bytes() { return sizeof(RecordArg); }
 
 // One record: copies the host's description into the kernel's parameters
-// and launches on `stream`.  Returns the launch's CUDA error, or 0.
+// (a null `lanes->ticket` writes no ticket) and launches on `stream`.
+// Returns the launch's CUDA error, or 0.
 int rpc_enqueue_launch(const QueueLanes* lanes, const Record* record,
                        void* stream) {
   if (record->nargs < 0 || record->nargs > kMaxArgs ||

@@ -7,8 +7,9 @@ returns its ticket.  ``geometry`` places the lanes in ``state``
 (:func:`geometry`); ``header``, ``args``, ``srcs`` and ``where`` are a
 :class:`~repro_torch.kernels.rpc_queue.ref.Record` in the op's types
 (:func:`enqueue` flattens one).  The CUDA kernel is the ctypes launch
-(``kernel.py::rpc_enqueue``, where its launch counter counts, and which
-uses ``arrivals``), the CPU kernel the plain version
+(``kernel.py::rpc_enqueue``, which packs the kernel's parameters from
+the lists through the packing code that a queue's enqueue plan uses, and
+where its launch counter counts), the CPU kernel the plain version
 (``ref.py::enqueue_reference``), the fake kernel the ticket's shape.  It
 mutates ``state`` and ``arrivals`` and is marked side-effectful.  The op
 is defined with ``torch.library.Library`` (schema, then a kernel a
@@ -22,13 +23,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import OPS_NAMESPACE, traced_stack
-from repro_torch.kernels.rpc_queue.kernel import rpc_enqueue
+from repro_torch.kernels.rpc_queue.kernel import ARG_WORDS, rpc_enqueue
 from repro_torch.kernels.rpc_queue.ref import (Arg, Lanes, Record,
                                                enqueue_reference)
-
-#: Words of a record argument in ``args``: kind, is_int, word, offset,
-#: length.
-ARG_WORDS = 5
 
 
 def geometry(capacity: int, width: int, payload_capacity: int, rslots: int,
@@ -81,8 +78,7 @@ def _cpu(state, arrivals, geometry, header, args, srcs, where):
 
 
 def _cuda(state, arrivals, geometry, header, args, srcs, where):
-    return rpc_enqueue(state, geometry, arrivals,
-                       _record(header, args, srcs, where))
+    return rpc_enqueue(state, geometry, arrivals, header, args, srcs, where)
 
 
 def _fake(state, arrivals, geometry, header, args, srcs, where):
