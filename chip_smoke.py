@@ -254,9 +254,14 @@ the kernels' plain versions on the card, and on a CPU queue: the queue
 state bit-equal after every flush, the replay logs, statuses, replies,
 carry outcomes and ``flush_stats`` equal after the last join, one launch
 of each kernel a flush; ``rpc_async_time``: each kernel alone (CUDA
-events behind a device sleep) beside its plain version and the bytes
-bound, and a deadline overrun on the card (TIMEOUT stamped by the
-device, the late drain abandoned) equal to a CPU queue;
+events behind a device sleep) beside its plain version, the bytes bound
+and the latency floor (an empty launch, a mapped ``ld.acquire.sys``);
+the hand-off's gates at both copy routes, single and 4-row sharded
+(the ring's ``in`` region bit-equal to the state's snapshot, the state
+to a CPU queue's after every flush, CUDA API calls a flush), the host
+us of a flush through the flush plan and through the two ops, and a
+deadline overrun on the card (TIMEOUT stamped by the device, the late
+drain abandoned) equal to a CPU queue;
 ``device_run_async``: 1000 steps with a batched hook every step, then
 a 64M-float state whose step flushes the threaded queue every 100
 steps, each with the sync and the async queue under
@@ -5592,15 +5597,159 @@ def _deadline_case(dev):
             "calls": out["card"]["calls"]}
 
 
+#: The async hand-off's gates (:func:`_async_in_gate`): label -> (rows, or
+#: None for a single queue; payload words of ``QUEUE_GEOMETRY``).  Both
+#: copy routes (``COPY_LIMIT`` bytes of rows in all: the kernel's at or
+#: below, one block or several, the copy engines' above) on a single and
+#: a 4-row sharded ring.
+ASYNC_GATE_GEOMETRIES = {
+    "rpc_queue": (None, QUEUE_GEOMETRY["payload_capacity"]),
+    "kernel_800KB": (None, 200_000),
+    "engine_1.2MB": (None, 300_000),
+    "sharded_4": (4, QUEUE_GEOMETRY["payload_capacity"]),
+    "sharded_4_engine": (4, 70_000),
+}
+#: Flushes (and records a row each) of an async gate, and flushes timed
+#: through each route.
+ASYNC_GATE_FLUSHES, ASYNC_GATE_RECORDS, ASYNC_ROUTE_FLUSHES = 3, 3, 200
+
+
+class _OpRoute(torch.overrides.TorchFunctionMode):
+    """A pass-through function mode: under it ``rpc._eager()`` is false,
+    so an async flush takes its two ops, the route under export, compile
+    or a dispatch mode (the mode's own Python is in what it times)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+def _async_in_gate(dev, rows, payload, op_route=False):
+    """:data:`ASYNC_GATE_FLUSHES` flushes of an async queue on the card
+    (``rows`` None: a single queue, else a sharded one) and of the same
+    queue on the CPU, each after :data:`ASYNC_GATE_RECORDS` records a row
+    (two ticketed scalars and one with an int32 payload), through the
+    flush plan (or the two ops, ``op_route``), then two to collect the
+    tail.  Gates: after each flush the ring's ``in`` region of the
+    epoch's parity bit-equal to a snapshot of every row's ``state[:in_end]``
+    taken before it; the card's whole state bit-equal to the CPU queue's
+    after every flush; the CUDA API calls each flush made (2 on the
+    kernel's copy route, 3 on the copy engines')."""
+    import numpy as np
+    from repro_torch.core import (RpcQueue, ShapeDtype, ShardedRpcQueue,
+                                  effects_barrier)
+    from repro_torch.core.rpc import REGISTRY, _slot
+    from repro_torch.kernels.rpc_async.kernel import api_calls, pack_flush
+    from repro_torch.kernels.rpc_channel.kernel import COPY_LIMIT
+
+    REGISTRY.register("smoke.af_scalar", lambda i: np.int32(i * 3 + 1))
+    REGISTRY.register("smoke.af_payload",
+                      lambda i, x: np.int32(i + int(x.sum()) % 9973))
+    geo = dict(QUEUE_GEOMETRY, payload_capacity=payload, mode="async")
+
+    def make(device):
+        return (RpcQueue.create(**geo, device=device) if rows is None else
+                ShardedRpcQueue.create(rows, **geo, device=device))
+
+    card, cpu = make(dev), make("cpu")
+    n_rows, L = rows or 1, card.layout
+    plen = min(payload // (2 * ASYNC_GATE_FLUSHES), 4096)
+    rng = np.random.default_rng(n_rows * 1000 + payload)
+    i32 = ShapeDtype((), torch.int32)
+
+    def local(q, d):
+        return q if rows is None else q.local(d)
+
+    in_equal, states_equal, calls = [], [], []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for k in range(ASYNC_GATE_FLUSHES + 2):
+            if k < ASYNC_GATE_FLUSHES:
+                for d in range(n_rows):
+                    vals = rng.integers(-1000, 1000, 2)
+                    pay = rng.integers(-2 ** 20, 2 ** 20, plen,
+                                       dtype=np.int32)
+                    for q, device in ((card, dev), (cpu, "cpu")):
+                        lq = local(q, d)
+                        for v in vals:
+                            lq.enqueue_ticketed("smoke.af_scalar", int(v),
+                                                returns=i32)
+                        lq.enqueue_ticketed(
+                            "smoke.af_payload", 1,
+                            torch.from_numpy(pay).to(device), returns=i32)
+            torch.cuda.synchronize()
+            snap = card.state.reshape(n_rows, -1)[:, :L.in_end].cpu().numpy()
+            before = api_calls()
+            if op_route:
+                with _OpRoute():
+                    card.flush()
+            else:
+                card.flush()
+            calls.append(api_calls() - before)
+            cpu.flush()
+            torch.cuda.synchronize()
+            ring = _slot((card.shards[0] if rows else card).qslot).ring
+            in_equal.append(bool(np.array_equal(
+                ring._in[ring.issued & 1], snap)))
+            states_equal.append(_equal_states(card.state, cpu.state))
+        assert card.join(timeout=60) and cpu.join(timeout=60)
+    effects_barrier()
+    block = pack_flush(ring, card.state, 1, L.out_start, True, L.rslots,
+                       L.reply_capacity, None)
+    engine = n_rows * 4 * L.in_end > COPY_LIMIT
+    checks = {
+        "in_region_equals_snapshot": all(in_equal),
+        "states_equal_cpu_queue": all(states_equal),
+        "route": bool(block.engine) == engine,
+        "api_calls_per_flush": all(c == (3 if engine else 2)
+                                   for c in calls),
+    }
+    return {"checks": checks, "rows": n_rows, "in_bytes": 4 * L.in_end,
+            "route": "engine" if block.engine else "kernel",
+            "post_grid": block.grid, "api_calls": calls,
+            "op_route": op_route}
+
+
+def _async_floor(ring, cycles):
+    """The latency floor under both kernels (median device ms of 50,
+    CUDA events behind a device sleep): an empty launch, and one whose
+    thread makes one ``ld.acquire.sys`` round trip of a mapped word (the
+    ring's live carried depth)."""
+    from repro_torch.kernels.rpc_async.kernel import floor_launch
+
+    out = {}
+    for label, word in (("empty_launch_ms", None),
+                        ("mapped_acquire_ms", ring._live_dev)):
+        ms = []
+        for _ in range(51):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            a.record()
+            floor_launch(word)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        out[label] = _median(ms[1:])
+    return out
+
+
 def rpc_async_time_phase(card_line):
     """The two kernels alone on a ring of the ``rpc_queue`` geometry whose
     host side answers each epoch at once: device time of ``rpc_async_post``
-    (the state's copy into the ring and the kernel) and of
+    (the copy of the state into the ring and the window's move) and of
     ``rpc_async_collect`` with the previous epoch already answered, each
     between CUDA events behind a device sleep (median of 50), beside their
     plain versions on the card (``post_reference``; ``collect_reference``
-    with its host-to-device copy) and the bytes bound; then a deadline
-    overrun on the card against a CPU queue.  Returns the two kernels'
+    with its host-to-device copy), the bytes bound and the latency floor
+    (:func:`_async_floor`); the answer installed exactly, into reply
+    fields that are not 16-byte aligned.  Then the hand-off's gates
+    (:func:`_async_in_gate` at each of :data:`ASYNC_GATE_GEOMETRIES`
+    through the flush plan, and at ``rpc_queue`` through the two ops),
+    the host us of an empty flush through ``RpcQueue.flush`` on each
+    route (``plan``, eager; ``op``, under :class:`_OpRoute`; behind a
+    device sleep, :data:`ASYNC_ROUTE_FLUSHES` flushes) and a deadline
+    overrun on the card against a CPU queue.  Launches here are not the
+    main path's: the counts are restored.  Returns the two kernels'
     numbers for the kernels line."""
     import numpy as np
     from repro_torch.core import RpcQueue
@@ -5640,8 +5789,8 @@ def rpc_async_time_phase(card_line):
             post_ms.append(a.elapsed_time(b))
             coll_ms.append(b.elapsed_time(c))
     installed = q.state[L.out_start + H_CDEPTH:].cpu().numpy()
+    floor = _async_floor(ring, cycles)
     ring.close()
-    rpc_async_post.launches, rpc_async_collect.launches = saved
     # the plain versions on the card
     h = q.state[L.out_start:]
     timer = Timer(iters=50)
@@ -5652,9 +5801,27 @@ def rpc_async_time_phase(card_line):
     in_bytes, out_bytes = 4 * L.in_end, 4 * out_words
     post_bytes = 2 * in_bytes + 2 * 4 * H_CDEPTH
     coll_bytes = 2 * out_bytes
+    gates = {label: _async_in_gate(dev, rows, payload)
+             for label, (rows, payload) in ASYNC_GATE_GEOMETRIES.items()}
+    gates["rpc_queue_op_route"] = _async_in_gate(
+        dev, *ASYNC_GATE_GEOMETRIES["rpc_queue"], op_route=True)
+    routes = {"plan": [], "op": []}
+    queues = {r: RpcQueue.create(**QUEUE_GEOMETRY, mode="async", device=dev)
+              for r in routes}
+    for _ in range(2):                   # in turns
+        routes["plan"].append(_behind_busy(queues["plan"].flush,
+                                           ASYNC_ROUTE_FLUSHES))
+        with _OpRoute():
+            routes["op"].append(_behind_busy(queues["op"].flush,
+                                             ASYNC_ROUTE_FLUSHES))
+    for qr in queues.values():
+        assert qr.join(timeout=60)
+    rpc_async_post.launches, rpc_async_collect.launches = saved
     rec = {
         "card": card_line, "geometry": QUEUE_GEOMETRY,
         "installed_equals_answer": bool(np.array_equal(installed, answer)),
+        "reply_fields_16_byte_aligned": (
+            q.state.data_ptr() + 4 * (L.out_start + H_CDEPTH)) % 16 == 0,
         "rpc_async_post": {
             "ms": _median(post_ms), "plain_ms": plain_post,
             "bound_ms": post_bytes / HBM_BYTES_PER_S * 1e3,
@@ -5665,9 +5832,19 @@ def rpc_async_time_phase(card_line):
             "bound_ms": coll_bytes / HBM_BYTES_PER_S * 1e3,
             "bound_bytes": coll_bytes,
             "link_bound_ms": out_bytes / link["bytes_per_s"] * 1e3},
+        "floor": floor,
+        "gates": gates,
+        "flush_host_us": {
+            r: [t["host_us"] for t in ts] for r, ts in routes.items()},
+        "flush_device_us": {
+            r: [t["device_us"] for t in ts] for r, ts in routes.items()},
+        "flush_host_hidden": all(t["host_hidden"] for ts in routes.values()
+                                 for t in ts),
         "deadline": _deadline_case(dev)}
     log({"rpc_async_time": rec})
     if not (rec["installed_equals_answer"]
+            and not rec["reply_fields_16_byte_aligned"]
+            and all(all(g["checks"].values()) for g in gates.values())
             and rec["deadline"]["window_stamped_timeout_equal_to_cpu"]):
         raise AssertionError(f"rpc_async_time: {rec}")
     return {k: dict(rec[k], max_abs_err=0.0, bound_by="bytes",

@@ -47,7 +47,9 @@ transport as graph nodes (what ``analysis/walker.py`` reads).  A card
 queue's enqueue in eager mode (no export, compile, dispatch or function
 mode) launches the same kernel without the op's dispatch, through the
 queue's cached enqueue plans (``kernels/rpc_queue/kernel.py::
-EnqueuePlan``).
+EnqueuePlan``), and its async flush both launches of the flush in one C
+call, through the queue's cached flush plan (``kernels/rpc_async/
+kernel.py::AsyncFlushPlan``).
 
 bf16 operands reach the callee as float32 and a bf16 write-back is rounded
 back.  ``rpc_stats``' byte counts are JAX's: operands in, result and every
@@ -131,9 +133,9 @@ from repro_torch.core.allocator import I32, _concrete_int, as_i32, find_obj
 from repro_torch.core.expand import in_region as _in_region
 from repro_torch.distributed.collectives import (broadcast_from_first,
                                                  gather_blocks)
-from repro_torch.kernels.rpc_async import (AsyncRing, async_collect,
-                                           async_post, collect_plain,
-                                           post_plain)
+from repro_torch.kernels.rpc_async import (AsyncFlushPlan, AsyncRing,
+                                           async_collect, async_post,
+                                           collect_plain, post_plain)
 from repro_torch.kernels.rpc_async.ref import H_CDEPTH
 from repro_torch.kernels.rpc_channel import (channel_for, channels,
                                              host_channel, post)
@@ -2325,6 +2327,27 @@ def _async_ring(device: torch.device, layout: "_Layout", sids: Sequence[int],
     return ring
 
 
+def _launch_flush(queue, ring: AsyncRing, epoch: int, direct: bool,
+                  deadline: Optional[float]) -> None:
+    """Epoch ``epoch``'s two launches for ``queue`` (an async
+    :class:`RpcQueue` or :class:`ShardedRpcQueue` on a card, or one given
+    a card's launch, ``direct``) through ``ring``: in eager mode one C
+    call through the queue's flush plan, made here at its first flush;
+    else the two ops, which ``torch.export``, the walker and op counters
+    see.  ``deadline`` is read at every flush."""
+    L = queue.layout
+    rc = L.reply_capacity
+    if direct and _eager():
+        if queue._async_plan is None:
+            queue._async_plan = AsyncFlushPlan(
+                ring, queue.state, L.out_start, bool(rc), L.rslots, rc)
+        queue._async_plan.run(epoch, deadline)
+    else:
+        async_post(queue.state, ring.id, epoch, L.out_start, bool(rc))
+        async_collect(queue.state, ring.id, epoch, L.out_start, L.rslots, rc,
+                      deadline)
+
+
 # ---------------------------------------------------------------------------
 # Batched transport: the queue
 # ---------------------------------------------------------------------------
@@ -2643,9 +2666,9 @@ def _call_signature(name: str, args, where, dev: torch.device):
 
 
 def _eager() -> bool:
-    """Whether an enqueue may launch directly: no ``torch.export``,
-    dynamo or compile traces, and no dispatch mode (fake tensors, a
-    proxy, an op counter) or function mode would see the op.  A
+    """Whether an enqueue or an async flush may launch directly: no
+    ``torch.export``, dynamo or compile traces, and no dispatch mode (fake
+    tensors, a proxy, an op counter) or function mode would see the op.  A
     ``DeviceContext`` (``with torch.device(...)``, ``set_default_device``)
     only sets factory calls' default device, so it does not count."""
     if (torch._C._len_torch_dispatch_stack()
@@ -2712,6 +2735,8 @@ class RpcQueue:
         self._launch = QueueLaunch(state, layout.lanes, self.arrivals) \
             if self._direct else None
         self._plans: Dict[Tuple, EnqueuePlan] = {}
+        # an async card queue's flush plan, made at its first flush
+        self._async_plan: Optional[AsyncFlushPlan] = None
         self._failed_read_warned = False
         # on a ShardedRpcQueue's shard: (a weak reference to that queue,
         # the row, the number of rows)
@@ -3025,19 +3050,19 @@ class RpcQueue:
         the previous epoch's replies ((rbase, rcount) <- (pbase, pcount))
         and make this epoch the pending window.  On the CPU the collect
         waits here; on a card it is the ``rpc_async_collect`` launch, and
-        the host never waits."""
-        L, slot = self.layout, _slot(self.qslot)
-        rc = L.reply_capacity
-        if self.device.type == "cpu":
+        the host never waits (:func:`_launch_flush`: one C call through
+        the queue's flush plan in eager mode, else the two ops)."""
+        slot = _slot(self.qslot)
+        # a CPU queue with a card's launch (``_direct``) takes the card's
+        # route
+        if self.device.type == "cpu" and not self._direct:
             return self._flush_async_host(ctx)
         self._check_policy()
         ring = self._ring(slot)
         epoch = ring.issue()
         with slot.lock:
             slot.ctxs[epoch] = ctx
-        async_post(self.state, ring.id, epoch, L.out_start, bool(rc))
-        async_collect(self.state, ring.id, epoch, L.out_start, L.rslots, rc,
-                      self.shard_deadline)
+        _launch_flush(self, ring, epoch, self._direct, self.shard_deadline)
         return self
 
     def _flush_async_host(self, ctx: _FlushCtx) -> "RpcQueue":
@@ -3406,6 +3431,8 @@ class ShardedRpcQueue:
         #: The DeviceMesh whose teams filled the rows, once
         #: :meth:`gathered`; its flushes drain on the first rank.
         self.mesh = None
+        # an async card queue's flush plan, made at its first flush
+        self._async_plan: Optional[AsyncFlushPlan] = None
 
     @property
     def n_devices(self) -> int:
@@ -3586,25 +3613,24 @@ class ShardedRpcQueue:
         ``rpc_async_post`` hands every row over through the queue's ring
         (:func:`_async_ring`), one ``rpc_async_collect`` installs every
         row's previous epoch, the rows waiting side by side up to the
-        deadline."""
-        L, rc = self.layout, self.reply_capacity
-        if self.device.type == "cpu":
+        deadline (the first shard's, read at every flush), both launches
+        through :func:`_launch_flush`, as a single queue's."""
+        L, q0 = self.layout, self.shards[0]
+        if self.device.type == "cpu" and not q0._direct:
             self._flush_async_host(ctx)
             return
         self._check_policy()
-        slot = _slot(self.shards[0].qslot)
+        slot = _slot(q0.qslot)
         if slot.ring is None:
             ring = _async_ring(self.device, L,
                                [q.qslot for q in self.shards],
-                               self.shards[0].carry_budget)
+                               q0.carry_budget)
             weakref.finalize(self, ring.close)
         ring = slot.ring
         epoch = ring.issue()
         with slot.lock:
             slot.ctxs[epoch] = ctx
-        async_post(self.state, ring.id, epoch, L.out_start, bool(rc))
-        async_collect(self.state, ring.id, epoch, L.out_start, L.rslots, rc,
-                      self.shards[0].shard_deadline)
+        _launch_flush(self, ring, epoch, q0._direct, q0.shard_deadline)
 
     def _flush_async_host(self, ctx: _FlushCtx) -> None:
         L, rc = self.layout, self.reply_capacity

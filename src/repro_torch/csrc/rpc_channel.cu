@@ -71,6 +71,8 @@
 #include <time.h>
 #include <unistd.h>
 
+#include "mapped.cuh"
+
 // The descriptor's types, named (not in the anonymous namespace) so the C
 // entries that take them keep external linkage.
 namespace rpc_channel {
@@ -167,23 +169,12 @@ struct Call {
 
 using namespace rpc_channel;
 
+using mapped::copy_slot;
+using mapped::global_ns;
+using mapped::load_acquire_sys;
+using mapped::store_release_sys;
+
 namespace {
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ void store_release_sys(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned load_acquire_sys(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
 
 __device__ __forceinline__ void store_release_gpu(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
@@ -193,35 +184,6 @@ __device__ __forceinline__ unsigned load_acquire_gpu(const unsigned* p) {
   unsigned v;
   asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
-}
-
-// Copy n bytes as T, the grid's threads striding; the tail byte by byte.
-// A read of the staging region (host memory) is not cached (__ldcv): the
-// region is reused call after call.
-template <class T, bool kFromHost>
-__device__ __forceinline__ void copy_as(unsigned char* dst,
-                                        const unsigned char* src, size_t n,
-                                        size_t t, size_t nt) {
-  const size_t k = n / sizeof(T);
-  const T* s = reinterpret_cast<const T*>(src);
-  T* d = reinterpret_cast<T*>(dst);
-  for (size_t i = t; i < k; i += nt) d[i] = kFromHost ? __ldcv(s + i) : s[i];
-  for (size_t i = k * sizeof(T) + t; i < n; i += nt)
-    dst[i] = kFromHost ? __ldcv(src + i) : src[i];
-}
-
-template <bool kFromHost>
-__device__ void copy_slot(unsigned long long dst, unsigned long long src,
-                          size_t n, size_t t, size_t nt) {
-  unsigned char* d = reinterpret_cast<unsigned char*>(dst);
-  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
-  const unsigned long long both = dst | src;
-  if ((both & 15) == 0)
-    copy_as<uint4, kFromHost>(d, s, n, t, nt);
-  else if ((both & 3) == 0)
-    copy_as<unsigned, kFromHost>(d, s, n, t, nt);
-  else
-    copy_as<unsigned char, kFromHost>(d, s, n, t, nt);
 }
 
 // A wait that outlives the channel's timeout traps: a lost host thread

@@ -15,9 +15,15 @@ measures with its own tree's code: ``chip_smoke.py``'s ``rpc_time`` phase
 whatever else that tree's phase measures), its ``rpc_queue_time`` phase
 (the batched queue's enqueue, host and device us a record, and whatever
 else that tree's phase measures), its ``device_run_hooks`` phase, Fig.
-7's round trip (``evaluation/rpc.py::roundtrip_section``) and Fig. 6's
+7's round trip (``evaluation/rpc.py::roundtrip_section``), Fig. 6's
 funneled against sharded queue contrast
-(``evaluation/common.py::sharded_queue_contrast`` at Fig. 6's sizes).
+(``evaluation/common.py::sharded_queue_contrast`` at Fig. 6's sizes) and
+an async card queue's loop, through API that every tree since the async
+queue has (``RpcQueue.create(mode="async")``, ``enqueue``, ``flush``,
+CUDA events): :data:`ASYNC_FLUSHES` flushes of
+:data:`ASYNC_RECORDS` fire-and-forget records each, synchronised every
+:data:`ASYNC_CHUNK` flushes, the host us of each ``flush`` call and the
+device ms of the loop.
 Every JSON line a child prints goes to ``--out`` (one object a variant);
 a summary line a variant goes to standard output.  It needs a card and
 the CUDA toolkit.
@@ -31,8 +37,9 @@ import subprocess
 import sys
 from typing import Dict, List
 
-# The child: argv is the variant's root, its nvcc flags (comma-joined) and
-# the seconds after which it prints every thread's stack and exits.
+# The child: argv is the variant's root, its nvcc flags (comma-joined), the
+# seconds after which it prints every thread's stack and exits, and the
+# async loop's flushes, records a flush and flushes a synchronisation.
 _CHILD = r"""
 import faulthandler, json, sys
 faulthandler.dump_traceback_later(float(sys.argv[3]), exit=True)
@@ -58,7 +65,48 @@ tq = common.sharded_queue_contrast(D, K, device=dev, warmup=2,
 print(json.dumps({"fig6_queue": {
     "records": D * K, "funneled_us_per_record": tq["funneled"] / (D * K) * 1e6,
     "sharded_us_per_record": tq["sharded"] / (D * K) * 1e6}}), flush=True)
+import time, numpy as np
+from repro_torch.core import RpcQueue
+from repro_torch.core.rpc import REGISTRY
+REGISTRY.register("ab.async_sink", lambda i: None)
+flushes, records, chunk = (int(a) for a in sys.argv[4:7])
+q = RpcQueue.create(**chip_smoke.QUEUE_GEOMETRY, mode="async", device=dev)
+def loop(n):
+    host = []
+    for i in range(n):
+        for r in range(records):
+            q.enqueue("ab.async_sink", i * records + r)
+        t0 = time.perf_counter()
+        q.flush()
+        host.append((time.perf_counter() - t0) * 1e6)
+        if (i + 1) % chunk == 0:
+            torch.cuda.synchronize()
+    return host
+loop(20)
+torch.cuda.synchronize()
+a = torch.cuda.Event(enable_timing=True)
+b = torch.cuda.Event(enable_timing=True)
+t0 = time.perf_counter()
+a.record()
+host = loop(flushes)
+b.record()
+torch.cuda.synchronize()
+loop_ms = (time.perf_counter() - t0) * 1e3
+assert q.join(timeout=60)
+print(json.dumps({"async_flush": {
+    "flushes": flushes, "records_per_flush": records, "chunk": chunk,
+    "host_us_per_flush": float(np.mean(host)),
+    "host_us_per_flush_median": float(np.median(host)),
+    "loop_device_ms": a.elapsed_time(b), "loop_host_ms": loop_ms}}),
+    flush=True)
 """
+
+#: The async loop of the child: flushes, records enqueued before each, and
+#: the flushes between two synchronisations.  The loop's device work is
+#: bound by the host's drain (a collect waits for the previous epoch's
+#: answer), so unpaced the host would fill CUDA's launch queue (~1,000
+#: launches) and then time its own blocking, not its work.
+ASYNC_FLUSHES, ASYNC_RECORDS, ASYNC_CHUNK = 500, 4, 25
 
 
 def _mean(xs):
@@ -101,6 +149,7 @@ def summary(lines: Dict[str, dict]) -> Dict[str, float]:
     hooks, fig7 = lines.get("device_run_hooks", {}), lines.get("fig7", {})
     queue = lines.get("rpc_queue_time", {}).get("enqueue", {})
     fig6 = lines.get("fig6_queue", {})
+    flush = lines.get("async_flush", {})
     picks = {
         "empty_ms": empty.get("ms"),
         "empty_enqueue_us": empty.get("enqueue_us"),
@@ -113,6 +162,9 @@ def summary(lines: Dict[str, dict]) -> Dict[str, float]:
         "fig7_roundtrip_us": fig7.get("rpc_roundtrip_us"),
         "fig6_funneled_us_per_record": fig6.get("funneled_us_per_record"),
         "fig6_sharded_us_per_record": fig6.get("sharded_us_per_record"),
+        "async_flush_host_us": flush.get("host_us_per_flush"),
+        "async_flush_host_us_median": flush.get("host_us_per_flush_median"),
+        "async_flush_loop_device_ms": flush.get("loop_device_ms"),
     }
     for label, case in queue.items():
         for key, v in _enqueue(case).items():
@@ -130,8 +182,10 @@ def run_variant(spec: str, timeout: float) -> dict:
     root, _, flags = spec.partition(":")
     root = os.path.abspath(root)
     proc = subprocess.run([sys.executable, "-c", _CHILD, root, flags,
-                           str(timeout)], cwd=root, capture_output=True,
-                          text=True, timeout=timeout + 60)
+                           str(timeout), str(ASYNC_FLUSHES),
+                           str(ASYNC_RECORDS), str(ASYNC_CHUNK)], cwd=root,
+                          capture_output=True, text=True,
+                          timeout=timeout + 60)
     if proc.returncode != 0:
         raise RuntimeError(f"rpc_ab: {spec} failed ({proc.returncode}):\n"
                            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")

@@ -1,4 +1,5 @@
-from repro_torch.kernels.rpc_async.kernel import (AsyncRing, ring_by_id,
+from repro_torch.kernels.rpc_async.kernel import (AsyncFlushPlan, AsyncRing,
+                                                  pack_flush, ring_by_id,
                                                   rpc_async_collect,
                                                   rpc_async_post)
 from repro_torch.kernels.rpc_async.ops import (async_collect, async_post,
@@ -6,6 +7,7 @@ from repro_torch.kernels.rpc_async.ops import (async_collect, async_post,
 from repro_torch.kernels.rpc_async.ref import (collect_reference,
                                                post_reference)
 
-__all__ = ["AsyncRing", "async_collect", "async_post", "collect_plain",
-           "collect_reference", "post_plain", "post_reference", "ring_by_id",
-           "rpc_async_collect", "rpc_async_post"]
+__all__ = ["AsyncFlushPlan", "AsyncRing", "async_collect", "async_post",
+           "collect_plain", "collect_reference", "pack_flush", "post_plain",
+           "post_reference", "ring_by_id", "rpc_async_collect",
+           "rpc_async_post"]
